@@ -1,0 +1,93 @@
+"""Constants carried across from the reference package.
+
+:func:`tables_from_reference` builds the port's :class:`ChannelTables`
+and :class:`RnsPlan` from a reference plan's constants exported as numpy
+arrays, so both packages can run on identical constants; the tests use
+it to hold the port's own host-built tables against the reference's.
+The port never imports the reference: the caller does the export.
+
+Keys of ``arrays`` (int64 numpy arrays, reference names):
+
+* NTT tables: ``qs`` (t,), ``fwd``/``inv`` (t, n), ``half`` (t,), and,
+  where the configuration has them, ``mul_eps`` (t,) and
+  ``fwd_shoup``/``inv_shoup`` (t, n);
+* decompose circuits (``repro.kernels.crt.plan_dec_arrays`` layout):
+  ``sau_eps``, ``sau_s2``, ``acc_eps`` (t,), ``beta_e``/``beta_s``
+  (t, terms), ``block_consts`` (t, n_blocks);
+* compose: ``qi_tilde`` (t,), ``qi_star_limbs`` (t, L), ``q_limbs`` (L,).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import bigint, modmath
+from repro_torch.core.ntt import ChannelTables
+from repro_torch.core.rns import ChannelDecompose, RnsPlan
+
+W = 28  # output limb width of the int64 width
+T_PRIME = 3  # Alg-2 block width
+
+
+def _get(arrays: dict, key: str) -> np.ndarray | None:
+    x = arrays.get(key)
+    return None if x is None else np.asarray(x, dtype=np.int64)
+
+
+def tables_from_reference(arrays: dict[str, np.ndarray],
+                          device="cpu") -> tuple[ChannelTables, RnsPlan]:
+    """(ChannelTables, RnsPlan) on ``device`` from exported reference
+    constants (see the module docstring for the keys)."""
+    qs = _get(arrays, "qs")
+    fwd, inv = _get(arrays, "fwd"), _get(arrays, "inv")
+    t, n = fwd.shape
+    # special primes q = 2^v - beta have exactly v bits
+    v = max(int(q).bit_length() for q in qs)
+    eps = _get(arrays, "mul_eps")
+    shifts = None
+    if eps is not None:
+        b = int(qs[0]).bit_length()
+        shifts = (b - 1, b + 1)
+    fwd_shoup, inv_shoup = _get(arrays, "fwd_shoup"), _get(arrays, "inv_shoup")
+    window = beta = None
+    if fwd_shoup is not None:
+        window, beta = modmath.lazy_params(qs)
+    tables = ChannelTables(
+        qs=qs, fwd=fwd, inv=inv, half=_get(arrays, "half"), mul_eps=eps,
+        mul_shifts=shifts, fwd_shoup=fwd_shoup, inv_shoup=inv_shoup,
+        lazy_window=window, shoup_beta=beta, device=device,
+    )
+
+    q = 1
+    for qi in qs:
+        q *= int(qi)
+    q_limbs = _get(arrays, "q_limbs")
+    if bigint.limbs_to_int(q_limbs, W) != q:
+        raise ValueError("q_limbs do not spell prod(qs) in base 2^28")
+    seg_count = -(-q.bit_length() // v)
+    beta_e, beta_s = _get(arrays, "beta_e"), _get(arrays, "beta_s")
+    beta_terms = tuple(
+        tuple((int(e), int(s)) for e, s in zip(beta_e[i], beta_s[i]) if s != 0)
+        for i in range(t)
+    )
+    block_consts = _get(arrays, "block_consts")
+    sau_eps, sau_s2, acc_eps = (_get(arrays, k) for k in ("sau_eps", "sau_s2", "acc_eps"))
+    dec = tuple(
+        ChannelDecompose(
+            qi=int(qs[i]),
+            beta_terms=beta_terms[i],
+            block_consts=tuple(int(c) for c in block_consts[i]),
+            sau_barrett=(int(sau_eps[i]), v - 1, int(sau_s2[i])),
+            acc_barrett=(int(acc_eps[i]), v - 1, 4),
+        )
+        for i in range(t)
+    )
+    plan = RnsPlan(
+        n=n, v=v, t=t, q=q, qs=qs, beta_terms=beta_terms, seg_count=seg_count,
+        beta_pows=np.array(
+            [[pow(1 << v, k, int(qi)) for k in range(seg_count)] for qi in qs], dtype=np.int64
+        ),
+        t_prime=T_PRIME, block_consts=block_consts, w=W, L=q_limbs.shape[0],
+        qi_tilde=_get(arrays, "qi_tilde"), qi_star_limbs=_get(arrays, "qi_star_limbs"),
+        q_limbs=q_limbs, dec=dec, device=device,
+    )
+    return tables, plan

@@ -1,0 +1,2 @@
+"""CUDA kernels of the port, their wrappers and plain versions, and the
+backend dispatch."""
