@@ -39,10 +39,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM published peaks (on-chip-measurement guide, section 4).
+# NVIDIA H100 SXM published peaks.
 HBM_BYTES_PER_S = 3.35e12
-# No integer-64 rate is published; the guide's scalar (non-tensor-core)
-# peak of 67 TOP/s is used, so the operation bound is optimistic.
+# No integer-64 rate is published; the scalar (non-tensor-core) peak of
+# 67 TOP/s is used, so the operation bound is optimistic.
 SCALAR_OPS_PER_S = 67e12
 
 MAIN = dict(n=4096, t=6, v=30, rows=256)
