@@ -7,17 +7,24 @@ GPU.  Run from the repository root with no arguments:
 Phases, each raising on failure (so the run exits non-zero):
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. the build of every CUDA kernel of the path (``nvcc``, one process per
-   source, all started together) into the checkout's ``build/``;
+2. the build of all six CUDA kernels (``nvcc``, one process per source,
+   all started together) into the checkout's ``build/``: K1 fused
+   cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse NTT, K5
+   decompose, K6 compose;
 3. each kernel against its plain PyTorch version on the card, exact
    int64 equality, at the paper's point (n=4096, t=6, v=30, 256 rows) and
    at n=64, t=3 in all three reduction regimes (v = 29, 30, 31);
-4. the main path through the entry points a user calls:
-   ``repro_torch.plan(n=4096, t=6, v=30)`` -> ``repro_torch.polymul`` on a
-   seeded 256-row batch, and ``repro_torch.negacyclic_mul`` on the same
-   plan, with the launch counters zeroed before and read after each;
-   outputs equal to the plain versions on all rows and to the host bigint
-   oracle on two sampled rows;
+4. the paths through the entry points a user calls, each with every
+   launch counter zeroed just before it and read just after:
+   ``repro_torch.plan(n=4096, t=6, v=30)`` (auto: ``cuda_fused_e2e``) ->
+   ``repro_torch.polymul`` on a seeded 256-row batch (K2 only) and
+   ``repro_torch.negacyclic_mul`` (K1 only); ``polymul`` under
+   ``backend="cuda"`` (K5, K3, K4, K6) and ``backend="cuda_fused"`` (K5,
+   K1, K6), equal to the ``cuda_fused_e2e`` output on all rows and to the
+   host bigint oracle on two sampled rows; and the stage entry points
+   ``ntt``, ``intt``, ``decompose``, ``compose`` on the auto plan, one
+   launch of their kernel each, with ``intt(ntt(r)) == r`` and
+   ``compose(decompose(z))`` equal to z's integers;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up, its plain version's time, and its bound;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
@@ -135,17 +142,29 @@ def _canon(mode: int, window: int) -> int:
     return 0 if mode != 0 else COND_SUB * (2 if window == 4 else 1)
 
 
-def cascade_ops(n: int, mode: int, window: int) -> int:
-    """One (channel, row) cascade: two forward transforms, the canonical
-    pointwise product, one inverse transform and the exit canonicalize."""
-    log_n = n.bit_length() - 1
+def _butterfly_ops(mode: int, window: int) -> tuple[int, int]:
+    """(CT, GS) butterfly operation counts in a regime."""
     if mode == 0:
         ct = SHOUP + (COND_SUB + 3 if window == 4 else 1 + COND_SUB + 2 + COND_SUB)
         gs = 3 + 2 * COND_SUB + SHOUP + 2 * 4
     else:
         ct = _mul_mod(mode) + 2 * (1 + COND_SUB)
         gs = 2 * (1 + COND_SUB) + _mul_mod(mode) + 2 * 4
-    butterflies = (n // 2) * log_n
+    return ct, gs
+
+
+def transform_ops(n: int, mode: int, window: int, inverse: bool) -> int:
+    """One (channel, row) forward or inverse transform with its exit
+    canonicalize (K3, K4)."""
+    ct, gs = _butterfly_ops(mode, window)
+    return (n // 2) * (n.bit_length() - 1) * (gs if inverse else ct) + n * _canon(mode, window)
+
+
+def cascade_ops(n: int, mode: int, window: int) -> int:
+    """One (channel, row) cascade: two forward transforms, the canonical
+    pointwise product, one inverse transform and the exit canonicalize."""
+    ct, gs = _butterfly_ops(mode, window)
+    butterflies = (n // 2) * (n.bit_length() - 1)
     point = 2 * _canon(mode, window) + _mul_mod(mode)
     return 2 * butterflies * ct + butterflies * gs + n * (point + _canon(mode, window))
 
@@ -166,14 +185,26 @@ def decompose_ops(S: int, t_prime: int, n_terms: int) -> int:
     return ops + BARRETT
 
 
+def compose_tail_ops(t: int, L: int) -> int:
+    """The Eq-10 limb sums, carry ripple and t - 1 conditional
+    subtractions of one coefficient."""
+    return 2 * t * L + 3 * L + (t - 1) * 6 * L
+
+
+def channel_decompose_ops(pl) -> int:
+    """One coefficient's residues in all t channels (K5)."""
+    rp = pl.params.plan
+    n_terms = max(len(c.beta_terms) for c in rp.dec)
+    return rp.t * decompose_ops(rp.seg_count, rp.t_prime, n_terms)
+
+
 def e2e_ops(pl, mode: int, window: int, rows: int) -> int:
     rp = pl.params.plan
     n, t, L = rp.n, rp.t, rp.L
-    n_terms = max(len(c.beta_terms) for c in rp.dec)
     per_coeff = (
-        2 * t * decompose_ops(rp.seg_count, rp.t_prime, n_terms)
+        2 * channel_decompose_ops(pl)
         + t * (_canon(mode, window) + _mul_mod(mode))
-        + 2 * t * L + 3 * L + (t - 1) * 6 * L
+        + compose_tail_ops(t, L)
     )
     return rows * (t * cascade_ops(n, mode, window) + n * per_coeff)
 
@@ -184,6 +215,65 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def kernel_calls(pl, inputs):
+    """Each kernel's (wrapper call, plain-version call) on the main path's
+    shapes of ``inputs``: the stage kernels take the operands flattened to
+    the layouts the ops layer hands them."""
+    from repro_torch.kernels import crt
+    from repro_torch.kernels import ntt as kern
+
+    p = pl.params
+    za, zb, ra, rb = inputs
+    z2 = za.reshape(-1, pl.config.seg_count)
+    r2 = ra.reshape(pl.config.t, -1)
+    return {
+        "fused_polymul": (lambda: kern.fused_polymul_cuda(ra, rb, p.tables),
+                          lambda: kern.fused_polymul_ref(ra, rb, p.tables)),
+        "fused_e2e_polymul": (lambda: kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan),
+                              lambda: kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan)),
+        "ntt_channels": (lambda: kern.ntt_channels_cuda(ra, p.tables),
+                         lambda: kern.ntt_channels_ref(ra, p.tables)),
+        "intt_channels": (lambda: kern.intt_channels_cuda(ra, p.tables),
+                          lambda: kern.intt_channels_ref(ra, p.tables)),
+        "decompose": (lambda: crt.decompose_cuda(z2, p.plan),
+                      lambda: crt.decompose_ref(z2, p.plan)),
+        "compose": (lambda: crt.compose_cuda(r2, p.plan),
+                    lambda: crt.compose_ref(r2, p.plan)),
+    }
+
+
+def wrappers():
+    """Kernel name -> its wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels import crt
+    from repro_torch.kernels import ntt as kern
+
+    return {
+        "fused_polymul": kern.fused_polymul_cuda,
+        "fused_e2e_polymul": kern.fused_e2e_polymul_cuda,
+        "ntt_channels": kern.ntt_channels_cuda,
+        "intt_channels": kern.intt_channels_cuda,
+        "decompose": crt.decompose_cuda,
+        "compose": crt.compose_cuda,
+    }
+
+
+def counted(torch, fn):
+    """Run ``fn`` with every launch counter zeroed just before and read
+    just after: (its result, launches per kernel)."""
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in ws.items()}
+
+
+def expect_launches(got: dict, want: dict, what: str) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
 def check_kernels(dev) -> dict[str, int]:
     """Phase 3: each kernel against its plain version, exact equality."""
     import numpy as np
@@ -192,29 +282,40 @@ def check_kernels(dev) -> dict[str, int]:
     import repro_torch
     from repro_torch.kernels import ntt as kern
 
-    max_err = {"fused_polymul": 0, "fused_e2e_polymul": 0}
+    max_err = dict.fromkeys(wrappers(), 0)
     for cfg in [MAIN] + SMALL:
         pl = repro_torch.plan(cfg["n"], cfg["t"], cfg["v"], device=dev)
-        p = pl.params
-        za, zb, ra, rb = seeded_inputs(torch, np, pl, cfg["rows"], SEED + cfg["v"], dev)
-        k1 = kern.fused_polymul_cuda(ra, rb, p.tables)
-        torch.cuda.synchronize()
-        e1 = exact(k1, kern.fused_polymul_ref(ra, rb, p.tables), f"K1 {cfg}")
-        k2 = kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
-        torch.cuda.synchronize()
-        e2 = exact(k2, kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan), f"K2 {cfg}")
-        max_err["fused_polymul"] = max(max_err["fused_polymul"], e1)
-        max_err["fused_e2e_polymul"] = max(max_err["fused_e2e_polymul"], e2)
+        inputs = seeded_inputs(torch, np, pl, cfg["rows"], SEED + cfg["v"], dev)
+        shapes = []
+        for name, (fn, ref) in kernel_calls(pl, inputs).items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = exact(got, ref(), f"{name} {cfg}")
+            max_err[name] = max(max_err[name], err)
+            shapes.append(f"{name} {tuple(got.shape)}")
         log(f"[kernels] n={cfg['n']} t={cfg['t']} v={cfg['v']} rows={cfg['rows']} "
-            f"(mode, window)={kern.reduction_mode(p.tables)[:2]}: K1 {tuple(k1.shape)} and "
-            f"K2 {tuple(k2.shape)} equal their plain versions bit for bit")
+            f"(mode, window)={kern.reduction_mode(pl.params.tables)[:2]}: "
+            + ", ".join(shapes) + " equal their plain versions bit for bit")
     return max_err
 
 
+def check_oracle(pl, za, zb, out, what: str) -> None:
+    """``out`` rows of ORACLE_ROWS equal the host bigint oracle."""
+    from repro_torch.core import bigint, polymul as host
+
+    import repro_torch
+
+    for r in ORACLE_ROWS:
+        a = bigint.limbs_to_ints(za[r].cpu().numpy(), pl.config.v)
+        b = bigint.limbs_to_ints(zb[r].cpu().numpy(), pl.config.v)
+        if repro_torch.from_limbs(pl, out[r]) != host.oracle_multiply(a, b, pl.params):
+            raise AssertionError(f"{what}: row {r} differs from the host oracle")
+
+
 def drive_main_path(pl):
-    """Phase 4: polymul, then negacyclic_mul, through the user's entry
-    points, each with the launch counters zeroed just before and read just
-    after.  Returns (launches per kernel, the inputs)."""
+    """Phase 4: the paths through the user's entry points, each with every
+    launch counter zeroed just before it and read just after.  Returns
+    (launches per kernel on the path it serves, the inputs)."""
     import numpy as np
     import torch
 
@@ -222,39 +323,28 @@ def drive_main_path(pl):
     from repro_torch.core import bigint, polymul as host
     from repro_torch.kernels import ntt as kern
 
-    p, v = pl.params, pl.config.v
+    p, cfg = pl.params, pl.config
     za, zb, ra, rb = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
     launches = {}
 
-    kern.fused_polymul_cuda.launches = 0
-    kern.fused_e2e_polymul_cuda.launches = 0
-    outs = [repro_torch.polymul(pl, za, zb) for _ in range(MAIN_CALLS)]
-    torch.cuda.synchronize()
-    launches["fused_e2e_polymul"] = kern.fused_e2e_polymul_cuda.launches
-    if (launches["fused_e2e_polymul"], kern.fused_polymul_cuda.launches) != (MAIN_CALLS, 0):
-        raise AssertionError(f"polymul: {launches['fused_e2e_polymul']} e2e launches and "
-                             f"{kern.fused_polymul_cuda.launches} cascade launches for "
-                             f"{MAIN_CALLS} calls")
+    # the auto plan (cuda_fused_e2e): polymul launches K2 alone
+    outs, got = counted(torch, lambda: [repro_torch.polymul(pl, za, zb)
+                                        for _ in range(MAIN_CALLS)])
+    expect_launches(got, {"fused_e2e_polymul": MAIN_CALLS}, "polymul (auto)")
+    launches["fused_e2e_polymul"] = got["fused_e2e_polymul"]
     plain = kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan)
     for out in outs:
         exact(out, plain, "polymul vs plain")
-    for r in ORACLE_ROWS:
-        a = bigint.limbs_to_ints(za[r].cpu().numpy(), v)
-        b = bigint.limbs_to_ints(zb[r].cpu().numpy(), v)
-        if repro_torch.from_limbs(pl, outs[0][r]) != host.oracle_multiply(a, b, p):
-            raise AssertionError(f"polymul row {r} differs from the host oracle")
-    log(f"[main] polymul x{MAIN_CALLS} on {tuple(za.shape)}: {launches['fused_e2e_polymul']} "
-        f"e2e kernel launches; equal to the plain version on all rows and to the host "
-        f"oracle on rows {ORACLE_ROWS}")
+    check_oracle(pl, za, zb, outs[0], "polymul (auto)")
+    e2e = outs[0]
+    log(f"[main] polymul x{MAIN_CALLS} on {tuple(za.shape)}: {got}; equal to the plain "
+        f"version on all rows and to the host oracle on rows {ORACLE_ROWS}")
 
-    kern.fused_polymul_cuda.launches = 0
-    kern.fused_e2e_polymul_cuda.launches = 0
-    prods = [repro_torch.negacyclic_mul(pl, ra, rb) for _ in range(MAIN_CALLS)]
-    torch.cuda.synchronize()
-    launches["fused_polymul"] = kern.fused_polymul_cuda.launches
-    if (launches["fused_polymul"], kern.fused_e2e_polymul_cuda.launches) != (MAIN_CALLS, 0):
-        raise AssertionError(f"negacyclic_mul: {launches['fused_polymul']} cascade launches "
-                             f"for {MAIN_CALLS} calls")
+    # the residue-domain product on the auto plan: K1 alone
+    prods, got = counted(torch, lambda: [repro_torch.negacyclic_mul(pl, ra, rb)
+                                         for _ in range(MAIN_CALLS)])
+    expect_launches(got, {"fused_polymul": MAIN_CALLS}, "negacyclic_mul (auto)")
+    launches["fused_polymul"] = got["fused_polymul"]
     plain = kern.fused_polymul_ref(ra, rb, p.tables)
     for prod in prods:
         exact(prod, plain, "negacyclic_mul vs plain")
@@ -263,10 +353,81 @@ def drive_main_path(pl):
             want = host.ntt_negacyclic_host(ra[c, r].tolist(), rb[c, r].tolist(), int(p.qs[c]))
             if prods[0][c, r].tolist() != want:
                 raise AssertionError(f"negacyclic_mul channel {c} row {r} differs from the oracle")
-    log(f"[main] negacyclic_mul x{MAIN_CALLS} on {tuple(ra.shape)}: {launches['fused_polymul']} "
-        f"cascade kernel launches; equal to the plain version on all rows and to the host "
-        f"oracle on rows {ORACLE_ROWS}")
+    log(f"[main] negacyclic_mul x{MAIN_CALLS} on {tuple(ra.shape)}: {got}; equal to the plain "
+        f"version on all rows and to the host oracle on rows {ORACLE_ROWS}")
+
+    # the staged backends: cuda (K5 x2, K3 x2, K4, K6) and cuda_fused (K5 x2, K1, K6)
+    for backend, want in (
+        ("cuda", {"decompose": 2, "ntt_channels": 2, "intt_channels": 1, "compose": 1}),
+        ("cuda_fused", {"decompose": 2, "fused_polymul": 1, "compose": 1}),
+    ):
+        bpl = repro_torch.plan(cfg.n, cfg.t, cfg.v, backend=backend)
+        outs, got = counted(torch, lambda: [repro_torch.polymul(bpl, za, zb)
+                                            for _ in range(MAIN_CALLS)])
+        expect_launches(got, {k: MAIN_CALLS * v for k, v in want.items()},
+                        f"polymul ({backend})")
+        if backend == "cuda":
+            launches.update({k: got[k] for k in want})
+        for out in outs:
+            exact(out, e2e, f"polymul ({backend}) vs cuda_fused_e2e")
+        check_oracle(pl, za, zb, outs[0], f"polymul ({backend})")
+        log(f"[main] polymul backend={backend} x{MAIN_CALLS}: {got}; equal to the "
+            f"cuda_fused_e2e output on all rows and to the host oracle on rows {ORACLE_ROWS}")
+
+    # the stage entry points on the auto plan: one launch of their kernel each
+    for name, fn, arg in (
+        ("ntt_channels", repro_torch.ntt, ra),
+        ("intt_channels", repro_torch.intt, ra),
+        ("decompose", repro_torch.decompose, za),
+        ("compose", repro_torch.compose, ra),
+    ):
+        _, got = counted(torch, lambda: fn(pl, arg))
+        expect_launches(got, {name: 1}, f"{fn.__name__} (auto)")
+    spectra = repro_torch.ntt(pl, ra)
+    exact(repro_torch.intt(pl, spectra), ra, "intt(ntt(r)) vs r")
+    limbs = repro_torch.compose(pl, repro_torch.decompose(pl, za))
+    if repro_torch.from_limbs(pl, limbs) != bigint.limbs_to_ints(za.cpu().numpy(), cfg.v):
+        raise AssertionError("compose(decompose(z)) differs from z's integers")
+    log(f"[main] ntt, intt, decompose, compose (auto plan): one launch each; "
+        f"intt(ntt(r)) == r on {tuple(ra.shape)}, compose(decompose(z)) == z on "
+        f"{tuple(za.shape)}")
     return launches, (za, zb, ra, rb)
+
+
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "fused_polymul": ("src/repro_torch/csrc/fused_polymul.cu", "src/repro/kernels/ntt.py:757"),
+    "fused_e2e_polymul": ("src/repro_torch/csrc/fused_e2e_polymul.cu",
+                          "src/repro/kernels/ntt.py:802"),
+    "ntt_channels": ("src/repro_torch/csrc/ntt_channels.cu", "src/repro/kernels/ntt.py:680"),
+    "intt_channels": ("src/repro_torch/csrc/intt_channels.cu", "src/repro/kernels/ntt.py:721"),
+    "decompose": ("src/repro_torch/csrc/decompose.cu", "src/repro/kernels/crt.py:180"),
+    "compose": ("src/repro_torch/csrc/compose.cu", "src/repro/kernels/crt.py:266"),
+}
+
+
+def work(pl, rows: int) -> dict[str, tuple[int, int]]:
+    """Kernel -> (bytes it must move, integer operations it needs) at the
+    main path's shapes with ``rows`` rows: each input read once, each
+    output written once, as int64 words."""
+    from repro_torch.kernels import ntt as kern
+
+    cfg = pl.config
+    mode, window = kern.reduction_mode(pl.params.tables)[:2]
+    polys = cfg.t * rows  # (channel, row) polynomials
+    coeffs = rows * cfg.n
+    return {
+        "fused_polymul": (3 * polys * cfg.n * 8, polys * cascade_ops(cfg.n, mode, window)),
+        "fused_e2e_polymul": ((2 * cfg.seg_count + cfg.L) * coeffs * 8,
+                              e2e_ops(pl, mode, window, rows)),
+        "ntt_channels": (2 * polys * cfg.n * 8,
+                         polys * transform_ops(cfg.n, mode, window, inverse=False)),
+        "intt_channels": (2 * polys * cfg.n * 8,
+                          polys * transform_ops(cfg.n, mode, window, inverse=True)),
+        "decompose": ((cfg.seg_count + cfg.t) * coeffs * 8, coeffs * channel_decompose_ops(pl)),
+        "compose": ((cfg.t + cfg.L) * coeffs * 8,
+                    coeffs * (2 * cfg.t + compose_tail_ops(cfg.t, cfg.L))),
+    }
 
 
 def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
@@ -274,25 +435,12 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
     beside the bound computed from these inputs."""
     import torch
 
-    from repro_torch.kernels import ntt as kern
-
-    p, cfg = pl.params, pl.config
-    za, zb, ra, rb = inputs
-    mode, window = kern.reduction_mode(p.tables)[:2]
-    rows = za.shape[0]
+    calls = kernel_calls(pl, inputs)
+    counts = work(pl, inputs[0].shape[0])
     entries = []
-    for name, source, replaces, fn, ref, nbytes, ops in (
-        ("fused_polymul", "src/repro_torch/csrc/fused_polymul.cu",
-         "src/repro/kernels/ntt.py:757",
-         lambda: kern.fused_polymul_cuda(ra, rb, p.tables),
-         lambda: kern.fused_polymul_ref(ra, rb, p.tables),
-         3 * cfg.t * rows * cfg.n * 8, cfg.t * rows * cascade_ops(cfg.n, mode, window)),
-        ("fused_e2e_polymul", "src/repro_torch/csrc/fused_e2e_polymul.cu",
-         "src/repro/kernels/ntt.py:802",
-         lambda: kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan),
-         lambda: kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan),
-         (2 * cfg.seg_count + cfg.L) * rows * cfg.n * 8, e2e_ops(pl, mode, window, rows)),
-    ):
+    for name, (source, replaces) in KERNELS.items():
+        fn, ref = calls[name]
+        nbytes, ops = counts[name]
         ms = time_launches(torch, fn, TIMED_LAUNCHES)
         plain_ms = time_launches(torch, ref, PLAIN_RUNS, warmup=1)
         bound_ms, bound_by = bound(nbytes, ops)
@@ -369,7 +517,7 @@ def main() -> int:
         raise AssertionError(f"plan() resolved to {pl.config}")
     launches, inputs = drive_main_path(pl)
     entries = time_kernels(pl, inputs, launches, max_err)
-    time_backends(pl, inputs, entries[1]["ms"])
+    time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,5 +1,5 @@
 """PaReNTT on PyTorch + CUDA: the port of the JAX package ``repro`` to an
-NVIDIA H100 (first slice: the int64-width multiplier).
+NVIDIA H100 (the int64-width multiplier and its stage entry points).
 
     import repro_torch
 
@@ -9,15 +9,23 @@ NVIDIA H100 (first slice: the int64-width multiplier).
 The main path runs one hand-written CUDA kernel
 (``csrc/fused_e2e_polymul.cu``); the residue-domain product
 :func:`negacyclic_mul` runs the fused cascade kernel
-(``csrc/fused_polymul.cu``).  ``plan(..., device="cpu")`` runs the
-plain-PyTorch versions.  The package imports neither JAX nor ``repro``.
+(``csrc/fused_polymul.cu``), and :func:`ntt`, :func:`intt`,
+:func:`decompose` and :func:`compose` run the stage kernels
+(``csrc/ntt_channels.cu``, ``intt_channels.cu``, ``decompose.cu``,
+``compose.cu``), as does every stage of ``backend="cuda"``.
+``plan(..., device="cpu")`` runs the plain-PyTorch versions.  The
+package imports neither JAX nor ``repro``.
 """
 from repro_torch.api import (
     BACKENDS,
     Plan,
     PlanConfig,
+    compose,
+    decompose,
     from_limbs,
+    intt,
     negacyclic_mul,
+    ntt,
     plan,
     plan_key,
     polymul,
@@ -33,8 +41,12 @@ __all__ = [
     "PlanError",
     "UnknownKnobError",
     "UnservableConfigError",
+    "compose",
+    "decompose",
     "from_limbs",
+    "intt",
     "negacyclic_mul",
+    "ntt",
     "plan",
     "plan_key",
     "polymul",

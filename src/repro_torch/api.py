@@ -15,9 +15,12 @@ asked for, :func:`plan` raises.  ``backend="auto"`` resolves to
 ``"cuda_fused_e2e"`` on the card and ``"torch"`` on the CPU.  A kernel
 backend refuses, at plan time, an ``n`` whose shared-memory working set
 does not fit one block.  Every datapath decomposes through the Alg-2
-SAU circuits.  The reference's ``schedule``, ``tiling``,
-``channel_grid``, ``tuning`` and ``use_sau`` knobs and its wide and
-oracle widths (v > 31) are not ported yet.
+SAU circuits.  Besides the multiplier, the stage entry points
+:func:`ntt`, :func:`intt`, :func:`decompose`, :func:`compose` and
+:func:`negacyclic_mul` run one stage each on the plan's backend.  The
+reference's ``execute`` and ``plan_from_params``, its ``schedule``,
+``tiling``, ``channel_grid``, ``tuning`` and ``use_sau`` knobs and its
+wide and oracle widths (v > 31) are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch.core import bigint
 from repro_torch.core.params import ParenttParams, make_params
 from repro_torch.errors import UnknownKnobError, UnservableConfigError
+from repro_torch.kernels import crt as crt_kernels
 from repro_torch.kernels import ntt as ntt_kernels
 from repro_torch.kernels import ops as ops_mod
 from repro_torch.kernels.ops import BACKENDS, KERNEL_BACKENDS
@@ -37,13 +41,17 @@ __all__ = [
     "BACKENDS",
     "Plan",
     "PlanConfig",
+    "compose",
+    "decompose",
+    "from_limbs",
+    "intt",
+    "negacyclic_mul",
+    "ntt",
     "plan",
     "plan_key",
     "polymul",
     "polymul_ints",
-    "negacyclic_mul",
     "to_segments",
-    "from_limbs",
 ]
 
 _V_MIN, _V_MAX = 8, 60
@@ -152,8 +160,12 @@ def plan(
     dev = _resolve_device(device)
     backend = ops_mod.resolve_backend(backend, dev)
     if backend in KERNEL_BACKENDS:
-        need = max(ntt_kernels.cascade_smem_bytes(n),
-                   ntt_kernels.e2e_smem_bytes(n, t) if backend == "cuda_fused_e2e" else 0)
+        need = {
+            "cuda": ntt_kernels.stage_smem_bytes(n),
+            "cuda_fused": ntt_kernels.cascade_smem_bytes(n),
+            "cuda_fused_e2e": max(ntt_kernels.cascade_smem_bytes(n),
+                                  ntt_kernels.e2e_smem_bytes(n, t)),
+        }[backend]
         if need > ntt_kernels.MAX_SMEM_BYTES:
             raise UnservableConfigError(
                 f"backend={backend!r} keeps a block's residues in shared memory: n={n}, "
@@ -163,15 +175,16 @@ def plan(
             )
     params = make_params(n=n, t=t, v=v, device=dev)
     rp = params.plan
-    if backend == "cuda_fused_e2e" and (
+    if backend in KERNEL_BACKENDS and (
         rp.dec is None
-        or rp.seg_count > ntt_kernels.MAX_SEGMENTS
-        or rp.L > ntt_kernels.MAX_LIMBS
+        or rp.seg_count > crt_kernels.MAX_SEGMENTS
+        or rp.L > crt_kernels.MAX_LIMBS
     ):
         raise UnservableConfigError(
-            f"the e2e kernel cannot hold t={t}, v={v} (S={rp.seg_count}, L={rp.L}, "
-            f"in-kernel decompose constants: {rp.dec is not None})",
-            knob="t", value=t, alternatives=("backend='cuda_fused'",),
+            f"the decompose and compose kernels cannot hold t={t}, v={v} "
+            f"(S={rp.seg_count}, L={rp.L}, in-kernel decompose constants: "
+            f"{rp.dec is not None})",
+            knob="t", value=t, alternatives=("backend='torch'",),
         )
     cfg = PlanConfig(
         n=n, t=t, v=v, backend=backend, device=str(dev),
@@ -197,11 +210,38 @@ def polymul(pl: Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
     return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend)
 
 
+def ntt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
+    """a: ``(t, ..., n)`` canonical residues -> forward NTT per RNS channel
+    (natural-order in, bit-reversed out: the no-shuffle convention)."""
+    cfg = _require_plan(pl, "ntt")
+    return ops_mod.ntt_forward(a, pl.params, backend=cfg.backend)
+
+
+def intt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
+    """a: ``(t, ..., n)`` canonical bit-reversed spectra -> natural-order
+    residues (n^-1 folded into the per-stage halving)."""
+    cfg = _require_plan(pl, "intt")
+    return ops_mod.ntt_inverse(a, pl.params, backend=cfg.backend)
+
+
 def negacyclic_mul(pl: Plan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(t, ..., n) x (t, ..., n)`` canonical residues -> per-channel
     negacyclic products (the residue-domain cascade)."""
     cfg = _require_plan(pl, "negacyclic_mul")
     return ops_mod.negacyclic_mul(a, b, pl.params, backend=cfg.backend)
+
+
+def decompose(pl: Plan, z: torch.Tensor) -> torch.Tensor:
+    """z: ``(..., S)`` base-2^v segments -> residues ``(t, ...)``."""
+    cfg = _require_plan(pl, "decompose")
+    return ops_mod.rns_decompose(z, pl.params, backend=cfg.backend)
+
+
+def compose(pl: Plan, residues: torch.Tensor) -> torch.Tensor:
+    """residues: canonical ``(t, ...)`` -> ``(..., L)`` base-2^w limbs of
+    the CRT-composed value (canonical, < q)."""
+    cfg = _require_plan(pl, "compose")
+    return ops_mod.rns_compose(residues, pl.params, backend=cfg.backend)
 
 
 def to_segments(pl: Plan, xs: Any) -> torch.Tensor:

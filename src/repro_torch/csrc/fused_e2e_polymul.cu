@@ -47,12 +47,7 @@ struct E2EArgs {
   const i64* fwd_sh;
   const i64* inv_sh;
   // per-channel decompose circuits
-  const i64* sau_eps;       // (t,)
-  const i64* sau_s2;        // (t,)
-  const i64* acc_eps;       // (t,)
-  const i64* beta_e;        // (t, n_terms)
-  const i64* beta_s;        // (t, n_terms)
-  const i64* block_consts;  // (t, n_blocks)
+  DecomposeTables dec;
   // compose
   const i64* star;     // (t, L): q^_i limbs
   const i64* q_limbs;  // (L,)
@@ -60,11 +55,7 @@ struct E2EArgs {
   int t;
   int S;
   int L;
-  int n_terms;
-  int n_blocks;
   int t_prime;
-  int dec_s1;
-  int acc_s2;
   int w;
   int mode;
   int window;
@@ -72,21 +63,6 @@ struct E2EArgs {
   int s1;
   int s2;
 };
-
-__device__ __forceinline__ Decompose channel_decompose(const E2EArgs& a, int c) {
-  Decompose d;
-  d.q = a.qs[c];
-  d.sau_eps = a.sau_eps[c];
-  d.acc_eps = a.acc_eps[c];
-  d.s1 = a.dec_s1;
-  d.sau_s2 = (int)a.sau_s2[c];
-  d.acc_s2 = a.acc_s2;
-  d.n_terms = a.n_terms;
-  d.beta_e = a.beta_e + (size_t)c * a.n_terms;
-  d.beta_s = a.beta_s + (size_t)c * a.n_terms;
-  d.block_consts = a.block_consts + (size_t)c * a.n_blocks;
-  return d;
-}
 
 __global__ void __launch_bounds__(kMaxThreads) fused_e2e_polymul_kernel(const E2EArgs args) {
   extern __shared__ res_t smem[];
@@ -104,7 +80,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_e2e_polymul_kernel(const E2
       zb[k] = args.zb[seg + k];
     }
     for (int c = 0; c < args.t; ++c) {
-      const Decompose d = channel_decompose(args, c);
+      const Decompose d = channel_decompose(args.dec, c);
       ra[(size_t)c * n + j] = (res_t)decompose(za, args.S, args.t_prime, d);
       rb[(size_t)c * n + j] = (res_t)decompose(zb, args.S, args.t_prime, d);
     }
@@ -113,15 +89,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_e2e_polymul_kernel(const E2
 
   // Steps 2-3: per channel, the cascade, then y_i = p_i * q~_i mod q_i.
   for (int c = 0; c < args.t; ++c) {
-    Reduce r;
-    r.q = args.qs[c];
-    r.half = args.half[c];
-    r.eps = args.eps[c];
-    r.s1 = args.s1;
-    r.s2 = args.s2;
-    r.mode = args.mode;
-    r.window = args.window;
-    r.beta = args.beta;
+    const Reduce r = channel_reduce(args.qs, args.half, args.eps, c, args.mode, args.window,
+                                    args.beta, args.s1, args.s2);
     const size_t off = (size_t)c * n;
     cascade(ra + off, rb + off, args.fwd + off, args.inv + off, args.fwd_sh + off,
             args.inv_sh + off, r, args.log_n);
@@ -135,12 +104,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_e2e_polymul_kernel(const E2
   // Step 4: Eq-10 limb sums and the compose tail, one write per limb.
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     i64 acc[kMaxLimbs];
-    for (int l = 0; l < args.L; ++l) acc[l] = 0;
-    for (int c = 0; c < args.t; ++c) {
-      const i64 y = ra[(size_t)c * n + j];
-      const i64* star = args.star + (size_t)c * args.L;
-      for (int l = 0; l < args.L; ++l) acc[l] += y * __ldg(star + l);
-    }
+    crt_limb_sums(acc, [&](int c) { return (i64)ra[(size_t)c * n + j]; }, args.star, args.t,
+                  args.L);
     compose_finalize(acc, args.q_limbs, args.L, args.w, args.t);
     i64* po = args.out + (row * n + j) * args.L;
     for (int l = 0; l < args.L; ++l) po[l] = acc[l];
@@ -165,11 +130,11 @@ int parentt_fused_e2e_polymul(
   const size_t smem = 2 * (size_t)t * n * sizeof(res_t);
   const cudaError_t err = allow_smem(fused_e2e_polymul_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const E2EArgs args{za,      zb,      out,     qs,      half,         eps,     tilde,
-                     fwd,     inv,     fwd_shoup, inv_shoup, sau_eps,  sau_s2,  acc_eps,
-                     beta_e,  beta_s,  block_consts, star, q_limbs,     log_n,   t,
-                     S,       L,       n_terms, n_blocks, t_prime,    dec_s1,  acc_s2,
-                     w,       mode,    window,  beta,    s1,           s2};
+  const DecomposeTables dec{qs,     sau_eps,      sau_s2,   acc_eps, beta_e,
+                            beta_s, block_consts, n_terms,  n_blocks, dec_s1, acc_s2};
+  const E2EArgs args{za,  zb,      out,       qs,    half,    eps,   tilde, fwd,  inv,
+                     fwd_shoup, inv_shoup, dec, star, q_limbs, log_n, t,     S,    L,
+                     t_prime, w, mode,    window, beta,  s1,    s2};
   fused_e2e_polymul_kernel<<<rows, block_threads(n), smem, (cudaStream_t)stream>>>(args);
   return (int)cudaGetLastError();
 }

@@ -57,15 +57,8 @@ __global__ void __launch_bounds__(kMaxThreads) fused_polymul_kernel(const Cascad
     sb[j] = (res_t)args.b[base + j];
   }
   __syncthreads();
-  Reduce r;
-  r.q = args.qs[c];
-  r.half = args.half[c];
-  r.eps = args.eps[c];
-  r.s1 = args.s1;
-  r.s2 = args.s2;
-  r.mode = args.mode;
-  r.window = args.window;
-  r.beta = args.beta;
+  const Reduce r = channel_reduce(args.qs, args.half, args.eps, c, args.mode, args.window,
+                                  args.beta, args.s1, args.s2);
   const size_t tab = (size_t)c * n;
   cascade(sa, sb, args.fwd + tab, args.inv + tab, args.fwd_sh + tab, args.inv_sh + tab, r,
           args.log_n);

@@ -1,5 +1,7 @@
-// Device functions shared by the fused cascade kernel (fused_polymul.cu)
-// and the fused end-to-end kernel (fused_e2e_polymul.cu).
+// Device functions shared by the port's kernels: the fused cascade
+// (fused_polymul.cu), the fused end-to-end multiplier
+// (fused_e2e_polymul.cu) and the stage kernels (ntt_channels.cu,
+// intt_channels.cu, decompose.cu, compose.cu).
 //
 // Every function repeats, operation for operation, the int64 arithmetic of
 // the plain PyTorch versions (repro_torch/core/modmath.py,
@@ -49,6 +51,23 @@ struct Reduce {
   int beta;    // Shoup shift
 };
 
+// Channel c's Reduce from the (t,) device arrays of q, (q + 1) / 2 and the
+// Barrett eps, and the regime shared by every channel.
+__device__ __forceinline__ Reduce channel_reduce(const i64* qs, const i64* half, const i64* eps,
+                                                 int c, int mode, int window, int beta, int s1,
+                                                 int s2) {
+  Reduce r;
+  r.q = qs[c];
+  r.half = half[c];
+  r.eps = eps[c];
+  r.s1 = s1;
+  r.s2 = s2;
+  r.mode = mode;
+  r.window = window;
+  r.beta = beta;
+  return r;
+}
+
 // One channel's Alg-2 SAU decompose circuit (repro_torch.core.rns.dec_arrays).
 struct Decompose {
   i64 q;
@@ -62,6 +81,37 @@ struct Decompose {
   const i64* beta_s;        // (n_terms,) its sign, 0 on padding
   const i64* block_consts;  // (n_blocks,) [beta^{t' rho}]_q
 };
+
+// Every channel's decompose circuit as the stacked (t, ...) device arrays
+// of repro_torch.core.rns.dec_arrays.
+struct DecomposeTables {
+  const i64* qs;            // (t,)
+  const i64* sau_eps;       // (t,)
+  const i64* sau_s2;        // (t,)
+  const i64* acc_eps;       // (t,)
+  const i64* beta_e;        // (t, n_terms)
+  const i64* beta_s;        // (t, n_terms)
+  const i64* block_consts;  // (t, n_blocks)
+  int n_terms;
+  int n_blocks;
+  int s1;      // v - 1
+  int acc_s2;  // 4
+};
+
+__device__ __forceinline__ Decompose channel_decompose(const DecomposeTables& a, int c) {
+  Decompose d;
+  d.q = a.qs[c];
+  d.sau_eps = a.sau_eps[c];
+  d.acc_eps = a.acc_eps[c];
+  d.s1 = a.s1;
+  d.sau_s2 = (int)a.sau_s2[c];
+  d.acc_s2 = a.acc_s2;
+  d.n_terms = a.n_terms;
+  d.beta_e = a.beta_e + (size_t)c * a.n_terms;
+  d.beta_s = a.beta_s + (size_t)c * a.n_terms;
+  d.block_consts = a.block_consts + (size_t)c * a.n_blocks;
+  return d;
+}
 
 __device__ __forceinline__ i64 cond_sub(i64 x, i64 m) { return x >= m ? x - m : x; }
 
@@ -141,11 +191,15 @@ __device__ __forceinline__ i64 canonicalize(i64 x, const Reduce& r) {
 }
 
 // Forward CT/DIT stages (twiddles psi^brv merged), natural order in,
-// bit-reversed out, over two shared-memory polynomials.  Stage s pairs at stride h = n >> (s + 1); butterfly k of the
-// stage sits in block i = k / h and uses twiddle fwd[2^s + i].
+// bit-reversed out, over NPOLY (1 or 2) shared-memory polynomials that
+// share the channel's tables (`b` is not read when NPOLY is 1).  Stage s
+// pairs at stride h = n >> (s + 1); butterfly k of the stage sits in
+// block i = k / h and uses twiddle fwd[2^s + i].
+template <int NPOLY>
 __device__ __forceinline__ void ct_stages(res_t* a, res_t* b, const i64* __restrict__ fwd,
                                           const i64* __restrict__ fwd_sh, const Reduce& r,
                                           int log_n) {
+  static_assert(NPOLY == 1 || NPOLY == 2, "ct_stages runs one or two polynomials");
   const int half_n = 1 << (log_n - 1);
   for (int s = 0; s < log_n; ++s) {
     const int log_h = log_n - 1 - s;
@@ -160,11 +214,13 @@ __device__ __forceinline__ void ct_stages(res_t* a, res_t* b, const i64* __restr
       ct_butterfly(u, v, w, ws, r);
       a[iu] = (res_t)u;
       a[iv] = (res_t)v;
-      u = b[iu];
-      v = b[iv];
-      ct_butterfly(u, v, w, ws, r);
-      b[iu] = (res_t)u;
-      b[iv] = (res_t)v;
+      if (NPOLY == 2) {
+        u = b[iu];
+        v = b[iv];
+        ct_butterfly(u, v, w, ws, r);
+        b[iu] = (res_t)u;
+        b[iv] = (res_t)v;
+      }
     }
     __syncthreads();
   }
@@ -204,7 +260,7 @@ __device__ __forceinline__ void cascade(res_t* a, res_t* b, const i64* __restric
                                         const i64* __restrict__ fwd_sh,
                                         const i64* __restrict__ inv_sh, const Reduce& r,
                                         int log_n) {
-  ct_stages(a, b, fwd, fwd_sh, r, log_n);
+  ct_stages<2>(a, b, fwd, fwd_sh, r, log_n);
   for (int j = threadIdx.x; j < (1 << log_n); j += blockDim.x) {
     a[j] = (res_t)mul_mod(canonicalize(a[j], r), canonicalize(b[j], r), r);
   }
@@ -242,6 +298,20 @@ __device__ __forceinline__ i64 decompose(const i64* z, int S, int t_prime, const
   return barrett_reduce(acc, d.q, d.acc_eps, d.s1, d.acc_s2);
 }
 
+// Eq-10 limb sums of one coefficient: acc[l] = sum_c y(c) * q^_c[l] over
+// the t channels, with y(c) = [p_c * q~_c]_{q_c} supplied by the caller
+// and `star` the (t, L) limbs of q^_c.  Each sum stays below t * 2^59.
+template <typename Y>
+__device__ __forceinline__ void crt_limb_sums(i64* acc, Y y, const i64* __restrict__ star,
+                                              int t, int L) {
+  for (int l = 0; l < L; ++l) acc[l] = 0;
+  for (int c = 0; c < t; ++c) {
+    const i64 yc = y(c);
+    const i64* sc = star + (size_t)c * L;
+    for (int l = 0; l < L; ++l) acc[l] += yc * __ldg(sc + l);
+  }
+}
+
 // Eq-10 tail on one coefficient: raw limb sums -> canonical base-2^w limbs
 // of the composed value mod q (carry ripple, then t - 1 conditional
 // big-integer subtractions of q).
@@ -272,6 +342,26 @@ __device__ __forceinline__ void compose_finalize(i64* acc, const i64* __restrict
     }
   }
 }
+
+// Arguments of the single-transform stage kernels (ntt_channels.cu,
+// intt_channels.cu): (t, rows, n) residues in and out, channel tables
+// (t, n) of one direction with their Shoup constants.
+struct StageArgs {
+  const i64* in;
+  i64* out;
+  const i64* qs;
+  const i64* half;
+  const i64* eps;
+  const i64* tab;
+  const i64* tab_sh;
+  int rows;
+  int log_n;
+  int mode;
+  int window;
+  int beta;
+  int s1;
+  int s2;
+};
 
 // Threads per block: one per butterfly of a stage up to kMaxThreads.
 inline int block_threads(int n) {

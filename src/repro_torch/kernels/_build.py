@@ -6,7 +6,9 @@ at first use, and is loaded with ``ctypes``.  Every pointer and the CUDA
 stream cross as ``c_void_p``; each C entry point returns
 ``cudaGetLastError()`` after its launch and the caller raises on a
 non-zero code.  Nothing here runs at import time: the CPU-only test
-machines import every module and have no ``nvcc``.
+machines import every module and have no ``nvcc``.  The binding helpers
+the wrappers share (:func:`ptr`, :func:`stream_of`,
+:func:`check_operand`, :func:`check`) live here too.
 """
 from __future__ import annotations
 
@@ -18,9 +20,14 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fused_polymul", "fused_e2e_polymul")
+SOURCES = (
+    "fused_polymul", "fused_e2e_polymul",
+    "ntt_channels", "intt_channels", "decompose", "compose",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -117,6 +124,28 @@ def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[key] = fn
         return fn
+
+
+def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def stream_of(x: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``x``'s device, as a kernel argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def check_operand(x, shape: tuple, name: str, fn: str) -> None:
+    """Raise unless ``x`` is a contiguous int64 CUDA tensor of ``shape``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: {name} must be a CUDA tensor like the first operand, "
+                         f"got one on {x.device}")
+    if x.dtype != torch.int64:
+        raise ValueError(f"{fn}: {name} must be int64, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{fn}: expected {name} of shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def check(name: str, code: int) -> None:

@@ -1,20 +1,62 @@
-"""Plain-PyTorch RNS stages of the fused end-to-end multiplier (port of
-the in-kernel stages of ``repro.kernels.crt``).
+"""RNS stages of the port: the decompose and compose CUDA kernels, their
+wrappers, launch counters and plain PyTorch versions (port of
+``repro.kernels.crt``).
+
+* :func:`decompose_cuda` (``csrc/decompose.cu``, K5) replaces the TPU
+  kernel ``decompose_pallas`` (``repro/kernels/crt.py:180``): Alg-2 SAU
+  residues, segments ``(rows, S)`` -> residues ``(t, rows)``, one thread
+  per coefficient and one launch for all t channels (the TPU version
+  makes one ``pallas_call`` per channel).
+* :func:`compose_cuda` (``csrc/compose.cu``, K6) replaces
+  ``compose_pallas`` (``repro/kernels/crt.py:266``): the Eq-10 inverse
+  CRT, residues ``(t, rows)`` -> base-2^w limbs ``(rows, L)``, one thread
+  per coefficient.
 
 :func:`decompose_stage` is one channel's Alg-2 SAU circuit and
 :func:`compose_finalize` the Eq-10 tail (carry ripple, then t-1
-conditional big-integer subtractions of q).  They are the building blocks
-of ``kernels.ntt.fused_e2e_polymul_ref``, the plain version of the CUDA
-e2e kernel, whose device functions ``decompose`` and ``compose_finalize``
-in ``csrc/parentt.cuh`` repeat this arithmetic.  The standalone
-decompose/compose kernels of the reference are not ported yet.
+conditional big-integer subtractions of q); the plain versions
+:func:`decompose_ref` and :func:`compose_ref`, and the fused e2e
+kernel's plain version, are built from them.  The device functions
+``decompose``, ``crt_limb_sums`` and ``compose_finalize`` in
+``csrc/parentt.cuh`` repeat this arithmetic.
+
+Each wrapper runs its plain version only for tensors on the CPU; on a
+CUDA tensor it launches the kernel or raises.  ``<wrapper>.launches``
+counts the launches, and nothing else adds to it.  Both kernels take
+canonical values, as the reference's kernels do: compose's ``%`` is the
+floor ``%`` of PyTorch and ``jnp`` in the plain version and C's
+truncating ``%`` in the kernel, which agree on non-negative operands.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.core import modmath
-from repro_torch.core.rns import ChannelDecompose
+from repro_torch.core.rns import ChannelDecompose, RnsPlan
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check_operand, ptr
+
+# per-coefficient register arrays of the kernels (csrc/parentt.cuh)
+MAX_SEGMENTS = 16
+MAX_LIMBS = 16
+
+
+def require_dec(plan: RnsPlan):
+    """The plan's in-kernel decompose circuits, or raise: every kernel that
+    decomposes needs them."""
+    if plan.dec is None:
+        raise ValueError(
+            f"plan (v={plan.v}) has no in-kernel decompose constants: the int64 "
+            "kernels need v <= 31 and SAU words inside the 63-bit Barrett window"
+        )
+    return plan.dec
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
 
 
 def decompose_stage(z: torch.Tensor, ch: ChannelDecompose, *, seg_count: int,
@@ -86,3 +128,98 @@ def compose_finalize(acc: torch.Tensor, q_limbs, *, w: int, t: int) -> torch.Ten
             borrow = neg.to(acc.dtype)
         acc = torch.where(ge[..., None], torch.stack(subbed, dim=-1), acc)
     return acc
+
+
+def decompose_ref(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Plain version of the decompose kernel: segments (..., S) ->
+    residues (t, ...), the channels' SAU circuits stacked."""
+    return torch.stack([
+        decompose_stage(z, ch, seg_count=plan.seg_count, t_prime=plan.t_prime)
+        for ch in require_dec(plan)
+    ])
+
+
+def compose_ref(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Plain version of the compose kernel: residues (t, rows) -> limbs
+    (rows, L), the body of the reference's ``compose_pallas``."""
+    y = (residues * plan.qi_tilde_d[:, None]) % plan.qs_d[:, None]  # (t, rows)
+    acc = (y[:, :, None] * plan.qi_star_limbs_d[:, None, :]).sum(dim=0)  # (rows, L)
+    return compose_finalize(acc, plan.q_limbs, w=plan.w, t=plan.t)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_DECOMPOSE_ARGTYPES = [_P] * 9 + [_LL] + [_I] * 7 + [_P]
+_COMPOSE_ARGTYPES = [_P] * 6 + [_LL] + [_I] * 3 + [_P]
+
+
+def _check_plan_device(plan: RnsPlan, device: torch.device, fn: str) -> None:
+    if plan.qs_d.device != device:
+        raise ValueError(f"{fn}: plan lives on {plan.qs_d.device}, operand on {device}")
+
+
+def decompose_cuda(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Segments (rows, S) -> residues (t, rows) in one launch of
+    ``csrc/decompose.cu``.  CPU tensors run the plain version."""
+    if z.device.type == "cpu":
+        return decompose_ref(z, plan)
+    fn_name = "decompose_cuda"
+    S = plan.seg_count
+    rows = z.shape[0] if z.dim() == 2 else -1
+    check_operand(z, (rows, S), "z", fn_name)
+    if S > MAX_SEGMENTS:
+        raise ValueError(f"{fn_name}: S={S} exceeds the kernel's {MAX_SEGMENTS}")
+    dec = require_dec(plan)
+    launch = _build.load("decompose", "parentt_decompose", _DECOMPOSE_ARGTYPES)
+    _check_plan_device(plan, z.device, fn_name)
+    out = torch.empty((plan.t, rows), dtype=torch.int64, device=z.device)
+    if rows == 0:
+        return out
+    d = plan.dec_d
+    with torch.cuda.device(z.device):
+        code = launch(
+            ptr(z), ptr(out), ptr(plan.qs_d),
+            ptr(d["sau_eps"]), ptr(d["sau_s2"]), ptr(d["acc_eps"]),
+            ptr(d["beta_e"]), ptr(d["beta_s"]), ptr(d["block_consts"]),
+            rows, plan.t, S, plan.t_prime, d["beta_e"].shape[1], plan.n_blocks,
+            dec[0].acc_barrett[1], dec[0].acc_barrett[2], _build.stream_of(z),
+        )
+    _build.check("decompose", code)
+    decompose_cuda.launches += 1
+    return out
+
+
+decompose_cuda.launches = 0
+
+
+def compose_cuda(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Residues (t, rows) -> limbs (rows, L) in one launch of
+    ``csrc/compose.cu``.  CPU tensors run the plain version."""
+    if residues.device.type == "cpu":
+        return compose_ref(residues, plan)
+    fn_name = "compose_cuda"
+    t, L = plan.t, plan.L
+    rows = residues.shape[1] if residues.dim() == 2 else -1
+    check_operand(residues, (t, rows), "residues", fn_name)
+    if L > MAX_LIMBS:
+        raise ValueError(f"{fn_name}: L={L} exceeds the kernel's {MAX_LIMBS}")
+    launch = _build.load("compose", "parentt_compose", _COMPOSE_ARGTYPES)
+    _check_plan_device(plan, residues.device, fn_name)
+    out = torch.empty((rows, L), dtype=torch.int64, device=residues.device)
+    if rows == 0:
+        return out
+    with torch.cuda.device(residues.device):
+        code = launch(
+            ptr(residues), ptr(out), ptr(plan.qs_d),
+            ptr(plan.qi_tilde_d), ptr(plan.qi_star_limbs_d),
+            ptr(plan.q_limbs_d), rows, t, L, plan.w, _build.stream_of(residues),
+        )
+    _build.check("compose", code)
+    compose_cuda.launches += 1
+    return out
+
+
+compose_cuda.launches = 0

@@ -4,14 +4,19 @@ Backends
 --------
 * ``"torch"``          — the plain-PyTorch reference datapath (strict
   butterflies, SAU/Barrett RNS pre/post); mirrors the reference's ``jnp``.
-* ``"cuda_fused"``     — the cascade NTT -> (.) -> iNTT in one CUDA kernel
-  (:func:`repro_torch.kernels.ntt.fused_polymul_cuda`); decompose and
-  compose stay plain PyTorch until their kernels are ported.  Mirrors
-  ``pallas_fused``.
+* ``"cuda"``           — per-stage CUDA kernels: decompose (K5), NTT(a)
+  and NTT(b) (K3), the pointwise product in PyTorch elementwise ops, the
+  iNTT (K4) and compose (K6) are separate launches, so the residues and
+  spectra round-trip device memory between stages.  Mirrors ``pallas``.
+* ``"cuda_fused"``     — decompose (K5), the cascade NTT -> (.) -> iNTT in
+  one CUDA kernel (K1, :func:`repro_torch.kernels.ntt.fused_polymul_cuda`)
+  and compose (K6).  Mirrors ``pallas_fused``.
 * ``"cuda_fused_e2e"`` — decompose -> cascade -> compose in ONE CUDA
-  kernel (:func:`repro_torch.kernels.ntt.fused_e2e_polymul_cuda`);
+  kernel (K2, :func:`repro_torch.kernels.ntt.fused_e2e_polymul_cuda`);
   residues never reach device memory.  Mirrors ``pallas_fused_e2e``.  The
-  residue-domain product under it runs the fused cascade kernel.
+  stage entry points have no single-kernel form under it and take the
+  closest kernel datapath (:func:`_stage_backend`): the residue-domain
+  product runs K1, every other stage its ``cuda`` kernel.
 
 ``backend="auto"`` resolves to ``cuda_fused_e2e`` on a CUDA device and to
 ``torch`` on the CPU.  The kernel backends accept CPU tensors too: their
@@ -26,12 +31,14 @@ import torch
 
 from repro_torch.core import ntt as ntt_mod
 from repro_torch.core import rns as rns_mod
+from repro_torch.core.modmath import mul_mod
 from repro_torch.core.params import ParenttParams
 from repro_torch.errors import UnknownKnobError
+from repro_torch.kernels import crt as crt_kernels
 from repro_torch.kernels import ntt as ntt_kernels
 
-BACKENDS = ("torch", "cuda_fused", "cuda_fused_e2e")
-KERNEL_BACKENDS = ("cuda_fused", "cuda_fused_e2e")
+BACKENDS = ("torch", "cuda", "cuda_fused", "cuda_fused_e2e")
+KERNEL_BACKENDS = ("cuda", "cuda_fused", "cuda_fused_e2e")
 
 
 def validate_backend(backend: str) -> str:
@@ -47,6 +54,16 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     if backend == "auto":
         return "cuda_fused_e2e" if torch.device(device).type == "cuda" else "torch"
     return validate_backend(backend)
+
+
+def _stage_backend(backend: str, cascade: bool = False) -> str:
+    """Per-stage datapath of a backend: ``cuda_fused_e2e`` has no
+    standalone-stage kernels, so its stage entry points take the closest
+    kernel path (the cascade ``cuda_fused``, every other stage ``cuda``)."""
+    backend = validate_backend(backend)
+    if backend == "cuda_fused_e2e":
+        return "cuda_fused" if cascade else "cuda"
+    return backend
 
 
 # --------------------------------------------------------------------------
@@ -85,10 +102,37 @@ def _require_tables(params: ParenttParams, fn: str) -> ntt_mod.ChannelTables:
 # --------------------------------------------------------------------------
 
 
+def _fold_rows(x: torch.Tensor, params: ParenttParams) -> torch.Tensor:
+    """(t, ..., n) -> contiguous (t, rows, n), the kernels' layout."""
+    return x.reshape(params.t, -1, params.n).contiguous()
+
+
+def ntt_forward(a: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
+    """a: (t, ..., n) canonical residues -> forward NTT per RNS channel
+    (natural order in, bit-reversed out)."""
+    backend = _stage_backend(backend)
+    ct = _require_tables(params, "ntt_forward")
+    _check_residues(a, params, "ntt_forward")
+    if backend == "torch":
+        return ntt_mod.ntt_channels(a, ct)
+    return ntt_kernels.ntt_channels_cuda(_fold_rows(a, params), ct).reshape(a.shape)
+
+
+def ntt_inverse(a: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
+    """a: (t, ..., n) canonical bit-reversed spectra -> natural-order
+    residues per RNS channel."""
+    backend = _stage_backend(backend)
+    ct = _require_tables(params, "ntt_inverse")
+    _check_residues(a, params, "ntt_inverse")
+    if backend == "torch":
+        return ntt_mod.intt_channels(a, ct)
+    return ntt_kernels.intt_channels_cuda(_fold_rows(a, params), ct).reshape(a.shape)
+
+
 def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, params: ParenttParams, *,
                    backend: str) -> torch.Tensor:
     """(t, ..., n) x (t, ..., n) -> negacyclic products per RNS channel."""
-    backend = validate_backend(backend)
+    backend = _stage_backend(backend, cascade=True)
     ct = _require_tables(params, "negacyclic_mul")
     _check_residues(a, params, "negacyclic_mul")
     _check_residues(b, params, "negacyclic_mul")
@@ -98,26 +142,42 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, params: ParenttParams, *,
         )
     if backend == "torch":
         return ntt_mod.negacyclic_mul_channels(a, b, ct)
-    a3 = a.reshape(params.t, -1, params.n).contiguous()
-    b3 = b.reshape(params.t, -1, params.n).contiguous()
-    return ntt_kernels.fused_polymul_cuda(a3, b3, ct).reshape(a.shape)
+    a3, b3 = _fold_rows(a, params), _fold_rows(b, params)
+    if backend == "cuda_fused":
+        return ntt_kernels.fused_polymul_cuda(a3, b3, ct).reshape(a.shape)
+    # "cuda": per-stage kernels, the spectra round-trip device memory
+    fa = ntt_kernels.ntt_channels_cuda(a3, ct)
+    fb = ntt_kernels.ntt_channels_cuda(b3, ct)
+    q, _, eps = ntt_mod.channel_scalars(ct, 3)
+    prod = mul_mod(fa, fb, q, eps, ct.mul_shifts)
+    return ntt_kernels.intt_channels_cuda(prod, ct).reshape(a.shape)
 
 
-def rns_decompose(z: torch.Tensor, params: ParenttParams) -> torch.Tensor:
+def rns_decompose(z: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
     """z: (..., S) base-2^v segments -> residues (t, ...) through the Alg-2
-    SAU circuits (plain PyTorch)."""
+    SAU circuits; every kernel backend runs the decompose kernel (K5)."""
+    backend = _stage_backend(backend)
     _check_segments(z, params, "rns_decompose")
-    return rns_mod.decompose_sau(z, params.plan)
+    if backend == "torch":
+        return rns_mod.decompose_sau(z, params.plan)
+    z2 = z.reshape(-1, z.shape[-1]).contiguous()
+    return crt_kernels.decompose_cuda(z2, params.plan).reshape((params.t,) + z.shape[:-1])
 
 
-def rns_compose(residues: torch.Tensor, params: ParenttParams) -> torch.Tensor:
-    """residues: (t, ...) -> (..., L) base-2^w limbs (plain PyTorch)."""
+def rns_compose(residues: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
+    """residues: (t, ...) -> (..., L) base-2^w limbs; every kernel backend
+    runs the compose kernel (K6)."""
+    backend = _stage_backend(backend)
     if residues.dim() < 1 or residues.shape[0] != params.t:
         raise ValueError(
             f"rns_compose: expected residues (t={params.t}, ...), got shape "
             f"{tuple(residues.shape)}"
         )
-    return rns_mod.compose(residues, params.plan)
+    if backend == "torch":
+        return rns_mod.compose(residues, params.plan)
+    r2 = residues.reshape(params.t, -1).contiguous()
+    out = crt_kernels.compose_cuda(r2, params.plan)
+    return out.reshape(residues.shape[1:] + (params.plan.L,))
 
 
 # --------------------------------------------------------------------------
@@ -144,9 +204,10 @@ def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams,
             f"fused_polymul_e2e: operand shapes differ: {tuple(za.shape)} vs {tuple(zb.shape)}"
         )
     if backend != "cuda_fused_e2e":
-        ra = rns_decompose(za, params)
-        rb = rns_decompose(zb, params)
-        return rns_compose(negacyclic_mul(ra, rb, params, backend=backend), params)
+        ra = rns_decompose(za, params, backend=backend)
+        rb = rns_decompose(zb, params, backend=backend)
+        return rns_compose(negacyclic_mul(ra, rb, params, backend=backend), params,
+                           backend=backend)
     ct = _require_tables(params, "fused_polymul_e2e")
     lead = za.shape[:-2]
     z3a = za.reshape((-1,) + za.shape[-2:]).contiguous()

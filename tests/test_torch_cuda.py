@@ -13,6 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import bigint, polymul as host
+from repro_torch.kernels import crt
 from repro_torch.kernels import ntt as kern
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +54,44 @@ def test_kernels_match_plain_versions(cuda_device, n, t, v, rows):
     k2 = kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
     torch.cuda.synchronize()
     assert torch.equal(k2, kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan))
+
+
+@pytest.mark.parametrize("n,t,v,rows", PRESETS)
+def test_stage_kernels_match_plain_versions(cuda_device, n, t, v, rows):
+    pl = repro_torch.plan(n, t, v, device=cuda_device)
+    p = pl.params
+    za, _, ra, _ = _inputs(pl, rows, seed=n + v + 1, device=cuda_device)
+    z2 = za.reshape(-1, pl.config.seg_count)
+    r2 = ra.reshape(t, -1)
+    for got, want in (
+        (kern.ntt_channels_cuda(ra, p.tables), kern.ntt_channels_ref(ra, p.tables)),
+        (kern.intt_channels_cuda(ra, p.tables), kern.intt_channels_ref(ra, p.tables)),
+        (crt.decompose_cuda(z2, p.plan), crt.decompose_ref(z2, p.plan)),
+        (crt.compose_cuda(r2, p.plan), crt.compose_ref(r2, p.plan)),
+    ):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+STAGE_WRAPPERS = (kern.fused_polymul_cuda, kern.fused_e2e_polymul_cuda, kern.ntt_channels_cuda,
+                  kern.intt_channels_cuda, crt.decompose_cuda, crt.compose_cuda)
+
+
+@pytest.mark.parametrize("backend,want", [
+    # K1, K2, K3, K4, K5, K6 launches of one polymul call
+    ("cuda", (0, 0, 2, 1, 2, 1)),
+    ("cuda_fused", (1, 0, 0, 0, 2, 1)),
+])
+def test_staged_paths_launch_their_kernels(cuda_device, backend, want):
+    pl = repro_torch.plan(256, 6, 30, backend=backend)
+    za, zb, _, _ = _inputs(pl, 3, seed=2, device=pl.device)
+    for w in STAGE_WRAPPERS:
+        w.launches = 0
+    out = repro_torch.polymul(pl, za, zb)
+    torch.cuda.synchronize()
+    assert tuple(w.launches for w in STAGE_WRAPPERS) == want
+    e2e = repro_torch.polymul(repro_torch.plan(256, 6, 30), za, zb)
+    assert torch.equal(out, e2e)
 
 
 def test_main_path_launches_the_kernels(cuda_device):

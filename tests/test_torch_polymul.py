@@ -17,13 +17,14 @@ import repro_torch
 from repro_torch.core import bigint as tbigint
 from repro_torch.core import polymul as tpm
 from repro_torch.kernels import _build
+from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
 
 # (n, t, v): the three reduction regimes at n = 64 and the paper's t = 6
 PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30)]
 SMALL = [p for p in PRESETS if p[0] == 64]
 ROWS = 3  # not a power of two
-PORT_BACKENDS = ("torch", "cuda_fused", "cuda_fused_e2e")
+PORT_BACKENDS = ("torch", "cuda", "cuda_fused", "cuda_fused_e2e")
 
 
 def _inputs(n, t, v, seed):
@@ -128,7 +129,7 @@ def test_plan_config_resolution():
     assert (cfg.seg_count, cfg.w, cfg.L) == (3, 28, 4)
     assert repro_torch.plan(64, 3, 30, device="cpu").config == cfg
     assert repro_torch.plan(64, 3, 30, device="cpu", backend="cuda_fused").config != cfg
-    assert repro_torch.BACKENDS == ("torch", "cuda_fused", "cuda_fused_e2e")
+    assert repro_torch.BACKENDS == ("torch", "cuda", "cuda_fused", "cuda_fused_e2e")
 
 
 # --------------------------------------------------------------------------
@@ -193,7 +194,32 @@ class _FakeCudaTensor:
         return True
 
 
-@pytest.mark.parametrize("kernel", ["fused_polymul_cuda", "fused_e2e_polymul_cuda"])
+# wrapper -> (module, plain version, operand shapes at n = 64, t = 3, v = 30)
+WRAPPERS = {
+    "fused_polymul_cuda": (tkern, "fused_polymul_ref", [(3, 2, 64), (3, 2, 64)]),
+    "fused_e2e_polymul_cuda": (tkern, "fused_e2e_polymul_ref", [(2, 64, 3), (2, 64, 3)]),
+    "ntt_channels_cuda": (tkern, "ntt_channels_ref", [(3, 2, 64)]),
+    "intt_channels_cuda": (tkern, "intt_channels_ref", [(3, 2, 64)]),
+    "decompose_cuda": (tcrt, "decompose_ref", [(2, 3)]),
+    "compose_cuda": (tcrt, "compose_ref", [(3, 2)]),
+}
+
+
+def _launch_counts():
+    return {name: getattr(mod, name).launches for name, (mod, _, _) in WRAPPERS.items()}
+
+
+def _call_wrapper(name, operands, p):
+    mod = WRAPPERS[name][0]
+    extra = {
+        "fused_polymul_cuda": (p.tables,), "ntt_channels_cuda": (p.tables,),
+        "intt_channels_cuda": (p.tables,), "fused_e2e_polymul_cuda": (p.tables, p.plan),
+        "decompose_cuda": (p.plan,), "compose_cuda": (p.plan,),
+    }[name]
+    return getattr(mod, name)(*operands, *extra)
+
+
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, kernel):
     """On a CUDA tensor a wrapper loads and launches its kernel or raises;
     the loader's error propagates, and the plain version is never run."""
@@ -208,26 +234,27 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, kernel):
         raise AssertionError("plain version reached for a CUDA tensor")
 
     monkeypatch.setattr(_build, "load", loader)
-    monkeypatch.setattr(tkern, "fused_polymul_ref", plain)
-    monkeypatch.setattr(tkern, "fused_e2e_polymul_ref", plain)
+    for mod, ref, _ in WRAPPERS.values():
+        monkeypatch.setattr(mod, ref, plain)
     p = repro_torch.plan(64, 3, 30, device="cpu").params
-    before = (tkern.fused_polymul_cuda.launches, tkern.fused_e2e_polymul_cuda.launches)
-    if kernel == "fused_polymul_cuda":
-        x = _FakeCudaTensor(torch.zeros((3, 2, 64), dtype=torch.int64))
-        with pytest.raises(LoaderCalled, match="fused_polymul"):
-            tkern.fused_polymul_cuda(x, x, p.tables)
-    else:
-        z = _FakeCudaTensor(torch.zeros((2, 64, 3), dtype=torch.int64))
-        with pytest.raises(LoaderCalled, match="fused_e2e_polymul"):
-            tkern.fused_e2e_polymul_cuda(z, z, p.tables, p.plan)
-    assert (tkern.fused_polymul_cuda.launches, tkern.fused_e2e_polymul_cuda.launches) == before
+    before = _launch_counts()
+    shapes = WRAPPERS[kernel][2]
+    operands = [_FakeCudaTensor(torch.zeros(shape, dtype=torch.int64)) for shape in shapes]
+    with pytest.raises(LoaderCalled, match=kernel.removesuffix("_cuda")):
+        _call_wrapper(kernel, operands, p)
+    assert _launch_counts() == before
 
 
 def test_cpu_calls_do_not_count_as_launches():
-    p = repro_torch.plan(64, 3, 30, backend="cuda_fused_e2e", device="cpu")
-    before = (tkern.fused_polymul_cuda.launches, tkern.fused_e2e_polymul_cuda.launches)
+    before = _launch_counts()
     z = torch.zeros((1, 64, 3), dtype=torch.int64)
-    repro_torch.polymul(p, z, z)
-    repro_torch.negacyclic_mul(p, torch.zeros((3, 1, 64), dtype=torch.int64),
-                               torch.zeros((3, 1, 64), dtype=torch.int64))
-    assert (tkern.fused_polymul_cuda.launches, tkern.fused_e2e_polymul_cuda.launches) == before
+    r = torch.zeros((3, 1, 64), dtype=torch.int64)
+    for backend in PORT_BACKENDS[1:]:
+        p = repro_torch.plan(64, 3, 30, backend=backend, device="cpu")
+        repro_torch.polymul(p, z, z)
+        repro_torch.negacyclic_mul(p, r, r)
+        repro_torch.compose(p, repro_torch.decompose(p, z))
+        repro_torch.intt(p, repro_torch.ntt(p, r))
+    for name, (_, _, shapes) in WRAPPERS.items():
+        _call_wrapper(name, [torch.zeros(shape, dtype=torch.int64) for shape in shapes], p.params)
+    assert _launch_counts() == before
