@@ -7,13 +7,21 @@ GPU.  Run from the repository root with no arguments:
 Phases, each raising on failure (so the run exits non-zero):
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. the build of all six CUDA kernels (``nvcc``, one process per source,
-   all started together) into the checkout's ``build/``: K1 fused
-   cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse NTT, K5
-   decompose, K6 compose;
-3. each kernel against its plain PyTorch version on the card, exact
-   int64 equality, at the paper's point (n=4096, t=6, v=30, 256 rows) and
-   at n=64, t=3 in all three reduction regimes (v = 29, 30, 31);
+2. the build of all seven CUDA kernels (``nvcc``, one process per
+   source, all started together) into the checkout's ``build/``: K1
+   fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
+   NTT, K5 decompose, K6 compose, K7 flash attention;
+3. each kernel against its plain PyTorch version on the card: K1-K6 with
+   exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
+   rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
+   31); K7 in float32, every element within 1e-5 plus, for bfloat16
+   I/O, one bfloat16 step of the plain output, at the attention layers
+   of gemma2-2b (global and local prefill at 8192 tokens, decode against
+   an 8192-token cache) and yi-6b (prefill at 4096 tokens), all
+   bfloat16, and at a small sweep (padding, non-causal, window, softcap,
+   decode, the query that sees no key, every head dim and dtype the
+   kernel is built for); at each model shape a control that rounds the
+   probabilities to bfloat16 must fall outside that tolerance;
 4. the paths through the entry points a user calls, each with every
    launch counter zeroed just before it and read just after:
    ``repro_torch.plan(n=4096, t=6, v=30)`` (auto: ``cuda_fused_e2e``) ->
@@ -24,13 +32,21 @@ Phases, each raising on failure (so the run exits non-zero):
    host bigint oracle on two sampled rows; and the stage entry points
    ``ntt``, ``intt``, ``decompose``, ``compose`` on the auto plan, one
    launch of their kernel each, with ``intt(ntt(r)) == r`` and
-   ``compose(decompose(z))`` equal to z's integers;
+   ``compose(decompose(z))`` equal to z's integers; and
+   ``repro_torch.kernels.attention.flash_attention`` at the four model
+   shapes, one K7 launch and no other per call, its output finite and
+   within tolerance of the plain version;
 5. timings: the median CUDA-event time of each kernel over 20 launches
-   after warm-up, its plain version's time, and its bound;
+   after warm-up, its plain version's time, and its bound; K7 at each of
+   its four shapes, with a PyTorch call computing the same function timed
+   beside it as the yardstick (the port never calls it):
+   ``scaled_dot_product_attention`` at yi-6b, the compiled
+   ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend (host clock, synchronised).
 
-It prints a ``{"kernels": [...]}`` line and ends with
+It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
+numbers and a ``shapes`` list with all four) and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
 non-zero before printing any result.
@@ -38,6 +54,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -51,6 +68,9 @@ HBM_BYTES_PER_S = 3.35e12
 # No integer-64 rate is published; the scalar (non-tensor-core) peak of
 # 67 TOP/s is used, so the operation bound is optimistic.
 SCALAR_OPS_PER_S = 67e12
+# Dense bf16 tensor-core rate: the bound of K7's two products, whatever
+# units the kernel uses.
+BF16_FLOPS_PER_S = 989e12
 
 MAIN = dict(n=4096, t=6, v=30, rows=256)
 SMALL = [dict(n=64, t=3, v=v, rows=3) for v in (29, 30, 31)]
@@ -60,6 +80,50 @@ PLAIN_RUNS = 5
 E2E_RUNS = 10
 ORACLE_ROWS = (0, 255)
 SEED = 20260
+
+# K7 at the full attention layer of two model configurations of the repo
+# (src/repro/configs/gemma2_2b.py, yi_6b.py), bfloat16 as the LM computes:
+# name -> ((B, Sq, Skv, H, Hk, D), flash_attention keywords)
+ATTN_MODEL = {
+    "gemma2_global_prefill": ((1, 8192, 8192, 8, 4, 256), dict(softcap=50.0)),
+    "gemma2_local_prefill": ((1, 8192, 8192, 8, 4, 256), dict(window=4096, softcap=50.0)),
+    "gemma2_decode": ((16, 1, 8192, 8, 4, 256), dict(softcap=50.0, q_offset=8191)),
+    "yi6b_prefill": ((1, 4096, 4096, 32, 4, 128), {}),
+}
+ATTN_LIBRARY_SHAPE = "yi6b_prefill"  # its numbers head K7's entry (library: SDPA)
+# the sweep of tests/test_kernels_attention.py, the query that sees no key,
+# and every (dtype, head dim) the kernel is built for:
+# (name, (B, Sq, Skv, H, Hk, D), dtype, flash_attention keywords)
+ATTN_SMALL = [
+    ("mha", (1, 128, 128, 4, 4, 32), "float32", dict(blk_k=64)),
+    ("gqa", (2, 256, 256, 4, 2, 32), "float32", dict(blk_k=64)),
+    ("sq_lt_skv", (1, 128, 384, 8, 2, 64), "float32", dict(blk_k=64)),
+    ("ragged", (1, 96, 160, 4, 4, 32), "float32", dict(blk_k=64)),
+    ("non_causal", (1, 128, 128, 4, 4, 32), "float32", dict(causal=False, blk_k=64)),
+    ("window", (1, 256, 256, 4, 4, 32), "float32", dict(window=64, blk_k=64)),
+    ("softcap", (1, 128, 128, 4, 2, 32), "float32", dict(softcap=50.0, blk_k=64)),
+    ("softcap_bends", (1, 128, 200, 4, 2, 64), "float32", dict(softcap=1.0, q_offset=72)),
+    ("decode", (2, 1, 256, 4, 4, 32), "float32", dict(q_offset=200, blk_k=64)),
+    ("no_key_blk64", (1, 4, 100, 2, 1, 32), "float32", dict(window=8, q_offset=500, blk_k=64)),
+    ("no_key_blk128", (1, 4, 100, 2, 1, 32), "float32", dict(window=8, q_offset=500, blk_k=128)),
+    ("f32_d128", (1, 100, 200, 4, 2, 128), "float32", dict(window=50, softcap=30.0)),
+    ("f32_d256", (1, 70, 130, 2, 1, 256), "float32", dict(causal=False, window=40, q_offset=20)),
+    ("bf16_d32", (1, 128, 128, 4, 4, 32), "bfloat16", dict(blk_k=64)),
+    ("bf16_d64", (1, 90, 190, 4, 1, 64), "bfloat16", dict(q_offset=7)),
+    ("bf16_d128_softcap_bends", (1, 256, 256, 8, 4, 128), "bfloat16", dict(softcap=1.0)),
+]
+# K7 against its plain version, per output element in float32:
+# |kernel - plain| <= ATTN_ATOL, plus one bf16 step of the plain output
+# for bf16 I/O.  Both compute in float32 and round once to the output
+# type, so a value near a rounding boundary may land one step apart;
+# ATTN_ATOL covers the float32 summation order (under 1e-6 at the model
+# shapes).  A control that rounds P to bf16 before P @ V, as a bf16
+# tensor-core kernel would, must fall outside it at every model shape.
+ATTN_ATOL = 1e-5
+# the library calls' check that they compute the same function, per
+# element: they round P to bf16 before P @ V, which moves an output by up
+# to 2^-9 of its largest p * |v| terms, so they get 2^-8 past one step
+LIBRARY_ATOL = 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -209,9 +273,9 @@ def e2e_ops(pl, mode: int, window: int, rows: int) -> int:
     return rows * (t * cascade_ops(n, mode, window) + n * per_coeff)
 
 
-def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
+def bound(bytes_moved: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -244,7 +308,7 @@ def kernel_calls(pl, inputs):
 
 def wrappers():
     """Kernel name -> its wrapper, whose ``launches`` counts its launches."""
-    from repro_torch.kernels import crt
+    from repro_torch.kernels import attention, crt
     from repro_torch.kernels import ntt as kern
 
     return {
@@ -254,6 +318,7 @@ def wrappers():
         "intt_channels": kern.intt_channels_cuda,
         "decompose": crt.decompose_cuda,
         "compose": crt.compose_cuda,
+        "attention": attention.flash_attention_cuda,
     }
 
 
@@ -275,14 +340,14 @@ def expect_launches(got: dict, want: dict, what: str) -> None:
 
 
 def check_kernels(dev) -> dict[str, int]:
-    """Phase 3: each kernel against its plain version, exact equality."""
+    """Phase 3: K1-K6 against their plain versions, exact equality."""
     import numpy as np
     import torch
 
     import repro_torch
     from repro_torch.kernels import ntt as kern
 
-    max_err = dict.fromkeys(wrappers(), 0)
+    max_err = {name: 0 for name in KERNELS}
     for cfg in [MAIN] + SMALL:
         pl = repro_torch.plan(cfg["n"], cfg["t"], cfg["v"], device=dev)
         inputs = seeded_inputs(torch, np, pl, cfg["rows"], SEED + cfg["v"], dev)
@@ -394,7 +459,7 @@ def drive_main_path(pl):
     return launches, (za, zb, ra, rb)
 
 
-# kernel -> (source, the TPU kernel it replaces)
+# K1-K6: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_polymul": ("src/repro_torch/csrc/fused_polymul.cu", "src/repro/kernels/ntt.py:757"),
     "fused_e2e_polymul": ("src/repro_torch/csrc/fused_e2e_polymul.cu",
@@ -404,6 +469,8 @@ KERNELS = {
     "decompose": ("src/repro_torch/csrc/decompose.cu", "src/repro/kernels/crt.py:180"),
     "compose": ("src/repro_torch/csrc/compose.cu", "src/repro/kernels/crt.py:266"),
 }
+ATTN_SOURCE = "src/repro_torch/csrc/attention.cu"
+ATTN_REPLACES = "src/repro/kernels/attention.py:82"
 
 
 def work(pl, rows: int) -> dict[str, tuple[int, int]]:
@@ -457,6 +524,246 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
     return entries
 
 
+# --------------------------------------------------------------------------
+# K7: flash attention
+# --------------------------------------------------------------------------
+
+
+def attention_inputs(torch, shape, dtype: str, seed: int, device):
+    """Standard-normal q, k, v for ``shape`` = (B, Sq, Skv, H, Hk, D), made
+    on the card from ``seed`` and cast to ``dtype``."""
+    B, Sq, Skv, H, Hk, D = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(
+        torch.randn(size, generator=gen, device=device).to(getattr(torch, dtype))
+        for size in ((B, Sq, H, D), (B, Skv, Hk, D), (B, Skv, Hk, D))
+    )
+
+
+def bf16_step(torch, x):
+    """The spacing of bfloat16 values at each element of float32 ``x``:
+    2^(e-8) for |x| in [2^(e-1), 2^e), 0 at 0."""
+    mant, exp = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(mant), exp - 8))
+
+
+def attention_excess(torch, got, want, atol: float, what: str) -> tuple[float, int]:
+    """(max |got - want|, how many elements lie past atol plus, for bf16,
+    one bf16 step of ``want``), compared in float32; raises on a misshapen
+    or non-finite ``got``."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)}/{got.dtype} vs "
+                             f"{tuple(want.shape)}/{want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    if not got.numel():
+        return 0.0, 0
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    allowed = atol + bf16_step(torch, want) if bf16 else atol
+    return err.max().item(), int((err > allowed).sum().item())
+
+
+def attention_error(torch, got, want, what: str) -> float:
+    """max |got - want| in float32; raises unless every element is within
+    the K7 tolerance (ATTN_ATOL, plus one bf16 step for bf16 outputs)."""
+    err, past = attention_excess(torch, got, want, ATTN_ATOL, what)
+    if past:
+        raise AssertionError(f"{what}: {past} elements past the tolerance, "
+                             f"max |kernel - plain| = {err}")
+    return err
+
+
+def bf16_p_control(torch, q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **_):
+    """Plain attention that rounds P to bf16 before P @ V, as a bf16
+    tensor-core kernel would, and is otherwise exact in float32: what the
+    K7 tolerance must reject.  One kv head at a time, all scores at once."""
+    import math
+
+    B, Sq, H, D = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    g = H // Hk
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = k_pos <= q_pos if causal else torch.ones_like(k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    out = torch.empty_like(q)
+    for hk in range(Hk):
+        qh = q[:, :, hk * g:(hk + 1) * g].transpose(1, 2).float() / math.sqrt(D)
+        s = qh @ k[:, None, :, hk].float().transpose(-1, -2)  # (B, g, Sq, Skv)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        s = torch.where(mask, s, -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = (p.bfloat16().float() @ v[:, None, :, hk].float()) / p.sum(-1, keepdim=True)
+        out[:, :, hk * g:(hk + 1) * g] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def check_attention(dev):
+    """Phase 3 for K7: the kernel against its plain version at the small
+    sweep and the four model shapes, and at each model shape a bf16-P
+    control that the tolerance must reject.  Returns (max error, model
+    shape -> (its inputs, the plain output))."""
+    import torch
+
+    from repro_torch.kernels import attention
+
+    cases = ATTN_SMALL + [(name, shape, "bfloat16", kw) for name, (shape, kw) in ATTN_MODEL.items()]
+    max_err, model = 0.0, {}
+    for i, (name, shape, dtype, kw) in enumerate(cases):
+        q, k, v = attention_inputs(torch, shape, dtype, SEED + i, dev)
+        got = attention.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention.flash_attention_ref(q, k, v, **kw)
+        err = attention_error(torch, got, want, f"attention {name}")
+        max_err = max(max_err, err)
+        log(f"[kernels] attention {name} (B, Sq, Skv, H, Hk, D)={shape} {dtype} {kw}: "
+            f"max |kernel - plain| = {err:.3e}; every element within {ATTN_ATOL:g}"
+            + (" + one bf16 step" if dtype == "bfloat16" else ""))
+        if name in ATTN_MODEL:
+            model[name] = ((q, k, v), want)
+            c_err, c_past = attention_excess(torch, bf16_p_control(torch, q, k, v, **kw), want,
+                                             ATTN_ATOL, f"bf16-P control {name}")
+            if not c_past:
+                raise AssertionError(f"attention {name}: the tolerance passes a control that "
+                                     "rounds P to bf16")
+            log(f"[kernels] attention {name}: the bf16-P control is past the tolerance at "
+                f"{c_past} of {want.numel()} elements (max |control - plain| = {c_err:.3e})")
+    return max_err, model
+
+
+def drive_attention(model) -> dict[str, int]:
+    """Phase 4 for K7: the entry point ``flash_attention`` at the four model
+    shapes, each call with every launch counter zeroed just before it and
+    read just after: one K7 launch and no other.  Returns K7's launches
+    per shape."""
+    import torch
+
+    from repro_torch.kernels import attention
+
+    launches = {}
+    for name, ((q, k, v), want) in model.items():
+        kw = ATTN_MODEL[name][1]
+        out, got = counted(torch, lambda: attention.flash_attention(q, k, v, **kw))
+        expect_launches(got, {"attention": 1}, f"flash_attention ({name})")
+        err = attention_error(torch, out, want, f"flash_attention {name}")
+        launches[name] = got["attention"]
+        log(f"[main] flash_attention {name} q {tuple(q.shape)} k/v {tuple(k.shape)} {kw}: "
+            f"{got}; finite, max |out - plain| = {err:.3e}")
+    return launches
+
+
+def attention_work(shape, kw, itemsize: int) -> tuple[int, int]:
+    """(bytes K7 must move, FLOPs of its two products) for one call: the
+    port's traffic model at one query block (q, k, v read once, the output
+    written once); 4 * D FLOPs per (query, key) pair the masks leave
+    visible, per query head."""
+    import numpy as np
+
+    from repro_torch.kernels import attention
+
+    B, Sq, Skv, H, Hk, D = shape
+    q_pos = kw.get("q_offset", 0) + np.arange(Sq, dtype=np.int64)
+    window = kw.get("window")
+    lo = np.maximum(0, q_pos - window + 1) if window else np.zeros_like(q_pos)
+    hi = np.minimum(Skv, q_pos + 1) if kw.get("causal", True) else np.full_like(q_pos, Skv)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    nbytes = attention.hbm_bytes_per_call(B, Sq, Skv, H, Hk, D, blk_q=Sq, itemsize=itemsize)
+    return nbytes, 4 * D * pairs * B * H
+
+
+def library_call(torch, name, q, k, v):
+    """(one PyTorch call computing K7's function on these inputs, what it
+    is), set up before any timed window; the yardstick, never called by
+    the port.  yi-6b: ``scaled_dot_product_attention`` (causal, no
+    softcap), K and V expanded to H heads here.  gemma2: the compiled
+    ``flex_attention`` with a tanh-softcap ``score_mod`` and a causal or
+    sliding-window block mask, where this torch has it."""
+    import importlib.util
+
+    import torch.nn.functional as F
+
+    shape, kw = ATTN_MODEL[name]
+    qh = q.transpose(1, 2).contiguous()
+    if name == ATTN_LIBRARY_SHAPE:
+        g = q.shape[2] // k.shape[2]
+        kh, vh = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+        return (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).transpose(1, 2),
+                "scaled_dot_product_attention(is_causal=True), K/V expanded to H heads")
+    if importlib.util.find_spec("torch.nn.attention.flex_attention") is None:
+        return None, f"torch {torch.__version__} has no flex_attention"
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    cap, window, offset = kw["softcap"], kw.get("window"), kw.get("q_offset", 0)
+
+    def softcap(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / cap) * cap
+
+    def visible(b, h, q_idx, kv_idx):
+        seen = kv_idx <= q_idx + offset
+        return seen & (kv_idx > q_idx + offset - window) if window else seen
+
+    B, Sq, Skv = shape[:3]
+    mask = create_block_mask(visible, None, None, Sq, Skv, device=q.device)
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+    flex = torch.compile(flex_attention, dynamic=False)
+    return (lambda: flex(qh, kh, vh, score_mod=softcap, block_mask=mask,
+                         enable_gqa=True).transpose(1, 2),
+            "flex_attention (torch.compile) with a tanh softcap score_mod and a "
+            + ("sliding-window" if window else "causal") + " block mask, enable_gqa")
+
+
+def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
+    """Phase 5 for K7: kernel, plain-version and library times at the four
+    model shapes, beside the bound from these inputs; each library call is
+    first held against the plain version.  Returns the ``kernels`` entry:
+    the yi-6b numbers, and all four under ``shapes``."""
+    import torch
+
+    from repro_torch.kernels import attention
+
+    shapes = []
+    for name, ((q, k, v), want) in model.items():
+        shape, kw = ATTN_MODEL[name]
+        nbytes, flops = attention_work(shape, kw, q.element_size())
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        ms = time_launches(torch, lambda: attention.flash_attention_cuda(q, k, v, **kw),
+                           TIMED_LAUNCHES)
+        plain_ms = time_launches(torch, lambda: attention.flash_attention_ref(q, k, v, **kw),
+                                 PLAIN_RUNS, warmup=1)
+        library, note = library_call(torch, name, q, k, v)
+        library_ms = None
+        if library is not None:
+            err, past = attention_excess(torch, library(), want, LIBRARY_ATOL, f"library {name}")
+            if past:
+                raise AssertionError(f"library call at {name}: {past} elements past "
+                                     f"{LIBRARY_ATOL:g} + one bf16 step of the plain version, "
+                                     f"max |library - plain| = {err}: not the same function")
+            k7_past = attention_excess(torch, library(), want, ATTN_ATOL, f"library {name}")[1]
+            library_ms = time_launches(torch, library, TIMED_LAUNCHES)
+            note += (f"; max |library - plain| = {err:.3e}, {k7_past} elements past K7's "
+                     f"tolerance")
+        shapes.append({
+            "shape": name, "launches": launches[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+        })
+        log(f"[time] attention {name}: {ms:.4f} ms per launch (median of {TIMED_LAUNCHES}), "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+            f"{flops} FLOPs), library "
+            + (f"{library_ms:.4f} ms" if library_ms is not None else "null")
+            + f" ({note}); {ms / bound_ms:.1f}x the bound")
+    main = next(e for e in shapes if e["shape"] == ATTN_LIBRARY_SHAPE)
+    return {
+        "name": "attention", "route": "cuda", "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
+        "launches": sum(launches.values()), "max_abs_err": max_err,
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": ATTN_LIBRARY_SHAPE, "shapes": shapes,
+    }
+
+
 def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
     """Phase 6: wall milliseconds of one synchronised ``polymul`` call per
     backend at the main path's shape, median of E2E_RUNS after a warm-up."""
@@ -486,6 +793,9 @@ def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
 
 
 def main() -> int:
+    # the yardstick's torch.compile caches stay inside the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ[var] = str(ROOT / "build" / sub)
     import torch
 
     if not torch.cuda.is_available():
@@ -510,13 +820,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
-    max_err = check_kernels(torch.device("cuda", 0))
+    # the plain versions' float32 products run in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    max_err = check_kernels(dev)
+    attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
     if pl.config.backend != "cuda_fused_e2e" or pl.device.type != "cuda":
         raise AssertionError(f"plan() resolved to {pl.config}")
     launches, inputs = drive_main_path(pl)
+    attn_launches = drive_attention(attn_model)
     entries = time_kernels(pl, inputs, launches, max_err)
+    entries.append(time_attention(attn_model, attn_launches, attn_err))
     time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = (
     "fused_polymul", "fused_e2e_polymul",
-    "ntt_channels", "intt_channels", "decompose", "compose",
+    "ntt_channels", "intt_channels", "decompose", "compose", "attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -135,13 +135,16 @@ def stream_of(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def check_operand(x, shape: tuple, name: str, fn: str) -> None:
-    """Raise unless ``x`` is a contiguous int64 CUDA tensor of ``shape``."""
+def check_operand(x, shape: tuple, name: str, fn: str, dtypes=(torch.int64,)) -> None:
+    """Raise unless ``x`` is a contiguous CUDA tensor of ``shape`` with one
+    of ``dtypes`` (int64 for the integer kernels; the attention kernel
+    passes its float types)."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn}: {name} must be a CUDA tensor like the first operand, "
                          f"got one on {x.device}")
-    if x.dtype != torch.int64:
-        raise ValueError(f"{fn}: {name} must be int64, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{fn}: {name} must be {names}, got {x.dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{fn}: expected {name} of shape {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():

@@ -1,5 +1,6 @@
 """The PyTorch port's CUDA kernels on the card, against their plain
-PyTorch versions (exact int64 equality) and the host bigint oracle.
+PyTorch versions (exact int64 equality for K1-K6, a stated float
+tolerance for the attention kernel K7) and the host bigint oracle.
 
 The kernels have no CPU mode, so every test here is marked ``cuda`` and
 skips on a machine without a CUDA device.  This file imports neither JAX
@@ -13,7 +14,7 @@ import torch
 
 import repro_torch
 from repro_torch.core import bigint, polymul as host
-from repro_torch.kernels import crt
+from repro_torch.kernels import attention, crt
 from repro_torch.kernels import ntt as kern
 
 pytestmark = pytest.mark.cuda
@@ -125,3 +126,87 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kern.fused_polymul_cuda(a, a.cpu(), p.tables)
     empty = kern.fused_polymul_cuda(a[:, :0], a[:, :0], p.tables)
     assert empty.shape == (3, 0, 64)
+
+
+# K7 against its plain version: (B, Sq, Skv, H, Hk, D), dtype, keywords.
+# Every element within ATTN_ATOL in float32 (summation order only), plus
+# one bf16 step of the plain output for bfloat16 I/O (both round a
+# float32 result once, so a value near a rounding boundary may land one
+# step apart).  softcap=1.0 bends every score, not only the largest.
+ATTN_CASES = [
+    ((1, 96, 160, 4, 4, 32), torch.float32, dict(blk_k=64)),
+    ((2, 256, 256, 4, 2, 64), torch.float32, dict(window=64, softcap=50.0)),
+    ((1, 128, 128, 4, 4, 32), torch.float32, dict(causal=False)),
+    ((2, 1, 256, 4, 4, 128), torch.float32, dict(q_offset=200)),
+    ((1, 128, 200, 4, 2, 64), torch.float32, dict(softcap=1.0, q_offset=72)),
+    ((1, 4, 100, 2, 1, 32), torch.float32, dict(window=8, q_offset=500, blk_k=64)),
+    ((1, 4, 100, 2, 1, 32), torch.float32, dict(window=8, q_offset=500, blk_k=128)),
+    ((1, 70, 130, 2, 1, 256), torch.float32, dict(causal=False, window=40, q_offset=20)),
+    ((1, 1024, 1024, 8, 4, 256), torch.bfloat16, dict(window=512, softcap=50.0)),
+    ((1, 512, 512, 32, 4, 128), torch.bfloat16, {}),
+]
+ATTN_ATOL = 1e-5
+
+
+def _past_attention_tolerance(got, want) -> int:
+    """How many elements of ``got`` lie past ATTN_ATOL (plus one bf16 step
+    of ``want`` for bfloat16) from ``want``, compared in float32."""
+    err = (got.float() - want.float()).abs()
+    allowed = ATTN_ATOL
+    if got.dtype == torch.bfloat16:
+        mant, exp = torch.frexp(want.float())
+        allowed = allowed + torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(mant), exp - 8))
+    return int((err > allowed).sum())
+
+
+def _attention_inputs(shape, dtype, seed, device):
+    B, Sq, Skv, H, Hk, D = shape
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=size).astype(np.float32)).to(device, dtype)
+            for size in ((B, Sq, H, D), (B, Skv, Hk, D), (B, Skv, Hk, D))]
+
+
+@pytest.mark.parametrize("shape,dtype,kw", ATTN_CASES)
+def test_attention_kernel_matches_plain_version(cuda_device, monkeypatch, shape, dtype, kw):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _attention_inputs(shape, dtype, seed=sum(shape), device=cuda_device)
+    got = attention.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _past_attention_tolerance(got, want) == 0
+
+
+def test_attention_entry_point_launches_k7_once(cuda_device):
+    q, k, v = _attention_inputs((1, 200, 300, 8, 4, 64), torch.bfloat16, seed=3,
+                                device=cuda_device)
+    for w in (*STAGE_WRAPPERS, attention.flash_attention_cuda):
+        w.launches = 0
+    out = attention.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == 1
+    assert all(w.launches == 0 for w in STAGE_WRAPPERS)
+    pl = repro_torch.plan(256, 6, 30)
+    za, zb, _, _ = _inputs(pl, 2, seed=3, device=pl.device)
+    repro_torch.polymul(pl, za, zb)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == 1
+    want = attention.flash_attention_ref(q, k, v, window=100)
+    assert _past_attention_tolerance(out, want) == 0
+
+
+def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _attention_inputs((1, 4, 6, 2, 1, 32), torch.float32, seed=4, device=cuda_device)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q.to(torch.float64), k.double(), v.double())
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                                       v[..., :16].contiguous())
+    shifted = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+    with pytest.raises(ValueError):
+        attention.flash_attention_cuda(shifted, k, v)
+    empty = attention.flash_attention_cuda(q[:, :0], k, v)
+    assert empty.shape == (1, 0, 2, 32)

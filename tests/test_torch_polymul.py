@@ -17,6 +17,7 @@ import repro_torch
 from repro_torch.core import bigint as tbigint
 from repro_torch.core import polymul as tpm
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
 
@@ -194,7 +195,8 @@ class _FakeCudaTensor:
         return True
 
 
-# wrapper -> (module, plain version, operand shapes at n = 64, t = 3, v = 30)
+# wrapper -> (module, plain version, operand shapes at n = 64, t = 3, v = 30;
+# attention: q, k, v at B = 1, Sq = 4, Skv = 6, H = 2, Hk = 1, D = 32)
 WRAPPERS = {
     "fused_polymul_cuda": (tkern, "fused_polymul_ref", [(3, 2, 64), (3, 2, 64)]),
     "fused_e2e_polymul_cuda": (tkern, "fused_e2e_polymul_ref", [(2, 64, 3), (2, 64, 3)]),
@@ -202,7 +204,16 @@ WRAPPERS = {
     "intt_channels_cuda": (tkern, "intt_channels_ref", [(3, 2, 64)]),
     "decompose_cuda": (tcrt, "decompose_ref", [(2, 3)]),
     "compose_cuda": (tcrt, "compose_ref", [(3, 2)]),
+    "flash_attention_cuda": (tattn, "flash_attention_ref", [(1, 4, 2, 32), (1, 6, 1, 32),
+                                                            (1, 6, 1, 32)]),
 }
+OPERAND_DTYPE = {"flash_attention_cuda": torch.bfloat16}  # the others take int64
+SOURCE = {"flash_attention_cuda": "attention"}  # the others: the wrapper's name less _cuda
+
+
+def _operands(name, make):
+    return [make(shape, dtype=OPERAND_DTYPE.get(name, torch.int64))
+            for shape in WRAPPERS[name][2]]
 
 
 def _launch_counts():
@@ -214,7 +225,7 @@ def _call_wrapper(name, operands, p):
     extra = {
         "fused_polymul_cuda": (p.tables,), "ntt_channels_cuda": (p.tables,),
         "intt_channels_cuda": (p.tables,), "fused_e2e_polymul_cuda": (p.tables, p.plan),
-        "decompose_cuda": (p.plan,), "compose_cuda": (p.plan,),
+        "decompose_cuda": (p.plan,), "compose_cuda": (p.plan,), "flash_attention_cuda": (),
     }[name]
     return getattr(mod, name)(*operands, *extra)
 
@@ -238,9 +249,8 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch, kernel):
         monkeypatch.setattr(mod, ref, plain)
     p = repro_torch.plan(64, 3, 30, device="cpu").params
     before = _launch_counts()
-    shapes = WRAPPERS[kernel][2]
-    operands = [_FakeCudaTensor(torch.zeros(shape, dtype=torch.int64)) for shape in shapes]
-    with pytest.raises(LoaderCalled, match=kernel.removesuffix("_cuda")):
+    operands = [_FakeCudaTensor(x) for x in _operands(kernel, torch.zeros)]
+    with pytest.raises(LoaderCalled, match=SOURCE.get(kernel, kernel.removesuffix("_cuda"))):
         _call_wrapper(kernel, operands, p)
     assert _launch_counts() == before
 
@@ -255,6 +265,7 @@ def test_cpu_calls_do_not_count_as_launches():
         repro_torch.negacyclic_mul(p, r, r)
         repro_torch.compose(p, repro_torch.decompose(p, z))
         repro_torch.intt(p, repro_torch.ntt(p, r))
-    for name, (_, _, shapes) in WRAPPERS.items():
-        _call_wrapper(name, [torch.zeros(shape, dtype=torch.int64) for shape in shapes], p.params)
+    tattn.flash_attention(*_operands("flash_attention_cuda", torch.ones))
+    for name in WRAPPERS:
+        _call_wrapper(name, _operands(name, torch.zeros), p.params)
     assert _launch_counts() == before
