@@ -20,7 +20,9 @@ Phases, each raising on failure (so the run exits non-zero):
    an 8192-token cache) and yi-6b (prefill at 4096 tokens), all
    bfloat16, and at a small sweep (padding, non-causal, window, softcap,
    decode, the query that sees no key, every head dim and dtype the
-   kernel is built for); at each model shape a control that rounds the
+   kernel is built for, each of its three variants: ``wgmma`` for bf16
+   prefill, ``decode`` for bf16 with at most 8 query rows per kv head,
+   ``simt`` for float32); at each model shape a control that rounds the
    probabilities to bfloat16 must fall outside that tolerance;
 4. the paths through the entry points a user calls, each with every
    launch counter zeroed just before it and read just after:
@@ -34,14 +36,18 @@ Phases, each raising on failure (so the run exits non-zero):
    launch of their kernel each, with ``intt(ntt(r)) == r`` and
    ``compose(decompose(z))`` equal to z's integers; and
    ``repro_torch.kernels.attention.flash_attention`` at the four model
-   shapes, one K7 launch and no other per call, its output finite and
-   within tolerance of the plain version;
+   shapes, one K7 launch and no other per call, of the variant
+   ``ATTN_VARIANT`` names (``wgmma`` at the three prefill shapes,
+   ``decode`` at gemma2 decode), its output finite and within tolerance
+   of the plain version;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up, its plain version's time, and its bound; K7 at each of
    its four shapes, with a PyTorch call computing the same function timed
    beside it as the yardstick (the port never calls it):
    ``scaled_dot_product_attention`` at yi-6b, the compiled
-   ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b;
+   ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b; each
+   K7 variant's ptxas registers, spills and shared memory, and the
+   achieved TFLOP/s (prefill) or TB/s (decode);
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend (host clock, synchronised).
 
@@ -53,6 +59,7 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -91,6 +98,13 @@ ATTN_MODEL = {
     "yi6b_prefill": ((1, 4096, 4096, 32, 4, 128), {}),
 }
 ATTN_LIBRARY_SHAPE = "yi6b_prefill"  # its numbers head K7's entry (library: SDPA)
+# the K7 variant (attention.attention_variant) that serves each model shape
+ATTN_VARIANT = {
+    "gemma2_global_prefill": "wgmma",
+    "gemma2_local_prefill": "wgmma",
+    "gemma2_decode": "decode",
+    "yi6b_prefill": "wgmma",
+}
 # the sweep of tests/test_kernels_attention.py, the query that sees no key,
 # and every (dtype, head dim) the kernel is built for:
 # (name, (B, Sq, Skv, H, Hk, D), dtype, flash_attention keywords)
@@ -111,6 +125,14 @@ ATTN_SMALL = [
     ("bf16_d32", (1, 128, 128, 4, 4, 32), "bfloat16", dict(blk_k=64)),
     ("bf16_d64", (1, 90, 190, 4, 1, 64), "bfloat16", dict(q_offset=7)),
     ("bf16_d128_softcap_bends", (1, 256, 256, 8, 4, 128), "bfloat16", dict(softcap=1.0)),
+    ("bf16_d256_window", (1, 200, 300, 8, 4, 256), "bfloat16", dict(window=100, softcap=50.0)),
+    ("bf16_non_causal", (1, 130, 200, 2, 2, 128), "bfloat16", dict(causal=False)),
+    ("bf16_no_key_wgmma", (1, 70, 130, 2, 1, 64), "bfloat16", dict(window=8, q_offset=500)),
+    ("bf16_no_key_decode", (1, 4, 100, 2, 1, 32), "bfloat16", dict(window=8, q_offset=500,
+                                                                     blk_k=64)),
+    ("bf16_decode_ragged", (16, 1, 1000, 8, 4, 128), "bfloat16", dict(q_offset=999)),
+    ("bf16_decode_window", (4, 1, 3000, 8, 2, 64), "bfloat16", dict(q_offset=2999, window=700)),
+    ("bf16_decode_rows8", (2, 2, 517, 16, 4, 32), "bfloat16", dict(q_offset=515, softcap=50.0)),
 ]
 # K7 against its plain version, per output element in float32:
 # |kernel - plain| <= ATTN_ATOL, plus one bf16 step of the plain output
@@ -615,13 +637,14 @@ def check_attention(dev):
     max_err, model = 0.0, {}
     for i, (name, shape, dtype, kw) in enumerate(cases):
         q, k, v = attention_inputs(torch, shape, dtype, SEED + i, dev)
+        variant = attention.attention_variant(q.dtype, shape[5], shape[1], shape[3] // shape[4])
         got = attention.flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         want = attention.flash_attention_ref(q, k, v, **kw)
         err = attention_error(torch, got, want, f"attention {name}")
         max_err = max(max_err, err)
-        log(f"[kernels] attention {name} (B, Sq, Skv, H, Hk, D)={shape} {dtype} {kw}: "
-            f"max |kernel - plain| = {err:.3e}; every element within {ATTN_ATOL:g}"
+        log(f"[kernels] attention {name} (B, Sq, Skv, H, Hk, D)={shape} {dtype} {kw} "
+            f"[{variant}]: max |kernel - plain| = {err:.3e}; every element within {ATTN_ATOL:g}"
             + (" + one bf16 step" if dtype == "bfloat16" else ""))
         if name in ATTN_MODEL:
             model[name] = ((q, k, v), want)
@@ -645,14 +668,20 @@ def drive_attention(model) -> dict[str, int]:
     from repro_torch.kernels import attention
 
     launches = {}
+    counts = attention.flash_attention_cuda.variants
     for name, ((q, k, v), want) in model.items():
         kw = ATTN_MODEL[name][1]
+        counts.update(dict.fromkeys(counts, 0))
         out, got = counted(torch, lambda: attention.flash_attention(q, k, v, **kw))
         expect_launches(got, {"attention": 1}, f"flash_attention ({name})")
+        want_variants = {n: int(n == ATTN_VARIANT[name]) for n in attention.VARIANTS}
+        if counts != want_variants:
+            raise AssertionError(f"flash_attention ({name}): variants {counts}, expected "
+                                 f"{want_variants}")
         err = attention_error(torch, out, want, f"flash_attention {name}")
         launches[name] = got["attention"]
         log(f"[main] flash_attention {name} q {tuple(q.shape)} k/v {tuple(k.shape)} {kw}: "
-            f"{got}; finite, max |out - plain| = {err:.3e}")
+            f"{got}, variants {counts}; finite, max |out - plain| = {err:.3e}")
     return launches
 
 
@@ -716,6 +745,37 @@ def library_call(torch, name, q, k, v):
             + ("sliding-window" if window else "causal") + " block mask, enable_gqa")
 
 
+def attention_build_report() -> dict[str, list[str]]:
+    """K7 variant -> one line per compiled instance: head dim (and decode's
+    row bound), ptxas's registers and spill bytes, and the dynamic shared
+    memory of a block (decode's at its largest row bound)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    smem = _build.load("attention", "parentt_attention_smem", [ctypes.c_int, ctypes.c_int])
+    kinds = {"prefill_kernel": "wgmma", "decode_kernel": "decode", "attention_kernel": "simt"}
+    report, entry, entry_name = {v: [] for v in kinds.values()}, None, ""
+    for line in _build.ptxas_report("attention").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry_name = name = line.split("'")[1]
+            kind = next((v for k, v in kinds.items() if k in name), None)
+            entry = (kind, [int(x) for x in re.findall(r"Li(\d+)E", name)], "")
+        elif entry and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            entry = (*entry[:2], f"spills {stores} B stored, {loads} B loaded")
+        elif entry and entry[0] and "Used" in line and "registers" in line:
+            kind, args, spills = entry
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            nbytes = smem(list(kinds.values()).index(kind), args[-1 if kind == "simt" else 0])
+            report[kind].append(f"D={args[0] if kind != 'simt' else args[-1]}"
+                                + (f" rows<={args[1]}" if kind == "decode" else "")
+                                + (" softcap" if kind == "wgmma" and "Lb1E" in entry_name else "")
+                                + f": {regs} registers, {spills}, {nbytes} B shared memory")
+            entry = None
+    return report
+
+
 def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
     """Phase 5 for K7: kernel, plain-version and library times at the four
     model shapes, beside the bound from these inputs; each library call is
@@ -725,6 +785,9 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
 
     from repro_torch.kernels import attention
 
+    for kind, lines in attention_build_report().items():
+        for line in lines:
+            log(f"[ptxas attention {kind}] {line}")
     shapes = []
     for name, ((q, k, v), want) in model.items():
         shape, kw = ATTN_MODEL[name]
@@ -746,15 +809,22 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
             library_ms = time_launches(torch, library, TIMED_LAUNCHES)
             note += (f"; max |library - plain| = {err:.3e}, {k7_past} elements past K7's "
                      f"tolerance")
+        variant = ATTN_VARIANT[name]
         shapes.append({
-            "shape": name, "launches": launches[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": name, "variant": variant, "launches": launches[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
         })
-        log(f"[time] attention {name}: {ms:.4f} ms per launch (median of {TIMED_LAUNCHES}), "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-            f"{flops} FLOPs), library "
+        if variant == "decode":
+            rate = f"{nbytes / ms / 1e9:.3f} TB/s of the {HBM_BYTES_PER_S / 1e12:g} peak"
+        else:  # the split P makes the tensor cores do 6 D FLOPs a pair, the bound counts 4 D
+            rate = (f"{flops / ms / 1e9:.1f} TFLOP/s counted (4 D a pair), "
+                    f"{1.5 * flops / ms / 1e9:.1f} TFLOP/s issued to the tensor cores (6 D)")
+        log(f"[time] attention {name} [{variant}]: {ms:.4f} ms per launch (median of "
+            f"{TIMED_LAUNCHES}), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes} bytes, {flops} FLOPs), library "
             + (f"{library_ms:.4f} ms" if library_ms is not None else "null")
-            + f" ({note}); {ms / bound_ms:.1f}x the bound")
+            + f" ({note}); {ms / bound_ms:.1f}x the bound; {rate}")
     main = next(e for e in shapes if e["shape"] == ATTN_LIBRARY_SHAPE)
     return {
         "name": "attention", "route": "cuda", "source": ATTN_SOURCE, "replaces": ATTN_REPLACES,
@@ -817,7 +887,7 @@ def main() -> int:
     for name in _build.SOURCES:
         report = _build.ptxas_report(name)
         for line in report.read_text().splitlines() if report.exists() else []:
-            if "registers" in line or "spill" in line:
+            if ("Used" in line and "registers" in line) or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
     # the plain versions' float32 products run in full float32, not TF32

@@ -22,8 +22,14 @@ takes ``Skv_padded`` from the wrapper and gives the same answer.
 
 :func:`flash_attention` is the entry point.  The device of the tensors
 decides: CPU tensors run the plain version, CUDA tensors launch the
-kernel or raise.  ``flash_attention_cuda.launches`` counts the launches,
-and nothing else adds to it.
+kernel or raise.  K7 has three variants (see ``csrc/attention.cu``), and
+:func:`attention_variant` picks one from (dtype, D, Sq, H / Hk) alone:
+``wgmma`` (bf16 prefill on the tensor cores, P split into bf16 hi + lo),
+``decode`` (bf16, at most ``DECODE_MAX_ROWS`` query rows per kv head:
+split-KV with the combine in the same launch) and ``simt`` (float32 I/O,
+CUDA cores).  ``flash_attention_cuda.launches`` counts the launches and
+``flash_attention_cuda.variants`` the launches of each variant; nothing
+else adds to them.
 """
 from __future__ import annotations
 
@@ -42,6 +48,10 @@ NEG_INF = -1e30  # finite: exp(-inf - -inf) would be NaN
 # what the kernel is compiled for (csrc/attention.cu)
 HEAD_DIMS = (32, 64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("wgmma", "decode", "simt")
+DECODE_MAX_ROWS = 8  # query rows (Sq * H / Hk) of one kv head the decode variant holds
+DECODE_KEYS = 32  # keys per tile of the decode variant's ring
+DECODE_BLOCKS_PER_SM = 2  # decode blocks one SM holds (shared memory)
 
 
 def _shapes(q, k, v, fn: str) -> tuple[int, int, int, int, int, int]:
@@ -106,16 +116,61 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None, softcap: f
     return out
 
 
+def attention_variant(dtype: torch.dtype, D: int, Sq: int, group: int) -> str:
+    """The K7 variant that serves q of ``dtype`` with head dim ``D``, ``Sq``
+    query rows and ``group`` = H / Hk query heads per kv head: ``simt``
+    for float32, ``decode`` for bf16 with at most ``DECODE_MAX_ROWS``
+    rows per kv head, ``wgmma`` for the other bf16 shapes."""
+    if dtype not in KERNEL_DTYPES or D not in HEAD_DIMS:
+        raise ValueError(f"no K7 variant takes {dtype} at head dim {D}")
+    if dtype == torch.float32:
+        return "simt"
+    return "decode" if Sq * group <= DECODE_MAX_ROWS else "wgmma"
+
+
+def decode_splits(B: int, Hk: int, Skv: int, n_sm: int) -> tuple[int, int]:
+    """(key splits, ``DECODE_KEYS``-key tiles per split) of the decode
+    variant: at least one block per resident slot of the card (two waves
+    of its SMs), at least 8 tiles a split, and of those the count whose
+    last wave is fullest (the fewest splits on a tie)."""
+    tiles = max(1, -(-Skv // DECODE_KEYS))
+    slots = DECODE_BLOCKS_PER_SM * n_sm
+    # (splits, tiles a split) for every split size of at least 8 tiles
+    cuts = {-(-tiles // per): per for per in range(tiles, min(8, tiles) - 1, -1)}
+    counts = [n for n in cuts if B * Hk * n >= slots] or [max(cuts)]
+
+    def fill(n):  # share of the last wave's slots that hold a block
+        blocks = B * Hk * n
+        return blocks / (-(-blocks // slots) * slots)
+
+    best = max(counts, key=lambda n: (fill(n), -n))
+    return best, cuts[best]
+
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_LL] * 3 + [_F] * 2 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_LL] * 3 + [_F] * 2 + [_P]
+_DECODE_ARGTYPES = _ARGTYPES[:-1] + [_P, _P, _I, _I, _P]
+_ENTRY = {"wgmma": "parentt_attention_wgmma", "decode": "parentt_attention_decode",
+          "simt": "parentt_attention_simt"}
+_counters: dict[torch.device, torch.Tensor] = {}  # decode: one int32 per (batch, kv head)
+_sm_count: dict[torch.device, int] = {}
+
+
+def _decode_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The decode combine's counters on ``device``, allocated once (and
+    again only to grow); the kernel leaves them at zero."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None, softcap: float = 0.0,
                          q_offset: int = 0, blk_k: int = DEFAULT_BLK_K) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Skv, Hk, D) -> (B, Sq, H, D) in one launch
-    of ``csrc/attention.cu`` on the current stream.  CPU tensors run the
-    plain version.  The kernel takes float32 or bfloat16 (all three
-    alike), D in ``HEAD_DIMS`` and 16-byte aligned contiguous operands."""
+    of ``csrc/attention.cu`` on the current stream, of the variant
+    :func:`attention_variant` names.  CPU tensors run the plain version.
+    The kernel takes float32 or bfloat16 (all three alike), D in
+    ``HEAD_DIMS`` and 16-byte aligned contiguous operands."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                                    q_offset=q_offset, blk_k=blk_k)
@@ -128,25 +183,35 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None, softcap: 
         raise ValueError(f"{fn_name}: head dim {D} is not one of {HEAD_DIMS}")
     if H > 65535 or B > 65535:
         raise ValueError(f"{fn_name}: H={H} and B={B} must stay below 65536 (grid limits)")
-    launch = _build.load("attention", "parentt_attention", _ARGTYPES)
+    variant = attention_variant(q.dtype, D, Sq, H // Hk)
+    argtypes = _DECODE_ARGTYPES if variant == "decode" else _ARGTYPES
+    launch = _build.load("attention", _ENTRY[variant], argtypes)
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{fn_name}: {name} must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    args = [ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, H, Hk, D, int(bool(causal)),
+            int(window or 0), int(q_offset), padded_keys(Skv, blk_k), 1.0 / math.sqrt(D),
+            float(softcap)]
+    if variant == "decode":
+        if q.device not in _sm_count:
+            _sm_count[q.device] = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split, per = decode_splits(B, Hk, Skv, _sm_count[q.device])
+        part = torch.empty(B * Hk * n_split * Sq * (H // Hk) * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        args += [ptr(part), ptr(_decode_counters(q.device, B * Hk)), n_split, per]
     with torch.cuda.device(q.device):
-        code = launch(
-            ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, H, Hk, D,
-            int(q.dtype == torch.bfloat16), int(bool(causal)), int(window or 0), int(q_offset),
-            padded_keys(Skv, blk_k), 1.0 / math.sqrt(D), float(softcap), _build.stream_of(q),
-        )
+        code = launch(*args, _build.stream_of(q))
     _build.check("attention", code)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variants[variant] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variants = dict.fromkeys(VARIANTS, 0)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None, softcap: float = 0.0,

@@ -210,3 +210,41 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         attention.flash_attention_cuda(shifted, k, v)
     empty = attention.flash_attention_cuda(q[:, :0], k, v)
     assert empty.shape == (1, 0, 2, 32)
+
+
+# K7's variants at bf16 (attention_variant picks them by shape), each
+# case asserting which one ran: (B, Sq, Skv, H, Hk, D), keywords, variant.
+ATTN_VARIANT_CASES = [
+    ((1, 128, 128, 4, 4, 32), dict(blk_k=64), "wgmma"),
+    ((1, 90, 190, 4, 1, 64), dict(q_offset=7), "wgmma"),
+    ((1, 256, 256, 8, 4, 128), dict(softcap=1.0), "wgmma"),
+    ((1, 200, 300, 8, 4, 256), dict(window=100, softcap=50.0), "wgmma"),
+    ((1, 130, 200, 2, 2, 128), dict(causal=False), "wgmma"),
+    # decode: B = 16, one query, GQA; 1000 keys, which no split divides
+    ((16, 1, 8192, 8, 4, 256), dict(q_offset=8191, softcap=50.0), "decode"),
+    ((16, 1, 1000, 8, 4, 128), dict(q_offset=999), "decode"),
+    # a window that leaves the early splits without a visible key
+    ((4, 1, 3000, 8, 2, 64), dict(q_offset=2999, window=700), "decode"),
+    ((2, 2, 517, 16, 4, 32), dict(q_offset=515, softcap=50.0), "decode"),
+    # the query that sees no key at all, in bf16, in both bf16 variants
+    ((1, 4, 100, 2, 1, 32), dict(window=8, q_offset=500, blk_k=64), "decode"),
+    ((1, 70, 130, 2, 1, 64), dict(window=8, q_offset=500), "wgmma"),
+]
+
+
+@pytest.mark.parametrize("shape,kw,variant", ATTN_VARIANT_CASES)
+def test_attention_variants_match_plain_version(cuda_device, monkeypatch, shape, kw, variant):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _attention_inputs(shape, torch.bfloat16, seed=sum(shape), device=cuda_device)
+    before = dict(attention.flash_attention_cuda.variants)
+    got = attention.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in attention.flash_attention_cuda.variants.items()}
+    assert ran == {n: int(n == variant) for n in attention.VARIANTS}
+    want = attention.flash_attention_ref(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert _past_attention_tolerance(got, want) == 0
+    if variant == "decode":  # the combine leaves its counters at zero for the next call
+        again = attention.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, got)
