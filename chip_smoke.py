@@ -10,12 +10,16 @@ Phases, each raising on failure (so the run exits non-zero):
 2. the build of all seven CUDA kernels (``nvcc``, one process per
    source, all started together) into the checkout's ``build/``: K1
    fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
-   NTT, K5 decompose, K6 compose, K7 flash attention;
+   NTT, K5 decompose, K6 compose, K7 flash attention; ptxas's registers,
+   stack frame and spills of each K2 and K5 instance (``[ptxas]``);
 3. each kernel against its plain PyTorch version on the card: K1-K6 with
    exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
    rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
-   31); K7 in float32, every element within 1e-5 plus, for bfloat16
-   I/O, one bfloat16 step of the plain output, at the attention layers
+   31), and K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
+   ``plan()`` admits in each regime (``E2E_WIDE``), as clusters of
+   min(t, 8) CTAs of which the card holds at least one; K7 in float32,
+   every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
+   of the plain output, at the attention layers
    of gemma2-2b (global and local prefill at 8192 tokens, decode against
    an 8192-token cache) and yi-6b (prefill at 4096 tokens), all
    bfloat16, and at a small sweep (padding, non-causal, window, softcap,
@@ -41,7 +45,10 @@ Phases, each raising on failure (so the run exits non-zero):
    ``decode`` at gemma2 decode), its output finite and within tolerance
    of the plain version;
 5. timings: the median CUDA-event time of each kernel over 20 launches
-   after warm-up, its plain version's time, and its bound; K7 at each of
+   after warm-up, its plain version's time, and its bound (beside it
+   the bound from PR 11-14's operation counts); K2 also at
+   one row (the latency case) with the clusters the card holds at once
+   (``cudaOccupancyMaxActiveClusters``); K7 at each of
    its four shapes, with a PyTorch call computing the same function timed
    beside it as the yardstick (the port never calls it):
    ``scaled_dot_product_attention`` at yi-6b, the compiled
@@ -50,6 +57,10 @@ Phases, each raising on failure (so the run exits non-zero):
    achieved TFLOP/s (prefill) or TB/s (decode);
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend (host clock, synchronised).
+
+``python3 chip_smoke.py --time-k2 DIR`` times only K2 of the checkout at
+DIR (for instance the parent commit unpacked with ``git archive``), as
+phase 5 times it, and prints one ``[time-k2]`` line.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four) and ends with
@@ -81,6 +92,17 @@ BF16_FLOPS_PER_S = 989e12
 
 MAIN = dict(n=4096, t=6, v=30, rows=256)
 SMALL = [dict(n=64, t=3, v=v, rows=3) for v in (29, 30, 31)]
+# K2 at twice the paper's n, which one CTA per channel now holds, and at
+# the largest (n, t) plan() admits in each regime (lazy W=4, lazy W=2,
+# strict) with one channel a CTA (n = 16384) and two (n = 8192)
+E2E_WIDE = [dict(n=8192, t=6, v=30, rows=4)] + [
+    dict(n=n, t=t, v=v, rows=2)
+    for n, t, v in ((16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
+                    (8192, 10, 29), (8192, 14, 30), (8192, 13, 31))
+]
+LATENCY_ROWS = 1  # K2 is also timed at one row: the latency the paper is about
+BACK_TO_BACK = 50  # calls queued behind one spin of the card (time_back_to_back)
+SPIN_CYCLES = 50_000_000  # about 30 ms at the H100's clock: longer than issuing them
 MAIN_CALLS = 3
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 5
@@ -192,6 +214,26 @@ def exact(got, want, what: str) -> int:
     return err
 
 
+def time_back_to_back(torch, fn, launches: int, warmup: int = 3) -> float:
+    """Milliseconds of device time per call over ``launches`` calls queued
+    back to back behind a spin of the card, so the host's time to issue
+    each call is hidden: what a launch costs the card, where
+    ``time_launches`` (one call between two events) also counts the
+    host's issue time for a short kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def time_launches(torch, fn, launches: int, warmup: int = 3) -> float:
     """Median milliseconds of one call over ``launches`` CUDA-event timed calls."""
     for _ in range(warmup):
@@ -211,8 +253,9 @@ def time_launches(torch, fn, launches: int, warmup: int = 3) -> float:
 
 # --------------------------------------------------------------------------
 # work counts for the bound: integer operations the function needs on these
-# inputs, one unit per 64-bit add, sub, mul, shift, mask, compare, select or
-# remainder (a conditional subtraction is compare + sub + select = 3)
+# inputs, one unit per add, sub, mul, shift, mask, compare, select or
+# remainder, 32- or 64-bit (a conditional subtraction is compare + sub +
+# select = 3)
 # --------------------------------------------------------------------------
 
 COND_SUB = 3
@@ -255,9 +298,9 @@ def cascade_ops(n: int, mode: int, window: int) -> int:
     return 2 * butterflies * ct + butterflies * gs + n * (point + _canon(mode, window))
 
 
-def decompose_ops(S: int, t_prime: int, n_terms: int) -> int:
-    """One residue of one coefficient through the Alg-2 SAU circuit."""
-    sau = 1 + 3 * n_terms
+def decompose_ops(S: int, t_prime: int, sau: int = 1) -> int:
+    """One residue of one coefficient through the Alg-2 SAU circuit, its
+    SAU network (Eq 5) ``sau`` operations: one product by beta."""
     ops = 0
     for rho in range(-(-S // t_prime)):
         base = rho * t_prime
@@ -271,26 +314,33 @@ def decompose_ops(S: int, t_prime: int, n_terms: int) -> int:
     return ops + BARRETT
 
 
-def compose_tail_ops(t: int, L: int) -> int:
-    """The Eq-10 limb sums, carry ripple and t - 1 conditional
-    subtractions of one coefficient."""
-    return 2 * t * L + 3 * L + (t - 1) * 6 * L
+def compose_tail_ops(t: int, L: int, quotient: bool = True) -> int:
+    """The Eq-10 limb sums and tail of one coefficient: the quotient
+    floor(value / q) from t multiply-adds, a carry ripple that subtracts
+    it times q, and one conditional correction (``quotient``); else a
+    plain carry ripple and t - 1 conditional subtractions."""
+    if quotient:
+        return 2 * t * L + (t + 1) + 5 * L + 2 * COND_SUB * L
+    return 2 * t * L + 3 * L + (t - 1) * 2 * COND_SUB * L
 
 
-def channel_decompose_ops(pl) -> int:
-    """One coefficient's residues in all t channels (K5)."""
+def channel_decompose_ops(pl, earlier: bool = False) -> int:
+    """One coefficient's residues in all t channels (K5).  ``earlier``:
+    PR 11-14's count, the SAU network as 1 + 3 n_terms shifts and adds
+    (with the compose tail's t - 1 subtractions, more than the function
+    needs; printed beside the bound only so earlier bounds compare)."""
     rp = pl.params.plan
-    n_terms = max(len(c.beta_terms) for c in rp.dec)
-    return rp.t * decompose_ops(rp.seg_count, rp.t_prime, n_terms)
+    sau = 1 + 3 * max(len(c.beta_terms) for c in rp.dec) if earlier else 1
+    return rp.t * decompose_ops(rp.seg_count, rp.t_prime, sau)
 
 
-def e2e_ops(pl, mode: int, window: int, rows: int) -> int:
+def e2e_ops(pl, mode: int, window: int, rows: int, earlier: bool = False) -> int:
     rp = pl.params.plan
     n, t, L = rp.n, rp.t, rp.L
     per_coeff = (
-        2 * channel_decompose_ops(pl)
+        2 * channel_decompose_ops(pl, earlier)
         + t * (_canon(mode, window) + _mul_mod(mode))
-        + compose_tail_ops(t, L)
+        + compose_tail_ops(t, L, quotient=not earlier)
     )
     return rows * (t * cascade_ops(n, mode, window) + n * per_coeff)
 
@@ -383,7 +433,35 @@ def check_kernels(dev) -> dict[str, int]:
         log(f"[kernels] n={cfg['n']} t={cfg['t']} v={cfg['v']} rows={cfg['rows']} "
             f"(mode, window)={kern.reduction_mode(pl.params.tables)[:2]}: "
             + ", ".join(shapes) + " equal their plain versions bit for bit")
+    for cfg in E2E_WIDE:
+        pl = repro_torch.plan(cfg["n"], cfg["t"], cfg["v"], backend="cuda_fused_e2e", device=dev)
+        p = pl.params
+        za, zb, _, _ = seeded_inputs(torch, np, pl, cfg["rows"], SEED + 1, dev)
+        got = kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
+        torch.cuda.synchronize()
+        err = exact(got, kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan), f"fused_e2e {cfg}")
+        max_err["fused_e2e_polymul"] = max(max_err["fused_e2e_polymul"], err)
+        expect_cluster(pl, f"fused_e2e {cfg}")
+        clusters = kern.e2e_max_active_clusters(p.tables, p.plan)
+        if clusters < 1:
+            raise AssertionError(f"fused_e2e {cfg}: the card holds no cluster")
+        smem = kern.e2e_smem_bytes(cfg["n"], cfg["t"], pl.config.seg_count, pl.config.L)
+        log(f"[kernels] n={cfg['n']} t={cfg['t']} v={cfg['v']} rows={cfg['rows']} "
+            f"(mode, window)={kern.reduction_mode(p.tables)[:2]}: fused_e2e_polymul "
+            f"{tuple(got.shape)}, clusters of {kern.fused_e2e_polymul_cuda.cluster} CTAs "
+            f"({smem} B of shared memory at most), {clusters} clusters resident, equals its "
+            "plain version bit for bit")
     return max_err
+
+
+def expect_cluster(pl, what: str) -> None:
+    """K2's last launch ran as clusters of min(t, 8) CTAs a row."""
+    from repro_torch.kernels import ntt as kern
+
+    want = min(pl.config.t, kern.MAX_CLUSTER)
+    if kern.fused_e2e_polymul_cuda.cluster != want:
+        raise AssertionError(f"{what}: cluster of {kern.fused_e2e_polymul_cuda.cluster} CTAs, "
+                             f"expected {want}")
 
 
 def check_oracle(pl, za, zb, out, what: str) -> None:
@@ -418,14 +496,16 @@ def drive_main_path(pl):
     outs, got = counted(torch, lambda: [repro_torch.polymul(pl, za, zb)
                                         for _ in range(MAIN_CALLS)])
     expect_launches(got, {"fused_e2e_polymul": MAIN_CALLS}, "polymul (auto)")
+    expect_cluster(pl, "polymul (auto)")
     launches["fused_e2e_polymul"] = got["fused_e2e_polymul"]
     plain = kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan)
     for out in outs:
         exact(out, plain, "polymul vs plain")
     check_oracle(pl, za, zb, outs[0], "polymul (auto)")
     e2e = outs[0]
-    log(f"[main] polymul x{MAIN_CALLS} on {tuple(za.shape)}: {got}; equal to the plain "
-        f"version on all rows and to the host oracle on rows {ORACLE_ROWS}")
+    log(f"[main] polymul x{MAIN_CALLS} on {tuple(za.shape)}: {got}, clusters of "
+        f"{kern.fused_e2e_polymul_cuda.cluster} CTAs; equal to the plain version on all rows "
+        f"and to the host oracle on rows {ORACLE_ROWS}")
 
     # the residue-domain product on the auto plan: K1 alone
     prods, got = counted(torch, lambda: [repro_torch.negacyclic_mul(pl, ra, rb)
@@ -495,10 +575,11 @@ ATTN_SOURCE = "src/repro_torch/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention.py:82"
 
 
-def work(pl, rows: int) -> dict[str, tuple[int, int]]:
+def work(pl, rows: int, earlier: bool = False) -> dict[str, tuple[int, int]]:
     """Kernel -> (bytes it must move, integer operations it needs) at the
     main path's shapes with ``rows`` rows: each input read once, each
-    output written once, as int64 words."""
+    output written once, as int64 words (``earlier``: PR 11-14's operation
+    counts)."""
     from repro_torch.kernels import ntt as kern
 
     cfg = pl.config
@@ -508,14 +589,15 @@ def work(pl, rows: int) -> dict[str, tuple[int, int]]:
     return {
         "fused_polymul": (3 * polys * cfg.n * 8, polys * cascade_ops(cfg.n, mode, window)),
         "fused_e2e_polymul": ((2 * cfg.seg_count + cfg.L) * coeffs * 8,
-                              e2e_ops(pl, mode, window, rows)),
+                              e2e_ops(pl, mode, window, rows, earlier)),
         "ntt_channels": (2 * polys * cfg.n * 8,
                          polys * transform_ops(cfg.n, mode, window, inverse=False)),
         "intt_channels": (2 * polys * cfg.n * 8,
                           polys * transform_ops(cfg.n, mode, window, inverse=True)),
-        "decompose": ((cfg.seg_count + cfg.t) * coeffs * 8, coeffs * channel_decompose_ops(pl)),
+        "decompose": ((cfg.seg_count + cfg.t) * coeffs * 8,
+                      coeffs * channel_decompose_ops(pl, earlier)),
         "compose": ((cfg.t + cfg.L) * coeffs * 8,
-                    coeffs * (2 * cfg.t + compose_tail_ops(cfg.t, cfg.L))),
+                    coeffs * (2 * cfg.t + compose_tail_ops(cfg.t, cfg.L, quotient=not earlier))),
     }
 
 
@@ -526,6 +608,7 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
 
     calls = kernel_calls(pl, inputs)
     counts = work(pl, inputs[0].shape[0])
+    earlier = work(pl, inputs[0].shape[0], earlier=True)
     entries = []
     for name, (source, replaces) in KERNELS.items():
         fn, ref = calls[name]
@@ -533,17 +616,108 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
         ms = time_launches(torch, fn, TIMED_LAUNCHES)
         plain_ms = time_launches(torch, ref, PLAIN_RUNS, warmup=1)
         bound_ms, bound_by = bound(nbytes, ops)
+        earlier_ms, earlier_by = bound(*earlier[name])
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": None, "bound_ms_earlier_count": earlier_ms,
         })
         log(f"[time] {name}: {ms:.4f} ms per launch (median of {TIMED_LAUNCHES}), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-            f"{ops} int ops); no single PyTorch call computes this function, so "
+            f"{ops} int ops; PR 11-14's count: {earlier_ms:.4f} ms by {earlier_by}, "
+            f"{earlier[name][1]} int ops); no single PyTorch call computes this function, so "
             f"library_ms is null")
+    entries[[e["name"] for e in entries].index("fused_e2e_polymul")].update(
+        time_e2e_latency(pl, inputs))
     return entries
+
+
+def time_e2e_latency(pl, inputs) -> dict:
+    """K2 at LATENCY_ROWS rows of the main path's inputs, beside its bound
+    there, and how many of its clusters the card holds at once."""
+    import torch
+
+    from repro_torch.kernels import ntt as kern
+
+    p = pl.params
+    times = k2_times(torch, kern, pl, *inputs[:2])
+    nbytes, ops = work(pl, LATENCY_ROWS)["fused_e2e_polymul"]
+    bound_ms, bound_by = bound(nbytes, ops)
+    clusters = kern.e2e_max_active_clusters(p.tables, p.plan)
+    cluster = kern.e2e_cluster(pl.config.t)[0]
+    log(f"[time] fused_e2e_polymul at {LATENCY_ROWS} row: {times['latency_ms']:.4f} ms per "
+        f"launch (median of {TIMED_LAUNCHES}, one call between two events), "
+        f"{times['latency_device_ms']:.4f} ms back to back (device time, {BACK_TO_BACK} calls); "
+        f"at {inputs[0].shape[0]} rows {times['device_ms']:.4f} ms back to back; bound at "
+        f"{LATENCY_ROWS} row {bound_ms:.4f} ms by {bound_by}; clusters of {cluster} CTAs "
+        f"({kern.e2e_threads(pl.config.n)} threads, "
+        f"{kern.e2e_smem_bytes(pl.config.n, pl.config.t, pl.config.seg_count, pl.config.L)} B "
+        f"of shared memory at most), {clusters} clusters resident on the card at once "
+        "(cudaOccupancyMaxActiveClusters)")
+    return {"rows": inputs[0].shape[0], "latency_rows": LATENCY_ROWS, **times,
+            "latency_bound_ms": bound_ms, "cluster": cluster, "max_active_clusters": clusters}
+
+
+def k2_times(torch, kern, pl, za, zb) -> dict[str, float]:
+    """K2 at LATENCY_ROWS rows (one call between two events, and back to
+    back) and at all of ``za``'s rows back to back."""
+    p = pl.params
+    za1, zb1 = za[:LATENCY_ROWS], zb[:LATENCY_ROWS]
+    one = lambda: kern.fused_e2e_polymul_cuda(za1, zb1, p.tables, p.plan)
+    full = lambda: kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
+    return {"latency_ms": time_launches(torch, one, TIMED_LAUNCHES),
+            "latency_device_ms": time_back_to_back(torch, one, BACK_TO_BACK),
+            "device_ms": time_back_to_back(torch, full, TIMED_LAUNCHES)}
+
+
+def time_k2_checkout(checkout: Path) -> int:
+    """``--time-k2 DIR``: K2 of the checkout at DIR (its ``src/`` imported,
+    its kernels built into its ``build/``) at the main path's shape, as
+    ``k2_times`` measures it, so two commits compare in one call."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(checkout.resolve() / "src"))
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
+    za, zb, _, _ = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
+    out = kern.fused_e2e_polymul_cuda(za, zb, pl.params.tables, pl.params.plan)
+    exact(out, kern.fused_e2e_polymul_ref(za, zb, pl.params.tables, pl.params.plan), "K2")
+    times = k2_times(torch, kern, pl, za, zb)
+    times["ms"] = time_launches(torch, lambda: kern.fused_e2e_polymul_cuda(
+        za, zb, pl.params.tables, pl.params.plan), TIMED_LAUNCHES)
+    log(card_line())
+    log(f"[time-k2] {checkout} ({repro_torch.__file__}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()))
+    return 0
+
+
+def ptxas_entries(name: str) -> list[str]:
+    """One line per kernel instance that ``-Xptxas -v`` reported for
+    ``csrc/<name>.cu``: its template arguments, registers, stack frame and
+    spills."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    lines, entry = [], None
+    for line in _build.ptxas_report(name).read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            entry = {"args": ",".join(re.findall(r"L[ib](\d+)E", mangled)) or "-"}
+        elif entry is not None and "stack frame" in line:
+            entry["frame"] = line.strip()
+        elif entry is not None and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"<{entry['args']}>: {regs} registers, {entry.get('frame', '')}")
+            entry = None
+    return lines
 
 
 # --------------------------------------------------------------------------
@@ -863,6 +1037,8 @@ def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
+        return time_k2_checkout(Path(sys.argv[2]))
     # the yardstick's torch.compile caches stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / sub)
@@ -885,6 +1061,10 @@ def main() -> int:
     log(f"[build] {len(built)} sources in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for name in _build.SOURCES:
+        if name in ("fused_e2e_polymul", "decompose"):  # per instance, with its template arguments
+            for line in ptxas_entries(name):
+                log(f"[ptxas {name}] {line}")
+            continue
         report = _build.ptxas_report(name)
         for line in report.read_text().splitlines() if report.exists() else []:
             if ("Used" in line and "registers" in line) or "spill" in line:

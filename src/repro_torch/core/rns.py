@@ -54,7 +54,10 @@ class RnsPlan:
     qi_tilde: np.ndarray  # (t,): (q/q_i)^-1 mod q_i
     qi_star_limbs: np.ndarray  # (t, L): q/q_i in base 2^w
     q_limbs: np.ndarray  # (L,)
-    # per-channel in-kernel decompose constants; None when the int64
+    # per-channel in-kernel decompose constants (their device arrays
+    # ``dec_d``: dec_arrays plus what the CUDA kernels take besides, the
+    # block-product Barrett constants ``block_m`` and the SAU multipliers
+    # ``beta``); None when the int64
     # kernels cannot serve the config (v > 31, or an SAU word outside the
     # 63-bit-safe Barrett window 2*(v1 + 4) <= 63)
     dec: tuple[ChannelDecompose, ...] | None = None
@@ -71,18 +74,34 @@ class RnsPlan:
             object.__setattr__(self, name + "_d", dev)
         dec_d = None
         if self.dec is not None:
-            dec_d = {
-                k: torch.as_tensor(v, device=self.device)
-                for k, v in dec_arrays(self).items()
-            }
+            arrays = dec_arrays(self)
+            arrays["block_m"] = np.array(
+                [block_barrett_constant(c.qi, c.acc_barrett[1]) for c in self.dec], dtype=np.int64
+            )
+            arrays["beta"] = np.array(
+                [sum(s << e for e, s in c.beta_terms) - 1 for c in self.dec], dtype=np.int64
+            )
+            dec_d = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
         object.__setattr__(self, "dec_d", dec_d)
+
+
+def block_barrett_constant(q: int, s1: int) -> int:
+    """m = floor(2^(s1+32) / q) of the decompose kernels' block-product
+    reduction, for q of s1 + 1 bits (s1 <= 30): with x' = x >> s1 and
+    qhat = (x' * m) >> 32, x - qhat*q lies in [0, 3q) for every x < 2^(2 s1 + 2),
+    so two conditional subtractions give x mod q (csrc/parentt.cuh
+    ``block_barrett``).  Both x' and m are below 2^32, so the kernel's quotient
+    is one ``__umulhi``."""
+    if int(q).bit_length() != s1 + 1 or s1 > 30:
+        raise ValueError(f"block Barrett needs q of s1 + 1 <= 31 bits, got q={q}, s1={s1}")
+    return (1 << (s1 + 32)) // int(q)
 
 
 def dec_arrays(plan: RnsPlan) -> dict[str, np.ndarray]:
     """Stacked (t, ...) int64 views of ``plan.dec``, one row per channel,
     SAU terms zero-padded to the widest channel (a zero sign contributes
-    nothing to the shift/add network).  The CUDA e2e kernel reads its
-    per-channel decompose constants from these."""
+    nothing to the shift/add network): the layout of the reference's
+    ``plan_dec_arrays``."""
     if plan.dec is None:
         raise ValueError(f"plan (v={plan.v}) has no in-kernel decompose constants")
     dec = plan.dec

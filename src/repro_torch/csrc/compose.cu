@@ -47,7 +47,10 @@ __global__ void __launch_bounds__(256) compose_kernel(const ComposeArgs args) {
       args.star, args.t, args.L);
   compose_finalize(acc, args.q_limbs, args.L, args.w, args.t);
   i64* po = args.out + (size_t)row * args.L;
-  for (int l = 0; l < args.L; ++l) po[l] = acc[l];
+#pragma unroll
+  for (int l = 0; l < kMaxLimbs; ++l) {
+    if (l < args.L) po[l] = acc[l];
+  }
 }
 
 }  // namespace

@@ -7,30 +7,69 @@
 // (src/repro/kernels/ntt.py:802) with its bodies _make_fused_e2e_kernel
 // (:479) and _make_fused_e2e_chgrid_kernel (:530).
 //
-// Design: one block per row.  The TPU version runs the channels as an
-// ordered grid axis and accumulates y_i * q^_i into a revisited output
-// block; Hopper blocks run in no order, so here the block itself loops
-// over the t channels.  It decomposes both operands into all t channels
-// at once (each segment is read from device memory exactly once) and
-// keeps the 2t residue polynomials in shared memory as 32-bit words
-// (8tn bytes: 192 KB at n = 4096, t = 6, under the 227 KB a block may
-// opt in to).  Each channel then runs the shared cascade in place and
-// overwrites its `a` slot with y_i = p_i * q~_i mod q_i.  After the last
-// channel every thread sums the t terms y_i * q^_i per limb for its own
-// coefficients, runs the carry ripple and the t - 1 conditional
-// subtractions, and writes its limbs once.
+// Design: one thread-block cluster of C = min(t, 8) CTAs per row.  The TPU
+// version runs the channels as an ordered grid axis and accumulates
+// y_i * q^_i into a revisited output block; here the channels are spread
+// over the cluster and meet through distributed shared memory (DSMEM).
+// CTA r of a cluster
+//
+// * owns the channels r, r + C, ... (one at t <= 8), each as two 32-bit
+//   residue polynomials in its shared memory (8n bytes a channel, padded
+//   by one word in 16 against bank conflicts), and the coefficient slice
+//   [ceil(r n / C), ceil((r + 1) n / C)), which is uneven when C does not
+//   divide n;
+// * decompose: copies its slice's segments of both operands, a chunk at a
+//   time, into shared memory (cp.async, coalesced), runs every channel's
+//   SAU circuit on them (half the threads per operand) and stores each
+//   residue straight into the owning CTA's shared memory over DSMEM;
+//   cluster.sync();
+// * cascade: per owned channel, NTT(a) and NTT(b), the pointwise product,
+//   the iNTT and y_i = p_i * q~_i mod q_i.  A thread keeps 2^G
+//   coefficients of both operands in registers across G <= 3 stages, so a
+//   transform takes ceil(log2(n) / 3) trips through shared memory, and the
+//   last forward trip, the product and the first inverse trip are one (at
+//   n = 4096: 6 barriers a channel, against 37 when every stage is one);
+//   cluster.sync();
+// * compose: reads y_i of its slice from every peer over DSMEM, runs the
+//   Eq-10 limb sums and the tail (the quotient floor(value / q) =
+//   floor(sum y_i / q_i) estimated in double and corrected by one
+//   conditional add or subtract of q, in place of t - 1 conditional
+//   subtractions), stages the (chunk, L)
+//   limbs in shared memory and writes them coalesced; a last
+//   cluster.sync() keeps its shared memory alive until every peer has read
+//   it.
+//
+// Butterflies and products are 32-bit, the decompose's SAU network one
+// product by beta (parentt.cuh); the regime (lazy W = 2, lazy W = 4,
+// strict) and the limb bound MAXL are template parameters, so the limb
+// sums live in registers.  One launch through cudaLaunchKernelEx with the
+// cluster dimension; a cluster that cannot be scheduled comes back as the
+// launch error.
 //
 // What bounds it on an H100: device memory sees 2S int64 segments in and
-// L int64 limbs out per coefficient; the 64-bit integer work of 3t
-// transforms (emulated with 32-bit instructions, plus software 64-bit %
-// for the decompose block products, q~ products at q of 31 bits and the
-// v = 31 butterflies) dominates.  The shared-memory working set allows one
-// block per SM, so a batch below 132 rows leaves SMs idle.
+// L int64 limbs out per coefficient; the 3t transforms, the SAU networks
+// and the limb sums are integer work of a larger order (the operation
+// bound).  At n = 4096, t = 6 a row takes 6 CTAs of 256 threads and
+// about 50 KB each, so up to four CTAs share an SM and a one-row call
+// spreads over 6 SMs.
+#include <cooperative_groups.h>
+
 #include "parentt.cuh"
 
+namespace cg = cooperative_groups;
 using namespace parentt;
 
 namespace {
+
+constexpr int kMaxCluster = 8;
+constexpr int kMaxGroup = 3;  // stages a thread runs from registers per pass
+static_assert(kMaxGroup == 3, "PARENTT_DISPATCH_G instantiates passes of 1 to 3 stages");
+// Two 512-thread CTAs (four of 256) an SM: at most 64 registers a thread
+// in the lazy regimes.  The strict regime (v = 31) needs more and keeps
+// one CTA of 512 (two of 256) rather than spill.
+constexpr int kMinBlocks = 2;
+
+enum Regime : int { kLazy2 = 0, kLazy4 = 1, kStrict = 2 };
 
 struct E2EArgs {
   const i64* za;
@@ -55,88 +94,402 @@ struct E2EArgs {
   int t;
   int S;
   int L;
-  int t_prime;
   int w;
   int mode;
   int window;
   int beta;
   int s1;
   int s2;
+  int cluster;  // C: CTAs per row
+  int slots;    // channels a CTA owns at most: ceil(t / C)
+  int group;    // K: stages per register pass
 };
 
-__global__ void __launch_bounds__(kMaxThreads) fused_e2e_polymul_kernel(const E2EArgs args) {
-  extern __shared__ res_t smem[];
+// Geometry shared by the launch and the kernel (kernels/ntt.py mirrors it
+// in e2e_threads and e2e_smem_bytes).
+__host__ __device__ inline int e2e_threads(int n) {
+  const int t = n / 16 < 32 ? 32 : (n / 16 > kMaxThreads ? kMaxThreads : n / 16);
+  return t < n / 2 ? t : n / 2;
+}
+__host__ __device__ inline int padded(int n) { return n + n / 16; }
+// int64 words of the staging area: a chunk of threads / 2 coefficients'
+// segments per operand in, a chunk of `threads` coefficients' limbs out.
+__host__ __device__ inline int stage_words_of(int threads, int S, int L) {
+  const int in = 2 * (threads / 2) * S;
+  return in > threads * L ? in : threads * L;
+}
+// Bytes of the residue polynomials, rounded to 16 for the staging after them.
+__host__ __device__ inline size_t residue_bytes(int n, int slots) {
+  return ((size_t)slots * 2 * padded(n) * sizeof(res_t) + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t e2e_dynamic_smem(int n, int slots, int S, int L) {
+  return residue_bytes(n, slots) + (size_t)stage_words_of(e2e_threads(n), S, L) * sizeof(i64);
+}
+
+// Element i of a residue polynomial in shared memory: one pad word per 16.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// Channel c's Reduce with the regime fixed at compile time; under the
+// strict % regime its products take the channel's block Barrett.
+template <int REG>
+__device__ __forceinline__ Reduce e2e_reduce(const E2EArgs& a, int c, const DecomposeShared& dsh) {
+  Reduce r = channel_reduce(a.qs, a.half, a.eps, c, a.mode, a.window, a.beta, a.s1, a.s2);
+  if (REG != kStrict) {
+    r.mode = kLazy;
+    r.window = REG == kLazy2 ? 2 : 4;
+  }
+  if (REG == kLazy2) r.beta = 32;
+  if (REG == kStrict) {
+    r.bm = (res_t)dsh.ch[c].block_m;
+    r.bs1 = dsh.s1;
+  }
+  return r;
+}
+
+// Forward CT stages s0 + J .. s0 + G - 1 in registers: x[m] (and y[m]) is
+// element hi * (n >> s0) + m * (n >> (s0 + G)) + lo.  Stage s0 + j pairs
+// m with m + 2^(G-1-j) and uses twiddle fwd[2^(s0+j) + (hi << j) + (m >> (G-j))].
+// One stage per template level, so every loop bound and register index is
+// a compile-time constant.
+template <int G, int J = 0>
+__device__ __forceinline__ void ct_group(res_t (&x)[1 << G], res_t (&y)[1 << G], int hi, int s0,
+                                         const i64* __restrict__ fwd,
+                                         const i64* __restrict__ fwd_sh, const Reduce& r) {
+  if constexpr (J < G) {
+    constexpr int half = 1 << (G - 1 - J);
+    const int base = (1 << (s0 + J)) + (hi << J);
+#pragma unroll
+    for (int b = 0; b < (1 << J); ++b) {
+      res_t w, ws;
+      load_twiddle(fwd, fwd_sh, base + b, r, w, ws);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        ct_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
+        ct_butterfly(y[b * 2 * half + k], y[b * 2 * half + k + half], w, ws, r);
+      }
+    }
+    ct_group<G, J + 1>(x, y, hi, s0, fwd, fwd_sh, r);
+  }
+}
+
+// Inverse GS stages s0 + J .. s0 + G - 1 in registers: x[m] is element
+// hi * 2^(s0+G) + m * 2^s0 + lo.  Stage s0 + j pairs m with m + 2^j and
+// uses twiddle inv[(n >> (s0+j+1)) + (hi << (G-j-1)) + (m >> (j+1))].
+template <int G, int J = 0>
+__device__ __forceinline__ void gs_group(res_t (&x)[1 << G], int hi, int s0, int log_n,
+                                         const i64* __restrict__ inv,
+                                         const i64* __restrict__ inv_sh, const Reduce& r) {
+  if constexpr (J < G) {
+    constexpr int half = 1 << J;
+    const int base = (1 << (log_n - 1 - s0 - J)) + (hi << (G - 1 - J));
+#pragma unroll
+    for (int b = 0; b < (1 << (G - 1 - J)); ++b) {
+      res_t w, ws;
+      load_twiddle(inv, inv_sh, base + b, r, w, ws);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        gs_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
+      }
+    }
+    gs_group<G, J + 1>(x, hi, s0, log_n, inv, inv_sh, r);
+  }
+}
+
+// Tables of one channel.
+struct ChannelTabs {
+  const i64* fwd;
+  const i64* inv;
+  const i64* fwd_sh;
+  const i64* inv_sh;
+};
+
+// A pass of G forward stages from s0 over both operands in place.
+template <int G>
+__device__ __forceinline__ void forward_pass(res_t* A, res_t* B, int s0, int log_n,
+                                             const ChannelTabs& tb, const Reduce& r) {
+  const int log_st = log_n - s0 - G;
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int hi = p >> log_st;
+    const int base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1));
+    res_t x[1 << G], y[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      const int i = pad(base + (m << log_st));
+      x[m] = A[i];
+      y[m] = B[i];
+    }
+    ct_group<G>(x, y, hi, s0, tb.fwd, tb.fwd_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      const int i = pad(base + (m << log_st));
+      A[i] = x[m];
+      B[i] = y[m];
+    }
+  }
+}
+
+// The last G forward stages, the canonical pointwise product and the
+// first G inverse stages: both passes touch the same 2^G contiguous
+// elements, so they share one trip through shared memory.
+template <int G>
+__device__ __forceinline__ void middle_pass(res_t* A, const res_t* B, int log_n,
+                                            const ChannelTabs& tb, const Reduce& r) {
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int base = p << G;
+    res_t x[1 << G], y[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      x[m] = A[pad(base + m)];
+      y[m] = B[pad(base + m)];
+    }
+    ct_group<G>(x, y, p, log_n - G, tb.fwd, tb.fwd_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r);
+    gs_group<G>(x, p, 0, log_n, tb.inv, tb.inv_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) A[pad(base + m)] = x[m];
+  }
+}
+
+// A pass of G inverse stages from s0 in place; the last pass also forms
+// y = canonical(p) * q~ mod q.
+template <int G>
+__device__ __forceinline__ void inverse_pass(res_t* A, int s0, int log_n, bool last, res_t tilde,
+                                             const ChannelTabs& tb, const Reduce& r) {
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int hi = p >> s0;
+    const int base = (hi << (s0 + G)) + (p & ((1 << s0) - 1));
+    res_t x[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) x[m] = A[pad(base + (m << s0))];
+    gs_group<G>(x, hi, s0, log_n, tb.inv, tb.inv_sh, r);
+    if (last) {
+#pragma unroll
+      for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), tilde, r);
+    }
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) A[pad(base + (m << s0))] = x[m];
+  }
+}
+
+// g in 1 .. kMaxGroup
+#define PARENTT_DISPATCH_G(g, CALL) \
+  switch (g) {                      \
+    case 1: CALL(1); break;         \
+    case 2: CALL(2); break;         \
+    default: CALL(3); break;        \
+  }
+
+// The cascade of one channel on its two polynomials, ending with y in A.
+// Passes: forward g0, K, ..., K (the last inside middle_pass), inverse K
+// (inside middle_pass), K, ..., g0, with g0 = log_n - K (passes - 1).
+// K <= log2(n / threads) < log_n, so there are at least two passes.
+__device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, int log_n, int K, res_t tilde,
+                                                const ChannelTabs& tb, const Reduce& r) {
+  const int passes = (log_n + K - 1) / K;
+  const int g0 = log_n - K * (passes - 1);
+  int s0 = 0;
+  for (int q = 0; q + 1 < passes; ++q) {
+    const int g = q == 0 ? g0 : K;
+#define FWD(G) forward_pass<G>(A, B, s0, log_n, tb, r)
+    PARENTT_DISPATCH_G(g, FWD)
+#undef FWD
+    s0 += g;
+    __syncthreads();
+  }
+#define MID(G) middle_pass<G>(A, B, log_n, tb, r)
+  PARENTT_DISPATCH_G(K, MID)
+#undef MID
+  __syncthreads();
+  s0 = K;
+  for (int q = passes - 2; q >= 0; --q) {
+    const int g = q == 0 ? g0 : K;
+#define INV(G) inverse_pass<G>(A, s0, log_n, q == 0, tilde, tb, r)
+    PARENTT_DISPATCH_G(g, INV)
+#undef INV
+    s0 += g;
+    __syncthreads();
+  }
+}
+
+template <int REG, int MAXL>
+__global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
+    fused_e2e_polymul_kernel(const E2EArgs args) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ DecomposeShared dsh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = args.cluster;
+  const int rank = (int)cluster.block_rank();
+  const size_t row = blockIdx.x / C;
   const int n = 1 << args.log_n;
-  res_t* ra = smem;                        // (t, n) residues of a, then y_i
-  res_t* rb = smem + (size_t)args.t * n;   // (t, n) residues of b
-  const size_t row = blockIdx.x;
+  const int PS = padded(n);  // polynomial stride in shared memory
+  const int T = blockDim.x;
+  const int S = args.S, L = args.L, t = args.t;
+  res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (slots, 2, PS)
+  i64* stage = reinterpret_cast<i64*>(smem_raw + residue_bytes(n, args.slots));
+  const int j0 = (rank * n + C - 1) / C;
+  const int j1 = ((rank + 1) * n + C - 1) / C;
 
-  // Step 1: Alg-2 SAU decompose of both operands into every channel.
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    i64 za[kMaxSegments], zb[kMaxSegments];
-    const size_t seg = (row * n + j) * args.S;
-    for (int k = 0; k < args.S; ++k) {
-      za[k] = args.za[seg + k];
-      zb[k] = args.zb[seg + k];
-    }
-    for (int c = 0; c < args.t; ++c) {
-      const Decompose d = channel_decompose(args.dec, c);
-      ra[(size_t)c * n + j] = (res_t)decompose(za, args.S, args.t_prime, d);
-      rb[(size_t)c * n + j] = (res_t)decompose(zb, args.S, args.t_prime, d);
-    }
-  }
-  __syncthreads();
+  load_decompose(dsh, args.dec);
+  cluster.sync();  // every CTA of the cluster runs before any DSMEM store
 
-  // Steps 2-3: per channel, the cascade, then y_i = p_i * q~_i mod q_i.
-  for (int c = 0; c < args.t; ++c) {
-    const Reduce r = channel_reduce(args.qs, args.half, args.eps, c, args.mode, args.window,
-                                    args.beta, args.s1, args.s2);
-    const size_t off = (size_t)c * n;
-    cascade(ra + off, rb + off, args.fwd + off, args.inv + off, args.fwd_sh + off,
-            args.inv_sh + off, r, args.log_n);
-    const i64 tilde = args.tilde[c];
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      ra[off + j] = (res_t)mul_mod(canonicalize(ra[off + j], r), tilde, r);
+  // Step 1: decompose this CTA's slice of both operands into every
+  // channel, each residue stored in its owner's shared memory.
+  const int CH = T / 2;
+  const int op = threadIdx.x / CH;  // 0: a, 1: b
+  const int jj = threadIdx.x - op * CH;
+  for (int jc = j0; jc < j1; jc += CH) {
+    const int cnt = min(CH, j1 - jc);
+    const size_t seg = (row * n + jc) * S;
+    stage_words(stage, args.za + seg, cnt * S);
+    stage_words(stage + CH * S, args.zb + seg, cnt * S);
+    __syncthreads();
+    if (jj < cnt) {
+      const i64* z = stage + (op * CH + jj) * S;
+      const int at = (op * PS) + pad(jc + jj);
+      int owner = 0, slot = 0;
+      for (int c = 0; c < t; ++c) {
+        const i64 x = decompose<REG != kStrict>(z, S, dsh.ch[c], dsh);
+        cluster.map_shared_rank(res, owner)[slot * 2 * PS + at] = (res_t)x;
+        if (++owner == C) owner = 0, ++slot;
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
+  cluster.sync();
 
-  // Step 4: Eq-10 limb sums and the compose tail, one write per limb.
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    i64 acc[kMaxLimbs];
-    crt_limb_sums(acc, [&](int c) { return (i64)ra[(size_t)c * n + j]; }, args.star, args.t,
-                  args.L);
-    compose_finalize(acc, args.q_limbs, args.L, args.w, args.t);
-    i64* po = args.out + (row * n + j) * args.L;
-    for (int l = 0; l < args.L; ++l) po[l] = acc[l];
+  // Steps 2-3: the cascade and y_i = p_i * q~_i mod q_i per owned channel.
+  for (int slot = 0; slot < args.slots; ++slot) {
+    const int c = rank + slot * C;
+    if (c >= t) break;
+    const Reduce r = e2e_reduce<REG>(args, c, dsh);
+    const size_t tab = (size_t)c * n;
+    const ChannelTabs tb{args.fwd + tab, args.inv + tab, args.fwd_sh + tab, args.inv_sh + tab};
+    res_t* A = res + (size_t)slot * 2 * PS;
+    channel_cascade(A, A + PS, args.log_n, args.group, (res_t)args.tilde[c], tb, r);
   }
+  cluster.sync();
+
+  // Step 4: Eq-10 limb sums over the peers' y, the compose tail, and the
+  // (chunk, L) limbs staged and written coalesced.
+  for (int jc = j0; jc < j1; jc += T) {
+    const int cnt = min(T, j1 - jc);
+    const int j = threadIdx.x;
+    if (j < cnt) {
+      const int at = pad(jc + j);
+      i64 acc[MAXL];
+      int owner = 0, off = at;  // channel c sits on CTA c % C at slot c / C
+      double quotient = 0.0;    // sum_c y_c / q_c
+      crt_limb_sums(
+          acc,
+          [&](int c) {
+            const res_t y = cluster.map_shared_rank(res, owner)[off];
+            if (++owner == C) owner = 0, off += 2 * PS;
+            quotient = fma((double)y, dsh.ch[c].inv_q, quotient);
+            return (i64)y;
+          },
+          args.star, t, L);
+      compose_finalize_quotient(acc, (int)quotient, args.q_limbs, L, args.w);
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < L) stage[j * L + l] = acc[l];
+      }
+    }
+    __syncthreads();
+    i64* po = args.out + (row * n + jc) * L;
+    for (int i = threadIdx.x; i < cnt * L; i += T) po[i] = stage[i];
+    __syncthreads();
+  }
+  cluster.sync();  // peers have read this CTA's y before it exits
+}
+
+typedef void (*E2EKernel)(const E2EArgs);
+
+E2EKernel pick_kernel(int mode, int window, int L) {
+  const int reg = mode != kLazy ? kStrict : (window == 2 ? kLazy2 : kLazy4);
+  static const E2EKernel kernels[3][2] = {
+      {fused_e2e_polymul_kernel<kLazy2, 8>, fused_e2e_polymul_kernel<kLazy2, 16>},
+      {fused_e2e_polymul_kernel<kLazy4, 8>, fused_e2e_polymul_kernel<kLazy4, 16>},
+      {fused_e2e_polymul_kernel<kStrict, 8>, fused_e2e_polymul_kernel<kStrict, 16>},
+  };
+  return kernels[reg][L <= 8 ? 0 : 1];
+}
+
+// C = min(t, 8) CTAs a row, each owning at most ceil(t / C) channels
+// (kernels/ntt.py e2e_cluster mirrors it for plan admission).
+int cluster_of(int t) { return t < kMaxCluster ? t : kMaxCluster; }
+int slots_of(int t) { return (t + cluster_of(t) - 1) / cluster_of(t); }
+
+// The launch configuration of one call; `attr` must outlive `cfg`.
+cudaLaunchConfig_t e2e_config(int rows, int n, int t, int S, int L, cudaStream_t stream,
+                              cudaLaunchAttribute* attr) {
+  const int cluster = cluster_of(t);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows * cluster, 1, 1);
+  cfg.blockDim = dim3(e2e_threads(n), 1, 1);
+  cfg.dynamicSmemBytes = e2e_dynamic_smem(n, slots_of(t), S, L);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int group_of(int n) {
+  int log_e = 0;
+  while ((1 << (log_e + 1)) <= n / e2e_threads(n)) ++log_e;
+  return log_e < kMaxGroup ? log_e : kMaxGroup;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the e2e multiplier on `stream`; returns cudaGetLastError().
+// Launches the e2e multiplier on `stream` as clusters of min(t, 8) CTAs
+// per row; returns the CUDA error of the attribute call or the launch
+// (0 = launched).
 int parentt_fused_e2e_polymul(
     const long long* za, const long long* zb, long long* out, const long long* qs,
     const long long* half, const long long* eps, const long long* tilde, const long long* fwd,
     const long long* inv, const long long* fwd_shoup, const long long* inv_shoup,
-    const long long* sau_eps, const long long* sau_s2, const long long* acc_eps,
-    const long long* beta_e, const long long* beta_s, const long long* block_consts,
+    const long long* sau_beta, const long long* sau_eps, const long long* sau_s2,
+    const long long* acc_eps, const long long* block_m, const long long* block_consts,
     const long long* star, const long long* q_limbs, int rows, int log_n, int t, int S, int L,
-    int n_terms, int n_blocks, int t_prime, int dec_s1, int acc_s2, int w, int mode, int window,
-    int beta, int s1, int s2, void* stream) {
+    int n_blocks, int dec_s1, int acc_s2, int w, int mode, int window, int beta,
+    int s1, int s2, void* stream) {
   const int n = 1 << log_n;
-  const size_t smem = 2 * (size_t)t * n * sizeof(res_t);
-  const cudaError_t err = allow_smem(fused_e2e_polymul_kernel, smem);
+  const E2EKernel kernel = pick_kernel(mode, window, L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)e2e_dynamic_smem(n, slots_of(t), S, L));
   if (err != cudaSuccess) return (int)err;
-  const DecomposeTables dec{qs,     sau_eps,      sau_s2,   acc_eps, beta_e,
-                            beta_s, block_consts, n_terms,  n_blocks, dec_s1, acc_s2};
-  const E2EArgs args{za,  zb,      out,       qs,    half,    eps,   tilde, fwd,  inv,
-                     fwd_shoup, inv_shoup, dec, star, q_limbs, log_n, t,     S,    L,
-                     t_prime, w, mode,    window, beta,  s1,    s2};
-  fused_e2e_polymul_kernel<<<rows, block_threads(n), smem, (cudaStream_t)stream>>>(args);
+  const DecomposeTables dec{qs, sau_beta, sau_eps, sau_s2, acc_eps, block_m, block_consts,
+                            t,  n_blocks, dec_s1,   acc_s2};
+  const E2EArgs args{za,  zb,  out, qs,      half,  eps,      tilde, fwd,    inv, fwd_shoup,
+                     inv_shoup, dec, star, q_limbs, log_n, t, S, L, w, mode, window,
+                     beta, s1, s2, cluster_of(t), slots_of(t), group_of(n)};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = e2e_config(rows, n, t, S, L, (cudaStream_t)stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// How many clusters of the kernel the card holds at once for this shape
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+int parentt_fused_e2e_max_clusters(int log_n, int t, int S, int L, int mode, int window) {
+  const int n = 1 << log_n;
+  const E2EKernel kernel = pick_kernel(mode, window, L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)e2e_dynamic_smem(n, slots_of(t), S, L));
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = e2e_config(1, n, t, S, L, nullptr, &attr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &cfg);
+  return err == cudaSuccess ? count : -(int)err;
 }
 
 const char* parentt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -3,20 +3,34 @@
 // (fused_e2e_polymul.cu) and the stage kernels (ntt_channels.cu,
 // intt_channels.cu, decompose.cu, compose.cu).
 //
-// Every function repeats, operation for operation, the int64 arithmetic of
-// the plain PyTorch versions (repro_torch/core/modmath.py,
-// repro_torch/kernels/crt.py, repro_torch/kernels/ntt.py), so kernel and
-// plain version agree bit for bit.  All arithmetic is signed 64-bit
-// (`long long`), as torch's int64: the SAU network starts from -x and the
-// Barrett quotient uses an arithmetic shift.  Worst cases stay inside 63
-// bits: Shoup products v*w' < 2^63 (v = 30: v < 2q < 2^31, w' < 2^32),
-// Barrett (x >> (b-1)) * eps < 2^62, SAU words < 2^59, the Eq-10 limb sums
-// < t * 2^59.
+// Every function stores, word for word, what the int64 arithmetic of the
+// plain PyTorch versions (repro_torch/core/modmath.py,
+// repro_torch/kernels/crt.py, repro_torch/kernels/ntt.py) stores, so a
+// kernel and its plain version agree bit for bit.  Each computes in the
+// narrowest integer type that is exact for the values it sees:
 //
-// Residues live in shared memory as 32-bit words: every value a
-// butterfly stores is below window*q < 2^31 (lazy, b <= 30) or below
-// q < 2^31 (strict, b = 31), so uint32 storage is exact and halves the
-// working set against int64.
+// * Butterflies and residue products run on uint32.  Every value a
+//   butterfly stores is below window*q < 2^31 (lazy) or below q < 2^31
+//   (strict), and every intermediate below 2^32: lazy v = 30 (W = 2) sums
+//   stay below 4q < 2^32, lazy v <= 29 (W = 4) below 8q < 2^32.  The
+//   Shoup quotient (v*w') >> beta is __umulhi(v, w') at beta = 32 and one
+//   32x32->64 product at beta <= 31; v*w - qhat*q lies in [0, 2q) and is
+//   exact mod 2^32.  The Barrett product reduction of b <= 30-bit moduli
+//   takes one 32x32->64 product for x and one for (x >> s1) * eps (both
+//   factors below 2^31); its remainder lies in [0, 4q) < 2^32.  The strict
+//   v = 31 regime reduces its 62-bit products with the 64-bit %.
+// * The SAU network's words reach 2^59 and stay 64-bit.  Its shifts and
+//   adds are one product by beta (exact mod 2^64), its Barrett quotient
+//   one 32x32->64 product (inside the configuration's window x >> s1 and
+//   eps are both below 2^31), and below q < 2^30 its remainders 32-bit.
+// * The decompose block products [blk * beta^{t' rho}]_q, below q^2, use
+//   the Barrett of block_barrett (m = floor(2^(b+31) / q)), exact for
+//   every x < 2^(2b) with b = bit_length(q) <= 31.
+// * The Eq-10 limb sums are 64-bit; each term is a 32x32->64 product
+//   (y < q < 2^31, limb < 2^28) and each sum stays below t * 2^59.
+//
+// No register array is indexed by a runtime count: the limb loops unroll
+// to a compile-time MAXL with predication.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,29 +40,36 @@ namespace parentt {
 
 typedef long long i64;
 typedef uint32_t res_t;
+typedef uint64_t u64;
 
-// Upper limits of the per-coefficient register arrays; the Python
-// wrappers refuse configurations above them.
+// Upper limits the Python wrappers check before a launch.
 constexpr int kMaxSegments = 16;
 constexpr int kMaxLimbs = 16;
+constexpr int kMaxChannels = 16;
+constexpr int kTPrime = 3;     // Alg-2 block width t' of every plan
+constexpr int kMaxBlocks = 6;  // Alg-2 blocks: ceil(kMaxSegments / t')
 constexpr int kMaxThreads = 512;
 
 // Reduction regime of a table set (repro_torch.kernels.ntt.reduction_mode).
 enum Mode : int {
   kLazy = 0,     // Harvey lazy butterflies (Shoup twiddles), Barrett products
   kBarrett = 1,  // strict butterflies, Barrett products
-  kRem = 2,      // strict butterflies, generic % (q of 31 bits)
+  kRem = 2,      // strict butterflies, 64-bit % (q of 31 bits)
 };
 
-// One channel's butterfly and product reduction constants.
+// One channel's butterfly and product reduction constants.  A kernel that
+// fixes mode and window at compile time sets them from constants, and the
+// branches below fold away.
 struct Reduce {
-  i64 q;
-  i64 half;  // (q + 1) / 2
-  i64 eps;   // Barrett eps of the residue products (unused under kRem)
+  res_t q;
+  res_t half;  // (q + 1) / 2
+  res_t eps;   // Barrett eps of the residue products (unused under kRem)
   int s1, s2;
   int mode;
   int window;  // lazy window: values stay in [0, window * q)
-  int beta;    // Shoup shift
+  int beta;    // Shoup shift: 32 at window 2, <= 31 at window 4
+  res_t bm;    // kRem: block_barrett constant of q, or 0 for the 64-bit %
+  int bs1;     // its shift, bit_length(q) - 1
 };
 
 // Channel c's Reduce from the (t,) device arrays of q, (q + 1) / 2 and the
@@ -57,144 +78,134 @@ __device__ __forceinline__ Reduce channel_reduce(const i64* qs, const i64* half,
                                                  int c, int mode, int window, int beta, int s1,
                                                  int s2) {
   Reduce r;
-  r.q = qs[c];
-  r.half = half[c];
-  r.eps = eps[c];
+  r.q = (res_t)qs[c];
+  r.half = (res_t)half[c];
+  r.eps = (res_t)eps[c];
   r.s1 = s1;
   r.s2 = s2;
   r.mode = mode;
   r.window = window;
   r.beta = beta;
+  r.bm = 0;
+  r.bs1 = 0;
   return r;
 }
 
-// One channel's Alg-2 SAU decompose circuit (repro_torch.core.rns.dec_arrays).
-struct Decompose {
-  i64 q;
-  i64 sau_eps;
-  i64 acc_eps;
-  int s1;      // v - 1, shared by both Barrett windows
-  int sau_s2;  // v1 + 4
-  int acc_s2;  // 4
-  int n_terms;
-  const i64* beta_e;        // (n_terms,) shift of each signed power of two
-  const i64* beta_s;        // (n_terms,) its sign, 0 on padding
-  const i64* block_consts;  // (n_blocks,) [beta^{t' rho}]_q
-};
+// x - m where x >= m: min(x, x - m) on unsigned 32-bit words.
+__device__ __forceinline__ res_t cond_sub(res_t x, res_t m) { return min(x, x - m); }
 
-// Every channel's decompose circuit as the stacked (t, ...) device arrays
-// of repro_torch.core.rns.dec_arrays.
-struct DecomposeTables {
-  const i64* qs;            // (t,)
-  const i64* sau_eps;       // (t,)
-  const i64* sau_s2;        // (t,)
-  const i64* acc_eps;       // (t,)
-  const i64* beta_e;        // (t, n_terms)
-  const i64* beta_s;        // (t, n_terms)
-  const i64* block_consts;  // (t, n_blocks)
-  int n_terms;
-  int n_blocks;
-  int s1;      // v - 1
-  int acc_s2;  // 4
-};
+__device__ __forceinline__ res_t add_mod(res_t x, res_t y, res_t q) { return cond_sub(x + y, q); }
 
-__device__ __forceinline__ Decompose channel_decompose(const DecomposeTables& a, int c) {
-  Decompose d;
-  d.q = a.qs[c];
-  d.sau_eps = a.sau_eps[c];
-  d.acc_eps = a.acc_eps[c];
-  d.s1 = a.s1;
-  d.sau_s2 = (int)a.sau_s2[c];
-  d.acc_s2 = a.acc_s2;
-  d.n_terms = a.n_terms;
-  d.beta_e = a.beta_e + (size_t)c * a.n_terms;
-  d.beta_s = a.beta_s + (size_t)c * a.n_terms;
-  d.block_consts = a.block_consts + (size_t)c * a.n_blocks;
-  return d;
-}
-
-__device__ __forceinline__ i64 cond_sub(i64 x, i64 m) { return x >= m ? x - m : x; }
-
-__device__ __forceinline__ i64 add_mod(i64 x, i64 y, i64 q) {
-  const i64 s = x + y;
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ i64 sub_mod(i64 x, i64 y, i64 q) {
-  const i64 d = x - y;
-  return d < 0 ? d + q : d;
+__device__ __forceinline__ res_t sub_mod(res_t x, res_t y, res_t q) {
+  return x >= y ? x - y : x - y + q;
 }
 
 // x * 2^-1 mod q (Eq 24).
-__device__ __forceinline__ i64 div2_mod(i64 x, i64 half) { return (x >> 1) + (x & 1) * half; }
-
-__device__ __forceinline__ i64 barrett_reduce(i64 x, i64 q, i64 eps, int s1, int s2) {
-  const i64 qhat = ((x >> s1) * eps) >> s2;
-  i64 r = x - qhat * q;
-  r = cond_sub(r, q);
-  r = cond_sub(r, q);
-  return cond_sub(r, q);
+__device__ __forceinline__ res_t div2_mod(res_t x, res_t half) {
+  return (x >> 1) + (x & 1) * half;
 }
 
-__device__ __forceinline__ i64 mul_mod(i64 x, i64 y, const Reduce& r) {
-  const i64 p = x * y;
-  if (r.mode == kRem) return p % r.q;
-  return barrett_reduce(p, r.q, r.eps, r.s1, r.s2);
+// One conditional subtraction on 64-bit words.
+__device__ __forceinline__ u64 cond_sub64(u64 r, u64 q) { return r >= q ? r - q : r; }
+
+// x mod q for x < 2^(2b), b = bit_length(q) = s1 + 1 <= 31, with
+// m = floor(2^(b+31) / q) (repro_torch.core.rns.block_barrett_constant):
+// x >> s1 < 2^32 and m < 2^32, the quotient is low by at most 2, so the
+// remainder lies in [0, 3q) (32 bits when NARROW).
+template <bool NARROW>
+__device__ __forceinline__ i64 block_barrett(u64 x, i64 q, i64 m, int s1) {
+  const res_t qhat = __umulhi((res_t)(x >> s1), (res_t)m);
+  if (NARROW) {
+    res_t r = (res_t)x - qhat * (res_t)q;
+    r = cond_sub(r, (res_t)q);
+    return cond_sub(r, (res_t)q);
+  }
+  u64 r = x - (u64)qhat * (res_t)q;
+  r = cond_sub64(r, q);
+  return (i64)cond_sub64(r, q);
+}
+
+// x * y mod q for x, y in [0, q).  Under kRem: the block Barrett where
+// the caller has its constant (r.bm, the fused e2e kernel), else the
+// 64-bit %.
+__device__ __forceinline__ res_t mul_mod(res_t x, res_t y, const Reduce& r) {
+  const u64 p = (u64)x * y;
+  if (r.mode == kRem) {
+    return r.bm ? (res_t)block_barrett<false>(p, r.q, r.bm, r.bs1) : (res_t)(p % r.q);
+  }
+  const res_t qhat = (res_t)(((u64)(res_t)(p >> r.s1) * r.eps) >> r.s2);
+  res_t rem = (res_t)p - qhat * r.q;  // in [0, 4q), exact mod 2^32
+  rem = cond_sub(rem, r.q);
+  rem = cond_sub(rem, r.q);
+  return cond_sub(rem, r.q);
 }
 
 // v * w mod q up to one extra q: [0, 2q), no conditional subtraction.
-__device__ __forceinline__ i64 shoup_mul(i64 v, i64 w, i64 ws, i64 q, int beta) {
-  return v * w - ((v * ws) >> beta) * q;
+__device__ __forceinline__ res_t shoup_mul(res_t v, res_t w, res_t ws, const Reduce& r) {
+  const res_t qhat = r.window == 2 ? __umulhi(v, ws) : (res_t)(((u64)v * ws) >> r.beta);
+  return v * w - qhat * r.q;
 }
 
-__device__ __forceinline__ void ct_butterfly(i64& u, i64& v, i64 w, i64 ws, const Reduce& r) {
+__device__ __forceinline__ void ct_butterfly(res_t& u, res_t& v, res_t w, res_t ws,
+                                             const Reduce& r) {
   if (r.mode == kLazy) {
-    const i64 t = shoup_mul(v, w, ws, r.q, r.beta);
-    const i64 q2 = 2 * r.q;
+    const res_t t = shoup_mul(v, w, ws, r);
+    const res_t q2 = 2 * r.q;
     if (r.window == 4) {
-      const i64 uu = cond_sub(u, q2);
+      const res_t uu = cond_sub(u, q2);
       u = uu + t;
       v = uu - t + q2;
     } else {
-      const i64 x = cond_sub(u + t, q2);
+      const res_t x = cond_sub(u + t, q2);
       v = cond_sub(u - t + q2, q2);
       u = x;
     }
   } else {
-    const i64 p = mul_mod(v, w, r);
-    const i64 x = add_mod(u, p, r.q);
+    const res_t p = mul_mod(v, w, r);
+    const res_t x = add_mod(u, p, r.q);
     v = sub_mod(u, p, r.q);
     u = x;
   }
 }
 
-__device__ __forceinline__ void gs_butterfly(i64& u, i64& v, i64 w, i64 ws, const Reduce& r) {
+__device__ __forceinline__ void gs_butterfly(res_t& u, res_t& v, res_t w, res_t ws,
+                                             const Reduce& r) {
   if (r.mode == kLazy) {
-    const i64 wq = r.window * r.q;
-    const i64 s = cond_sub(u + v, wq);
-    const i64 d = shoup_mul(cond_sub(u - v + wq, wq), w, ws, r.q, r.beta);
+    const res_t wq = r.window * r.q;
+    const res_t s = cond_sub(u + v, wq);
+    const res_t d = shoup_mul(cond_sub(u - v + wq, wq), w, ws, r);
     u = div2_mod(s, r.half);
     v = div2_mod(d, r.half);
   } else {
-    const i64 s = add_mod(u, v, r.q);
-    const i64 d = mul_mod(sub_mod(u, v, r.q), w, r);
+    const res_t s = add_mod(u, v, r.q);
+    const res_t d = mul_mod(sub_mod(u, v, r.q), w, r);
     u = div2_mod(s, r.half);
     v = div2_mod(d, r.half);
   }
 }
 
 // [0, window * q) -> [0, q): the one exit reduce of a lazy transform.
-__device__ __forceinline__ i64 canonicalize(i64 x, const Reduce& r) {
+__device__ __forceinline__ res_t canonicalize(res_t x, const Reduce& r) {
   if (r.mode != kLazy) return x;
   if (r.window == 4) x = cond_sub(x, 2 * r.q);
   return cond_sub(x, r.q);
+}
+
+// A twiddle and its Shoup constant (both below 2^32) from the int64
+// tables: the low 32-bit word of each (little-endian), one register each.
+__device__ __forceinline__ void load_twiddle(const i64* __restrict__ tab,
+                                             const i64* __restrict__ tab_sh, int idx,
+                                             const Reduce& r, res_t& w, res_t& ws) {
+  w = __ldg(reinterpret_cast<const res_t*>(tab + idx));
+  ws = r.mode == kLazy ? __ldg(reinterpret_cast<const res_t*>(tab_sh + idx)) : 0;
 }
 
 // Forward CT/DIT stages (twiddles psi^brv merged), natural order in,
 // bit-reversed out, over NPOLY (1 or 2) shared-memory polynomials that
 // share the channel's tables (`b` is not read when NPOLY is 1).  Stage s
 // pairs at stride h = n >> (s + 1); butterfly k of the stage sits in
-// block i = k / h and uses twiddle fwd[2^s + i].
+// block i = k / h and uses twiddle fwd[2^s + i].  One barrier per stage
+// (the stage kernels K1, K3, K4).
 template <int NPOLY>
 __device__ __forceinline__ void ct_stages(res_t* a, res_t* b, const i64* __restrict__ fwd,
                                           const i64* __restrict__ fwd_sh, const Reduce& r,
@@ -208,18 +219,18 @@ __device__ __forceinline__ void ct_stages(res_t* a, res_t* b, const i64* __restr
       const int i = k >> log_h;
       const int iu = (i << (log_h + 1)) + (k & (h - 1));
       const int iv = iu + h;
-      const i64 w = __ldg(fwd + (1 << s) + i);
-      const i64 ws = r.mode == kLazy ? __ldg(fwd_sh + (1 << s) + i) : 0;
-      i64 u = a[iu], v = a[iv];
+      res_t w, ws;
+      load_twiddle(fwd, fwd_sh, (1 << s) + i, r, w, ws);
+      res_t u = a[iu], v = a[iv];
       ct_butterfly(u, v, w, ws, r);
-      a[iu] = (res_t)u;
-      a[iv] = (res_t)v;
+      a[iu] = u;
+      a[iv] = v;
       if (NPOLY == 2) {
         u = b[iu];
         v = b[iv];
         ct_butterfly(u, v, w, ws, r);
-        b[iu] = (res_t)u;
-        b[iv] = (res_t)v;
+        b[iu] = u;
+        b[iv] = v;
       }
     }
     __syncthreads();
@@ -240,12 +251,12 @@ __device__ __forceinline__ void gs_stages(res_t* a, const i64* __restrict__ inv,
       const int i = k >> s;
       const int iu = (i << (s + 1)) + (k & ((1 << s) - 1));
       const int iv = iu + (1 << s);
-      const i64 w = __ldg(inv + blocks + i);
-      const i64 ws = r.mode == kLazy ? __ldg(inv_sh + blocks + i) : 0;
-      i64 u = a[iu], v = a[iv];
+      res_t w, ws;
+      load_twiddle(inv, inv_sh, blocks + i, r, w, ws);
+      res_t u = a[iu], v = a[iv];
       gs_butterfly(u, v, w, ws, r);
-      a[iu] = (res_t)u;
-      a[iv] = (res_t)v;
+      a[iu] = u;
+      a[iv] = v;
     }
     __syncthreads();
   }
@@ -262,85 +273,293 @@ __device__ __forceinline__ void cascade(res_t* a, res_t* b, const i64* __restric
                                         int log_n) {
   ct_stages<2>(a, b, fwd, fwd_sh, r, log_n);
   for (int j = threadIdx.x; j < (1 << log_n); j += blockDim.x) {
-    a[j] = (res_t)mul_mod(canonicalize(a[j], r), canonicalize(b[j], r), r);
+    a[j] = mul_mod(canonicalize(a[j], r), canonicalize(b[j], r), r);
   }
   __syncthreads();
   gs_stages(a, inv, inv_sh, r, log_n);
 }
 
-// z * beta by shifts and adds: beta = sum(sign * 2^e) - 1 (Eq 5).
-__device__ __forceinline__ i64 sau(i64 x, const Decompose& d) {
-  i64 acc = -x;
-  for (int k = 0; k < d.n_terms; ++k) acc += d.beta_s[k] * (x << d.beta_e[k]);
-  return acc;
+// --------------------------------------------------------------------------
+// Alg-2 SAU decompose
+// --------------------------------------------------------------------------
+
+// Every channel's decompose circuit as the stacked (t,) device arrays of
+// RnsPlan.dec_d (repro_torch.core.rns).
+struct DecomposeTables {
+  const i64* qs;            // (t,)
+  const i64* beta;          // (t,) the SAU multiplier beta = sum(sign * 2^e) - 1
+  const i64* sau_eps;       // (t,)
+  const i64* sau_s2;        // (t,)
+  const i64* acc_eps;       // (t,)
+  const i64* block_m;       // (t,) block-product Barrett constant
+  const i64* block_consts;  // (t, n_blocks)
+  int t;
+  int n_blocks;
+  int s1;      // v - 1
+  int acc_s2;  // 4
+};
+
+// One channel's circuit, as a block keeps it in shared memory.
+// Every constant but 1/q is below 2^32 and kept as a 32-bit word; the
+// struct is 16-byte aligned for vector loads.
+struct __align__(16) Decompose {
+  double inv_q;  // 1 / q, for the compose's quotient estimate
+  res_t q;
+  res_t beta;
+  res_t sau_eps;
+  res_t acc_eps;
+  res_t block_m;
+  res_t sau_s2;                    // v1 + 4
+  res_t block_consts[kMaxBlocks];  // [beta^{t' rho}]_q
+};
+
+// Every channel's circuit in shared memory, with the shifts they share.
+struct DecomposeShared {
+  Decompose ch[kMaxChannels];
+  int t;
+  int s1;      // v - 1: both Barrett windows and the block Barrett
+  int acc_s2;  // 4
+};
+
+// Fill `sh` from the device tables (the caller synchronises the block).
+__device__ __forceinline__ void load_decompose(DecomposeShared& sh, const DecomposeTables& a) {
+  for (int c = threadIdx.x; c < a.t; c += blockDim.x) {
+    Decompose& d = sh.ch[c];
+    d.q = (res_t)a.qs[c];
+    d.inv_q = 1.0 / (double)a.qs[c];
+    d.beta = (res_t)a.beta[c];
+    d.sau_eps = (res_t)a.sau_eps[c];
+    d.acc_eps = (res_t)a.acc_eps[c];
+    d.block_m = (res_t)a.block_m[c];
+    d.sau_s2 = (res_t)a.sau_s2[c];
+    for (int k = 0; k < kMaxBlocks; ++k) {
+      d.block_consts[k] =
+          k < a.n_blocks ? (res_t)a.block_consts[(size_t)c * a.n_blocks + k] : 0;
+    }
+  }
+  if (threadIdx.x == 0) {
+    sh.t = a.t;
+    sh.s1 = a.s1;
+    sh.acc_s2 = a.acc_s2;
+  }
 }
 
-// Alg-2 residue of one coefficient's S base-2^v segments mod d.q: blocks of
-// t' segments z0 + SAU(z1) + SAU(Barrett(SAU(z2))), one v x v product per
-// later block, and a last Barrett of the accumulator.
-__device__ __forceinline__ i64 decompose(const i64* z, int S, int t_prime, const Decompose& d) {
-  const int n_blocks = (S + t_prime - 1) / t_prime;
-  i64 acc = 0;
-  for (int rho = 0; rho < n_blocks; ++rho) {
-    const int base = rho * t_prime;
-    i64 blk = z[base];
-    if (t_prime > 1 && base + 1 < S) blk += sau(z[base + 1], d);
-    for (int k = 2; k < t_prime && base + k < S; ++k) {
-      i64 x = barrett_reduce(sau(z[base + k], d), d.q, d.sau_eps, d.s1, d.sau_s2);
-      for (int rep = 0; rep < k - 1; ++rep) {
-        x = barrett_reduce(sau(x, d), d.q, d.sau_eps, d.s1, d.sau_s2);
-      }
-      blk += x;
-    }
-    blk = barrett_reduce(blk, d.q, d.sau_eps, d.s1, d.sau_s2);
-    acc += rho == 0 ? blk : (blk * d.block_consts[rho]) % d.q;
+// Barrett of a non-negative SAU word x < 2^c (repro_torch.core.modmath
+// barrett_reduce): x >> s1 and eps lie below 2^31 there, so the quotient
+// is one 32x32->64 product, and the remainder lies in [0, 4q).  NARROW
+// (q < 2^30) keeps the remainder in 32 bits, exact since 4q < 2^32.
+template <bool NARROW>
+__device__ __forceinline__ i64 sau_barrett(i64 x, i64 q, i64 eps, int s1, int s2) {
+  const res_t qhat = (res_t)(((u64)(res_t)(x >> s1) * (res_t)eps) >> s2);
+  if (NARROW) {
+    res_t r = (res_t)x - qhat * (res_t)q;
+    r = cond_sub(r, (res_t)q);
+    r = cond_sub(r, (res_t)q);
+    return cond_sub(r, (res_t)q);
   }
-  return barrett_reduce(acc, d.q, d.acc_eps, d.s1, d.acc_s2);
+  u64 r = (u64)x - (u64)qhat * (res_t)q;
+  r = cond_sub64(r, q);
+  r = cond_sub64(r, q);
+  return (i64)cond_sub64(r, q);
 }
+
+// The SAU network z * beta, beta = sum(sign * 2^e) - 1 (Eq 5): its shifts
+// and adds are exact in int64 arithmetic mod 2^64, and so is one product
+// by beta (< 2^32), which the GPU issues as two multiply-adds.
+__device__ __forceinline__ i64 sau(i64 x, const Decompose& d) {
+  return (i64)((u64)x * (res_t)d.beta);
+}
+
+// Alg-2 residue of one coefficient's S base-2^v segments `z` (shared
+// memory) mod d.q, in blocks of t' = kTPrime segments: z0 + SAU(z1) +
+// SAU(Barrett(SAU(z2))), one v x v product per later block, and a last
+// Barrett of the accumulator.
+template <bool NARROW>
+__device__ __forceinline__ i64 decompose(const i64* z, int S, const Decompose& d,
+                                         const DecomposeShared& sh) {
+  static_assert(kTPrime == 3, "the block body below is written for t' = 3");
+  i64 acc = 0;
+#pragma unroll
+  for (int rho = 0; rho < kMaxBlocks; ++rho) {
+    const int base = rho * kTPrime;
+    if (base < S) {
+      i64 blk = z[base];
+      if (base + 1 < S) blk += sau(z[base + 1], d);
+      if (base + 2 < S) {
+        const i64 x = sau_barrett<NARROW>(sau(z[base + 2], d), d.q, d.sau_eps, sh.s1, d.sau_s2);
+        blk += sau_barrett<NARROW>(sau(x, d), d.q, d.sau_eps, sh.s1, d.sau_s2);
+      }
+      blk = sau_barrett<NARROW>(blk, d.q, d.sau_eps, sh.s1, d.sau_s2);
+      acc += rho == 0 ? blk
+                      : block_barrett<NARROW>((u64)(res_t)blk * (res_t)d.block_consts[rho], d.q,
+                                              d.block_m, sh.s1);
+    }
+  }
+  return sau_barrett<NARROW>(acc, d.q, d.acc_eps, sh.s1, sh.acc_s2);
+}
+
+// --------------------------------------------------------------------------
+// Eq-10 compose
+// --------------------------------------------------------------------------
 
 // Eq-10 limb sums of one coefficient: acc[l] = sum_c y(c) * q^_c[l] over
-// the t channels, with y(c) = [p_c * q~_c]_{q_c} supplied by the caller
-// and `star` the (t, L) limbs of q^_c.  Each sum stays below t * 2^59.
-template <typename Y>
-__device__ __forceinline__ void crt_limb_sums(i64* acc, Y y, const i64* __restrict__ star,
+// the t channels, with y(c) = [p_c * q~_c]_{q_c} < 2^31 supplied by the
+// caller in channel order and `star` the (t, L) limbs (< 2^28) of q^_c.
+// Both loops unroll (channels to kMaxChannels, limbs to MAXL, predicated),
+// so the t values y(c) can be in flight together.  Limbs l >= L stay 0.
+template <int MAXL, typename Y>
+__device__ __forceinline__ void crt_limb_sums(i64 (&acc)[MAXL], Y y, const i64* __restrict__ star,
                                               int t, int L) {
-  for (int l = 0; l < L; ++l) acc[l] = 0;
-  for (int c = 0; c < t; ++c) {
-    const i64 yc = y(c);
-    const i64* sc = star + (size_t)c * L;
-    for (int l = 0; l < L; ++l) acc[l] += yc * __ldg(sc + l);
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) acc[l] = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) {
+    if (c < t) {
+      const res_t yc = (res_t)y(c);
+      const res_t* sc = reinterpret_cast<const res_t*>(star + (size_t)c * L);
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < L) acc[l] += (i64)((u64)yc * __ldg(sc + 2 * l));
+      }
+    }
   }
 }
 
 // Eq-10 tail on one coefficient: raw limb sums -> canonical base-2^w limbs
-// of the composed value mod q (carry ripple, then t - 1 conditional
-// big-integer subtractions of q).
-__device__ __forceinline__ void compose_finalize(i64* acc, const i64* __restrict__ q_limbs, int L,
-                                                 int w, int t) {
+// of the composed value mod q (carry ripple, then up to t - 1 conditional
+// big-integer subtractions of q; once the value is below q the rest are
+// no-ops and are skipped).  After the ripple every limb is below 2^w
+// (w = 28), so the subtractions run on 32-bit words.
+template <int MAXL>
+__device__ __forceinline__ void compose_finalize(i64 (&acc)[MAXL], const i64* __restrict__ q_limbs,
+                                                 int L, int w, int t) {
   const i64 mask = (1LL << w) - 1;
+  const int* ql = reinterpret_cast<const int*>(q_limbs);  // limb l: low word ql[2 l]
+  int limb[MAXL];
   i64 carry = 0;
-  for (int l = 0; l < L; ++l) {
-    const i64 s = acc[l] + carry;
-    acc[l] = s & mask;
-    carry = s >> w;
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    limb[l] = 0;
+    if (l < L) {
+      const i64 s = acc[l] + carry;
+      limb[l] = (int)(s & mask);
+      carry = s >> w;
+    }
   }
   for (int rep = 0; rep < t - 1; ++rep) {
+    // value >= q: the comparison at the highest limb where they differ
     bool ge = true;
-    for (int l = L - 1; l >= 0; --l) {
-      const i64 ql = __ldg(q_limbs + l);
-      if (acc[l] != ql) {
-        ge = acc[l] > ql;
-        break;
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) {
+      if (l < L) {
+        const int q = __ldg(ql + 2 * l);
+        if (limb[l] != q) ge = limb[l] > q;
       }
     }
-    if (!ge) continue;
-    i64 borrow = 0;
-    for (int l = 0; l < L; ++l) {
-      const i64 d = acc[l] - __ldg(q_limbs + l) - borrow;
-      borrow = d < 0;
-      acc[l] = d < 0 ? d + (1LL << w) : d;
+    if (!ge) break;
+    int borrow = 0;
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) {
+      if (l < L) {
+        const int d = limb[l] - __ldg(ql + 2 * l) - borrow;
+        borrow = d < 0;
+        limb[l] = d < 0 ? d + (1 << w) : d;
+      }
     }
   }
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) acc[l] = limb[l];
+}
+
+// The Eq-10 tail again, for a caller that knows k = floor(value / q) to
+// within one: here k = floor(sum_c y_c / q_c) in double precision (the
+// exact quotient, since value / q = sum_c y_c / q_c, up to a rounding
+// error far below 1).  The carry ripple subtracts k q as it goes; the
+// result lies in [-q, 2q), and one conditional addition or subtraction of
+// q makes it canonical: the limbs of value mod q, as compose_finalize
+// gives them.
+template <int MAXL>
+__device__ __forceinline__ void compose_finalize_quotient(i64 (&acc)[MAXL], int k,
+                                                          const i64* __restrict__ q_limbs, int L,
+                                                          int w) {
+  const i64 mask = (1LL << w) - 1;
+  const int* ql = reinterpret_cast<const int*>(q_limbs);  // limb l: low word ql[2 l]
+  int limb[MAXL];
+  i64 carry = 0;
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) {
+    limb[l] = 0;
+    if (l < L) {
+      const i64 s = acc[l] + carry - (i64)k * __ldg(ql + 2 * l);
+      limb[l] = (int)(s & mask);
+      carry = s >> w;  // floor: -1 or 0 past the top limb
+    }
+  }
+  if (carry < 0) {  // k was one too large
+    int c = 0;
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) {
+      if (l < L) {
+        const int d = limb[l] + __ldg(ql + 2 * l) + c;
+        c = d >> w;
+        limb[l] = d & (int)mask;
+      }
+    }
+  } else {  // k was one too small when the rest is still >= q
+    bool ge = true;
+#pragma unroll
+    for (int l = 0; l < MAXL; ++l) {
+      if (l < L) {
+        const int q = __ldg(ql + 2 * l);
+        if (limb[l] != q) ge = limb[l] > q;
+      }
+    }
+    if (ge) {
+      int borrow = 0;
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < L) {
+          const int d = limb[l] - __ldg(ql + 2 * l) - borrow;
+          borrow = d < 0;
+          limb[l] = d < 0 ? d + (1 << w) : d;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < MAXL; ++l) acc[l] = limb[l];
+}
+
+// --------------------------------------------------------------------------
+// launch helpers
+// --------------------------------------------------------------------------
+
+// Copy `words` int64 from device memory to shared memory with the whole
+// block, through cp.async: 16-byte copies where source and destination
+// share 16-byte alignment, 8-byte copies otherwise.  Consecutive threads
+// take consecutive words, so every request coalesces.  Returns when this
+// thread's copies have landed; the caller synchronises the block.
+__device__ __forceinline__ void stage_words(i64* dst, const i64* src, int words) {
+  const unsigned sdst = (unsigned)__cvta_generic_to_shared(dst);
+  if (((reinterpret_cast<uintptr_t>(src) | sdst) & 15) == 0) {
+    for (int i = threadIdx.x; i < words >> 1; i += blockDim.x) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sdst + 16 * i),
+                   "l"(src + 2 * i)
+                   : "memory");
+    }
+    if ((words & 1) && threadIdx.x == 0) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sdst + 8 * (words - 1)),
+                   "l"(src + words - 1)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(sdst + 8 * i),
+                   "l"(src + i)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Arguments of the single-transform stage kernels (ntt_channels.cu,

@@ -4,9 +4,12 @@ wrappers, launch counters and plain PyTorch versions (port of
 
 * :func:`decompose_cuda` (``csrc/decompose.cu``, K5) replaces the TPU
   kernel ``decompose_pallas`` (``repro/kernels/crt.py:180``): Alg-2 SAU
-  residues, segments ``(rows, S)`` -> residues ``(t, rows)``, one thread
-  per coefficient and one launch for all t channels (the TPU version
-  makes one ``pallas_call`` per channel).
+  residues, segments ``(rows, S)`` -> residues ``(t, rows)``, one launch
+  for all t channels (the TPU version makes one ``pallas_call`` per
+  channel): a block stages a tile of 256 rows' segments and the
+  channels' circuits in shared memory, then one thread per coefficient
+  runs every channel, its block products reduced by the Barrett of
+  :func:`repro_torch.core.rns.block_barrett_constant`.
 * :func:`compose_cuda` (``csrc/compose.cu``, K6) replaces
   ``compose_pallas`` (``repro/kernels/crt.py:266``): the Eq-10 inverse
   CRT, residues ``(t, rows)`` -> base-2^w limbs ``(rows, L)``, one thread
@@ -38,9 +41,14 @@ from repro_torch.core.rns import ChannelDecompose, RnsPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_operand, ptr
 
-# per-coefficient register arrays of the kernels (csrc/parentt.cuh)
+# the kernels' limits (csrc/parentt.cuh): segments and limbs of a
+# coefficient, channels and Alg-2 blocks of a decompose circuit, the
+# block width
 MAX_SEGMENTS = 16
 MAX_LIMBS = 16
+MAX_CHANNELS = 16
+MAX_BLOCKS = 6
+KERNEL_T_PRIME = 3  # the Alg-2 block width of every plan (core/rns.py make_plan)
 
 
 def require_dec(plan: RnsPlan):
@@ -52,6 +60,23 @@ def require_dec(plan: RnsPlan):
             "kernels need v <= 31 and SAU words inside the 63-bit Barrett window"
         )
     return plan.dec
+
+
+def check_dec_limits(plan: RnsPlan, fn: str) -> None:
+    """Raise unless the plan's decompose circuits fit the kernels' shared
+    table (parentt.cuh ``DecomposeShared``)."""
+    require_dec(plan)
+    if plan.t > MAX_CHANNELS or plan.n_blocks > MAX_BLOCKS or plan.t_prime != KERNEL_T_PRIME:
+        raise ValueError(
+            f"{fn}: t={plan.t}, {plan.n_blocks} Alg-2 blocks of t'={plan.t_prime} segments: the "
+            f"kernels take t <= {MAX_CHANNELS}, <= {MAX_BLOCKS} blocks of t'={KERNEL_T_PRIME}"
+        )
+
+
+def narrow_moduli(plan: RnsPlan) -> bool:
+    """Every q below 2^30: the kernels' decompose keeps its Barrett
+    remainders (< 4q) in 32 bits."""
+    return max(int(q).bit_length() for q in plan.qs) <= 30
 
 
 # --------------------------------------------------------------------------
@@ -152,7 +177,7 @@ def compose_ref(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_DECOMPOSE_ARGTYPES = [_P] * 9 + [_LL] + [_I] * 7 + [_P]
+_DECOMPOSE_ARGTYPES = [_P] * 9 + [_LL] + [_I] * 6 + [_P]
 _COMPOSE_ARGTYPES = [_P] * 6 + [_LL] + [_I] * 3 + [_P]
 
 
@@ -161,32 +186,42 @@ def _check_plan_device(plan: RnsPlan, device: torch.device, fn: str) -> None:
         raise ValueError(f"{fn}: plan lives on {plan.qs_d.device}, operand on {device}")
 
 
+def _decompose_constants(plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
+    """The checked (pointers, ints) of a K5 launch that depend only on the
+    plan: worked out at its first launch and kept on the plan."""
+    kept = plan.__dict__.get("_decompose_launch")
+    if kept is not None:
+        return kept
+    S = plan.seg_count
+    if S > MAX_SEGMENTS:
+        raise ValueError(f"{fn_name}: S={S} exceeds the kernel's {MAX_SEGMENTS}")
+    dec = require_dec(plan)
+    check_dec_limits(plan, fn_name)
+    d = plan.dec_d
+    pointers = tuple(ptr(x) for x in (plan.qs_d, d["beta"], d["sau_eps"], d["sau_s2"],
+                                      d["acc_eps"], d["block_m"], d["block_consts"]))
+    ints = (plan.t, S, plan.n_blocks, dec[0].acc_barrett[1], dec[0].acc_barrett[2],
+            int(narrow_moduli(plan)))
+    object.__setattr__(plan, "_decompose_launch", (pointers, ints))
+    return pointers, ints
+
+
 def decompose_cuda(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
     """Segments (rows, S) -> residues (t, rows) in one launch of
     ``csrc/decompose.cu``.  CPU tensors run the plain version."""
     if z.device.type == "cpu":
         return decompose_ref(z, plan)
     fn_name = "decompose_cuda"
-    S = plan.seg_count
     rows = z.shape[0] if z.dim() == 2 else -1
-    check_operand(z, (rows, S), "z", fn_name)
-    if S > MAX_SEGMENTS:
-        raise ValueError(f"{fn_name}: S={S} exceeds the kernel's {MAX_SEGMENTS}")
-    dec = require_dec(plan)
+    check_operand(z, (rows, plan.seg_count), "z", fn_name)
+    pointers, ints = _decompose_constants(plan, fn_name)
     launch = _build.load("decompose", "parentt_decompose", _DECOMPOSE_ARGTYPES)
     _check_plan_device(plan, z.device, fn_name)
     out = torch.empty((plan.t, rows), dtype=torch.int64, device=z.device)
     if rows == 0:
         return out
-    d = plan.dec_d
     with torch.cuda.device(z.device):
-        code = launch(
-            ptr(z), ptr(out), ptr(plan.qs_d),
-            ptr(d["sau_eps"]), ptr(d["sau_s2"]), ptr(d["acc_eps"]),
-            ptr(d["beta_e"]), ptr(d["beta_s"]), ptr(d["block_consts"]),
-            rows, plan.t, S, plan.t_prime, d["beta_e"].shape[1], plan.n_blocks,
-            dec[0].acc_barrett[1], dec[0].acc_barrett[2], _build.stream_of(z),
-        )
+        code = launch(ptr(z), ptr(out), *pointers, rows, *ints, _build.stream_of(z))
     _build.check("decompose", code)
     decompose_cuda.launches += 1
     return out

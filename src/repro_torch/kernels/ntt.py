@@ -7,9 +7,13 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   (channel, row), both operands in shared memory.
 * :func:`fused_e2e_polymul_cuda` (``csrc/fused_e2e_polymul.cu``, K2)
   replaces ``fused_e2e_polymul_pallas`` (``repro/kernels/ntt.py:802``):
-  SAU decompose -> cascade -> Eq-10 compose in one launch, one block per
-  row looping over the t channels (Hopper blocks run in no order, so the
-  block's own loop takes the place of the TPU's ordered channel grid).
+  SAU decompose -> cascade -> Eq-10 compose in one launch, one
+  thread-block cluster of min(t, 8) CTAs per row (:func:`e2e_cluster`);
+  each CTA owns channels and a coefficient slice (:func:`e2e_channels`,
+  :func:`e2e_slice`), and the residues move between the CTAs through
+  distributed shared memory, never through device memory.
+  ``fused_e2e_polymul_cuda.cluster`` is the cluster size of its last
+  launch.
 * :func:`ntt_channels_cuda` (``csrc/ntt_channels.cu``, K3) replaces
   ``ntt_channels_pallas`` (``repro/kernels/ntt.py:680``): the forward
   transform per channel, natural in, bit-reversed and canonical out.
@@ -40,6 +44,7 @@ from repro_torch.kernels._build import check_operand, ptr
 from repro_torch.kernels.crt import (
     MAX_LIMBS,
     MAX_SEGMENTS,
+    check_dec_limits,
     compose_finalize,
     decompose_ref,
     require_dec,
@@ -63,9 +68,55 @@ def cascade_smem_bytes(n: int) -> int:
     return 2 * n * RESIDUE_BYTES
 
 
-def e2e_smem_bytes(n: int, t: int) -> int:
-    """Shared memory of one e2e block: both operands in all t channels."""
-    return 2 * t * n * RESIDUE_BYTES
+# the fused e2e kernel's cluster (csrc/fused_e2e_polymul.cu): at most the
+# portable cluster size of CTAs per row
+MAX_CLUSTER = 8
+# static shared memory of a decompose circuit table (parentt.cuh
+# DecomposeShared: 16 channels), an upper bound
+DECOMPOSE_SHARED_BYTES = 2048
+
+
+def e2e_cluster(t: int) -> tuple[int, int]:
+    """(C, slots) of the e2e kernel: C = min(t, 8) CTAs per row, each owning
+    at most ``slots`` = ceil(t / C) channels.  The kernel's launch derives
+    them itself; this copy serves plan admission and the tests."""
+    c = min(t, MAX_CLUSTER)
+    return c, -(-t // c)
+
+
+def e2e_channels(t: int, cluster: int, rank: int) -> range:
+    """The channels CTA ``rank`` of a cluster owns: rank, rank + C, ..."""
+    return range(rank, t, cluster)
+
+
+def e2e_slice(n: int, cluster: int, rank: int) -> range:
+    """The coefficients CTA ``rank`` decomposes and composes:
+    [ceil(rank n / C), ceil((rank + 1) n / C))."""
+    return range(-(-rank * n // cluster), -(-(rank + 1) * n // cluster))
+
+
+def e2e_threads(n: int) -> int:
+    """Threads of one e2e CTA: n / 16 within [32, 512], at most n / 2."""
+    return min(n // 2, max(32, min(512, n // 16)))
+
+
+def e2e_group(n: int) -> int:
+    """K: the transform stages one e2e thread runs from registers between
+    two trips through shared memory, log2(n / threads) capped at 3."""
+    return min((n // e2e_threads(n)).bit_length() - 1, 3)
+
+
+def e2e_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) -> int:
+    """Shared memory of one e2e CTA: its channels' two residue polynomials
+    (one pad word per 16), the staging of half a block's threads'
+    segments per operand or of every thread's limbs, and the decompose
+    circuit table.  ``S`` and ``L``
+    default to the kernel's largest counts (an upper bound for admission)."""
+    _, slots = e2e_cluster(t)
+    threads = e2e_threads(n)
+    res = -(-slots * 2 * (n + n // 16) * RESIDUE_BYTES // 16) * 16
+    stage = max(2 * (threads // 2) * S, threads * L) * 8
+    return res + stage + DECOMPOSE_SHARED_BYTES
 
 
 def reduction_mode(tables: ChannelTables) -> tuple[int, int, int, int, int]:
@@ -175,7 +226,7 @@ def fused_e2e_polymul_ref(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTab
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STAGE_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _CASCADE_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
-_E2E_ARGTYPES = [_P] * 19 + [_I] * 16 + [_P]
+_E2E_ARGTYPES = [_P] * 19 + [_I] * 14 + [_P]
 
 
 def _check_tables_device(tables: ChannelTables, device: torch.device, fn: str) -> None:
@@ -292,6 +343,38 @@ def fused_polymul_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables) 
 fused_polymul_cuda.launches = 0
 
 
+def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
+    """The checked (pointers, ints) of a K2 launch that depend only on the
+    plan and its tables: worked out at the plan's first launch with
+    ``tables`` and kept on the plan, so a short call does not pay for them
+    again."""
+    kept = plan.__dict__.get("_e2e_launch")
+    if kept is not None and kept[0] is tables:
+        return kept[1]
+    t, n, S, L = plan.t, plan.n, plan.seg_count, plan.L
+    log_n = _check_n(n, fn_name)
+    if S > MAX_SEGMENTS or L > MAX_LIMBS:
+        raise ValueError(f"{fn_name}: S={S}, L={L} exceed the kernel's {MAX_SEGMENTS}/{MAX_LIMBS}")
+    if e2e_smem_bytes(n, t, S, L) > MAX_SMEM_BYTES:
+        raise ValueError(f"{fn_name}: n={n}, t={t} do not fit one CTA's shared memory")
+    dec = require_dec(plan)
+    check_dec_limits(plan, fn_name)
+    if plan.qs_d.device != tables.qs_d.device or tables.t != t or tables.n != n:
+        raise ValueError(f"{fn_name}: plan and tables do not match")
+    mode, window, beta, s1, s2 = reduction_mode(tables)
+    eps, fsh, ish = _optional_tables(tables)
+    d = plan.dec_d
+    pointers = tuple(ptr(x) for x in (
+        tables.qs_d, tables.half_d, eps, plan.qi_tilde_d, tables.fwd_d, tables.inv_d, fsh, ish,
+        d["beta"], d["sau_eps"], d["sau_s2"], d["acc_eps"], d["block_m"], d["block_consts"],
+        plan.qi_star_limbs_d, plan.q_limbs_d,
+    ))
+    ints = (log_n, t, S, L, plan.n_blocks, dec[0].acc_barrett[1], dec[0].acc_barrett[2], plan.w,
+            mode, window, beta, s1, s2)
+    object.__setattr__(plan, "_e2e_launch", (tables, (pointers, ints)))
+    return pointers, ints
+
+
 def fused_e2e_polymul_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
                            plan: RnsPlan) -> torch.Tensor:
     """Segments (rows, n, S) x 2 -> product limbs (rows, n, L) in one
@@ -300,43 +383,37 @@ def fused_e2e_polymul_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTa
     if za.device.type == "cpu":
         return fused_e2e_polymul_ref(za, zb, tables, plan)
     fn_name = "fused_e2e_polymul_cuda"
-    t, n, S, L = plan.t, plan.n, plan.seg_count, plan.L
     rows = za.shape[0] if za.dim() == 3 else -1
-    check_operand(za, (rows, n, S), "za", fn_name)
-    check_operand(zb, (rows, n, S), "zb", fn_name)
+    check_operand(za, (rows, plan.n, plan.seg_count), "za", fn_name)
+    check_operand(zb, (rows, plan.n, plan.seg_count), "zb", fn_name)
     if zb.device != za.device:
         raise ValueError(f"{fn_name}: operands on {za.device} and {zb.device}")
-    log_n = _check_n(n, fn_name)
-    if e2e_smem_bytes(n, t) > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn_name}: n={n}, t={t} do not fit one block's shared memory")
-    if S > MAX_SEGMENTS or L > MAX_LIMBS:
-        raise ValueError(f"{fn_name}: S={S}, L={L} exceed the kernel's {MAX_SEGMENTS}/{MAX_LIMBS}")
-    dec = require_dec(plan)
+    pointers, ints = _e2e_constants(tables, plan, fn_name)
     launch = _build.load("fused_e2e_polymul", "parentt_fused_e2e_polymul", _E2E_ARGTYPES)
-    _check_tables_device(tables, za.device, fn_name)
-    if plan.qs_d.device != za.device or tables.t != t or tables.n != n:
-        raise ValueError(f"{fn_name}: plan and tables do not match the operands")
-    out = torch.empty((rows, n, L), dtype=torch.int64, device=za.device)
+    if plan.qs_d.device != za.device:
+        raise ValueError(f"{fn_name}: plan and tables live on {plan.qs_d.device}, operands on "
+                         f"{za.device}")
+    out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=za.device)
     if rows == 0:
         return out
-    mode, window, beta, s1, s2 = reduction_mode(tables)
-    eps, fsh, ish = _optional_tables(tables)
-    d = plan.dec_d
-    dec_s1, acc_s2 = dec[0].acc_barrett[1], dec[0].acc_barrett[2]
     with torch.cuda.device(za.device):
-        code = launch(
-            ptr(za), ptr(zb), ptr(out),
-            ptr(tables.qs_d), ptr(tables.half_d), ptr(eps), ptr(plan.qi_tilde_d),
-            ptr(tables.fwd_d), ptr(tables.inv_d), ptr(fsh), ptr(ish),
-            ptr(d["sau_eps"]), ptr(d["sau_s2"]), ptr(d["acc_eps"]),
-            ptr(d["beta_e"]), ptr(d["beta_s"]), ptr(d["block_consts"]),
-            ptr(plan.qi_star_limbs_d), ptr(plan.q_limbs_d),
-            rows, log_n, t, S, L, d["beta_e"].shape[1], plan.n_blocks, plan.t_prime,
-            dec_s1, acc_s2, plan.w, mode, window, beta, s1, s2, _build.stream_of(za),
-        )
+        code = launch(ptr(za), ptr(zb), ptr(out), *pointers, rows, *ints, _build.stream_of(za))
     _build.check("fused_e2e_polymul", code)
     fused_e2e_polymul_cuda.launches += 1
+    fused_e2e_polymul_cuda.cluster = e2e_cluster(plan.t)[0]
     return out
 
 
 fused_e2e_polymul_cuda.launches = 0
+fused_e2e_polymul_cuda.cluster = 0  # CTAs per row of the last launch
+
+
+def e2e_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> int:
+    """How many clusters of the e2e kernel the current card holds at once
+    at this configuration (``cudaOccupancyMaxActiveClusters``)."""
+    launch = _build.load("fused_e2e_polymul", "parentt_fused_e2e_max_clusters", [_I] * 6)
+    mode, window = reduction_mode(tables)[:2]
+    count = launch(plan.n.bit_length() - 1, plan.t, plan.seg_count, plan.L, mode, window)
+    if count < 0:
+        _build.check("fused_e2e_polymul", -count)
+    return count

@@ -114,6 +114,78 @@ def test_main_path_launches_the_kernels(cuda_device):
         assert prod[c, 0].tolist() == want
 
 
+# the largest (n, t) plan() admits on the e2e backend in each regime
+# (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31), with one channel a
+# CTA (n = 16384, t <= 8) and two (n = 8192, t > 8): about 170-207 KB of
+# shared memory a CTA, so one CTA an SM and clusters of up to 8 SMs
+E2E_CORNERS = [(16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
+               (8192, 10, 29), (8192, 14, 30), (8192, 13, 31)]
+
+
+@pytest.mark.parametrize("n,t,v", [(n, t, v) for n, t, v, _ in PRESETS]
+                         + [(8192, 6, 30), (16384, 3, 30)] + E2E_CORNERS)
+def test_e2e_and_decompose_kernels_at_one_and_odd_rows(cuda_device, n, t, v):
+    """K2 at one row and at an odd row count, as clusters of min(t, 8)
+    CTAs of which the card holds at least one; K5 at one coefficient, at
+    odd counts and across tiles."""
+    pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device=cuda_device)
+    p = pl.params
+    assert kern.e2e_max_active_clusters(p.tables, p.plan) >= 1
+    za, zb, _, _ = _inputs(pl, 7, seed=n + t + v + 7, device=cuda_device)
+    for rows in (1, 7):
+        got = kern.fused_e2e_polymul_cuda(za[:rows], zb[:rows], p.tables, p.plan)
+        torch.cuda.synchronize()
+        assert kern.fused_e2e_polymul_cuda.cluster == min(t, 8)
+        assert torch.equal(got, kern.fused_e2e_polymul_ref(za[:rows], zb[:rows], p.tables, p.plan))
+    z2 = za.reshape(-1, pl.config.seg_count)
+    for m in (1, 255, 257, z2.shape[0] - 1):
+        got = crt.decompose_cuda(z2[:m], p.plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, crt.decompose_ref(z2[:m], p.plan))
+
+
+def test_e2e_corners_are_the_edge_of_admission():
+    """Runs without a card: each corner is admitted, and one step past it
+    in t (or n) is not, so the corners cover the largest CTAs served."""
+    for n, t, v in E2E_CORNERS:
+        repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device="cpu")
+        for bigger in ((n, t + 1, v), (2 * n, t, v)):
+            with pytest.raises(repro_torch.UnservableConfigError):
+                repro_torch.plan(*bigger, backend="cuda_fused_e2e", device="cpu")
+
+
+@pytest.mark.parametrize("n,t,v", [(64, 3, 30), (256, 6, 30), (4096, 6, 30), (64, 9, 30)])
+def test_polymul_is_one_cluster_launch(cuda_device, n, t, v):
+    """An auto polymul is one K2 launch, a cluster of min(t, 8) CTAs a row
+    (two channels on some CTAs at t = 9), equal to the host oracle."""
+    pl = repro_torch.plan(n, t, v)
+    za, zb, _, _ = _inputs(pl, 3, seed=n + t, device=pl.device)
+    for w in STAGE_WRAPPERS:
+        w.launches = 0
+    kern.fused_e2e_polymul_cuda.cluster = 0
+    out = repro_torch.polymul(pl, za, zb)
+    torch.cuda.synchronize()
+    assert tuple(w.launches for w in STAGE_WRAPPERS) == (0, 1, 0, 0, 0, 0)
+    assert kern.fused_e2e_polymul_cuda.cluster == min(t, 8)
+    a = bigint.limbs_to_ints(za[2].cpu().numpy(), pl.v)
+    b = bigint.limbs_to_ints(zb[2].cpu().numpy(), pl.v)
+    assert repro_torch.from_limbs(pl, out[2]) == host.oracle_multiply(a, b, pl.params)
+
+
+def test_e2e_admits_n8192_and_every_plan_admitted_before():
+    """Runs without a card: plan() serves n = 8192 at t = 6 on the e2e
+    backend, and every (n, t) the one-block-per-row kernel fitted (8tn
+    bytes, and 8n for the cascade) still fits one CTA."""
+    pl = repro_torch.plan(n=8192, t=6, v=30, backend="cuda_fused_e2e", device="cpu")
+    assert pl.config.backend == "cuda_fused_e2e"
+    for log_n in range(2, 16):
+        n = 1 << log_n
+        for t in range(1, 17):
+            before = max(8 * n, 8 * t * n) <= kern.MAX_SMEM_BYTES
+            now = max(kern.cascade_smem_bytes(n), kern.e2e_smem_bytes(n, t)) <= kern.MAX_SMEM_BYTES
+            assert now or not before, (n, t)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     p = repro_torch.plan(64, 3, 30, device=cuda_device).params
     a = torch.zeros((3, 2, 64), dtype=torch.int64, device=cuda_device)

@@ -1,0 +1,557 @@
+"""The arithmetic and schedule of the port's CUDA kernels K2 (the fused e2e
+multiplier, ``csrc/fused_e2e_polymul.cu``) and K5 (decompose,
+``csrc/decompose.cu``), emulated on the CPU and held against the port's
+int64 lane ops (``repro_torch.core.modmath``), the JAX package's
+(``repro.core.modmath``) and the plain versions.
+
+The kernels run only on the card (``tests/test_torch_cuda.py``).  Here
+numpy uint64 lanes masked to 32 bits repeat, operation for operation,
+what ``csrc/parentt.cuh`` computes: the 32-bit butterflies (``__umulhi``
+Shoup quotient at v = 30, one 32x32->64 product at v <= 29, the 64-bit %
+at v = 31), the 32-bit Barrett of the residue products, the SAU Barrett
+and the block-product Barrett of the decompose, and K2's register passes
+over its shared-memory layout.  The cluster's ownership of channels and
+coefficients is checked on the host helpers the wrapper launches with.
+
+    python -m pytest -q tests/test_torch_kernel_arith.py
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import modmath as jmod
+from repro_torch.core import modmath as tmod
+from repro_torch.core import rns as trns
+from repro_torch.core.params import make_params
+from repro_torch.kernels import crt as tcrt
+from repro_torch.kernels import ntt as tkern
+
+M32 = np.uint64(0xFFFFFFFF)
+LAZY, REM = tkern.MODE_LAZY, tkern.MODE_REM
+SEED = 15
+
+
+def U(x):
+    return np.asarray(x, dtype=np.uint64)
+
+
+def sh(k):
+    return np.uint64(k)
+
+
+class Regime:
+    """A table set's reduction constants as uint64 lanes shaped (t, 1, 1)."""
+
+    def __init__(self, tables):
+        self.mode, self.window, self.beta, self.s1, self.s2 = tkern.reduction_mode(tables)
+        col = lambda a: U(a).reshape(-1, 1, 1)
+        self.q = col(tables.qs)
+        self.half = col(tables.half)
+        self.eps = col(tables.mul_eps if tables.mul_eps is not None else tables.qs)
+        self.block_m = None  # K2's strict products: the block Barrett (block_m, s1)
+
+
+# --------------------------------------------------------------------------
+# the device functions of csrc/parentt.cuh on uint64 lanes, 32-bit wrapping
+# --------------------------------------------------------------------------
+
+
+def cond_sub(x, m):
+    return np.where(x >= m, x - m, x)
+
+
+def mul_mod(x, y, r):
+    p = x * y
+    if r.mode == REM:
+        return p % r.q if r.block_m is None else block_barrett(p, r.q, *r.block_m)
+    qhat = ((((p >> sh(r.s1)) & M32) * (r.eps & M32)) >> sh(r.s2)) & M32
+    rem = (p - qhat * r.q) & M32
+    for _ in range(3):
+        rem = cond_sub(rem, r.q)
+    return rem
+
+
+def shoup_mul(v, w, ws, r):
+    qhat = (v * ws) >> sh(32) if r.window == 2 else ((v * ws) >> sh(r.beta)) & M32
+    return (v * w - qhat * r.q) & M32
+
+
+def div2(x, r):
+    return ((x >> sh(1)) + (x & sh(1)) * r.half) & M32
+
+
+def ct(u, v, w, ws, r):
+    if r.mode == LAZY:
+        t = shoup_mul(v, w, ws, r)
+        q2 = 2 * r.q
+        if r.window == 4:
+            uu = cond_sub(u, q2)
+            return (uu + t) & M32, (uu - t + q2) & M32
+        return cond_sub((u + t) & M32, q2), cond_sub((u - t + q2) & M32, q2)
+    p = mul_mod(v, w, r)
+    return cond_sub((u + p) & M32, r.q), np.where(u >= p, u - p, (u - p + r.q) & M32)
+
+
+def gs(u, v, w, ws, r):
+    if r.mode == LAZY:
+        wq = (r.window * r.q) & M32
+        s = cond_sub((u + v) & M32, wq)
+        d = shoup_mul(cond_sub((u - v + wq) & M32, wq), w, ws, r)
+        return div2(s, r), div2(d, r)
+    s = cond_sub((u + v) & M32, r.q)
+    d = mul_mod(np.where(u >= v, u - v, (u - v + r.q) & M32), w, r)
+    return div2(s, r), div2(d, r)
+
+
+def canonicalize(x, r):
+    if r.mode != LAZY:
+        return x
+    if r.window == 4:
+        x = cond_sub(x, 2 * r.q)
+    return cond_sub(x, r.q)
+
+
+# --------------------------------------------------------------------------
+# 32-bit butterflies and products against the int64 lane ops
+# --------------------------------------------------------------------------
+
+BUTTERFLY_PRESETS = [(n, v) for n in (64, 256, 4096) for v in (29, 30, 31)]
+
+
+def _lane_pairs(r, n, rng, domain):
+    """(u, v) lanes (t, n, 6): the edges 0 and domain - 1 in all four
+    pairings, then seeded random values below ``domain`` (t, 1, 1)."""
+    t = r.q.shape[0]
+    top = domain - 1
+    zero = np.zeros((t, n, 1), dtype=np.uint64)
+    hi = np.broadcast_to(top, (t, n, 1))
+    rand = lambda: U(rng.integers(0, 1 << 62, size=(t, n, 2), dtype=np.int64)) % domain
+    u = np.concatenate([zero, hi, zero, hi, rand()], axis=-1)
+    v = np.concatenate([zero, zero, hi, hi, rand()], axis=-1)
+    return u, v
+
+
+def _torch(x):
+    return torch.as_tensor(np.asarray(x, dtype=np.int64))
+
+
+def _jax(x):
+    return jnp.asarray(np.asarray(x, dtype=np.int64))
+
+
+def _int64(x):
+    return np.asarray(x, dtype=np.int64)
+
+
+@pytest.mark.parametrize("n,v", BUTTERFLY_PRESETS)
+def test_butterflies_32bit_match_int64_lane_ops(n, v):
+    """Every twiddle of the n-point tables at v = 29 (W = 4), 30 (W = 2)
+    and 31 (strict %), each with the edge values 0 and W q - 1 (q - 1
+    strict) and seeded random values: the kernels' 32-bit CT and GS
+    butterflies equal the port's and the JAX package's int64 ones."""
+    tables = make_params(n, 3, v).tables
+    r = Regime(tables)
+    rng = np.random.default_rng(SEED + n + v)
+    domain = r.q * (r.window if r.mode == LAZY else 1)
+    u, x = _lane_pairs(r, n, rng, domain)
+    q64 = _int64(r.q)
+    for tab, tab_sh, kernel_fly in (
+        (tables.fwd, tables.fwd_shoup, ct),
+        (tables.inv, tables.inv_shoup, gs),
+    ):
+        w = U(tab)[:, :, None]
+        ws = U(tab_sh)[:, :, None] if tab_sh is not None else np.zeros_like(w)
+        got = [_int64(y) for y in kernel_fly(u, x, w, ws, r)]
+        if r.mode == LAZY:
+            if kernel_fly is ct:
+                tw = tmod.lazy_ct_butterfly(_torch(u), _torch(x), _torch(w), _torch(ws),
+                                            _torch(q64), beta=r.beta, window=r.window)
+                jw = jmod.lazy_ct_butterfly(_jax(u), _jax(x), _jax(w), _jax(ws), _jax(q64),
+                                            beta=r.beta, window=r.window)
+            else:
+                tw = tmod.lazy_gs_butterfly(_torch(u), _torch(x), _torch(w), _torch(ws),
+                                            _torch(q64), _torch(_int64(r.half)),
+                                            beta=r.beta, window=r.window)
+                jw = jmod.lazy_gs_butterfly(_jax(u), _jax(x), _jax(w), _jax(ws), _jax(q64),
+                                            _jax(_int64(r.half)), beta=r.beta, window=r.window)
+        else:
+            tw = _strict_fly(tmod, _torch, kernel_fly is ct, u, x, w, q64, r, tables)
+            jw = _strict_fly(jmod, _jax, kernel_fly is ct, u, x, w, q64, r, tables)
+        for g, a, b in zip(got, tw, jw):
+            assert np.array_equal(g, a.numpy())
+            assert np.array_equal(g, np.asarray(b))
+
+
+def _strict_fly(mod, arr, forward, u, x, w, q64, r, tables):
+    """The strict butterflies of kernels/ntt.py ``_butterflies`` on one
+    package's lane ops."""
+    eps = None if tables.mul_eps is None else arr(_int64(r.eps))
+    q, u, x, w = arr(q64), arr(u), arr(x), arr(w)
+    if forward:
+        p = mod.mul_mod(x, w, q, eps, tables.mul_shifts)
+        return mod.add_mod(u, p, q), mod.sub_mod(u, p, q)
+    half = arr(_int64(r.half))
+    s = mod.add_mod(u, x, q)
+    d = mod.mul_mod(mod.sub_mod(u, x, q), w, q, eps, tables.mul_shifts)
+    return mod.div2_mod(s, half), mod.div2_mod(d, half)
+
+
+@pytest.mark.parametrize("v", (29, 30, 31))
+def test_products_and_canonicalize_32bit_match_int64_lane_ops(v):
+    """The residue products (the pointwise product and y = p q~) on
+    canonical values, (q - 1)^2 included, and the lazy exit canonicalize
+    on [0, W q), as the kernels compute them in 32 bits."""
+    tables = make_params(256, 3, v).tables
+    r = Regime(tables)
+    rng = np.random.default_rng(SEED + v)
+    x, y = _lane_pairs(r, 256, rng, r.q)
+    got = _int64(mul_mod(x, y, r))
+    eps = None if tables.mul_eps is None else _int64(r.eps)
+    want_t = tmod.mul_mod(_torch(x), _torch(y), _torch(_int64(r.q)),
+                          None if eps is None else _torch(eps), tables.mul_shifts)
+    want_j = jmod.mul_mod(_jax(x), _jax(y), _jax(_int64(r.q)),
+                          None if eps is None else _jax(eps), tables.mul_shifts)
+    assert np.array_equal(got, want_t.numpy())
+    assert np.array_equal(got, np.asarray(want_j))
+    assert np.array_equal(got, _int64((x * y) % r.q))
+    if r.mode == LAZY:
+        z, _ = _lane_pairs(r, 256, rng, r.window * r.q)
+        got = _int64(canonicalize(z, r))
+        assert np.array_equal(got, tmod.canonicalize(_torch(z), _torch(_int64(r.q)),
+                                                     r.window).numpy())
+        assert np.array_equal(got, np.asarray(jmod.canonicalize(_jax(z), _jax(_int64(r.q)),
+                                                                r.window)))
+
+
+# --------------------------------------------------------------------------
+# the decompose reductions
+# --------------------------------------------------------------------------
+
+DEC_PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30), (4096, 6, 30)]
+
+
+def _remainder(x, qhat, q, narrow, subs):
+    """x - qhat q and ``subs`` conditional subtractions, in 32-bit words
+    when ``narrow`` (wrapping mod 2^32), else in 64-bit words."""
+    r = ((x & M32) - ((qhat * q) & M32)) & M32 if narrow else x - qhat * q
+    for _ in range(subs):
+        r = cond_sub(r, q)
+    return r
+
+
+def block_barrett(x, q, m, s1, narrow=False):
+    """parentt.cuh ``block_barrett`` on uint64 lanes."""
+    qhat = (((x >> sh(s1)) & M32) * (m & M32)) >> sh(32)
+    return _remainder(x, qhat, q, narrow, 2)
+
+
+def sau_barrett(x, q, eps, s1, s2, narrow=False):
+    """parentt.cuh ``sau_barrett`` on non-negative int64 lanes."""
+    qhat = ((((U(x) >> sh(s1)) & M32) * U(eps & 0xFFFFFFFF)) >> sh(s2)) & M32
+    return _remainder(U(x), qhat, U(q), narrow, 3).astype(np.int64)
+
+
+def _narrow_modes(q):
+    """The remainder widths a kernel may use for q: 32-bit below 2^30."""
+    return (False, True) if int(q).bit_length() <= 30 else (False,)
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+def test_block_barrett_equals_remainder(n, t, v):
+    """The block-product Barrett that replaces K5's and K2's 64-bit % is
+    x mod q on (q - 1)^2, on every block constant times seeded residues,
+    on seeded values below 2^(2b) and at 2^(2b) - 1, for every channel."""
+    plan = make_params(n, t, v).plan
+    block_m = plan.dec_d["block_m"].numpy()
+    rng = np.random.default_rng(SEED + n + t + v)
+    for c, ch in enumerate(plan.dec):
+        q, s1 = ch.qi, ch.acc_barrett[1]
+        m = int(block_m[c])
+        assert m == trns.block_barrett_constant(q, s1) and m < 1 << 32
+        b = q.bit_length()
+        blk = rng.integers(0, q, size=64, dtype=np.int64)
+        xs = [(q - 1) ** 2, 0, q, q * q - 1 if q * q - 1 < 1 << (2 * b) else 0, (1 << (2 * b)) - 1]
+        xs += [int(k) * int(bc) for bc in ch.block_consts for k in blk]
+        xs += [int(x) for x in rng.integers(0, 1 << (2 * b), size=256, dtype=np.uint64)]
+        x = U(xs)
+        for narrow in _narrow_modes(q):
+            assert np.array_equal(block_barrett(x, U(q), U(m), s1, narrow), x % U(q))
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+def test_sau_barrett_32bit_quotient_matches_int64(n, t, v):
+    """The SAU words' Barrett with its quotient from one 32x32->64 product
+    equals the int64 ``barrett_reduce`` of both packages on seeded words
+    below 2^c and at 2^c - 1 (the window the constants are made for)."""
+    plan = make_params(n, t, v).plan
+    rng = np.random.default_rng(SEED + 2 * n + t + v)
+    for ch in plan.dec:
+        q = ch.qi
+        for eps, s1, s2 in (ch.sau_barrett, ch.acc_barrett):
+            c = s1 + s2
+            x = np.concatenate([rng.integers(0, 1 << c, size=512, dtype=np.int64),
+                                np.array([0, q, (1 << c) - 1], dtype=np.int64)])
+            want = tmod.barrett_reduce(torch.as_tensor(x), q, eps, s1, s2).numpy()
+            assert np.array_equal(want, np.asarray(jmod.barrett_reduce(jnp.asarray(x), q, eps,
+                                                                       s1, s2)))
+            for narrow in _narrow_modes(q):
+                assert np.array_equal(sau_barrett(x, q, eps, s1, s2, narrow), want)
+
+
+def decompose_emulated(z: np.ndarray, plan, narrow: bool) -> np.ndarray:
+    """parentt.cuh ``decompose`` for every channel on (N, S) int64
+    segments: the SAU network as one product by beta (mod 2^64), the
+    Barretts with 32-bit quotients, remainders 32-bit when ``narrow``."""
+    a = {k: x.numpy() for k, x in plan.dec_d.items()}
+    S, tp = plan.seg_count, plan.t_prime
+    s1, acc_s2 = plan.dec[0].acc_barrett[1:]
+    outs = []
+    for c in range(plan.t):
+        q = plan.dec[c].qi
+        eps, s2 = int(a["sau_eps"][c]), int(a["sau_s2"][c])
+        assert int(a["beta"][c]) == sum(s << e for e, s in plan.dec[c].beta_terms) - 1
+
+        def sau(x):
+            return (U(x) * U(int(a["beta"][c]))).astype(np.int64)
+
+        acc = np.zeros(z.shape[0], dtype=np.int64)
+        for rho in range(plan.n_blocks):
+            base = rho * tp
+            blk = z[:, base].copy()
+            if tp > 1 and base + 1 < S:
+                blk = blk + sau(z[:, base + 1])
+            for k in range(2, tp):
+                if base + k >= S:
+                    break
+                x = sau_barrett(sau(z[:, base + k]), q, eps, s1, s2, narrow)
+                for _ in range(k - 1):
+                    x = sau_barrett(sau(x), q, eps, s1, s2, narrow)
+                blk = blk + x
+            blk = sau_barrett(blk, q, eps, s1, s2, narrow)
+            if rho == 0:
+                acc = acc + blk
+            else:
+                prod = U(blk) * U(int(a["block_consts"][c, rho]))
+                m = U(int(a["block_m"][c]))
+                acc = acc + block_barrett(prod, U(q), m, s1, narrow).astype(np.int64)
+        outs.append(sau_barrett(acc, q, int(a["acc_eps"][c]), s1, acc_s2, narrow))
+    return np.stack(outs)
+
+
+def _segments(plan, shape, rng):
+    z = rng.integers(0, 1 << plan.v, size=shape + (plan.seg_count,), dtype=np.int64)
+    z[..., -1] = rng.integers(0, plan.q >> (plan.v * (plan.seg_count - 1)), size=shape)
+    return z
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+def test_decompose_emulation_matches_plain_version(n, t, v):
+    """K5's per-coefficient arithmetic (and K2's first step) on seeded
+    segments, the all-zero and the all-ones segment, equals decompose_ref."""
+    plan = make_params(n, t, v).plan
+    rng = np.random.default_rng(SEED + 3 * n + v)
+    z = _segments(plan, (200,), rng)
+    z[0] = 0
+    z[1, :-1] = (1 << v) - 1
+    want = tcrt.decompose_ref(torch.as_tensor(z), plan).numpy()
+    for narrow in (False, True) if tcrt.narrow_moduli(plan) else (False,):
+        assert np.array_equal(decompose_emulated(z, plan, narrow), want)
+
+
+# --------------------------------------------------------------------------
+# K2: the cluster layout and the register passes of the cascade
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("t", (3, 4, 6, 9))
+def test_cluster_covers_every_coefficient_and_channel_once(t):
+    cluster, slots = tkern.e2e_cluster(t)
+    assert cluster == min(t, 8) and slots == -(-t // cluster)
+    owned = [list(tkern.e2e_channels(t, cluster, r)) for r in range(cluster)]
+    assert sorted(c for cs in owned for c in cs) == list(range(t))
+    assert all(1 <= len(cs) <= slots for cs in owned)
+    for log_n in range(6, 14):
+        n = 1 << log_n
+        slices = [tkern.e2e_slice(n, cluster, r) for r in range(cluster)]
+        assert [j for s in slices for j in s] == list(range(n))
+        assert max(len(s) for s in slices) - min(len(s) for s in slices) <= 1
+
+
+def pad(i):
+    return i + (i >> 4)
+
+
+def cascade_emulated(a, b, tables, tilde, plan):
+    """fused_e2e_polymul.cu ``channel_cascade`` for every channel and row
+    at once: (t, rows, n) canonical residues -> y = p q~ mod q, through the
+    kernel's passes of G register stages over its padded shared layout."""
+    r = Regime(tables)
+    r.block_m = (U(plan.dec_d["block_m"].numpy()).reshape(-1, 1, 1), plan.dec[0].acc_barrett[1])
+    t, rows, n = a.shape
+    log_n = n.bit_length() - 1
+    K = tkern.e2e_group(n)
+    passes = -(-log_n // K)
+    g0 = log_n - K * (passes - 1)
+    ps = n + n // 16
+    A = np.zeros((t, rows, ps), dtype=np.uint64)
+    B = np.zeros_like(A)
+    A[..., pad(np.arange(n))] = U(a)
+    B[..., pad(np.arange(n))] = U(b)
+    fwd, inv = U(tables.fwd), U(tables.inv)
+    fsh = U(tables.fwd_shoup) if tables.fwd_shoup is not None else np.zeros_like(fwd)
+    ish = U(tables.inv_shoup) if tables.inv_shoup is not None else np.zeros_like(inv)
+    tw = lambda tab, idx: np.take_along_axis(tab, idx[None, :].repeat(t, 0), 1)[:, None, :]
+
+    def ct_group(xs, G, hi, s0):
+        for j in range(G):
+            half = 1 << (G - 1 - j)
+            for blk in range(1 << j):
+                idx = (1 << (s0 + j)) + (hi << j) + blk
+                w, ws = tw(fwd, idx), tw(fsh, idx)
+                for k in range(half):
+                    m = blk * 2 * half + k
+                    for x in xs:
+                        x[m], x[m + half] = ct(x[m], x[m + half], w, ws, r)
+
+    def gs_group(x, G, hi, s0):
+        for j in range(G):
+            half = 1 << j
+            for blk in range(1 << (G - 1 - j)):
+                idx = (1 << (log_n - 1 - s0 - j)) + (hi << (G - 1 - j)) + blk
+                w, ws = tw(inv, idx), tw(ish, idx)
+                for k in range(half):
+                    m = blk * 2 * half + k
+                    x[m], x[m + half] = gs(x[m], x[m + half], w, ws, r)
+
+    def elements(G, log_st):
+        p = np.arange(n >> G)
+        hi = p >> log_st
+        base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1))
+        return hi, [pad(base + (m << log_st)) for m in range(1 << G)]
+
+    s0 = 0
+    for q in range(passes - 1):  # forward passes
+        G = g0 if q == 0 else K
+        hi, idx = elements(G, log_n - s0 - G)
+        x, y = [A[..., i] for i in idx], [B[..., i] for i in idx]
+        ct_group((x, y), G, hi, s0)
+        for m, i in enumerate(idx):
+            A[..., i], B[..., i] = x[m], y[m]
+        s0 += G
+    hi, idx = elements(K, 0)  # middle pass
+    x, y = [A[..., i] for i in idx], [B[..., i] for i in idx]
+    ct_group((x, y), K, hi, log_n - K)
+    x = [mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r) for m in range(1 << K)]
+    gs_group(x, K, hi, 0)
+    for m, i in enumerate(idx):
+        A[..., i] = x[m]
+    s0 = K
+    for q in range(passes - 2, -1, -1):  # inverse passes
+        G = g0 if q == 0 else K
+        hi, idx = elements(G, s0)
+        x = [A[..., i] for i in idx]
+        gs_group(x, G, hi, s0)
+        if q == 0:
+            x = [mul_mod(canonicalize(v, r), U(tilde).reshape(-1, 1, 1), r) for v in x]
+        for m, i in enumerate(idx):
+            A[..., i] = x[m]
+        s0 += G
+    return _int64(A[..., pad(np.arange(n))])
+
+
+CASCADE_PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30), (4096, 6, 30),
+                   (8192, 6, 30), (16384, 3, 30)]
+
+
+@pytest.mark.parametrize("n,t,v", CASCADE_PRESETS)
+def test_e2e_register_passes_match_plain_cascade(n, t, v):
+    """K2's pass schedule (groups of G <= 3 stages per trip through its
+    padded shared memory, the last forward and first inverse pass fused
+    around the pointwise product, y = p q~ in the last pass) equals the
+    plain cascade followed by the q~ product, in every regime."""
+    p = make_params(n, t, v)
+    rows = 1 if n >= 4096 else 2
+    rng = np.random.default_rng(SEED + n + t + v)
+    qs = p.qs[:, None, None]
+    a = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
+    b = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
+    got = cascade_emulated(a, b, p.tables, p.plan.qi_tilde, p.plan)
+    prod = tkern.fused_polymul_ref(torch.as_tensor(a), torch.as_tensor(b), p.tables)
+    q, _, eps = tkern.channel_scalars(p.tables, 3)
+    want = tmod.mul_mod(prod, p.plan.qi_tilde_d.view(t, 1, 1), q, eps, p.tables.mul_shifts)
+    assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("n,t,v", [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30)])
+def test_e2e_emulation_matches_plain_version(n, t, v):
+    """K2 end to end as emulated (decompose per coefficient, the register
+    passes, the quotient-estimate Eq-10 tail) equals fused_e2e_polymul_ref."""
+    p = make_params(n, t, v)
+    rng = np.random.default_rng(SEED + 5 * n + v)
+    za, zb = _segments(p.plan, (2, n), rng), _segments(p.plan, (2, n), rng)
+    narrow = p.tables.lazy is not None  # K2 keeps 32-bit remainders in its lazy regimes
+    ra = decompose_emulated(za.reshape(-1, p.plan.seg_count), p.plan, narrow).reshape(t, 2, n)
+    rb = decompose_emulated(zb.reshape(-1, p.plan.seg_count), p.plan, narrow).reshape(t, 2, n)
+    y = cascade_emulated(ra, rb, p.tables, p.plan.qi_tilde, p.plan)
+    limbs = compose_quotient_emulated(y.reshape(t, -1), p.plan)
+    got = torch.as_tensor(limbs.reshape(2, n, p.plan.L))
+    want = tkern.fused_e2e_polymul_ref(torch.as_tensor(za), torch.as_tensor(zb), p.tables, p.plan)
+    assert torch.equal(got, want)
+
+
+def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray:
+    """parentt.cuh ``compose_finalize_quotient`` on (t, N) canonical y: the
+    limb sums, the quotient floor(sum y_c / q_c) in double (moved by
+    ``shift``, to drive both corrections), the ripple that subtracts k q,
+    and one conditional addition or subtraction of q."""
+    t, L, w = plan.t, plan.L, plan.w
+    mask = (1 << w) - 1
+    star = np.asarray(plan.qi_star_limbs, dtype=np.int64)
+    ql = np.asarray(plan.q_limbs, dtype=np.int64)
+    acc = (y[:, :, None] * star[:, None, :]).sum(axis=0)
+    quotient = np.zeros(y.shape[1])
+    for c in range(t):
+        quotient = quotient + y[c] * (1.0 / float(plan.qs[c]))
+    k = quotient.astype(np.int64) + shift
+    limb = np.zeros_like(acc)
+    carry = np.zeros(y.shape[1], dtype=np.int64)
+    for l in range(L):
+        s = acc[:, l] + carry - k * ql[l]
+        limb[:, l] = s & mask
+        carry = s >> w
+    low = carry < 0
+    c_add = np.zeros_like(carry)
+    added = limb.copy()
+    for l in range(L):
+        d = added[:, l] + ql[l] + c_add
+        c_add = d >> w
+        added[:, l] = d & mask
+    ge = np.ones(y.shape[1], dtype=bool)
+    for l in range(L):
+        differ = limb[:, l] != ql[l]
+        ge = np.where(differ, limb[:, l] > ql[l], ge)
+    borrow = np.zeros_like(carry)
+    subbed = limb.copy()
+    for l in range(L):
+        d = subbed[:, l] - ql[l] - borrow
+        borrow = (d < 0).astype(np.int64)
+        subbed[:, l] = np.where(d < 0, d + (1 << w), d)
+    return np.where(low[:, None], added, np.where(ge[:, None], subbed, limb))
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+def test_compose_quotient_tail_matches_plain_tail(n, t, v):
+    """K2's compose tail (quotient estimate, one correction) equals the
+    plain Eq-10 tail on seeded residues, on all-zero and all q - 1 ones,
+    and with the estimate moved one down or up."""
+    plan = make_params(n, t, v).plan
+    rng = np.random.default_rng(SEED + 7 * n + v)
+    qs = np.asarray(plan.qs, dtype=np.int64)[:, None]
+    y = rng.integers(0, 1 << 62, size=(t, 512), dtype=np.int64) % qs
+    y[:, 0] = 0
+    y[:, 1] = qs[:, 0] - 1
+    acc = torch.as_tensor((y[:, :, None] * np.asarray(plan.qi_star_limbs)[:, None, :]).sum(0))
+    want = tcrt.compose_finalize(acc, plan.q_limbs, w=plan.w, t=t).numpy()
+    for shift in (-1, 0, 1):
+        assert np.array_equal(compose_quotient_emulated(y, plan, shift), want), shift

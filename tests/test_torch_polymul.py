@@ -151,9 +151,10 @@ def test_plan_rejects_unservable_and_unknown_knobs():
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan(64, 4, 45, device="cpu")
     assert err.value.knob == "v"
-    # e2e working set 8tn bytes: n = 8192, t = 6 needs 384 KiB of shared memory
+    # e2e working set of one CTA, one channel's two polynomials and more:
+    # n = 32768 needs over 272 KiB of shared memory
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(8192, 6, 30, backend="cuda_fused_e2e", device="cpu")
+        repro_torch.plan(1 << 15, 6, 30, backend="cuda_fused_e2e", device="cpu")
     assert err.value.knob == "n"
     with pytest.raises(repro_torch.UnservableConfigError):
         repro_torch.plan(1 << 15, 1, 30, backend="cuda_fused", device="cpu")
