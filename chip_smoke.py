@@ -11,11 +11,15 @@ Phases, each raising on failure (so the run exits non-zero):
    source, all started together) into the checkout's ``build/``: K1
    fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
    NTT, K5 decompose, K6 compose, K7 flash attention; ptxas's registers,
-   stack frame and spills of each K2 and K5 instance (``[ptxas]``);
+   stack frame and spills of each K1, K2, K3 and K5 instance
+   (``[ptxas]``);
 3. each kernel against its plain PyTorch version on the card: K1-K6 with
    exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
    rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
-   31), and K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
+   31); K1 and K3 also at the edges of their register passes in all
+   three regimes (``PASS_POINTS``: n = 4, 8, 2048, 4096 and the largest n
+   ``plan()`` admits for each, 16384 for K1 and 32768 for K3; t = 3, 2
+   rows), with the CTAs an SM holds; K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
    ``plan()`` admits in each regime (``E2E_WIDE``), as clusters of
    min(t, 8) CTAs of which the card holds at least one; K7 in float32,
    every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
@@ -45,10 +49,14 @@ Phases, each raising on failure (so the run exits non-zero):
    ``decode`` at gemma2 decode), its output finite and within tolerance
    of the plain version;
 5. timings: the median CUDA-event time of each kernel over 20 launches
-   after warm-up, its plain version's time, and its bound (beside it
-   the bound from PR 11-14's operation counts); K2 also at
-   one row (the latency case) with the clusters the card holds at once
-   (``cudaOccupancyMaxActiveClusters``); K7 at each of
+   after warm-up (one call between two events, so a short kernel's time
+   counts the host's issue time), K1-K6 also back to back behind a spin
+   of the card (``device_ms``: device time), its plain version's time,
+   and its bound (beside it, as ``bound_ms_earlier_count``, the bound from
+   the earlier operation counts);
+   K1 and K3 with the CTAs an SM holds; K2
+   also at one row (the latency case) with the clusters the card holds
+   at once (``cudaOccupancyMaxActiveClusters``); K7 at each of
    its four shapes, with a PyTorch call computing the same function timed
    beside it as the yardstick (the port never calls it):
    ``scaled_dot_product_attention`` at yi-6b, the compiled
@@ -56,11 +64,17 @@ Phases, each raising on failure (so the run exits non-zero):
    K7 variant's ptxas registers, spills and shared memory, and the
    achieved TFLOP/s (prefill) or TB/s (decode);
 6. the end-to-end time of one ``polymul`` call at the main path's shape
-   on each backend (host clock, synchronised).
+   on each backend, and of one ``negacyclic_mul`` call on the auto plan
+   (host clock, synchronised).
 
-``python3 chip_smoke.py --time-k2 DIR`` times only K2 of the checkout at
-DIR (for instance the parent commit unpacked with ``git archive``), as
-phase 5 times it, and prints one ``[time-k2]`` line.
+``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
+kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
+...) of the checkout at DIR (for instance the parent commit unpacked with
+``git archive``) at the main path's shape, one call between two events
+and back to back (K2 also at one row), after checking each against its
+plain version, and prints one ``[time-kernels]`` line per kernel; so
+two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
+``--time-kernels DIR fused_e2e_polymul``.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four) and ends with
@@ -100,6 +114,15 @@ E2E_WIDE = [dict(n=8192, t=6, v=30, rows=4)] + [
     for n, t, v in ((16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
                     (8192, 10, 29), (8192, 14, 30), (8192, 13, 31))
 ]
+# K1 and K3 at the edges of their register passes, t = 3, 2 rows, in all
+# three regimes (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31):
+# n = 4 and 8 (one stage a pass, 2 and 4 threads), 2048 and 4096 (three
+# stages a pass after a first of g0 = 2 and 3), and the largest n plan()
+# admits on the backend that runs each: kernel -> (backend, n values)
+PASS_POINTS = {
+    "fused_polymul": ("cuda_fused", (4, 8, 2048, 4096, 16384)),
+    "ntt_channels": ("cuda", (4, 8, 2048, 4096, 32768)),
+}
 LATENCY_ROWS = 1  # K2 is also timed at one row: the latency the paper is about
 BACK_TO_BACK = 50  # calls queued behind one spin of the card (time_back_to_back)
 SPIN_CYCLES = 50_000_000  # about 30 ms at the H100's clock: longer than issuing them
@@ -454,6 +477,38 @@ def check_kernels(dev) -> dict[str, int]:
     return max_err
 
 
+def check_pass_kernels(dev, max_err: dict[str, int]) -> None:
+    """Phase 3 for K1 and K3 at PASS_POINTS: exact equality with their
+    plain versions, and the CTAs an SM holds at each n and regime."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    for name, (backend, ns) in PASS_POINTS.items():
+        for n in ns:
+            for v in (29, 30, 31):
+                pl = repro_torch.plan(n, 3, v, backend=backend, device=dev)
+                tables = pl.params.tables
+                _, _, ra, rb = seeded_inputs(torch, np, pl, 2, SEED + n + v, dev)
+                if name == "fused_polymul":
+                    want = kern.fused_polymul_ref(ra, rb, tables)
+                    got = kern.fused_polymul_cuda(ra, rb, tables)
+                    blocks = kern.cascade_blocks_per_sm(tables)
+                else:
+                    want = kern.ntt_channels_ref(ra, tables)
+                    got = kern.ntt_channels_cuda(ra, tables)
+                    blocks = kern.ntt_blocks_per_sm(tables)
+                torch.cuda.synchronize()
+                err = exact(got, want, f"{name} n={n} t=3 v={v}")
+                max_err[name] = max(max_err[name], err)
+                log(f"[kernels] {name} n={n} t=3 v={v} rows=2 (mode, window)="
+                    f"{kern.reduction_mode(tables)[:2]}: {tuple(want.shape)} equal to the plain "
+                    f"version bit for bit; {kern.pass_threads(n)} threads, K="
+                    f"{kern.pass_group(n)}; CTAs an SM holds: {blocks}")
+
+
 def expect_cluster(pl, what: str) -> None:
     """K2's last launch ran as clusters of min(t, 8) CTAs a row."""
     from repro_torch.kernels import ntt as kern
@@ -623,14 +678,34 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "bound_ms_earlier_count": earlier_ms,
         })
-        log(f"[time] {name}: {ms:.4f} ms per launch (median of {TIMED_LAUNCHES}), plain "
+        device = ""
+        if name != "fused_e2e_polymul":  # K2's comes with its one-row times below
+            entries[-1]["device_ms"] = time_back_to_back(torch, fn, TIMED_LAUNCHES)
+            device = f", {entries[-1]['device_ms']:.4f} ms back to back (device time)"
+        log(f"[time] {name}: {ms:.4f} ms per launch (median of {TIMED_LAUNCHES}){device}, plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
             f"{ops} int ops; PR 11-14's count: {earlier_ms:.4f} ms by {earlier_by}, "
             f"{earlier[name][1]} int ops); no single PyTorch call computes this function, so "
             f"library_ms is null")
-    entries[[e["name"] for e in entries].index("fused_e2e_polymul")].update(
-        time_e2e_latency(pl, inputs))
+    by_name = {e["name"]: e for e in entries}
+    by_name["fused_e2e_polymul"].update(time_e2e_latency(pl, inputs))
+    by_name["fused_polymul"].update(pass_occupancy(pl, "fused_polymul"))
+    by_name["ntt_channels"].update(pass_occupancy(pl, "ntt_channels"))
     return entries
+
+
+def pass_occupancy(pl, name: str) -> dict:
+    """K1's or K3's (``name``) CTAs an SM holds at the main path's shape."""
+    from repro_torch.kernels import ntt as kern
+
+    n, tables = pl.config.n, pl.params.tables
+    if name == "fused_polymul":
+        smem, blocks = kern.cascade_smem_bytes(n), kern.cascade_blocks_per_sm(tables)
+    else:
+        smem, blocks = kern.stage_smem_bytes(n), kern.ntt_blocks_per_sm(tables)
+    log(f"[time] {name}: {kern.pass_threads(n)} threads a CTA, {smem} B of shared memory, "
+        f"{blocks} CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    return {"blocks_per_sm": blocks}
 
 
 def time_e2e_latency(pl, inputs) -> dict:
@@ -651,7 +726,7 @@ def time_e2e_latency(pl, inputs) -> dict:
         f"{times['latency_device_ms']:.4f} ms back to back (device time, {BACK_TO_BACK} calls); "
         f"at {inputs[0].shape[0]} rows {times['device_ms']:.4f} ms back to back; bound at "
         f"{LATENCY_ROWS} row {bound_ms:.4f} ms by {bound_by}; clusters of {cluster} CTAs "
-        f"({kern.e2e_threads(pl.config.n)} threads, "
+        f"({kern.pass_threads(pl.config.n)} threads, "
         f"{kern.e2e_smem_bytes(pl.config.n, pl.config.t, pl.config.seg_count, pl.config.L)} B "
         f"of shared memory at most), {clusters} clusters resident on the card at once "
         "(cudaOccupancyMaxActiveClusters)")
@@ -671,30 +746,41 @@ def k2_times(torch, kern, pl, za, zb) -> dict[str, float]:
             "device_ms": time_back_to_back(torch, full, TIMED_LAUNCHES)}
 
 
-def time_k2_checkout(checkout: Path) -> int:
-    """``--time-k2 DIR``: K2 of the checkout at DIR (its ``src/`` imported,
-    its kernels built into its ``build/``) at the main path's shape, as
-    ``k2_times`` measures it, so two commits compare in one call."""
+def time_checkout(checkout: Path, names: list[str]) -> int:
+    """``--time-kernels DIR NAME...``: the kernels NAME of the checkout at
+    DIR (its ``src/`` imported, its kernels built into its ``build/``) at
+    the main path's shape, each first checked against its plain version:
+    one call between two events (``ms``) and back to back (``device_ms``),
+    K2 also at one row (``k2_times``), so two commits compare in one call."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    unknown = [name for name in names if name not in KERNELS]
+    if unknown or not names:
+        print(f"chip_smoke: --time-kernels takes names of {list(KERNELS)}, got {names}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(checkout.resolve() / "src"))
     import repro_torch
     from repro_torch.kernels import ntt as kern
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
-    za, zb, _, _ = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
-    out = kern.fused_e2e_polymul_cuda(za, zb, pl.params.tables, pl.params.plan)
-    exact(out, kern.fused_e2e_polymul_ref(za, zb, pl.params.tables, pl.params.plan), "K2")
-    times = k2_times(torch, kern, pl, za, zb)
-    times["ms"] = time_launches(torch, lambda: kern.fused_e2e_polymul_cuda(
-        za, zb, pl.params.tables, pl.params.plan), TIMED_LAUNCHES)
+    inputs = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
+    calls = kernel_calls(pl, inputs)
     log(card_line())
-    log(f"[time-k2] {checkout} ({repro_torch.__file__}): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in times.items()))
+    for name in names:
+        fn, ref = calls[name]
+        exact(fn(), ref(), f"{name} of {checkout}")
+        times = {"ms": time_launches(torch, fn, TIMED_LAUNCHES)}
+        if name == "fused_e2e_polymul":
+            times.update(k2_times(torch, kern, pl, *inputs[:2]))
+        else:
+            times["device_ms"] = time_back_to_back(torch, fn, TIMED_LAUNCHES)
+        log(f"[time-kernels] {name} {checkout} ({repro_torch.__file__}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items()))
     return 0
 
 
@@ -1008,29 +1094,39 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
     }
 
 
+def wall_ms(torch, fn) -> float:
+    """Median wall milliseconds of one synchronised call over E2E_RUNS
+    after a warm-up (host clock)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
     """Phase 6: wall milliseconds of one synchronised ``polymul`` call per
-    backend at the main path's shape, median of E2E_RUNS after a warm-up."""
+    backend at the main path's shape, and of one ``negacyclic_mul`` call
+    on the auto plan (K1), median of E2E_RUNS after a warm-up."""
     import torch
 
     import repro_torch
 
     cfg = pl.config
-    za, zb = inputs[:2]
+    za, zb, ra, rb = inputs
     walls = {}
     for backend in reversed(repro_torch.BACKENDS):
         bpl = repro_torch.plan(cfg.n, cfg.t, cfg.v, backend=backend, device=pl.device)
-        repro_torch.polymul(bpl, za, zb)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(E2E_RUNS):
-            t0 = time.perf_counter()
-            repro_torch.polymul(bpl, za, zb)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        walls[backend] = ms = statistics.median(times)
+        walls[backend] = ms = wall_ms(torch, lambda: repro_torch.polymul(bpl, za, zb))
         log(f"[e2e] polymul backend={backend} on {tuple(za.shape)}: {ms:.4f} ms per call "
             f"(median of {E2E_RUNS}, host clock), {za.shape[0] * 1e3 / ms:.0f} products/s")
+    ms = wall_ms(torch, lambda: repro_torch.negacyclic_mul(pl, ra, rb))
+    log(f"[e2e] negacyclic_mul (auto plan) on {tuple(ra.shape)}: {ms:.4f} ms per call "
+        f"(median of {E2E_RUNS}, host clock)")
     log(f"[e2e] the e2e kernel's CUDA-event time is "
         f"{kernel_ms / walls['cuda_fused_e2e']:.3f} of the cuda_fused_e2e call's wall time")
     return walls
@@ -1038,7 +1134,9 @@ def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
-        return time_k2_checkout(Path(sys.argv[2]))
+        return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--time-kernels":
+        return time_checkout(Path(sys.argv[2]), sys.argv[3:])
     # the yardstick's torch.compile caches stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / sub)
@@ -1061,7 +1159,8 @@ def main() -> int:
     log(f"[build] {len(built)} sources in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for name in _build.SOURCES:
-        if name in ("fused_e2e_polymul", "decompose"):  # per instance, with its template arguments
+        # per instance, with its template arguments
+        if name in ("fused_polymul", "fused_e2e_polymul", "ntt_channels", "decompose"):
             for line in ptxas_entries(name):
                 log(f"[ptxas {name}] {line}")
             continue
@@ -1075,6 +1174,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     max_err = check_kernels(dev)
+    check_pass_kernels(dev, max_err)
     attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])

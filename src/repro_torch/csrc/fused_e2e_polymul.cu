@@ -24,12 +24,13 @@
 //   residue straight into the owning CTA's shared memory over DSMEM;
 //   cluster.sync();
 // * cascade: per owned channel, NTT(a) and NTT(b), the pointwise product,
-//   the iNTT and y_i = p_i * q~_i mod q_i.  A thread keeps 2^G
-//   coefficients of both operands in registers across G <= 3 stages, so a
-//   transform takes ceil(log2(n) / 3) trips through shared memory, and the
-//   last forward trip, the product and the first inverse trip are one (at
-//   n = 4096: 6 barriers a channel, against 37 when every stage is one);
-//   cluster.sync();
+//   the iNTT and y_i = p_i * q~_i mod q_i, on the register passes of
+//   parentt.cuh (channel_cascade, shared with K1 and K3).  A thread keeps
+//   2^G coefficients of both operands in registers across G <= 3 stages,
+//   so a transform takes ceil(log2(n) / 3) trips through shared memory,
+//   and the last forward trip, the product and the first inverse trip are
+//   one (at n = 4096: 6 barriers a channel, against 37 when every stage is
+//   one); cluster.sync();
 // * compose: reads y_i of its slice from every peer over DSMEM, runs the
 //   Eq-10 limb sums and the tail (the quotient floor(value / q) =
 //   floor(sum y_i / q_i) estimated in double and corrected by one
@@ -62,14 +63,10 @@ using namespace parentt;
 namespace {
 
 constexpr int kMaxCluster = 8;
-constexpr int kMaxGroup = 3;  // stages a thread runs from registers per pass
-static_assert(kMaxGroup == 3, "PARENTT_DISPATCH_G instantiates passes of 1 to 3 stages");
 // Two 512-thread CTAs (four of 256) an SM: at most 64 registers a thread
 // in the lazy regimes.  The strict regime (v = 31) needs more and keeps
 // one CTA of 512 (two of 256) rather than spill.
 constexpr int kMinBlocks = 2;
-
-enum Regime : int { kLazy2 = 0, kLazy4 = 1, kStrict = 2 };
 
 struct E2EArgs {
   const i64* za;
@@ -106,12 +103,7 @@ struct E2EArgs {
 };
 
 // Geometry shared by the launch and the kernel (kernels/ntt.py mirrors it
-// in e2e_threads and e2e_smem_bytes).
-__host__ __device__ inline int e2e_threads(int n) {
-  const int t = n / 16 < 32 ? 32 : (n / 16 > kMaxThreads ? kMaxThreads : n / 16);
-  return t < n / 2 ? t : n / 2;
-}
-__host__ __device__ inline int padded(int n) { return n + n / 16; }
+// in pass_threads and e2e_smem_bytes).
 // int64 words of the staging area: a chunk of threads / 2 coefficients'
 // segments per operand in, a chunk of `threads` coefficients' limbs out.
 __host__ __device__ inline int stage_words_of(int threads, int S, int L) {
@@ -123,194 +115,16 @@ __host__ __device__ inline size_t residue_bytes(int n, int slots) {
   return ((size_t)slots * 2 * padded(n) * sizeof(res_t) + 15) / 16 * 16;
 }
 __host__ __device__ inline size_t e2e_dynamic_smem(int n, int slots, int S, int L) {
-  return residue_bytes(n, slots) + (size_t)stage_words_of(e2e_threads(n), S, L) * sizeof(i64);
+  return residue_bytes(n, slots) + (size_t)stage_words_of(pass_threads(n), S, L) * sizeof(i64);
 }
 
-// Element i of a residue polynomial in shared memory: one pad word per 16.
-__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
-
-// Channel c's Reduce with the regime fixed at compile time; under the
-// strict % regime its products take the channel's block Barrett.
-template <int REG>
-__device__ __forceinline__ Reduce e2e_reduce(const E2EArgs& a, int c, const DecomposeShared& dsh) {
-  Reduce r = channel_reduce(a.qs, a.half, a.eps, c, a.mode, a.window, a.beta, a.s1, a.s2);
-  if (REG != kStrict) {
-    r.mode = kLazy;
-    r.window = REG == kLazy2 ? 2 : 4;
+// y = canonical(p) * q~ mod q: what K2's last inverse pass stores.
+struct TildeProduct {
+  res_t tilde;
+  __device__ __forceinline__ res_t operator()(res_t x, const Reduce& r) const {
+    return mul_mod(canonicalize(x, r), tilde, r);
   }
-  if (REG == kLazy2) r.beta = 32;
-  if (REG == kStrict) {
-    r.bm = (res_t)dsh.ch[c].block_m;
-    r.bs1 = dsh.s1;
-  }
-  return r;
-}
-
-// Forward CT stages s0 + J .. s0 + G - 1 in registers: x[m] (and y[m]) is
-// element hi * (n >> s0) + m * (n >> (s0 + G)) + lo.  Stage s0 + j pairs
-// m with m + 2^(G-1-j) and uses twiddle fwd[2^(s0+j) + (hi << j) + (m >> (G-j))].
-// One stage per template level, so every loop bound and register index is
-// a compile-time constant.
-template <int G, int J = 0>
-__device__ __forceinline__ void ct_group(res_t (&x)[1 << G], res_t (&y)[1 << G], int hi, int s0,
-                                         const i64* __restrict__ fwd,
-                                         const i64* __restrict__ fwd_sh, const Reduce& r) {
-  if constexpr (J < G) {
-    constexpr int half = 1 << (G - 1 - J);
-    const int base = (1 << (s0 + J)) + (hi << J);
-#pragma unroll
-    for (int b = 0; b < (1 << J); ++b) {
-      res_t w, ws;
-      load_twiddle(fwd, fwd_sh, base + b, r, w, ws);
-#pragma unroll
-      for (int k = 0; k < half; ++k) {
-        ct_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
-        ct_butterfly(y[b * 2 * half + k], y[b * 2 * half + k + half], w, ws, r);
-      }
-    }
-    ct_group<G, J + 1>(x, y, hi, s0, fwd, fwd_sh, r);
-  }
-}
-
-// Inverse GS stages s0 + J .. s0 + G - 1 in registers: x[m] is element
-// hi * 2^(s0+G) + m * 2^s0 + lo.  Stage s0 + j pairs m with m + 2^j and
-// uses twiddle inv[(n >> (s0+j+1)) + (hi << (G-j-1)) + (m >> (j+1))].
-template <int G, int J = 0>
-__device__ __forceinline__ void gs_group(res_t (&x)[1 << G], int hi, int s0, int log_n,
-                                         const i64* __restrict__ inv,
-                                         const i64* __restrict__ inv_sh, const Reduce& r) {
-  if constexpr (J < G) {
-    constexpr int half = 1 << J;
-    const int base = (1 << (log_n - 1 - s0 - J)) + (hi << (G - 1 - J));
-#pragma unroll
-    for (int b = 0; b < (1 << (G - 1 - J)); ++b) {
-      res_t w, ws;
-      load_twiddle(inv, inv_sh, base + b, r, w, ws);
-#pragma unroll
-      for (int k = 0; k < half; ++k) {
-        gs_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
-      }
-    }
-    gs_group<G, J + 1>(x, hi, s0, log_n, inv, inv_sh, r);
-  }
-}
-
-// Tables of one channel.
-struct ChannelTabs {
-  const i64* fwd;
-  const i64* inv;
-  const i64* fwd_sh;
-  const i64* inv_sh;
 };
-
-// A pass of G forward stages from s0 over both operands in place.
-template <int G>
-__device__ __forceinline__ void forward_pass(res_t* A, res_t* B, int s0, int log_n,
-                                             const ChannelTabs& tb, const Reduce& r) {
-  const int log_st = log_n - s0 - G;
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
-    const int hi = p >> log_st;
-    const int base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1));
-    res_t x[1 << G], y[1 << G];
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) {
-      const int i = pad(base + (m << log_st));
-      x[m] = A[i];
-      y[m] = B[i];
-    }
-    ct_group<G>(x, y, hi, s0, tb.fwd, tb.fwd_sh, r);
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) {
-      const int i = pad(base + (m << log_st));
-      A[i] = x[m];
-      B[i] = y[m];
-    }
-  }
-}
-
-// The last G forward stages, the canonical pointwise product and the
-// first G inverse stages: both passes touch the same 2^G contiguous
-// elements, so they share one trip through shared memory.
-template <int G>
-__device__ __forceinline__ void middle_pass(res_t* A, const res_t* B, int log_n,
-                                            const ChannelTabs& tb, const Reduce& r) {
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
-    const int base = p << G;
-    res_t x[1 << G], y[1 << G];
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) {
-      x[m] = A[pad(base + m)];
-      y[m] = B[pad(base + m)];
-    }
-    ct_group<G>(x, y, p, log_n - G, tb.fwd, tb.fwd_sh, r);
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r);
-    gs_group<G>(x, p, 0, log_n, tb.inv, tb.inv_sh, r);
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) A[pad(base + m)] = x[m];
-  }
-}
-
-// A pass of G inverse stages from s0 in place; the last pass also forms
-// y = canonical(p) * q~ mod q.
-template <int G>
-__device__ __forceinline__ void inverse_pass(res_t* A, int s0, int log_n, bool last, res_t tilde,
-                                             const ChannelTabs& tb, const Reduce& r) {
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
-    const int hi = p >> s0;
-    const int base = (hi << (s0 + G)) + (p & ((1 << s0) - 1));
-    res_t x[1 << G];
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) x[m] = A[pad(base + (m << s0))];
-    gs_group<G>(x, hi, s0, log_n, tb.inv, tb.inv_sh, r);
-    if (last) {
-#pragma unroll
-      for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), tilde, r);
-    }
-#pragma unroll
-    for (int m = 0; m < (1 << G); ++m) A[pad(base + (m << s0))] = x[m];
-  }
-}
-
-// g in 1 .. kMaxGroup
-#define PARENTT_DISPATCH_G(g, CALL) \
-  switch (g) {                      \
-    case 1: CALL(1); break;         \
-    case 2: CALL(2); break;         \
-    default: CALL(3); break;        \
-  }
-
-// The cascade of one channel on its two polynomials, ending with y in A.
-// Passes: forward g0, K, ..., K (the last inside middle_pass), inverse K
-// (inside middle_pass), K, ..., g0, with g0 = log_n - K (passes - 1).
-// K <= log2(n / threads) < log_n, so there are at least two passes.
-__device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, int log_n, int K, res_t tilde,
-                                                const ChannelTabs& tb, const Reduce& r) {
-  const int passes = (log_n + K - 1) / K;
-  const int g0 = log_n - K * (passes - 1);
-  int s0 = 0;
-  for (int q = 0; q + 1 < passes; ++q) {
-    const int g = q == 0 ? g0 : K;
-#define FWD(G) forward_pass<G>(A, B, s0, log_n, tb, r)
-    PARENTT_DISPATCH_G(g, FWD)
-#undef FWD
-    s0 += g;
-    __syncthreads();
-  }
-#define MID(G) middle_pass<G>(A, B, log_n, tb, r)
-  PARENTT_DISPATCH_G(K, MID)
-#undef MID
-  __syncthreads();
-  s0 = K;
-  for (int q = passes - 2; q >= 0; --q) {
-    const int g = q == 0 ? g0 : K;
-#define INV(G) inverse_pass<G>(A, s0, log_n, q == 0, tilde, tb, r)
-    PARENTT_DISPATCH_G(g, INV)
-#undef INV
-    s0 += g;
-    __syncthreads();
-  }
-}
 
 template <int REG, int MAXL>
 __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
@@ -362,11 +176,13 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
   for (int slot = 0; slot < args.slots; ++slot) {
     const int c = rank + slot * C;
     if (c >= t) break;
-    const Reduce r = e2e_reduce<REG>(args, c, dsh);
+    const Reduce r = regime_reduce<REG>(args.qs, args.half, args.eps, c, args.mode, args.window,
+                                        args.beta, args.s1, args.s2, dsh.ch[c].block_m);
     const size_t tab = (size_t)c * n;
     const ChannelTabs tb{args.fwd + tab, args.inv + tab, args.fwd_sh + tab, args.inv_sh + tab};
     res_t* A = res + (size_t)slot * 2 * PS;
-    channel_cascade(A, A + PS, args.log_n, args.group, (res_t)args.tilde[c], tb, r);
+    channel_cascade(A, A + PS, SharedPolys<2>{{A, A + PS}}, SharedPolys<1>{{A}},
+                    TildeProduct{(res_t)args.tilde[c]}, args.log_n, args.group, tb, r);
   }
   cluster.sync();
 
@@ -406,7 +222,7 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
 typedef void (*E2EKernel)(const E2EArgs);
 
 E2EKernel pick_kernel(int mode, int window, int L) {
-  const int reg = mode != kLazy ? kStrict : (window == 2 ? kLazy2 : kLazy4);
+  const int reg = regime_of(mode, window);
   static const E2EKernel kernels[3][2] = {
       {fused_e2e_polymul_kernel<kLazy2, 8>, fused_e2e_polymul_kernel<kLazy2, 16>},
       {fused_e2e_polymul_kernel<kLazy4, 8>, fused_e2e_polymul_kernel<kLazy4, 16>},
@@ -426,7 +242,7 @@ cudaLaunchConfig_t e2e_config(int rows, int n, int t, int S, int L, cudaStream_t
   const int cluster = cluster_of(t);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)rows * cluster, 1, 1);
-  cfg.blockDim = dim3(e2e_threads(n), 1, 1);
+  cfg.blockDim = dim3(pass_threads(n), 1, 1);
   cfg.dynamicSmemBytes = e2e_dynamic_smem(n, slots_of(t), S, L);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -436,12 +252,6 @@ cudaLaunchConfig_t e2e_config(int rows, int n, int t, int S, int L, cudaStream_t
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
-}
-
-int group_of(int n) {
-  int log_e = 0;
-  while ((1 << (log_e + 1)) <= n / e2e_threads(n)) ++log_e;
-  return log_e < kMaxGroup ? log_e : kMaxGroup;
 }
 
 }  // namespace
@@ -469,7 +279,7 @@ int parentt_fused_e2e_polymul(
                             t,  n_blocks, dec_s1,   acc_s2};
   const E2EArgs args{za,  zb,  out, qs,      half,  eps,      tilde, fwd,    inv, fwd_shoup,
                      inv_shoup, dec, star, q_limbs, log_n, t, S, L, w, mode, window,
-                     beta, s1, s2, cluster_of(t), slots_of(t), group_of(n)};
+                     beta, s1, s2, cluster_of(t), slots_of(t), pass_group(n)};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = e2e_config(rows, n, t, S, L, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, args);

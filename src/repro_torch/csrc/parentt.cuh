@@ -1,7 +1,8 @@
 // Device functions shared by the port's kernels: the fused cascade
 // (fused_polymul.cu), the fused end-to-end multiplier
 // (fused_e2e_polymul.cu) and the stage kernels (ntt_channels.cu,
-// intt_channels.cu, decompose.cu, compose.cu).
+// intt_channels.cu, decompose.cu, compose.cu), among them the register
+// passes of the transforms that K1, K2 and K3 run.
 //
 // Every function stores, word for word, what the int64 arithmetic of the
 // plain PyTorch versions (repro_torch/core/modmath.py,
@@ -18,7 +19,9 @@
 //   exact mod 2^32.  The Barrett product reduction of b <= 30-bit moduli
 //   takes one 32x32->64 product for x and one for (x >> s1) * eps (both
 //   factors below 2^31); its remainder lies in [0, 4q) < 2^32.  The strict
-//   v = 31 regime reduces its 62-bit products with the 64-bit %.
+//   v = 31 regime reduces its 62-bit products with the block Barrett
+//   below, whose constant K2 takes from RnsPlan.dec_d and K1, K3 and K4
+//   derive from q (channel_reduce).
 // * The SAU network's words reach 2^59 and stay 64-bit.  Its shifts and
 //   adds are one product by beta (exact mod 2^64), its Barrett quotient
 //   one 32x32->64 product (inside the configuration's window x >> s1 and
@@ -54,7 +57,7 @@ constexpr int kMaxThreads = 512;
 enum Mode : int {
   kLazy = 0,     // Harvey lazy butterflies (Shoup twiddles), Barrett products
   kBarrett = 1,  // strict butterflies, Barrett products
-  kRem = 2,      // strict butterflies, 64-bit % (q of 31 bits)
+  kRem = 2,      // strict butterflies, block-Barrett products (q of 31 bits)
 };
 
 // One channel's butterfly and product reduction constants.  A kernel that
@@ -68,15 +71,18 @@ struct Reduce {
   int mode;
   int window;  // lazy window: values stay in [0, window * q)
   int beta;    // Shoup shift: 32 at window 2, <= 31 at window 4
-  res_t bm;    // kRem: block_barrett constant of q, or 0 for the 64-bit %
+  res_t bm;    // kRem: block_barrett constant of q
   int bs1;     // its shift, bit_length(q) - 1
 };
 
 // Channel c's Reduce from the (t,) device arrays of q, (q + 1) / 2 and the
-// Barrett eps, and the regime shared by every channel.
+// Barrett eps, the regime shared by every channel, and, under kRem, the
+// block-Barrett constant m = floor(2^(b+31) / q), b = bit_length(q)
+// (repro_torch.core.rns.block_barrett_constant; below 2^32 because
+// q > 2^(b-1)).
 __device__ __forceinline__ Reduce channel_reduce(const i64* qs, const i64* half, const i64* eps,
                                                  int c, int mode, int window, int beta, int s1,
-                                                 int s2) {
+                                                 int s2, res_t block_m) {
   Reduce r;
   r.q = (res_t)qs[c];
   r.half = (res_t)half[c];
@@ -86,9 +92,49 @@ __device__ __forceinline__ Reduce channel_reduce(const i64* qs, const i64* half,
   r.mode = mode;
   r.window = window;
   r.beta = beta;
-  r.bm = 0;
-  r.bs1 = 0;
+  r.bm = mode == kRem ? block_m : 0;
+  r.bs1 = mode == kRem ? 31 - __clz((int)r.q) : 0;
   return r;
+}
+
+// The same for a kernel that holds no table of m (K1, K3, K4): under kRem
+// each thread derives it with one 64-bit division as it sets the channel
+// up.  K2 passes RnsPlan.dec_d's m, which its decompose keeps in shared
+// memory.
+__device__ __forceinline__ Reduce channel_reduce(const i64* qs, const i64* half, const i64* eps,
+                                                 int c, int mode, int window, int beta, int s1,
+                                                 int s2) {
+  res_t m = 0;
+  if (mode == kRem) {
+    const res_t q = (res_t)qs[c];
+    m = (res_t)((1ull << (63 - __clz((int)q))) / q);
+  }
+  return channel_reduce(qs, half, eps, c, mode, window, beta, s1, s2, m);
+}
+
+// The butterfly regime a kernel instance fixes at compile time: lazy with
+// window 2 (v = 30), lazy with window 4 (v <= 29), or strict (Barrett
+// products, or block-Barrett ones under kRem, decided at run time).
+enum Regime : int { kLazy2 = 0, kLazy4 = 1, kStrict = 2 };
+
+// The Regime of a table set's (mode, window) (kernels/ntt.py reduction_mode).
+inline int regime_of(int mode, int window) {
+  return mode != kLazy ? kStrict : (window == 2 ? kLazy2 : kLazy4);
+}
+
+// channel_reduce with the regime REG fixed, so the branches of the
+// butterflies on mode and window fold away; `block_m` is m where the
+// kernel holds it (K2), else nothing.
+template <int REG, typename... BlockM>
+__device__ __forceinline__ Reduce regime_reduce(const i64* qs, const i64* half, const i64* eps,
+                                                int c, int mode, int window, int beta, int s1,
+                                                int s2, BlockM... block_m) {
+  if (REG != kStrict) {
+    mode = kLazy;
+    window = REG == kLazy2 ? 2 : 4;
+  }
+  if (REG == kLazy2) beta = 32;
+  return channel_reduce(qs, half, eps, c, mode, window, beta, s1, s2, block_m...);
 }
 
 // x - m where x >= m: min(x, x - m) on unsigned 32-bit words.
@@ -125,14 +171,11 @@ __device__ __forceinline__ i64 block_barrett(u64 x, i64 q, i64 m, int s1) {
   return (i64)cond_sub64(r, q);
 }
 
-// x * y mod q for x, y in [0, q).  Under kRem: the block Barrett where
-// the caller has its constant (r.bm, the fused e2e kernel), else the
-// 64-bit %.
+// x * y mod q for x, y in [0, q): under kRem the block Barrett (x * y <
+// q^2 < 2^(2b)), else the Barrett of the residue products.
 __device__ __forceinline__ res_t mul_mod(res_t x, res_t y, const Reduce& r) {
   const u64 p = (u64)x * y;
-  if (r.mode == kRem) {
-    return r.bm ? (res_t)block_barrett<false>(p, r.q, r.bm, r.bs1) : (res_t)(p % r.q);
-  }
+  if (r.mode == kRem) return (res_t)block_barrett<false>(p, r.q, r.bm, r.bs1);
   const res_t qhat = (res_t)(((u64)(res_t)(p >> r.s1) * r.eps) >> r.s2);
   res_t rem = (res_t)p - qhat * r.q;  // in [0, 4q), exact mod 2^32
   rem = cond_sub(rem, r.q);
@@ -200,47 +243,11 @@ __device__ __forceinline__ void load_twiddle(const i64* __restrict__ tab,
   ws = r.mode == kLazy ? __ldg(reinterpret_cast<const res_t*>(tab_sh + idx)) : 0;
 }
 
-// Forward CT/DIT stages (twiddles psi^brv merged), natural order in,
-// bit-reversed out, over NPOLY (1 or 2) shared-memory polynomials that
-// share the channel's tables (`b` is not read when NPOLY is 1).  Stage s
-// pairs at stride h = n >> (s + 1); butterfly k of the stage sits in
-// block i = k / h and uses twiddle fwd[2^s + i].  One barrier per stage
-// (the stage kernels K1, K3, K4).
-template <int NPOLY>
-__device__ __forceinline__ void ct_stages(res_t* a, res_t* b, const i64* __restrict__ fwd,
-                                          const i64* __restrict__ fwd_sh, const Reduce& r,
-                                          int log_n) {
-  static_assert(NPOLY == 1 || NPOLY == 2, "ct_stages runs one or two polynomials");
-  const int half_n = 1 << (log_n - 1);
-  for (int s = 0; s < log_n; ++s) {
-    const int log_h = log_n - 1 - s;
-    const int h = 1 << log_h;
-    for (int k = threadIdx.x; k < half_n; k += blockDim.x) {
-      const int i = k >> log_h;
-      const int iu = (i << (log_h + 1)) + (k & (h - 1));
-      const int iv = iu + h;
-      res_t w, ws;
-      load_twiddle(fwd, fwd_sh, (1 << s) + i, r, w, ws);
-      res_t u = a[iu], v = a[iv];
-      ct_butterfly(u, v, w, ws, r);
-      a[iu] = u;
-      a[iv] = v;
-      if (NPOLY == 2) {
-        u = b[iu];
-        v = b[iv];
-        ct_butterfly(u, v, w, ws, r);
-        b[iu] = u;
-        b[iv] = v;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // Inverse GS stages in mirror order with the halving in every stage,
-// bit-reversed in, natural order out.  Stage s pairs at stride 2^s;
-// butterfly k sits in block i = k >> s and uses twiddle inv[H + i] with
-// H = n >> (s + 1).
+// bit-reversed in, natural order out, on a shared-memory polynomial with
+// one barrier per stage (K4; K1, K2 and K3 run the register passes
+// below).  Stage s pairs at stride 2^s; butterfly k sits in block
+// i = k >> s and uses twiddle inv[H + i] with H = n >> (s + 1).
 __device__ __forceinline__ void gs_stages(res_t* a, const i64* __restrict__ inv,
                                           const i64* __restrict__ inv_sh, const Reduce& r,
                                           int log_n) {
@@ -262,21 +269,252 @@ __device__ __forceinline__ void gs_stages(res_t* a, const i64* __restrict__ inv,
   }
 }
 
-// The no-shuffle cascade NTT(a) (.) NTT(b) -> iNTT on two shared-memory
-// polynomials (loaded and synchronised by the caller).  Spectra stay
-// bit-reversed between the transforms.  Leaves the product in `a`, still
-// in the lazy window: the caller canonicalizes as it reads.
-__device__ __forceinline__ void cascade(res_t* a, res_t* b, const i64* __restrict__ fwd,
-                                        const i64* __restrict__ inv,
-                                        const i64* __restrict__ fwd_sh,
-                                        const i64* __restrict__ inv_sh, const Reduce& r,
-                                        int log_n) {
-  ct_stages<2>(a, b, fwd, fwd_sh, r, log_n);
-  for (int j = threadIdx.x; j < (1 << log_n); j += blockDim.x) {
-    a[j] = mul_mod(canonicalize(a[j], r), canonicalize(b[j], r), r);
+// --------------------------------------------------------------------------
+// Register passes of the transforms (K1, K2, K3)
+// --------------------------------------------------------------------------
+//
+// A thread keeps 2^G coefficients of each polynomial in registers across
+// G <= 3 stages, so a transform takes ceil(log2(n) / 3) trips through
+// shared memory and a barrier after each, in place of one a stage.  A
+// block has pass_threads(n) threads; the passes of a channel's cascade
+// are forward g0, K, ..., K, then the last forward pass, the pointwise
+// product and the first inverse pass as one (middle_pass), then inverse
+// K, ..., g0, with K = pass_group(n) and g0 = log2(n) - K (passes - 1).
+// Residues sit in shared memory one pad word per 16 (pad), against the
+// bank conflicts of the short strides.
+
+constexpr int kMaxGroup = 3;  // stages a thread runs from registers per pass
+static_assert(kMaxGroup == 3, "PARENTT_DISPATCH_G instantiates passes of 1 to 3 stages");
+
+// Threads of a block that runs the passes over one n-point polynomial:
+// n / 16 within [32, kMaxThreads], at most n / 2 (kernels/ntt.py
+// pass_threads mirrors it).
+__host__ __device__ inline int pass_threads(int n) {
+  const int t = n / 16 < 32 ? 32 : (n / 16 > kMaxThreads ? kMaxThreads : n / 16);
+  return t < n / 2 ? t : n / 2;
+}
+
+// K: stages a thread runs per pass, log2(n / threads) capped at kMaxGroup
+// (kernels/ntt.py pass_group).  K < log2(n), so there are two passes or more.
+__host__ __device__ inline int pass_group(int n) {
+  int log_e = 0;
+  while ((1 << (log_e + 1)) <= n / pass_threads(n)) ++log_e;
+  return log_e < kMaxGroup ? log_e : kMaxGroup;
+}
+
+// Words of a padded residue polynomial, and the place of element i in it.
+__host__ __device__ inline int padded(int n) { return n + n / 16; }
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+// Where a pass reads its NPOLY polynomials and where it leaves them:
+// padded residue polynomials in shared memory, or one (channel, row)
+// polynomial of (t, rows, n) int64 words in device memory, each read as
+// its residue, and each stored canonical (the transforms' one exit reduce).
+template <int NPOLY>
+struct SharedPolys {
+  res_t* poly[NPOLY];
+  __device__ __forceinline__ res_t load(int k, int i) const { return poly[k][pad(i)]; }
+  __device__ __forceinline__ void store(int k, int i, res_t x, const Reduce&) const {
+    poly[k][pad(i)] = x;
   }
+};
+
+template <int NPOLY>
+struct DevicePolys {
+  const i64* poly[NPOLY];
+  __device__ __forceinline__ res_t load(int k, int i) const { return (res_t)__ldg(poly[k] + i); }
+};
+
+struct DeviceOut {
+  i64* poly;
+  __device__ __forceinline__ void store(int, int i, res_t x, const Reduce& r) const {
+    poly[i] = canonicalize(x, r);
+  }
+};
+
+// Forward CT stages s0 + J .. s0 + G - 1 in registers over NPOLY (1 or 2)
+// polynomials that share the channel's tables (`y` is not touched when
+// NPOLY is 1): x[m] (and y[m]) is element hi * (n >> s0) + m * (n >> (s0 +
+// G)) + lo.  Stage s0 + j pairs m with m + 2^(G-1-j) and uses twiddle
+// fwd[2^(s0+j) + (hi << j) + (m >> (G-j))].  One stage per template
+// level, so every loop bound and register index is a compile-time
+// constant.
+template <int G, int NPOLY, int J = 0>
+__device__ __forceinline__ void ct_group(res_t (&x)[1 << G], res_t (&y)[1 << G], int hi, int s0,
+                                         const i64* __restrict__ fwd,
+                                         const i64* __restrict__ fwd_sh, const Reduce& r) {
+  static_assert(NPOLY == 1 || NPOLY == 2, "a pass runs one or two polynomials");
+  if constexpr (J < G) {
+    constexpr int half = 1 << (G - 1 - J);
+    const int base = (1 << (s0 + J)) + (hi << J);
+#pragma unroll
+    for (int b = 0; b < (1 << J); ++b) {
+      res_t w, ws;
+      load_twiddle(fwd, fwd_sh, base + b, r, w, ws);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        ct_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
+        if constexpr (NPOLY == 2) {
+          ct_butterfly(y[b * 2 * half + k], y[b * 2 * half + k + half], w, ws, r);
+        }
+      }
+    }
+    ct_group<G, NPOLY, J + 1>(x, y, hi, s0, fwd, fwd_sh, r);
+  }
+}
+
+// Inverse GS stages s0 + J .. s0 + G - 1 in registers: x[m] is element
+// hi * 2^(s0+G) + m * 2^s0 + lo.  Stage s0 + j pairs m with m + 2^j and
+// uses twiddle inv[(n >> (s0+j+1)) + (hi << (G-j-1)) + (m >> (j+1))].
+template <int G, int J = 0>
+__device__ __forceinline__ void gs_group(res_t (&x)[1 << G], int hi, int s0, int log_n,
+                                         const i64* __restrict__ inv,
+                                         const i64* __restrict__ inv_sh, const Reduce& r) {
+  if constexpr (J < G) {
+    constexpr int half = 1 << J;
+    const int base = (1 << (log_n - 1 - s0 - J)) + (hi << (G - 1 - J));
+#pragma unroll
+    for (int b = 0; b < (1 << (G - 1 - J)); ++b) {
+      res_t w, ws;
+      load_twiddle(inv, inv_sh, base + b, r, w, ws);
+#pragma unroll
+      for (int k = 0; k < half; ++k) {
+        gs_butterfly(x[b * 2 * half + k], x[b * 2 * half + k + half], w, ws, r);
+      }
+    }
+    gs_group<G, J + 1>(x, hi, s0, log_n, inv, inv_sh, r);
+  }
+}
+
+// Tables of one channel.
+struct ChannelTabs {
+  const i64* fwd;
+  const i64* inv;
+  const i64* fwd_sh;
+  const i64* inv_sh;
+};
+
+// A pass of G forward stages from s0 over NPOLY polynomials, read from
+// `in` and left in `out`.  In the first pass (s0 = 0) thread p holds
+// elements p + m 2^(log_n - G), so consecutive threads read consecutive
+// words; in the last (s0 = log_n - G) its 2^G elements are contiguous.
+template <int G, int NPOLY, typename In, typename Out>
+__device__ __forceinline__ void forward_pass(const In& in, const Out& out, int s0, int log_n,
+                                             const ChannelTabs& tb, const Reduce& r) {
+  const int log_st = log_n - s0 - G;
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int hi = p >> log_st;
+    const int base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1));
+    res_t x[1 << G], y[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      x[m] = in.load(0, base + (m << log_st));
+      if constexpr (NPOLY == 2) y[m] = in.load(1, base + (m << log_st));
+    }
+    ct_group<G, NPOLY>(x, y, hi, s0, tb.fwd, tb.fwd_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      out.store(0, base + (m << log_st), x[m], r);
+      if constexpr (NPOLY == 2) out.store(1, base + (m << log_st), y[m], r);
+    }
+  }
+}
+
+// The last G forward stages, the canonical pointwise product and the
+// first G inverse stages: both passes touch the same 2^G contiguous
+// elements, so they share one trip through shared memory.
+template <int G>
+__device__ __forceinline__ void middle_pass(res_t* A, const res_t* B, int log_n,
+                                            const ChannelTabs& tb, const Reduce& r) {
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int base = p << G;
+    res_t x[1 << G], y[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) {
+      x[m] = A[pad(base + m)];
+      y[m] = B[pad(base + m)];
+    }
+    ct_group<G, 2>(x, y, p, log_n - G, tb.fwd, tb.fwd_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r);
+    gs_group<G>(x, p, 0, log_n, tb.inv, tb.inv_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) A[pad(base + m)] = x[m];
+  }
+}
+
+// What the last inverse pass does to each value before it stores it.
+struct Keep {
+  __device__ __forceinline__ res_t operator()(res_t x, const Reduce&) const { return x; }
+};
+
+// A pass of G inverse stages from s0, read from `in` and left in `out`,
+// each value through `finish` first.  In the last pass (s0 = log_n - G)
+// thread p holds elements p + m 2^s0, so consecutive threads store
+// consecutive words.
+template <int G, typename In, typename Out, typename Finish>
+__device__ __forceinline__ void inverse_pass(const In& in, const Out& out, int s0, int log_n,
+                                             const Finish& finish, const ChannelTabs& tb,
+                                             const Reduce& r) {
+  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+    const int hi = p >> s0;
+    const int base = (hi << (s0 + G)) + (p & ((1 << s0) - 1));
+    res_t x[1 << G];
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) x[m] = in.load(0, base + (m << s0));
+    gs_group<G>(x, hi, s0, log_n, tb.inv, tb.inv_sh, r);
+#pragma unroll
+    for (int m = 0; m < (1 << G); ++m) out.store(0, base + (m << s0), finish(x[m], r), r);
+  }
+}
+
+// g in 1 .. kMaxGroup
+#define PARENTT_DISPATCH_G(g, CALL) \
+  switch (g) {                      \
+    case 1: CALL(1); break;         \
+    case 2: CALL(2); break;         \
+    default: CALL(3); break;        \
+  }
+
+// The cascade NTT(a) (.) NTT(b) -> iNTT of one channel over the shared
+// polynomials A and B (each padded(n) words): the first forward pass reads
+// both operands from `in`, the last inverse pass stores the product,
+// each value through `finish`, to `out`; the spectra stay bit-reversed
+// between the transforms.  A barrier follows every pass but the last:
+// `out`'s reader synchronises.
+template <typename In, typename Out, typename Finish>
+__device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in, const Out& out,
+                                                const Finish& finish, int log_n, int K,
+                                                const ChannelTabs& tb, const Reduce& r) {
+  const int passes = (log_n + K - 1) / K;
+  const int g0 = log_n - K * (passes - 1);
+  const SharedPolys<2> ab{{A, B}};
+  const SharedPolys<1> a{{A}};
+#define FIRST(G) forward_pass<G, 2>(in, ab, 0, log_n, tb, r)
+  PARENTT_DISPATCH_G(g0, FIRST)
+#undef FIRST
   __syncthreads();
-  gs_stages(a, inv, inv_sh, r, log_n);
+  int s0 = g0;
+  for (int q = 1; q + 1 < passes; ++q, s0 += K) {
+#define FWD(G) forward_pass<G, 2>(ab, ab, s0, log_n, tb, r)
+    PARENTT_DISPATCH_G(K, FWD)
+#undef FWD
+    __syncthreads();
+  }
+#define MID(G) middle_pass<G>(A, B, log_n, tb, r)
+  PARENTT_DISPATCH_G(K, MID)
+#undef MID
+  __syncthreads();
+  s0 = K;
+  for (int q = passes - 2; q > 0; --q, s0 += K) {
+#define INV(G) inverse_pass<G>(a, a, s0, log_n, Keep{}, tb, r)
+    PARENTT_DISPATCH_G(K, INV)
+#undef INV
+    __syncthreads();
+  }
+#define LAST(G) inverse_pass<G>(a, out, s0, log_n, finish, tb, r)
+  PARENTT_DISPATCH_G(g0, LAST)
+#undef LAST
 }
 
 // --------------------------------------------------------------------------
@@ -582,7 +820,7 @@ struct StageArgs {
   int s2;
 };
 
-// Threads per block: one per butterfly of a stage up to kMaxThreads.
+// Threads per block of K4: one per butterfly of a stage up to kMaxThreads.
 inline int block_threads(int n) {
   const int half_n = n / 2;
   return half_n < 32 ? 32 : (half_n > kMaxThreads ? kMaxThreads : half_n);

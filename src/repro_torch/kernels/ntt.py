@@ -3,8 +3,10 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
 
 * :func:`fused_polymul_cuda` (``csrc/fused_polymul.cu``, K1) replaces the
   TPU kernel ``fused_polymul_pallas`` (``repro/kernels/ntt.py:757``): the
-  per-channel no-shuffle cascade NTT(a) (.) NTT(b) -> iNTT, one block per
-  (channel, row), both operands in shared memory.
+  per-channel no-shuffle cascade NTT(a) (.) NTT(b) -> iNTT, one CTA per
+  (channel, row), both operands in shared memory, on K2's register
+  passes (:func:`pass_threads` threads, :func:`pass_group` stages a
+  pass).
 * :func:`fused_e2e_polymul_cuda` (``csrc/fused_e2e_polymul.cu``, K2)
   replaces ``fused_e2e_polymul_pallas`` (``repro/kernels/ntt.py:802``):
   SAU decompose -> cascade -> Eq-10 compose in one launch, one
@@ -16,7 +18,8 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   launch.
 * :func:`ntt_channels_cuda` (``csrc/ntt_channels.cu``, K3) replaces
   ``ntt_channels_pallas`` (``repro/kernels/ntt.py:680``): the forward
-  transform per channel, natural in, bit-reversed and canonical out.
+  transform per channel, natural in, bit-reversed and canonical out, on
+  the same register passes with one operand.
 * :func:`intt_channels_cuda` (``csrc/intt_channels.cu``, K4) replaces
   ``intt_channels_pallas`` (``repro/kernels/ntt.py:721``): the inverse
   with the Eq-24 halving, bit-reversed in, natural and canonical out.
@@ -25,7 +28,9 @@ Each wrapper runs its plain version (the ``*_ref`` functions) only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 ``<wrapper>.launches`` counts the launches, and nothing else adds to it.
 What bounds each kernel on the card, and what its design does about it,
-is noted in its source.  K3 and K4 keep the residues as 32-bit words:
+is noted in its source.  K1, K3 and K4 keep the constants of their
+launches that depend only on the tables on the ``ChannelTables``, as K2
+keeps its on the plan.  K3 and K4 keep the residues as 32-bit words:
 they are exact for canonical input below q < 2^31, the domain the
 reference's lazy butterflies assume too.
 """
@@ -58,14 +63,21 @@ RESIDUE_BYTES = 4  # residues are stored as 32-bit words in shared memory
 MODE_LAZY, MODE_BARRETT, MODE_REM = 0, 1, 2
 
 
+def padded_words(n: int) -> int:
+    """Words of a residue polynomial in the register passes' shared layout:
+    one pad word per 16 (csrc/parentt.cuh ``padded``)."""
+    return n + n // 16
+
+
 def stage_smem_bytes(n: int) -> int:
-    """Shared memory of one stage-transform block (K3, K4): one polynomial."""
-    return n * RESIDUE_BYTES
+    """Shared memory of one stage-transform block: one padded polynomial
+    (K3; K4's unpadded one is smaller)."""
+    return padded_words(n) * RESIDUE_BYTES
 
 
 def cascade_smem_bytes(n: int) -> int:
-    """Shared memory of one fused-cascade block: both operands."""
-    return 2 * n * RESIDUE_BYTES
+    """Shared memory of one fused-cascade block (K1): both operands, padded."""
+    return 2 * padded_words(n) * RESIDUE_BYTES
 
 
 # the fused e2e kernel's cluster (csrc/fused_e2e_polymul.cu): at most the
@@ -95,15 +107,17 @@ def e2e_slice(n: int, cluster: int, rank: int) -> range:
     return range(-(-rank * n // cluster), -(-(rank + 1) * n // cluster))
 
 
-def e2e_threads(n: int) -> int:
-    """Threads of one e2e CTA: n / 16 within [32, 512], at most n / 2."""
+def pass_threads(n: int) -> int:
+    """Threads of one CTA of K1, K2 or K3 (csrc/parentt.cuh
+    ``pass_threads``): n / 16 within [32, 512], at most n / 2."""
     return min(n // 2, max(32, min(512, n // 16)))
 
 
-def e2e_group(n: int) -> int:
-    """K: the transform stages one e2e thread runs from registers between
-    two trips through shared memory, log2(n / threads) capped at 3."""
-    return min((n // e2e_threads(n)).bit_length() - 1, 3)
+def pass_group(n: int) -> int:
+    """K: the transform stages one thread of K1, K2 or K3 runs from
+    registers between two trips through shared memory, log2(n / threads)
+    capped at 3 (csrc/parentt.cuh ``pass_group``)."""
+    return min((n // pass_threads(n)).bit_length() - 1, 3)
 
 
 def e2e_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) -> int:
@@ -113,8 +127,8 @@ def e2e_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) ->
     circuit table.  ``S`` and ``L``
     default to the kernel's largest counts (an upper bound for admission)."""
     _, slots = e2e_cluster(t)
-    threads = e2e_threads(n)
-    res = -(-slots * 2 * (n + n // 16) * RESIDUE_BYTES // 16) * 16
+    threads = pass_threads(n)
+    res = -(-slots * 2 * padded_words(n) * RESIDUE_BYTES // 16) * 16
     stage = max(2 * (threads // 2) * S, threads * L) * 8
     return res + stage + DECOMPOSE_SHARED_BYTES
 
@@ -250,28 +264,46 @@ def _check_n(n: int, fn: str) -> int:
     return n.bit_length() - 1
 
 
-def _launch_stage(a: torch.Tensor, tables: ChannelTables, source: str, fn_name: str,
-                  tab: torch.Tensor, tab_shoup: torch.Tensor | None) -> torch.Tensor:
+def _table_constants(tables: ChannelTables, source: str, fn_name: str) -> tuple[tuple, tuple]:
+    """The checked (table pointers, ints after ``rows``) of a K1, K3 or K4
+    launch: worked out at the tables' first launch of ``source`` and kept
+    on the tables, so a short call does not pay for them again."""
+    kept = tables.__dict__.get("_launch")
+    if kept is None:
+        kept = {}
+        object.__setattr__(tables, "_launch", kept)
+    if source in kept:
+        return kept[source]
+    n = tables.n
+    log_n = _check_n(n, fn_name)
+    smem = cascade_smem_bytes(n) if source == "fused_polymul" else stage_smem_bytes(n)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{fn_name}: n={n} does not fit one block's shared memory")
+    eps, fsh, ish = _optional_tables(tables)
+    head = (tables.qs_d, tables.half_d, eps)
+    tabs = {
+        "fused_polymul": (tables.fwd_d, tables.inv_d, fsh, ish),
+        "ntt_channels": (tables.fwd_d, fsh),
+        "intt_channels": (tables.inv_d, ish),
+    }[source]
+    kept[source] = (tuple(ptr(x) for x in head + tabs), (log_n, *reduction_mode(tables)))
+    return kept[source]
+
+
+def _launch_stage(a: torch.Tensor, tables: ChannelTables, source: str, fn_name: str
+                  ) -> torch.Tensor:
     """One launch of a single-transform kernel (K3 or K4) on (t, rows, n)."""
     t, n = tables.t, tables.n
     rows = a.shape[1] if a.dim() == 3 else -1
     check_operand(a, (t, rows, n), "a", fn_name)
-    log_n = _check_n(n, fn_name)
-    if stage_smem_bytes(n) > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn_name}: n={n} does not fit one block's shared memory")
+    pointers, ints = _table_constants(tables, source, fn_name)
     launch = _build.load(source, f"parentt_{source}", _STAGE_ARGTYPES)
     _check_tables_device(tables, a.device, fn_name)
     out = torch.empty_like(a)
     if rows == 0:
         return out
-    mode, window, beta, s1, s2 = reduction_mode(tables)
-    eps = _optional_tables(tables)[0]
     with torch.cuda.device(a.device):
-        code = launch(
-            ptr(a), ptr(out), ptr(tables.qs_d), ptr(tables.half_d), ptr(eps), ptr(tab),
-            ptr(tab if tab_shoup is None else tab_shoup),
-            t, rows, log_n, mode, window, beta, s1, s2, _build.stream_of(a),
-        )
+        code = launch(ptr(a), ptr(out), *pointers, t, rows, *ints, _build.stream_of(a))
     _build.check(source, code)
     return out
 
@@ -282,8 +314,7 @@ def ntt_channels_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
     launch ``csrc/ntt_channels.cu`` on the current stream."""
     if a.device.type == "cpu":
         return ntt_channels_ref(a, tables)
-    out = _launch_stage(a, tables, "ntt_channels", "ntt_channels_cuda", tables.fwd_d,
-                        tables.fwd_shoup_d)
+    out = _launch_stage(a, tables, "ntt_channels", "ntt_channels_cuda")
     ntt_channels_cuda.launches += 1
     return out
 
@@ -297,8 +328,7 @@ def intt_channels_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
     version; CUDA tensors launch ``csrc/intt_channels.cu``."""
     if a.device.type == "cpu":
         return intt_channels_ref(a, tables)
-    out = _launch_stage(a, tables, "intt_channels", "intt_channels_cuda", tables.inv_d,
-                        tables.inv_shoup_d)
+    out = _launch_stage(a, tables, "intt_channels", "intt_channels_cuda")
     intt_channels_cuda.launches += 1
     return out
 
@@ -319,28 +349,42 @@ def fused_polymul_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables) 
     check_operand(b, (t, rows, n), "b", fn_name)
     if b.device != a.device:
         raise ValueError(f"{fn_name}: operands on {a.device} and {b.device}")
-    log_n = _check_n(n, fn_name)
-    if cascade_smem_bytes(n) > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn_name}: n={n} does not fit one block's shared memory")
+    pointers, ints = _table_constants(tables, "fused_polymul", fn_name)
     launch = _build.load("fused_polymul", "parentt_fused_polymul", _CASCADE_ARGTYPES)
     _check_tables_device(tables, a.device, fn_name)
     out = torch.empty_like(a)
     if rows == 0:
         return out
-    mode, window, beta, s1, s2 = reduction_mode(tables)
-    eps, fsh, ish = _optional_tables(tables)
     with torch.cuda.device(a.device):
-        code = launch(
-            ptr(a), ptr(b), ptr(out), ptr(tables.qs_d), ptr(tables.half_d), ptr(eps),
-            ptr(tables.fwd_d), ptr(tables.inv_d), ptr(fsh), ptr(ish),
-            t, rows, log_n, mode, window, beta, s1, s2, _build.stream_of(a),
-        )
+        code = launch(ptr(a), ptr(b), ptr(out), *pointers, t, rows, *ints, _build.stream_of(a))
     _build.check("fused_polymul", code)
     fused_polymul_cuda.launches += 1
     return out
 
 
 fused_polymul_cuda.launches = 0
+
+
+def cascade_blocks_per_sm(tables: ChannelTables) -> int:
+    """How many K1 CTAs an SM of the current card holds at once at these
+    tables' n and regime (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    launch = _build.load("fused_polymul", "parentt_fused_polymul_blocks_per_sm", [_I] * 3)
+    mode, window = reduction_mode(tables)[:2]
+    count = launch(tables.n.bit_length() - 1, mode, window)
+    if count < 0:
+        _build.check("fused_polymul", -count)
+    return count
+
+
+def ntt_blocks_per_sm(tables: ChannelTables) -> int:
+    """How many K3 CTAs an SM of the current card holds at once at these
+    tables' n and regime (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    launch = _build.load("ntt_channels", "parentt_ntt_channels_blocks_per_sm", [_I] * 3)
+    mode, window = reduction_mode(tables)[:2]
+    count = launch(tables.n.bit_length() - 1, mode, window)
+    if count < 0:
+        _build.check("ntt_channels", -count)
+    return count
 
 
 def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:

@@ -8,6 +8,9 @@ nor the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,7 @@ from repro_torch.kernels import attention, crt
 from repro_torch.kernels import ntt as kern
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
 
 # the three reduction regimes at n = 64, the paper's t = 6, and the
 # paper's point at a small batch
@@ -186,6 +190,61 @@ def test_e2e_admits_n8192_and_every_plan_admitted_before():
             assert now or not before, (n, t)
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# K1 and K3 at the edges of their register passes, as chip_smoke.py's
+# phase 3 checks them (its PASS_POINTS: kernel -> (backend, n values)):
+# (kernel, backend, n)
+SMOKE_PASS_POINTS = _chip_smoke().PASS_POINTS
+PASS_POINTS = [(name, backend, n) for name, (backend, ns) in SMOKE_PASS_POINTS.items()
+               for n in ns]
+
+
+@pytest.mark.parametrize("v", (29, 30, 31))
+@pytest.mark.parametrize("kernel,backend,n", PASS_POINTS)
+def test_register_pass_kernels_match_plain_versions(cuda_device, kernel, backend, n, v):
+    """K1 and K3 equal their plain versions bit for bit in every regime at
+    the edges of their passes, at an odd row count, and an SM holds at
+    least one of their CTAs."""
+    pl = repro_torch.plan(n, 3, v, backend=backend, device=cuda_device)
+    tables = pl.params.tables
+    _, _, ra, rb = _inputs(pl, 3, seed=n + v + 3, device=cuda_device)
+    if kernel == "fused_polymul":
+        want = kern.fused_polymul_ref(ra, rb, tables)
+        got = kern.fused_polymul_cuda(ra, rb, tables)
+        assert kern.cascade_blocks_per_sm(tables) >= 1
+    else:
+        want = kern.ntt_channels_ref(ra, tables)
+        got = kern.ntt_channels_cuda(ra, tables)
+        assert kern.ntt_blocks_per_sm(tables) >= 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_pass_kernel_admission_edges_did_not_move():
+    """Runs without a card: with K1's and K3's padded shared layout
+    (stage_smem_bytes, cascade_smem_bytes) plan() still admits
+    backend="cuda_fused" up to n = 16384 and backend="cuda" up to
+    n = 32768, and refuses twice those; the largest n chip_smoke.py
+    checks K1 and K3 at is that edge."""
+    for backend, edge in (("cuda_fused", 16384), ("cuda", 32768)):
+        for t in (1, 3):
+            pl = repro_torch.plan(edge, t, 30, backend=backend, device="cpu")
+            assert pl.config.backend == backend
+            with pytest.raises(repro_torch.UnservableConfigError) as err:
+                repro_torch.plan(2 * edge, t, 30, backend=backend, device="cpu")
+            assert err.value.knob == "n"
+    assert kern.cascade_smem_bytes(16384) <= kern.MAX_SMEM_BYTES < kern.cascade_smem_bytes(32768)
+    assert kern.stage_smem_bytes(32768) <= kern.MAX_SMEM_BYTES < kern.stage_smem_bytes(65536)
+    assert {backend: max(ns) for backend, ns in SMOKE_PASS_POINTS.values()} == {
+        "cuda_fused": 16384, "cuda": 32768}
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     p = repro_torch.plan(64, 3, 30, device=cuda_device).params
     a = torch.zeros((3, 2, 64), dtype=torch.int64, device=cuda_device)
@@ -198,6 +257,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kern.fused_polymul_cuda(a, a.cpu(), p.tables)
     empty = kern.fused_polymul_cuda(a[:, :0], a[:, :0], p.tables)
     assert empty.shape == (3, 0, 64)
+    with pytest.raises(ValueError):
+        kern.ntt_channels_cuda(a.to(torch.int32), p.tables)
 
 
 # K7 against its plain version: (B, Sq, Skv, H, Hk, D), dtype, keywords.

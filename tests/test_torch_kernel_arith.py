@@ -1,17 +1,21 @@
-"""The arithmetic and schedule of the port's CUDA kernels K2 (the fused e2e
-multiplier, ``csrc/fused_e2e_polymul.cu``) and K5 (decompose,
-``csrc/decompose.cu``), emulated on the CPU and held against the port's
-int64 lane ops (``repro_torch.core.modmath``), the JAX package's
-(``repro.core.modmath``) and the plain versions.
+"""The arithmetic and schedule of the port's CUDA kernels K1 (the fused
+cascade, ``csrc/fused_polymul.cu``), K2 (the fused e2e multiplier,
+``csrc/fused_e2e_polymul.cu``), K3 (the forward NTT,
+``csrc/ntt_channels.cu``) and K5 (decompose, ``csrc/decompose.cu``),
+emulated on the CPU and held against the port's int64 lane ops
+(``repro_torch.core.modmath``), the JAX package's (``repro.core.modmath``)
+and the plain versions.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``).  Here
 numpy uint64 lanes masked to 32 bits repeat, operation for operation,
 what ``csrc/parentt.cuh`` computes: the 32-bit butterflies (``__umulhi``
-Shoup quotient at v = 30, one 32x32->64 product at v <= 29, the 64-bit %
-at v = 31), the 32-bit Barrett of the residue products, the SAU Barrett
-and the block-product Barrett of the decompose, and K2's register passes
-over its shared-memory layout.  The cluster's ownership of channels and
-coefficients is checked on the host helpers the wrapper launches with.
+Shoup quotient at v = 30, one 32x32->64 product at v <= 29, block-Barrett
+products at v = 31 with the constant K1, K3 and K4 derive from q and K2
+takes from the plan), the 32-bit Barrett of the residue products, the
+SAU Barrett and the block-product Barrett of the decompose, and the
+register passes that K1, K2 and K3 run over their padded shared-memory
+layout.  The cluster's ownership of channels and coefficients is checked
+on the host helpers the wrapper launches with.
 
     python -m pytest -q tests/test_torch_kernel_arith.py
 """
@@ -22,6 +26,7 @@ import torch
 
 from repro.core import modmath as jmod
 from repro_torch.core import modmath as tmod
+from repro_torch.core import primes as tprimes
 from repro_torch.core import rns as trns
 from repro_torch.core.params import make_params
 from repro_torch.kernels import crt as tcrt
@@ -49,7 +54,21 @@ class Regime:
         self.q = col(tables.qs)
         self.half = col(tables.half)
         self.eps = col(tables.mul_eps if tables.mul_eps is not None else tables.qs)
-        self.block_m = None  # K2's strict products: the block Barrett (block_m, s1)
+        # strict v = 31 products: the block Barrett (m, s1) that K1, K3 and K4
+        # derive in channel_reduce (K2 takes the same m from RnsPlan.dec_d)
+        self.block_m = None
+        if self.mode == REM:
+            consts = [kernel_block_barrett(int(q)) for q in tables.qs]
+            self.block_m = (col([m for m, _ in consts]), consts[0][1])
+            assert all(s1 == consts[0][1] for _, s1 in consts)
+
+
+def kernel_block_barrett(q: int) -> tuple[int, int]:
+    """(m, s1) as csrc/parentt.cuh ``channel_reduce`` derives them from q
+    under kRem: b = 32 - clz(q), m = floor(2^(b+31) / q), s1 = b - 1."""
+    clz = 32 - int(q).bit_length()  # __clz of the 32-bit word q
+    b = 32 - clz
+    return (1 << (b + 31)) // int(q), b - 1
 
 
 # --------------------------------------------------------------------------
@@ -64,7 +83,7 @@ def cond_sub(x, m):
 def mul_mod(x, y, r):
     p = x * y
     if r.mode == REM:
-        return p % r.q if r.block_m is None else block_barrett(p, r.q, *r.block_m)
+        return block_barrett(p, r.q, *r.block_m)
     qhat = ((((p >> sh(r.s1)) & M32) * (r.eps & M32)) >> sh(r.s2)) & M32
     rem = (p - qhat * r.q) & M32
     for _ in range(3):
@@ -147,9 +166,10 @@ def _int64(x):
 @pytest.mark.parametrize("n,v", BUTTERFLY_PRESETS)
 def test_butterflies_32bit_match_int64_lane_ops(n, v):
     """Every twiddle of the n-point tables at v = 29 (W = 4), 30 (W = 2)
-    and 31 (strict %), each with the edge values 0 and W q - 1 (q - 1
-    strict) and seeded random values: the kernels' 32-bit CT and GS
-    butterflies equal the port's and the JAX package's int64 ones."""
+    and 31 (strict, block-Barrett products), each with the edge values 0
+    and W q - 1 (q - 1 strict) and seeded random values: the kernels'
+    32-bit CT and GS butterflies equal the port's and the JAX package's
+    int64 ones."""
     tables = make_params(n, 3, v).tables
     r = Regime(tables)
     rng = np.random.default_rng(SEED + n + v)
@@ -259,8 +279,8 @@ def _narrow_modes(q):
 
 @pytest.mark.parametrize("n,t,v", DEC_PRESETS)
 def test_block_barrett_equals_remainder(n, t, v):
-    """The block-product Barrett that replaces K5's and K2's 64-bit % is
-    x mod q on (q - 1)^2, on every block constant times seeded residues,
+    """The block-product Barrett that replaces the 64-bit % of K5's block
+    products and of K1-K4's strict residue products is x mod q on (q - 1)^2, on every block constant times seeded residues,
     on seeded values below 2^(2b) and at 2^(2b) - 1, for every channel."""
     plan = make_params(n, t, v).plan
     block_m = plan.dec_d["block_m"].numpy()
@@ -382,22 +402,28 @@ def pad(i):
     return i + (i >> 4)
 
 
-def cascade_emulated(a, b, tables, tilde, plan):
-    """fused_e2e_polymul.cu ``channel_cascade`` for every channel and row
-    at once: (t, rows, n) canonical residues -> y = p q~ mod q, through the
-    kernel's passes of G register stages over its padded shared layout."""
+def passes_emulated(a, b, tables, kernel, tilde=None):
+    """The register passes of csrc/parentt.cuh for every channel and row at
+    once, as ``kernel`` runs them on (t, rows, n) canonical residues:
+    "e2e" (K2 ``channel_cascade``: y = p q~ mod q), "cascade" (K1: the
+    product, canonical) or "forward" (K3: the forward passes of ``a``
+    alone, canonical spectra), in groups of G stages a thread over the
+    padded shared layout.  Each pass checks that its pass_threads(n)
+    threads hold every element once, and that the passes that read or
+    write device memory do so coalesced."""
     r = Regime(tables)
-    r.block_m = (U(plan.dec_d["block_m"].numpy()).reshape(-1, 1, 1), plan.dec[0].acc_barrett[1])
     t, rows, n = a.shape
     log_n = n.bit_length() - 1
-    K = tkern.e2e_group(n)
+    threads, K = tkern.pass_threads(n), tkern.pass_group(n)
     passes = -(-log_n // K)
     g0 = log_n - K * (passes - 1)
-    ps = n + n // 16
+    assert 1 <= K <= 3 and passes >= 2 and 1 <= g0 <= K
+    ps = tkern.padded_words(n)
     A = np.zeros((t, rows, ps), dtype=np.uint64)
     B = np.zeros_like(A)
     A[..., pad(np.arange(n))] = U(a)
-    B[..., pad(np.arange(n))] = U(b)
+    if b is not None:
+        B[..., pad(np.arange(n))] = U(b)
     fwd, inv = U(tables.fwd), U(tables.inv)
     fsh = U(tables.fwd_shoup) if tables.fwd_shoup is not None else np.zeros_like(fwd)
     ish = U(tables.inv_shoup) if tables.inv_shoup is not None else np.zeros_like(inv)
@@ -425,37 +451,63 @@ def cascade_emulated(a, b, tables, tilde, plan):
                     x[m], x[m + half] = gs(x[m], x[m + half], w, ws, r)
 
     def elements(G, log_st):
+        """(hi, unpadded element indices per m) of groups p = 0 .. n/2^G - 1,
+        which the kernel's loop hands out as p = tid, tid + threads, ..."""
         p = np.arange(n >> G)
+        assert len(p) >= threads  # every thread has a group in every pass
         hi = p >> log_st
         base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1))
-        return hi, [pad(base + (m << log_st)) for m in range(1 << G)]
+        idx = [base + (m << log_st) for m in range(1 << G)]
+        assert np.array_equal(np.sort(np.concatenate(idx)), np.arange(n))
+        return hi, idx
 
+    def load(polys, idx):
+        return [[P[..., pad(i)] for i in idx] for P in polys]
+
+    def store(polys, idx, values):
+        for P, xs in zip(polys, values):
+            for i, x in zip(idx, xs):
+                P[..., pad(i)] = x
+
+    def coalesced(idx, stride):  # thread p's m-th element is p + m * stride
+        p = np.arange(n // len(idx))
+        assert all(np.array_equal(i, p + m * stride) for m, i in enumerate(idx))
+
+    polys = (A,) if kernel == "forward" else (A, B)
     s0 = 0
-    for q in range(passes - 1):  # forward passes
+    forward = passes if kernel == "forward" else passes - 1
+    for q in range(forward):
         G = g0 if q == 0 else K
         hi, idx = elements(G, log_n - s0 - G)
-        x, y = [A[..., i] for i in idx], [B[..., i] for i in idx]
-        ct_group((x, y), G, hi, s0)
-        for m, i in enumerate(idx):
-            A[..., i], B[..., i] = x[m], y[m]
+        if q == 0:
+            coalesced(idx, 1 << (log_n - G))  # DevicePolys: read from device memory
+        if kernel == "forward" and q == forward - 1:
+            assert all(np.array_equal(i, (np.arange(n >> G) << G) + m) for m, i in enumerate(idx))
+        xs = load(polys, idx)
+        ct_group(xs, G, hi, s0)
+        store(polys, idx, xs)
         s0 += G
+    if kernel == "forward":
+        return _int64(canonicalize(A[..., pad(np.arange(n))], r))
     hi, idx = elements(K, 0)  # middle pass
-    x, y = [A[..., i] for i in idx], [B[..., i] for i in idx]
+    (x, y) = load(polys, idx)
     ct_group((x, y), K, hi, log_n - K)
     x = [mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r) for m in range(1 << K)]
     gs_group(x, K, hi, 0)
-    for m, i in enumerate(idx):
-        A[..., i] = x[m]
+    store((A,), idx, [x])
     s0 = K
     for q in range(passes - 2, -1, -1):  # inverse passes
         G = g0 if q == 0 else K
         hi, idx = elements(G, s0)
-        x = [A[..., i] for i in idx]
+        (x,) = load((A,), idx)
         gs_group(x, G, hi, s0)
         if q == 0:
-            x = [mul_mod(canonicalize(v, r), U(tilde).reshape(-1, 1, 1), r) for v in x]
-        for m, i in enumerate(idx):
-            A[..., i] = x[m]
+            coalesced(idx, 1 << s0)
+            if kernel == "e2e":
+                x = [mul_mod(canonicalize(v, r), U(tilde).reshape(-1, 1, 1), r) for v in x]
+            else:  # DeviceOut: stored canonical to device memory
+                x = [canonicalize(v, r) for v in x]
+        store((A,), idx, [x])
         s0 += G
     return _int64(A[..., pad(np.arange(n))])
 
@@ -476,11 +528,55 @@ def test_e2e_register_passes_match_plain_cascade(n, t, v):
     qs = p.qs[:, None, None]
     a = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
     b = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
-    got = cascade_emulated(a, b, p.tables, p.plan.qi_tilde, p.plan)
+    got = passes_emulated(a, b, p.tables, "e2e", p.plan.qi_tilde)
     prod = tkern.fused_polymul_ref(torch.as_tensor(a), torch.as_tensor(b), p.tables)
     q, _, eps = tkern.channel_scalars(p.tables, 3)
     want = tmod.mul_mod(prod, p.plan.qi_tilde_d.view(t, 1, 1), q, eps, p.tables.mul_shifts)
     assert np.array_equal(got, want.numpy())
+
+
+# K1 and K3 at the presets above and where G and g0 are smallest
+# (n = 4: one stage a pass, two threads; n = 8: three passes of one stage)
+PASS_PRESETS = CASCADE_PRESETS + [(n, 3, v) for n in (4, 8) for v in (29, 30, 31)]
+
+
+@pytest.mark.parametrize("n,t,v", PASS_PRESETS)
+def test_cascade_and_forward_register_passes_match_plain_versions(n, t, v):
+    """K1's schedule (the first forward pass from device memory, the
+    middle pass, the last inverse pass canonical to device memory) equals
+    fused_polymul_ref, and K3's (forward passes of one operand, the last
+    over contiguous elements, canonical out) equals ntt_channels_ref, in
+    the regime of each preset, at the kernels' thread counts."""
+    p = make_params(n, t, v)
+    rows = 1 if n >= 4096 else 2
+    rng = np.random.default_rng(SEED + 11 * n + t + v)
+    qs = p.qs[:, None, None]
+    a = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
+    b = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
+    a[:, 0, :2] = qs[:, 0] - 1  # the largest canonical residue
+    T = torch.as_tensor
+    assert np.array_equal(passes_emulated(a, b, p.tables, "cascade"),
+                          tkern.fused_polymul_ref(T(a), T(b), p.tables).numpy())
+    assert np.array_equal(passes_emulated(a, None, p.tables, "forward"),
+                          tkern.ntt_channels_ref(T(a), p.tables).numpy())
+
+
+def test_kernel_block_barrett_constant_for_every_31_bit_special_prime():
+    """channel_reduce's m = floor(2^(b+31) / q) for every 31-bit special
+    prime the search of core/primes.py can give (n = 4 admits the most;
+    a larger n keeps a subset), equals block_barrett_constant, lies below
+    2^32, and reduces the largest product (q - 1)^2 and seeded products
+    of residues exactly."""
+    qs = set()
+    for mu, pot in ((2 * 31 + 15, 4), (2 * 31 + 15, 5), (2 * 31 + 30, 5)):
+        qs |= {sp.q for sp in tprimes.find_special_primes(v=31, n=4, mu=mu, pot=pot)}
+    assert len(qs) > 1000
+    rng = np.random.default_rng(SEED)
+    for q in sorted(qs):
+        m, s1 = kernel_block_barrett(q)
+        assert (m, s1) == (trns.block_barrett_constant(q, s1), 30) and m < 1 << 32
+        x = U([(q - 1) ** 2] + [int(v) for v in rng.integers(0, q, size=8, dtype=np.int64) ** 2])
+        assert np.array_equal(block_barrett(x, U(q), U(m), s1), x % U(q))
 
 
 @pytest.mark.parametrize("n,t,v", [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30)])
@@ -493,7 +589,7 @@ def test_e2e_emulation_matches_plain_version(n, t, v):
     narrow = p.tables.lazy is not None  # K2 keeps 32-bit remainders in its lazy regimes
     ra = decompose_emulated(za.reshape(-1, p.plan.seg_count), p.plan, narrow).reshape(t, 2, n)
     rb = decompose_emulated(zb.reshape(-1, p.plan.seg_count), p.plan, narrow).reshape(t, 2, n)
-    y = cascade_emulated(ra, rb, p.tables, p.plan.qi_tilde, p.plan)
+    y = passes_emulated(ra, rb, p.tables, "e2e", p.plan.qi_tilde)
     limbs = compose_quotient_emulated(y.reshape(t, -1), p.plan)
     got = torch.as_tensor(limbs.reshape(2, n, p.plan.L))
     want = tkern.fused_e2e_polymul_ref(torch.as_tensor(za), torch.as_tensor(zb), p.tables, p.plan)

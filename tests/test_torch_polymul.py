@@ -22,7 +22,10 @@ from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
 
 # (n, t, v): the three reduction regimes at n = 64 and the paper's t = 6
-PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30)]
+PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30),
+           # outside the regime presets: t = 4 strict, t = 9 (two channels on
+           # some K2 CTAs), and a narrow v
+           (64, 4, 31), (32, 9, 30), (64, 3, 20)]
 SMALL = [p for p in PRESETS if p[0] == 64]
 ROWS = 3  # not a power of two
 PORT_BACKENDS = ("torch", "cuda", "cuda_fused", "cuda_fused_e2e")
