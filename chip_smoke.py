@@ -11,15 +11,17 @@ Phases, each raising on failure (so the run exits non-zero):
    source, all started together) into the checkout's ``build/``: K1
    fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
    NTT, K5 decompose, K6 compose, K7 flash attention; ptxas's registers,
-   stack frame and spills of each K1, K2, K3 and K5 instance
-   (``[ptxas]``);
+   stack frame and spills of each K1-K6 instance (``[ptxas]``);
 3. each kernel against its plain PyTorch version on the card: K1-K6 with
    exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
    rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
-   31); K1 and K3 also at the edges of their register passes in all
+   31); K1, K3 and K4 also at the edges of their register passes in all
    three regimes (``PASS_POINTS``: n = 4, 8, 2048, 4096 and the largest n
-   ``plan()`` admits for each, 16384 for K1 and 32768 for K3; t = 3, 2
-   rows), with the CTAs an SM holds; K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
+   ``plan()`` admits for each, 16384 for K1 and 32768 for K3 and K4;
+   t = 3, 2 rows), with the CTAs an SM holds; K6 also at 1, 255 and 257
+   rows with r = 0 and r = q - 1 in every channel, at the paper's point
+   and at the largest t it holds (16 limbs) in each regime
+   (``COMPOSE_CORNERS``); K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
    ``plan()`` admits in each regime (``E2E_WIDE``), as clusters of
    min(t, 8) CTAs of which the card holds at least one; K7 in float32,
    every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
@@ -54,7 +56,7 @@ Phases, each raising on failure (so the run exits non-zero):
    of the card (``device_ms``: device time), its plain version's time,
    and its bound (beside it, as ``bound_ms_earlier_count``, the bound from
    the earlier operation counts);
-   K1 and K3 with the CTAs an SM holds; K2
+   K1, K3 and K4 with the CTAs an SM holds; K2
    also at one row (the latency case) with the clusters the card holds
    at once (``cudaOccupancyMaxActiveClusters``); K7 at each of
    its four shapes, with a PyTorch call computing the same function timed
@@ -114,15 +116,20 @@ E2E_WIDE = [dict(n=8192, t=6, v=30, rows=4)] + [
     for n, t, v in ((16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
                     (8192, 10, 29), (8192, 14, 30), (8192, 13, 31))
 ]
-# K1 and K3 at the edges of their register passes, t = 3, 2 rows, in all
-# three regimes (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31):
+# K1, K3 and K4 at the edges of their register passes, t = 3, 2 rows, in
+# all three regimes (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31):
 # n = 4 and 8 (one stage a pass, 2 and 4 threads), 2048 and 4096 (three
 # stages a pass after a first of g0 = 2 and 3), and the largest n plan()
 # admits on the backend that runs each: kernel -> (backend, n values)
 PASS_POINTS = {
     "fused_polymul": ("cuda_fused", (4, 8, 2048, 4096, 16384)),
     "ntt_channels": ("cuda", (4, 8, 2048, 4096, 32768)),
+    "intt_channels": ("cuda", (4, 8, 2048, 4096, 32768)),
 }
+# K6 at the largest t whose limbs it holds (L = 16) in each regime, beside
+# the paper's point; each at 1, 255 and 257 rows (a partial last tile)
+COMPOSE_CORNERS = [dict(n=64, t=15, v=29), dict(n=64, t=14, v=30), dict(n=64, t=14, v=31)]
+COMPOSE_ROWS = (1, 255, 257)
 LATENCY_ROWS = 1  # K2 is also timed at one row: the latency the paper is about
 BACK_TO_BACK = 50  # calls queued behind one spin of the card (time_back_to_back)
 SPIN_CYCLES = 50_000_000  # about 30 ms at the H100's clock: longer than issuing them
@@ -283,11 +290,12 @@ def time_launches(torch, fn, launches: int, warmup: int = 3) -> float:
 
 COND_SUB = 3
 BARRETT = 5 + 3 * COND_SUB  # two shifts, two muls, one sub, three cond subs
+BLOCK_BARRETT = 4 + 2 * COND_SUB  # shift, high product, product, sub, two cond subs
 SHOUP = 5
 
 
 def _mul_mod(mode: int) -> int:
-    return 1 + (1 if mode == 2 else BARRETT)  # product + reduction
+    return 1 + (BLOCK_BARRETT if mode == 2 else BARRETT)  # product + reduction
 
 
 def _canon(mode: int, window: int) -> int:
@@ -345,6 +353,16 @@ def compose_tail_ops(t: int, L: int, quotient: bool = True) -> int:
     if quotient:
         return 2 * t * L + (t + 1) + 5 * L + 2 * COND_SUB * L
     return 2 * t * L + 3 * L + (t - 1) * 2 * COND_SUB * L
+
+
+def compose_ops(t: int, L: int, earlier: bool = False) -> int:
+    """One coefficient through K6: y_c = r_c q~_c mod q_c as a product and
+    a block Barrett per channel, then the Eq-10 limb sums and quotient
+    tail.  ``earlier``: PR 11-14's count (a product and a remainder per
+    channel, the tail's t - 1 subtractions)."""
+    if earlier:
+        return 2 * t + compose_tail_ops(t, L, quotient=False)
+    return t * (1 + BLOCK_BARRETT) + compose_tail_ops(t, L)
 
 
 def channel_decompose_ops(pl, earlier: bool = False) -> int:
@@ -478,7 +496,7 @@ def check_kernels(dev) -> dict[str, int]:
 
 
 def check_pass_kernels(dev, max_err: dict[str, int]) -> None:
-    """Phase 3 for K1 and K3 at PASS_POINTS: exact equality with their
+    """Phase 3 for K1, K3 and K4 at PASS_POINTS: exact equality with their
     plain versions, and the CTAs an SM holds at each n and regime."""
     import numpy as np
     import torch
@@ -492,14 +510,11 @@ def check_pass_kernels(dev, max_err: dict[str, int]) -> None:
                 pl = repro_torch.plan(n, 3, v, backend=backend, device=dev)
                 tables = pl.params.tables
                 _, _, ra, rb = seeded_inputs(torch, np, pl, 2, SEED + n + v, dev)
-                if name == "fused_polymul":
-                    want = kern.fused_polymul_ref(ra, rb, tables)
-                    got = kern.fused_polymul_cuda(ra, rb, tables)
-                    blocks = kern.cascade_blocks_per_sm(tables)
-                else:
-                    want = kern.ntt_channels_ref(ra, tables)
-                    got = kern.ntt_channels_cuda(ra, tables)
-                    blocks = kern.ntt_blocks_per_sm(tables)
+                cuda, ref, blocks_per_sm, _ = pass_kernel(name)
+                operands = (ra, rb) if name == "fused_polymul" else (ra,)
+                want = ref(*operands, tables)
+                got = cuda(*operands, tables)
+                blocks = blocks_per_sm(tables)
                 torch.cuda.synchronize()
                 err = exact(got, want, f"{name} n={n} t=3 v={v}")
                 max_err[name] = max(max_err[name], err)
@@ -507,6 +522,50 @@ def check_pass_kernels(dev, max_err: dict[str, int]) -> None:
                     f"{kern.reduction_mode(tables)[:2]}: {tuple(want.shape)} equal to the plain "
                     f"version bit for bit; {kern.pass_threads(n)} threads, K="
                     f"{kern.pass_group(n)}; CTAs an SM holds: {blocks}")
+
+
+def pass_kernel(name: str) -> tuple:
+    """K1's, K3's or K4's (``name``) wrapper, plain version, CTAs-an-SM
+    reader and shared memory of a CTA at n."""
+    from repro_torch.kernels import ntt as kern
+
+    return {
+        "fused_polymul": (kern.fused_polymul_cuda, kern.fused_polymul_ref,
+                          kern.cascade_blocks_per_sm, kern.cascade_smem_bytes),
+        "ntt_channels": (kern.ntt_channels_cuda, kern.ntt_channels_ref, kern.ntt_blocks_per_sm,
+                         kern.stage_smem_bytes),
+        "intt_channels": (kern.intt_channels_cuda, kern.intt_channels_ref,
+                          kern.intt_blocks_per_sm, kern.stage_smem_bytes),
+    }[name]
+
+
+def check_compose_edges(dev, max_err: dict[str, int]) -> None:
+    """Phase 3 for K6 at COMPOSE_ROWS rows, with r = 0 and r = q - 1 in
+    every channel, at the paper's point and at COMPOSE_CORNERS: exact
+    equality with its plain version."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import crt
+
+    for cfg in [dict(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])] + COMPOSE_CORNERS:
+        pl = repro_torch.plan(cfg["n"], cfg["t"], cfg["v"], backend="cuda", device=dev)
+        rp = pl.params.plan
+        rows = max(COMPOSE_ROWS)
+        _, _, ra, _ = seeded_inputs(torch, np, pl, -(-rows // cfg["n"]), SEED + cfg["t"], dev)
+        r2 = ra.reshape(cfg["t"], -1)[:, :rows].contiguous()
+        r2[:, 0] = 0
+        r2[:, 1] = rp.qs_d - 1
+        for m in COMPOSE_ROWS:
+            part = r2[:, :m].contiguous()
+            got = crt.compose_cuda(part, rp)
+            torch.cuda.synchronize()
+            err = exact(got, crt.compose_ref(part, rp), f"compose {cfg} rows={m}")
+            max_err["compose"] = max(max_err["compose"], err)
+        log(f"[kernels] compose n={cfg['n']} t={cfg['t']} v={cfg['v']} L={rp.L}: rows "
+            f"{COMPOSE_ROWS} with r = 0 and r = q - 1 in every channel equal the plain version "
+            "bit for bit")
 
 
 def expect_cluster(pl, what: str) -> None:
@@ -651,8 +710,7 @@ def work(pl, rows: int, earlier: bool = False) -> dict[str, tuple[int, int]]:
                           polys * transform_ops(cfg.n, mode, window, inverse=True)),
         "decompose": ((cfg.seg_count + cfg.t) * coeffs * 8,
                       coeffs * channel_decompose_ops(pl, earlier)),
-        "compose": ((cfg.t + cfg.L) * coeffs * 8,
-                    coeffs * (2 * cfg.t + compose_tail_ops(cfg.t, cfg.L, quotient=not earlier))),
+        "compose": ((cfg.t + cfg.L) * coeffs * 8, coeffs * compose_ops(cfg.t, cfg.L, earlier)),
     }
 
 
@@ -691,18 +749,17 @@ def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
     by_name["fused_e2e_polymul"].update(time_e2e_latency(pl, inputs))
     by_name["fused_polymul"].update(pass_occupancy(pl, "fused_polymul"))
     by_name["ntt_channels"].update(pass_occupancy(pl, "ntt_channels"))
+    by_name["intt_channels"].update(pass_occupancy(pl, "intt_channels"))
     return entries
 
 
 def pass_occupancy(pl, name: str) -> dict:
-    """K1's or K3's (``name``) CTAs an SM holds at the main path's shape."""
+    """K1's, K3's or K4's (``name``) CTAs an SM holds at the main path's shape."""
     from repro_torch.kernels import ntt as kern
 
     n, tables = pl.config.n, pl.params.tables
-    if name == "fused_polymul":
-        smem, blocks = kern.cascade_smem_bytes(n), kern.cascade_blocks_per_sm(tables)
-    else:
-        smem, blocks = kern.stage_smem_bytes(n), kern.ntt_blocks_per_sm(tables)
+    _, _, blocks_per_sm, smem_bytes = pass_kernel(name)
+    smem, blocks = smem_bytes(n), blocks_per_sm(tables)
     log(f"[time] {name}: {kern.pass_threads(n)} threads a CTA, {smem} B of shared memory, "
         f"{blocks} CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return {"blocks_per_sm": blocks}
@@ -1160,7 +1217,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     for name in _build.SOURCES:
         # per instance, with its template arguments
-        if name in ("fused_polymul", "fused_e2e_polymul", "ntt_channels", "decompose"):
+        if name != "attention":
             for line in ptxas_entries(name):
                 log(f"[ptxas {name}] {line}")
             continue
@@ -1175,6 +1232,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     max_err = check_kernels(dev)
     check_pass_kernels(dev, max_err)
+    check_compose_edges(dev, max_err)
     attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])

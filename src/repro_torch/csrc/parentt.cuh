@@ -2,7 +2,8 @@
 // (fused_polymul.cu), the fused end-to-end multiplier
 // (fused_e2e_polymul.cu) and the stage kernels (ntt_channels.cu,
 // intt_channels.cu, decompose.cu, compose.cu), among them the register
-// passes of the transforms that K1, K2 and K3 run.
+// passes of the transforms that K1-K4 run and the Eq-10 compose tail that
+// K2 and K6 run.
 //
 // Every function stores, word for word, what the int64 arithmetic of the
 // plain PyTorch versions (repro_torch/core/modmath.py,
@@ -26,9 +27,10 @@
 //   adds are one product by beta (exact mod 2^64), its Barrett quotient
 //   one 32x32->64 product (inside the configuration's window x >> s1 and
 //   eps are both below 2^31), and below q < 2^30 its remainders 32-bit.
-// * The decompose block products [blk * beta^{t' rho}]_q, below q^2, use
-//   the Barrett of block_barrett (m = floor(2^(b+31) / q)), exact for
-//   every x < 2^(2b) with b = bit_length(q) <= 31.
+// * The decompose block products [blk * beta^{t' rho}]_q and the compose
+//   products y = r * q~ mod q (K6), below q^2, use the Barrett of
+//   block_barrett (m = floor(2^(b+31) / q)), exact for every x < 2^(2b)
+//   with b = bit_length(q) <= 31.
 // * The Eq-10 limb sums are 64-bit; each term is a 32x32->64 product
 //   (y < q < 2^31, limb < 2^28) and each sum stays below t * 2^59.
 //
@@ -243,43 +245,19 @@ __device__ __forceinline__ void load_twiddle(const i64* __restrict__ tab,
   ws = r.mode == kLazy ? __ldg(reinterpret_cast<const res_t*>(tab_sh + idx)) : 0;
 }
 
-// Inverse GS stages in mirror order with the halving in every stage,
-// bit-reversed in, natural order out, on a shared-memory polynomial with
-// one barrier per stage (K4; K1, K2 and K3 run the register passes
-// below).  Stage s pairs at stride 2^s; butterfly k sits in block
-// i = k >> s and uses twiddle inv[H + i] with H = n >> (s + 1).
-__device__ __forceinline__ void gs_stages(res_t* a, const i64* __restrict__ inv,
-                                          const i64* __restrict__ inv_sh, const Reduce& r,
-                                          int log_n) {
-  const int half_n = 1 << (log_n - 1);
-  for (int s = 0; s < log_n; ++s) {
-    const int blocks = half_n >> s;
-    for (int k = threadIdx.x; k < half_n; k += blockDim.x) {
-      const int i = k >> s;
-      const int iu = (i << (s + 1)) + (k & ((1 << s) - 1));
-      const int iv = iu + (1 << s);
-      res_t w, ws;
-      load_twiddle(inv, inv_sh, blocks + i, r, w, ws);
-      res_t u = a[iu], v = a[iv];
-      gs_butterfly(u, v, w, ws, r);
-      a[iu] = u;
-      a[iv] = v;
-    }
-    __syncthreads();
-  }
-}
-
 // --------------------------------------------------------------------------
-// Register passes of the transforms (K1, K2, K3)
+// Register passes of the transforms (K1-K4)
 // --------------------------------------------------------------------------
 //
 // A thread keeps 2^G coefficients of each polynomial in registers across
 // G <= 3 stages, so a transform takes ceil(log2(n) / 3) trips through
 // shared memory and a barrier after each, in place of one a stage.  A
 // block has pass_threads(n) threads; the passes of a channel's cascade
-// are forward g0, K, ..., K, then the last forward pass, the pointwise
-// product and the first inverse pass as one (middle_pass), then inverse
-// K, ..., g0, with K = pass_group(n) and g0 = log2(n) - K (passes - 1).
+// (K1, K2) are forward g0, K, ..., K, then the last forward pass, the
+// pointwise product and the first inverse pass as one (middle_pass), then
+// inverse K, ..., g0, with K = pass_group(n) and g0 = log2(n) - K
+// (passes - 1).  The forward transform (K3) runs the forward passes
+// alone, the inverse transform (K4) the inverse passes K, ..., K, g0.
 // Residues sit in shared memory one pad word per 16 (pad), against the
 // bank conflicts of the short strides.
 
@@ -663,59 +641,15 @@ __device__ __forceinline__ void crt_limb_sums(i64 (&acc)[MAXL], Y y, const i64* 
   }
 }
 
-// Eq-10 tail on one coefficient: raw limb sums -> canonical base-2^w limbs
-// of the composed value mod q (carry ripple, then up to t - 1 conditional
-// big-integer subtractions of q; once the value is below q the rest are
-// no-ops and are skipped).  After the ripple every limb is below 2^w
-// (w = 28), so the subtractions run on 32-bit words.
-template <int MAXL>
-__device__ __forceinline__ void compose_finalize(i64 (&acc)[MAXL], const i64* __restrict__ q_limbs,
-                                                 int L, int w, int t) {
-  const i64 mask = (1LL << w) - 1;
-  const int* ql = reinterpret_cast<const int*>(q_limbs);  // limb l: low word ql[2 l]
-  int limb[MAXL];
-  i64 carry = 0;
-#pragma unroll
-  for (int l = 0; l < MAXL; ++l) {
-    limb[l] = 0;
-    if (l < L) {
-      const i64 s = acc[l] + carry;
-      limb[l] = (int)(s & mask);
-      carry = s >> w;
-    }
-  }
-  for (int rep = 0; rep < t - 1; ++rep) {
-    // value >= q: the comparison at the highest limb where they differ
-    bool ge = true;
-#pragma unroll
-    for (int l = 0; l < MAXL; ++l) {
-      if (l < L) {
-        const int q = __ldg(ql + 2 * l);
-        if (limb[l] != q) ge = limb[l] > q;
-      }
-    }
-    if (!ge) break;
-    int borrow = 0;
-#pragma unroll
-    for (int l = 0; l < MAXL; ++l) {
-      if (l < L) {
-        const int d = limb[l] - __ldg(ql + 2 * l) - borrow;
-        borrow = d < 0;
-        limb[l] = d < 0 ? d + (1 << w) : d;
-      }
-    }
-  }
-#pragma unroll
-  for (int l = 0; l < MAXL; ++l) acc[l] = limb[l];
-}
-
-// The Eq-10 tail again, for a caller that knows k = floor(value / q) to
-// within one: here k = floor(sum_c y_c / q_c) in double precision (the
-// exact quotient, since value / q = sum_c y_c / q_c, up to a rounding
-// error far below 1).  The carry ripple subtracts k q as it goes; the
-// result lies in [-q, 2q), and one conditional addition or subtraction of
-// q makes it canonical: the limbs of value mod q, as compose_finalize
-// gives them.
+// The Eq-10 tail on one coefficient (K2, K6): raw limb sums -> canonical
+// base-2^w limbs of the composed value mod q, for a caller that knows
+// k = floor(value / q) to within one: here k = floor(sum_c y_c / q_c) in
+// double precision (the exact quotient, since value / q = sum_c y_c / q_c,
+// up to a rounding error far below 1).  The carry ripple subtracts k q as
+// it goes; the result lies in [-q, 2q), and one conditional addition or
+// subtraction of q makes it canonical: the limbs of value mod q, as the
+// plain version's carry ripple and t - 1 conditional subtractions
+// (kernels/crt.py compose_finalize) give them.
 template <int MAXL>
 __device__ __forceinline__ void compose_finalize_quotient(i64 (&acc)[MAXL], int k,
                                                           const i64* __restrict__ q_limbs, int L,
@@ -800,9 +734,10 @@ __device__ __forceinline__ void stage_words(i64* dst, const i64* src, int words)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Arguments of the single-transform stage kernels (ntt_channels.cu,
-// intt_channels.cu): (t, rows, n) residues in and out, channel tables
-// (t, n) of one direction with their Shoup constants.
+// Arguments of the single-transform stage kernels (ntt_channels.cu, K3,
+// and intt_channels.cu, K4, both on the register passes over one padded
+// polynomial): (t, rows, n) residues in and out, channel tables (t, n) of
+// one direction with their Shoup constants.
 struct StageArgs {
   const i64* in;
   i64* out;
@@ -819,12 +754,6 @@ struct StageArgs {
   int s1;
   int s2;
 };
-
-// Threads per block of K4: one per butterfly of a stage up to kMaxThreads.
-inline int block_threads(int n) {
-  const int half_n = n / 2;
-  return half_n < 32 ? 32 : (half_n > kMaxThreads ? kMaxThreads : half_n);
-}
 
 // Opt a kernel in to dynamic shared memory above the 48 KB default.
 template <typename Kernel>

@@ -13,22 +13,25 @@ wrappers, launch counters and plain PyTorch versions (port of
 * :func:`compose_cuda` (``csrc/compose.cu``, K6) replaces
   ``compose_pallas`` (``repro/kernels/crt.py:266``): the Eq-10 inverse
   CRT, residues ``(t, rows)`` -> base-2^w limbs ``(rows, L)``, one thread
-  per coefficient.
+  per coefficient on the fused e2e kernel's compose tail: y = r q~ mod q
+  by the same block Barrett, the quotient floor(value / q) from a double
+  sum and one correction, the limbs staged in shared memory and written
+  coalesced.
 
 :func:`decompose_stage` is one channel's Alg-2 SAU circuit and
 :func:`compose_finalize` the Eq-10 tail (carry ripple, then t-1
 conditional big-integer subtractions of q); the plain versions
 :func:`decompose_ref` and :func:`compose_ref`, and the fused e2e
 kernel's plain version, are built from them.  The device functions
-``decompose``, ``crt_limb_sums`` and ``compose_finalize`` in
-``csrc/parentt.cuh`` repeat this arithmetic.
+``decompose``, ``crt_limb_sums`` and ``compose_finalize_quotient`` in
+``csrc/parentt.cuh`` compute the same values.
 
 Each wrapper runs its plain version only for tensors on the CPU; on a
 CUDA tensor it launches the kernel or raises.  ``<wrapper>.launches``
 counts the launches, and nothing else adds to it.  Both kernels take
-canonical values, as the reference's kernels do: compose's ``%`` is the
-floor ``%`` of PyTorch and ``jnp`` in the plain version and C's
-truncating ``%`` in the kernel, which agree on non-negative operands.
+canonical values, as the reference's kernels do: compose's block
+Barrett is exact for r q~ < 2^(2b), b = bit_length(q), which every
+canonical residue meets (the reference's ``%`` also reduces larger ones).
 """
 from __future__ import annotations
 
@@ -178,7 +181,7 @@ def compose_ref(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DECOMPOSE_ARGTYPES = [_P] * 9 + [_LL] + [_I] * 6 + [_P]
-_COMPOSE_ARGTYPES = [_P] * 6 + [_LL] + [_I] * 3 + [_P]
+_COMPOSE_ARGTYPES = [_P] * 7 + [_LL] + [_I] * 5 + [_P]
 
 
 def _check_plan_device(plan: RnsPlan, device: torch.device, fn: str) -> None:
@@ -230,28 +233,40 @@ def decompose_cuda(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 decompose_cuda.launches = 0
 
 
+def _compose_constants(plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
+    """The checked (pointers, ints) of a K6 launch that depend only on the
+    plan: worked out at its first launch and kept on the plan."""
+    kept = plan.__dict__.get("_compose_launch")
+    if kept is not None:
+        return kept
+    if plan.L > MAX_LIMBS or plan.t > MAX_CHANNELS:
+        raise ValueError(f"{fn_name}: t={plan.t}, L={plan.L}: the kernel takes t <= "
+                         f"{MAX_CHANNELS}, L <= {MAX_LIMBS}")
+    dec = require_dec(plan)
+    pointers = tuple(ptr(x) for x in (plan.qs_d, plan.qi_tilde_d, plan.dec_d["block_m"],
+                                      plan.qi_star_limbs_d, plan.q_limbs_d))
+    ints = (plan.t, plan.L, plan.w, dec[0].acc_barrett[1], int(narrow_moduli(plan)))
+    object.__setattr__(plan, "_compose_launch", (pointers, ints))
+    return pointers, ints
+
+
 def compose_cuda(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
-    """Residues (t, rows) -> limbs (rows, L) in one launch of
+    """Canonical residues (t, rows) -> limbs (rows, L) in one launch of
     ``csrc/compose.cu``.  CPU tensors run the plain version."""
     if residues.device.type == "cpu":
         return compose_ref(residues, plan)
     fn_name = "compose_cuda"
-    t, L = plan.t, plan.L
     rows = residues.shape[1] if residues.dim() == 2 else -1
-    check_operand(residues, (t, rows), "residues", fn_name)
-    if L > MAX_LIMBS:
-        raise ValueError(f"{fn_name}: L={L} exceeds the kernel's {MAX_LIMBS}")
+    check_operand(residues, (plan.t, rows), "residues", fn_name)
+    pointers, ints = _compose_constants(plan, fn_name)
     launch = _build.load("compose", "parentt_compose", _COMPOSE_ARGTYPES)
     _check_plan_device(plan, residues.device, fn_name)
-    out = torch.empty((rows, L), dtype=torch.int64, device=residues.device)
+    out = torch.empty((rows, plan.L), dtype=torch.int64, device=residues.device)
     if rows == 0:
         return out
     with torch.cuda.device(residues.device):
-        code = launch(
-            ptr(residues), ptr(out), ptr(plan.qs_d),
-            ptr(plan.qi_tilde_d), ptr(plan.qi_star_limbs_d),
-            ptr(plan.q_limbs_d), rows, t, L, plan.w, _build.stream_of(residues),
-        )
+        code = launch(ptr(residues), ptr(out), *pointers, rows, *ints,
+                      _build.stream_of(residues))
     _build.check("compose", code)
     compose_cuda.launches += 1
     return out

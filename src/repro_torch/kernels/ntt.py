@@ -22,7 +22,8 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   the same register passes with one operand.
 * :func:`intt_channels_cuda` (``csrc/intt_channels.cu``, K4) replaces
   ``intt_channels_pallas`` (``repro/kernels/ntt.py:721``): the inverse
-  with the Eq-24 halving, bit-reversed in, natural and canonical out.
+  with the Eq-24 halving, bit-reversed in, natural and canonical out, on
+  the inverse register passes with one operand.
 
 Each wrapper runs its plain version (the ``*_ref`` functions) only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -70,8 +71,8 @@ def padded_words(n: int) -> int:
 
 
 def stage_smem_bytes(n: int) -> int:
-    """Shared memory of one stage-transform block: one padded polynomial
-    (K3; K4's unpadded one is smaller)."""
+    """Shared memory of one stage-transform block (K3 or K4): one padded
+    polynomial."""
     return padded_words(n) * RESIDUE_BYTES
 
 
@@ -108,13 +109,13 @@ def e2e_slice(n: int, cluster: int, rank: int) -> range:
 
 
 def pass_threads(n: int) -> int:
-    """Threads of one CTA of K1, K2 or K3 (csrc/parentt.cuh
+    """Threads of one CTA of K1, K2, K3 or K4 (csrc/parentt.cuh
     ``pass_threads``): n / 16 within [32, 512], at most n / 2."""
     return min(n // 2, max(32, min(512, n // 16)))
 
 
 def pass_group(n: int) -> int:
-    """K: the transform stages one thread of K1, K2 or K3 runs from
+    """K: the transform stages one thread of K1-K4 runs from
     registers between two trips through shared memory, log2(n / threads)
     capped at 3 (csrc/parentt.cuh ``pass_group``)."""
     return min((n // pass_threads(n)).bit_length() - 1, 3)
@@ -365,26 +366,31 @@ def fused_polymul_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables) 
 fused_polymul_cuda.launches = 0
 
 
-def cascade_blocks_per_sm(tables: ChannelTables) -> int:
-    """How many K1 CTAs an SM of the current card holds at once at these
-    tables' n and regime (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    launch = _build.load("fused_polymul", "parentt_fused_polymul_blocks_per_sm", [_I] * 3)
+def _blocks_per_sm(tables: ChannelTables, source: str) -> int:
+    """How many CTAs of ``csrc/<source>.cu`` (K1, K3 or K4) an SM of the
+    current card holds at once at these tables' n and regime
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    launch = _build.load(source, f"parentt_{source}_blocks_per_sm", [_I] * 3)
     mode, window = reduction_mode(tables)[:2]
     count = launch(tables.n.bit_length() - 1, mode, window)
     if count < 0:
-        _build.check("fused_polymul", -count)
+        _build.check(source, -count)
     return count
+
+
+def cascade_blocks_per_sm(tables: ChannelTables) -> int:
+    """K1's CTAs an SM holds (:func:`_blocks_per_sm`)."""
+    return _blocks_per_sm(tables, "fused_polymul")
 
 
 def ntt_blocks_per_sm(tables: ChannelTables) -> int:
-    """How many K3 CTAs an SM of the current card holds at once at these
-    tables' n and regime (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    launch = _build.load("ntt_channels", "parentt_ntt_channels_blocks_per_sm", [_I] * 3)
-    mode, window = reduction_mode(tables)[:2]
-    count = launch(tables.n.bit_length() - 1, mode, window)
-    if count < 0:
-        _build.check("ntt_channels", -count)
-    return count
+    """K3's CTAs an SM holds (:func:`_blocks_per_sm`)."""
+    return _blocks_per_sm(tables, "ntt_channels")
+
+
+def intt_blocks_per_sm(tables: ChannelTables) -> int:
+    """K4's CTAs an SM holds (:func:`_blocks_per_sm`)."""
+    return _blocks_per_sm(tables, "intt_channels")
 
 
 def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:

@@ -197,7 +197,7 @@ def _chip_smoke():
     return module
 
 
-# K1 and K3 at the edges of their register passes, as chip_smoke.py's
+# K1, K3 and K4 at the edges of their register passes, as chip_smoke.py's
 # phase 3 checks them (its PASS_POINTS: kernel -> (backend, n values)):
 # (kernel, backend, n)
 SMOKE_PASS_POINTS = _chip_smoke().PASS_POINTS
@@ -208,9 +208,9 @@ PASS_POINTS = [(name, backend, n) for name, (backend, ns) in SMOKE_PASS_POINTS.i
 @pytest.mark.parametrize("v", (29, 30, 31))
 @pytest.mark.parametrize("kernel,backend,n", PASS_POINTS)
 def test_register_pass_kernels_match_plain_versions(cuda_device, kernel, backend, n, v):
-    """K1 and K3 equal their plain versions bit for bit in every regime at
-    the edges of their passes, at an odd row count, and an SM holds at
-    least one of their CTAs."""
+    """K1, K3 and K4 equal their plain versions bit for bit in every
+    regime at the edges of their passes, at an odd row count, and an SM
+    holds at least one of their CTAs."""
     pl = repro_torch.plan(n, 3, v, backend=backend, device=cuda_device)
     tables = pl.params.tables
     _, _, ra, rb = _inputs(pl, 3, seed=n + v + 3, device=cuda_device)
@@ -218,12 +218,37 @@ def test_register_pass_kernels_match_plain_versions(cuda_device, kernel, backend
         want = kern.fused_polymul_ref(ra, rb, tables)
         got = kern.fused_polymul_cuda(ra, rb, tables)
         assert kern.cascade_blocks_per_sm(tables) >= 1
-    else:
+    elif kernel == "ntt_channels":
         want = kern.ntt_channels_ref(ra, tables)
         got = kern.ntt_channels_cuda(ra, tables)
         assert kern.ntt_blocks_per_sm(tables) >= 1
+    else:
+        want = kern.intt_channels_ref(ra, tables)
+        got = kern.intt_channels_cuda(ra, tables)
+        assert kern.intt_blocks_per_sm(tables) >= 1
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# the largest t whose limbs K6 holds (L = 16) at v = 29, 30, 31, beside
+# the regime presets
+COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31)]
+
+
+@pytest.mark.parametrize("n,t,v", [(n, t, v) for n, t, v, _ in PRESETS] + COMPOSE_CORNERS)
+def test_compose_kernel_at_odd_rows_and_the_limb_corners(cuda_device, n, t, v):
+    """K6 equals its plain version at one row, at 255 and 257 (a partial
+    last tile), with r = 0 and r = q - 1 in every channel, up to 16
+    limbs."""
+    pl = repro_torch.plan(n, t, v, backend="cuda", device=cuda_device)
+    _, _, ra, _ = _inputs(pl, 5, seed=n + t + v + 5, device=cuda_device)
+    r2 = ra.reshape(t, -1)[:, :257].contiguous()
+    r2[:, 0] = 0
+    r2[:, 1] = pl.params.plan.qs_d - 1
+    for rows in (1, 255, 257):
+        got = crt.compose_cuda(r2[:, :rows].contiguous(), pl.params.plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, crt.compose_ref(r2[:, :rows], pl.params.plan))
 
 
 def test_pass_kernel_admission_edges_did_not_move():

@@ -1,10 +1,11 @@
 """The arithmetic and schedule of the port's CUDA kernels K1 (the fused
 cascade, ``csrc/fused_polymul.cu``), K2 (the fused e2e multiplier,
 ``csrc/fused_e2e_polymul.cu``), K3 (the forward NTT,
-``csrc/ntt_channels.cu``) and K5 (decompose, ``csrc/decompose.cu``),
-emulated on the CPU and held against the port's int64 lane ops
-(``repro_torch.core.modmath``), the JAX package's (``repro.core.modmath``)
-and the plain versions.
+``csrc/ntt_channels.cu``), K4 (the inverse NTT, ``csrc/intt_channels.cu``),
+K5 (decompose, ``csrc/decompose.cu``) and K6 (compose,
+``csrc/compose.cu``), emulated on the CPU and held against the port's
+int64 lane ops (``repro_torch.core.modmath``), the JAX package's
+(``repro.core.modmath``) and the plain versions.
 
 The kernels run only on the card (``tests/test_torch_cuda.py``).  Here
 numpy uint64 lanes masked to 32 bits repeat, operation for operation,
@@ -12,13 +13,16 @@ what ``csrc/parentt.cuh`` computes: the 32-bit butterflies (``__umulhi``
 Shoup quotient at v = 30, one 32x32->64 product at v <= 29, block-Barrett
 products at v = 31 with the constant K1, K3 and K4 derive from q and K2
 takes from the plan), the 32-bit Barrett of the residue products, the
-SAU Barrett and the block-product Barrett of the decompose, and the
-register passes that K1, K2 and K3 run over their padded shared-memory
+SAU Barrett and the block-product Barrett of the decompose and of K6's
+y = r q~, the Eq-10 tail from a double quotient that K2 and K6 run, and
+the register passes that K1-K4 run over their padded shared-memory
 layout.  The cluster's ownership of channels and coefficients is checked
 on the host helpers the wrapper launches with.
 
     python -m pytest -q tests/test_torch_kernel_arith.py
 """
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -406,11 +410,14 @@ def passes_emulated(a, b, tables, kernel, tilde=None):
     """The register passes of csrc/parentt.cuh for every channel and row at
     once, as ``kernel`` runs them on (t, rows, n) canonical residues:
     "e2e" (K2 ``channel_cascade``: y = p q~ mod q), "cascade" (K1: the
-    product, canonical) or "forward" (K3: the forward passes of ``a``
-    alone, canonical spectra), in groups of G stages a thread over the
+    product, canonical), "forward" (K3: the forward passes of ``a``
+    alone, canonical spectra) or "inverse" (K4: the inverse passes of
+    ``a`` alone from s0 = 0, the first from device memory, the last
+    canonical to device memory), in groups of G stages a thread over the
     padded shared layout.  Each pass checks that its pass_threads(n)
-    threads hold every element once, and that the passes that read or
-    write device memory do so coalesced."""
+    threads hold every element once, that the passes that write device
+    memory, and all but K4's first that read it, do so coalesced, and that
+    K4's first pass reads 2^G contiguous words a thread."""
     r = Regime(tables)
     t, rows, n = a.shape
     log_n = n.bit_length() - 1
@@ -473,6 +480,22 @@ def passes_emulated(a, b, tables, kernel, tilde=None):
         p = np.arange(n // len(idx))
         assert all(np.array_equal(i, p + m * stride) for m, i in enumerate(idx))
 
+    if kernel == "inverse":
+        s0 = 0
+        for q in range(passes):
+            G = K if q + 1 < passes else g0
+            hi, idx = elements(G, s0)
+            if q == 0:  # DevicePolys: thread p reads words p 2^G .. p 2^G + 2^G - 1
+                assert all(np.array_equal(i, (np.arange(n >> G) << G) + m)
+                           for m, i in enumerate(idx))
+            (x,) = load((A,), idx)
+            gs_group(x, G, hi, s0)
+            if q + 1 == passes:  # DeviceOut: stored canonical to device memory
+                coalesced(idx, 1 << s0)
+                x = [canonicalize(v, r) for v in x]
+            store((A,), idx, [x])
+            s0 += G
+        return _int64(A[..., pad(np.arange(n))])
     polys = (A,) if kernel == "forward" else (A, B)
     s0 = 0
     forward = passes if kernel == "forward" else passes - 1
@@ -561,6 +584,24 @@ def test_cascade_and_forward_register_passes_match_plain_versions(n, t, v):
                           tkern.ntt_channels_ref(T(a), p.tables).numpy())
 
 
+@pytest.mark.parametrize("n,t,v", PASS_PRESETS)
+def test_inverse_register_passes_match_plain_version(n, t, v):
+    """K4's schedule (inverse passes of K stages from s0 = 0, the first
+    read from device memory, the last of g0 stages canonical to device
+    memory, coalesced) equals intt_channels_ref on canonical bit-reversed spectra with 0 and
+    q - 1 among them, in the regime of each preset, at the kernel's
+    thread count."""
+    p = make_params(n, t, v)
+    rows = 1 if n >= 4096 else 2
+    rng = np.random.default_rng(SEED + 13 * n + t + v)
+    qs = p.qs[:, None, None]
+    a = rng.integers(0, 1 << 62, size=(t, rows, n), dtype=np.int64) % qs
+    a[:, 0, :2] = qs[:, 0] - 1
+    a[:, -1, -2:] = 0
+    assert np.array_equal(passes_emulated(a, None, p.tables, "inverse"),
+                          tkern.intt_channels_ref(torch.as_tensor(a), p.tables).numpy())
+
+
 def test_kernel_block_barrett_constant_for_every_31_bit_special_prime():
     """channel_reduce's m = floor(2^(b+31) / q) for every 31-bit special
     prime the search of core/primes.py can give (n = 4 admits the most;
@@ -596,20 +637,31 @@ def test_e2e_emulation_matches_plain_version(n, t, v):
     assert torch.equal(got, want)
 
 
+def quotient_estimate(y: np.ndarray, plan) -> np.ndarray:
+    """sum_c y_c / q_c as K2 and K6 accumulate it: channel by channel, one
+    double fma(y_c, 1 / q_c, sum) each, rounded once (exact rational
+    arithmetic, then one rounding to double)."""
+    inv = [Fraction(1.0 / float(q)) for q in plan.qs]
+    out = np.empty(y.shape[1])
+    for i in range(y.shape[1]):
+        acc = 0.0
+        for c in range(plan.t):
+            acc = float(Fraction(float(y[c, i])) * inv[c] + Fraction(acc))
+        out[i] = acc
+    return out
+
+
 def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray:
     """parentt.cuh ``compose_finalize_quotient`` on (t, N) canonical y: the
     limb sums, the quotient floor(sum y_c / q_c) in double (moved by
     ``shift``, to drive both corrections), the ripple that subtracts k q,
     and one conditional addition or subtraction of q."""
-    t, L, w = plan.t, plan.L, plan.w
+    L, w = plan.L, plan.w
     mask = (1 << w) - 1
     star = np.asarray(plan.qi_star_limbs, dtype=np.int64)
     ql = np.asarray(plan.q_limbs, dtype=np.int64)
     acc = (y[:, :, None] * star[:, None, :]).sum(axis=0)
-    quotient = np.zeros(y.shape[1])
-    for c in range(t):
-        quotient = quotient + y[c] * (1.0 / float(plan.qs[c]))
-    k = quotient.astype(np.int64) + shift
+    k = quotient_estimate(y, plan).astype(np.int64) + shift
     limb = np.zeros_like(acc)
     carry = np.zeros(y.shape[1], dtype=np.int64)
     for l in range(L):
@@ -636,11 +688,17 @@ def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray
     return np.where(low[:, None], added, np.where(ge[:, None], subbed, limb))
 
 
-@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+# the largest t whose limbs K6 and K2 hold (L = 16 = MAX_LIMBS) at each
+# v: v = 29, 30 and 31 need t = 15, 14 and 14 channels
+COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31)]
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS + COMPOSE_CORNERS)
 def test_compose_quotient_tail_matches_plain_tail(n, t, v):
-    """K2's compose tail (quotient estimate, one correction) equals the
-    plain Eq-10 tail on seeded residues, on all-zero and all q - 1 ones,
-    and with the estimate moved one down or up."""
+    """K2's and K6's compose tail (quotient estimate, one correction)
+    equals the plain Eq-10 tail on seeded residues, on all-zero and all
+    q - 1 ones, and with the estimate moved one down or up, up to the
+    largest t the kernels hold."""
     plan = make_params(n, t, v).plan
     rng = np.random.default_rng(SEED + 7 * n + v)
     qs = np.asarray(plan.qs, dtype=np.int64)[:, None]
@@ -651,3 +709,43 @@ def test_compose_quotient_tail_matches_plain_tail(n, t, v):
     want = tcrt.compose_finalize(acc, plan.q_limbs, w=plan.w, t=t).numpy()
     for shift in (-1, 0, 1):
         assert np.array_equal(compose_quotient_emulated(y, plan, shift), want), shift
+
+
+def compose_emulated(r: np.ndarray, plan, narrow: bool) -> np.ndarray:
+    """K6 on (t, N) canonical residues: y_c = r_c q~_c as one 32x32->64
+    product reduced by the block Barrett with the plan's m (remainders
+    32-bit when ``narrow``), then the quotient tail."""
+    m = plan.dec_d["block_m"].numpy()
+    s1 = plan.dec[0].acc_barrett[1]
+    assert all(ch.acc_barrett[1] == s1 == int(ch.qi).bit_length() - 1 for ch in plan.dec)
+    y = np.stack([
+        block_barrett(U(r[c]) * U(int(plan.qi_tilde[c])), U(int(plan.qs[c])), U(int(m[c])), s1,
+                      narrow)
+        for c in range(plan.t)
+    ]).astype(np.int64)
+    return compose_quotient_emulated(y, plan)
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS + COMPOSE_CORNERS)
+def test_compose_emulation_matches_plain_version(n, t, v):
+    """K6 as emulated equals compose_ref on seeded canonical residues, on
+    r = 0 and r = q - 1 in every channel, and on the residues of the
+    integers 1, q - 1 and q - 2 (whose value / q lies next to an integer),
+    in every remainder width; the double quotient is within one of
+    floor(value / q) on all of them, up to the largest t the kernel holds."""
+    plan = make_params(n, t, v).plan
+    rng = np.random.default_rng(SEED + 17 * n + t + v)
+    qs = np.asarray(plan.qs, dtype=np.int64)[:, None]
+    r = rng.integers(0, 1 << 62, size=(t, 256), dtype=np.int64) % qs
+    r[:, 0] = 0
+    r[:, 1] = qs[:, 0] - 1
+    for i, x in enumerate((1, plan.q - 1, plan.q - 2)):
+        r[:, 2 + i] = [x % int(q) for q in plan.qs]
+    want = tcrt.compose_ref(torch.as_tensor(r), plan).numpy()
+    for narrow in (False, True) if tcrt.narrow_moduli(plan) else (False,):
+        assert np.array_equal(compose_emulated(r, plan, narrow), want), narrow
+    y = (r * np.asarray(plan.qi_tilde, dtype=np.int64)[:, None]) % qs
+    value = [sum(int(y[c, i]) * (plan.q // int(plan.qs[c])) for c in range(t))
+             for i in range(r.shape[1])]
+    exact = np.array([x // plan.q for x in value])
+    assert np.abs(np.floor(quotient_estimate(y, plan)) - exact).max() <= 1
