@@ -50,6 +50,25 @@ Phases, each raising on failure (so the run exits non-zero):
    ``ATTN_VARIANT`` names (``wgmma`` at the three prefill shapes,
    ``decode`` at gemma2 decode), its output finite and within tolerance
    of the plain version;
+4b. the HE path (``[bfv]`` lines, each with the card's name and power
+   limit), every call with the launch counters zeroed just before it and
+   read just after: ``repro_torch.execute`` on the auto plan at the main
+   path's batch (one K2 launch, equal to ``polymul``) and
+   ``plan_from_params`` (the same config as ``plan()``); the BFV layer at
+   the paper's point (``make_context(n=4096, t=6, v=30, pt_mod=2^24)``:
+   keygen, three workers' encrypts of 64 seeded messages, ``add_many``,
+   ``mul_plain`` by a seeded weight with |w| <= 8, decrypts and noise
+   budgets), whose products launch K1 and whose decrypts K1 and K6 and
+   nothing else (``BFV_LAUNCHES``), decrypt(encrypt(m)) == m, the sum and
+   the ct x pt product right (the host product on every row), and every
+   residue and decrypt equal to the same samples through a
+   ``backend="torch"`` plan on the card; each call's CUDA-event median,
+   the decrypt split into its device part and the host's exact rounding;
+   one HE gradient-aggregation round of ``HeAggregator()`` (n=1024, t=3)
+   over 3 workers x 2^20 float32 values, within 2e-3 of the plain mean,
+   with its host-clock time; and the encrypted-inference example
+   (``repro_torch.examples.encrypted_inference``), whose assertion must
+   hold;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
@@ -79,7 +98,9 @@ two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
 ``--time-kernels DIR fused_e2e_polymul``.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
-numbers and a ``shapes`` list with all four) and ends with
+numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
+``launches_by_path`` beside ``launches``, the main path's count, with
+phase 4b's paths) and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
 non-zero before printing any result.
@@ -864,6 +885,295 @@ def ptxas_entries(name: str) -> list[str]:
 
 
 # --------------------------------------------------------------------------
+# phase 4b: the front door's execute / plan_from_params and the HE path
+# (the BFV layer on K1 and K6, HE gradient aggregation, encrypted inference)
+# --------------------------------------------------------------------------
+
+# BFV at the paper's point: a batch of 64 messages a worker, three workers
+BFV = dict(n=4096, t=6, v=30, pt_mod=1 << 24, batch=64, workers=3, weight=8)
+BFV_TIMED = 10  # CUDA-event timed calls of each BFV operation
+HOST_RUNS = 3  # host-clock timed decrypt roundings and aggregation rounds
+# HeAggregator()'s defaults, over 3 workers x 2^20 float32 gradient values
+AGG = dict(n=1024, t=3, v=30, workers=3, rows=1023, cols=1024)
+AGG_ATOL = 2e-3
+# K1, K6 launches of one BFV call on the auto plan
+BFV_LAUNCHES = {
+    "keygen": {"fused_polymul": 1},
+    "encrypt": {"fused_polymul": 2},
+    "add_many": {},
+    "mul_plain": {"fused_polymul": 2},
+    "decrypt": {"fused_polymul": 1, "compose": 1},
+    "noise_budget_bits": {"fused_polymul": 1, "compose": 1},
+}
+# the encrypted-inference example: 20 samples x 10 classes, one keygen, an
+# encrypt a sample, a mul_plain and a decrypt a (sample, class)
+INFER_SAMPLES, INFER_CLASSES = 20, 10
+INFER_LAUNCHES = {
+    "fused_polymul": 1 + INFER_SAMPLES * (2 + INFER_CLASSES * 3),
+    "compose": INFER_SAMPLES * INFER_CLASSES,
+}
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for name, k in got.items():
+        if k:
+            total[name] = total.get(name, 0) + k
+
+
+def launched(got: dict) -> dict:
+    """The kernels of ``got`` that launched."""
+    return {name: k for name, k in got.items() if k}
+
+
+def drive_front_door(pl, inputs) -> dict[str, int]:
+    """Phase 4b: ``execute`` on the auto plan at the main path's batch is
+    one K2 launch and equals ``polymul``; ``plan_from_params`` of the same
+    params resolves to ``plan()``'s config."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.params import make_params
+
+    za, zb = inputs[:2]
+    out, got = counted(torch, lambda: repro_torch.execute(pl, za, zb))
+    expect_launches(got, {"fused_e2e_polymul": 1}, "execute (auto)")
+    exact(out, repro_torch.polymul(pl, za, zb), "execute vs polymul")
+    params = make_params(MAIN["n"], MAIN["t"], MAIN["v"], device="cuda")
+    cfg = repro_torch.plan_from_params(params).config
+    if cfg != pl.config:
+        raise AssertionError(f"plan_from_params: {cfg}, plan(): {pl.config}")
+    log(f"[bfv] execute on {tuple(za.shape)}: {launched(got)}; equal to polymul; plan_from_params("
+        f"make_params({MAIN['n']}, {MAIN['t']}, {MAIN['v']}, device='cuda')).config == "
+        f"plan().config: {cfg}")
+    return got
+
+
+def negacyclic_mod(m, w, pt: int):
+    """Rows of ``m`` times ``w`` mod (x^n + 1, pt), the host schoolbook as
+    exact int64 convolutions (|m| < 2^24, |w| <= 8: every sum < 2^40)."""
+    import numpy as np
+
+    n = m.shape[-1]
+    out = []
+    for row in m.reshape(-1, n):
+        c = np.convolve(row, w)
+        p = c[:n].copy()
+        p[:n - 1] -= c[n:]
+        out.append(p % pt)
+    return np.stack(out).reshape(m.shape)
+
+
+def bfv_calls(ctx, seed: int, ms, w, prod) -> tuple[dict, dict]:
+    """keygen, one encrypt a worker, add_many, mul_plain of the sum by
+    ``w``, decrypt of each ciphertext and noise_budget_bits before and
+    after the product (whose plaintext is ``prod``), each with every
+    launch counter zeroed just before and read just after.  Returns
+    (name -> result, name -> launches)."""
+    import torch
+
+    from repro_torch.core import bfv
+
+    gen = torch.Generator(device=ctx.plan.device).manual_seed(seed)
+    out, launches = {}, {}
+
+    def step(name, kind, fn):
+        out[name], got = counted(torch, fn)
+        expect_launches(got, BFV_LAUNCHES[kind] if ctx.plan.config.backend != "torch" else {},
+                        f"bfv {name} ({ctx.plan.config.backend})")
+        add_launches(launches, got)
+
+    step("keys", "keygen", lambda: bfv.keygen(gen, ctx))
+    kp = out["keys"]
+    for i, m in enumerate(ms):
+        step(f"ct{i}", "encrypt", lambda: bfv.encrypt(gen, m, kp, ctx))
+    cts = [out[f"ct{i}"] for i in range(len(ms))]
+    step("sum", "add_many", lambda: bfv.add_many(cts, ctx))
+    step("prod", "mul_plain", lambda: bfv.mul_plain(out["sum"], w, ctx))
+    for name in [f"ct{i}" for i in range(len(ms))] + ["sum", "prod"]:
+        step(f"dec_{name}", "decrypt", lambda: bfv.decrypt(out[name], kp, ctx))
+    step("budget_fresh", "noise_budget_bits", lambda: bfv.noise_budget_bits(cts[0], kp, ctx, ms[0]))
+    step("budget_prod", "noise_budget_bits",
+         lambda: bfv.noise_budget_bits(out["prod"], kp, ctx, prod))
+    return out, launches
+
+
+def drive_bfv(card: str) -> dict[str, int]:
+    """Phase 4b: the BFV layer at the paper's point on the auto plan (every
+    product K1, every compose K6), checked against the plaintexts and held
+    residue for residue against the same samples through a backend="torch"
+    plan on the card; then each call's CUDA-event time.  Returns the
+    launches per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bfv
+
+    n, pt = BFV["n"], BFV["pt_mod"]
+    ctx = bfv.make_context(n=n, t=BFV["t"], v=BFV["v"], pt_mod=pt)
+    plain = bfv.make_context(n=n, t=BFV["t"], v=BFV["v"], pt_mod=pt, backend="torch")
+    if ctx.plan.config.backend != "cuda_fused_e2e" or plain.plan.device.type != "cuda":
+        raise AssertionError(f"make_context resolved to {ctx.plan.config}, {plain.plan.config}")
+    rng = np.random.default_rng(SEED)
+    ms = [rng.integers(0, pt, size=(BFV["batch"], n), dtype=np.int64)
+          for _ in range(BFV["workers"])]
+    w = rng.integers(-BFV["weight"], BFV["weight"] + 1, size=(n,), dtype=np.int64)
+    total = sum(ms) % pt
+    prod = negacyclic_mod(total, w, pt)
+    got, launches = bfv_calls(ctx, SEED, ms, w, prod)
+    want, _ = bfv_calls(plain, SEED, ms, w, prod)
+
+    for i, m in enumerate(ms):
+        if not np.array_equal(got[f"dec_ct{i}"], m):
+            raise AssertionError(f"bfv: decrypt(encrypt(m)) != m for worker {i}")
+    if not np.array_equal(got["dec_sum"], total):
+        raise AssertionError("bfv: decrypt(add_many) != sum of m mod pt")
+    if not np.array_equal(got["dec_prod"], prod):
+        raise AssertionError("bfv: decrypt(mul_plain) differs from the host product")
+    fresh, after = got["budget_fresh"], got["budget_prod"]
+    if not 0 < after < fresh:
+        raise AssertionError(f"bfv: noise budget {fresh} fresh, {after} after mul_plain")
+    for name, value in got.items():
+        other = want[name]
+        if name == "keys":
+            exact(value.sk, other.sk, "bfv sk vs torch plan")
+            exact(value.pk, other.pk, "bfv pk vs torch plan")
+        elif isinstance(value, bfv.Ciphertext):
+            exact(value.c, other.c, f"bfv {name} vs torch plan")
+        elif not np.array_equal(value, other):
+            raise AssertionError(f"bfv {name}: {value} on the kernels, {other} on the torch plan")
+    log(f"[bfv] make_context(n={n}, t={BFV['t']}, v={BFV['v']}, pt_mod=2^24) on "
+        f"{ctx.plan.config.backend}: keygen, {BFV['workers']} encrypts of {BFV['batch']} "
+        f"messages, add_many, mul_plain by |w| <= {BFV['weight']}, 5 decrypts, 2 noise budgets "
+        f"launched {launches} (per call as BFV_LAUNCHES, counters zeroed around each); "
+        f"decrypt(encrypt(m)) == m, decrypt(add_many) == sum mod pt, decrypt(mul_plain) == "
+        f"the host product on all {BFV['batch']} rows; noise budget {fresh:.2f} -> "
+        f"{after:.2f} bits; "
+        f"every residue and decrypt equal to the backend='torch' plan's on the card")
+    time_bfv(ctx, got, ms, w, card)
+    return launches
+
+
+def time_bfv(ctx, got, ms, w, card: str) -> None:
+    """The CUDA-event median of each BFV call at the paper's point, and a
+    decrypt split into its device part (phase and compose) and the host's
+    exact rounding (limbs copied off the card, Python-int arithmetic)."""
+    import torch
+
+    from repro_torch.core import bfv
+
+    gen = torch.Generator(device=ctx.plan.device).manual_seed(SEED + 1)
+    kp, cts = got["keys"], [got[f"ct{i}"] for i in range(len(ms))]
+    calls = {
+        "keygen": lambda: bfv.keygen(gen, ctx),
+        "encrypt": lambda: bfv.encrypt(gen, ms[0], kp, ctx),
+        "add_many": lambda: bfv.add_many(cts, ctx),
+        "mul_plain": lambda: bfv.mul_plain(got["sum"], w, ctx),
+        "decrypt_device": lambda: bfv._phase_limbs(got["sum"], kp, ctx),
+    }
+    times = {name: time_launches(torch, fn, BFV_TIMED) for name, fn in calls.items()}
+    limbs = bfv._phase_limbs(got["sum"], kp, ctx)
+    times["decrypt_host"] = host_ms(torch, lambda: bfv._round(bfv._phase_ints(limbs, ctx), ctx))
+    times["decrypt"] = host_ms(torch, lambda: bfv.decrypt(got["sum"], kp, ctx))
+    shape = (BFV["t"], BFV["batch"], BFV["n"])
+    log(f"[bfv] times at (t, batch, n) = {shape}, ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items())
+        + f" (CUDA-event median of {BFV_TIMED} one-call windows; decrypt_host: limbs off the "
+        f"card and the exact rounding, decrypt: the whole call, host clock, median of "
+        f"{HOST_RUNS}); {card}")
+
+
+def host_ms(torch, fn) -> float:
+    """Median host-clock milliseconds of HOST_RUNS synchronised calls."""
+    times = []
+    for _ in range(HOST_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def drive_aggregation(card: str) -> dict[str, int]:
+    """Phase 4b: one HE aggregation round of HeAggregator() (n=1024, t=3,
+    v=30) over AGG workers x 2^20 float32 gradient values (1024 ciphertexts
+    a worker), within AGG_ATOL of the plain mean, with its launches; then
+    the round's host-clock time and its host rounding alone."""
+    import torch
+
+    from repro_torch.core import bfv
+    from repro_torch.train import aggregation
+
+    agg = aggregation.HeAggregator(n=AGG["n"], t=AGG["t"], v=AGG["v"])
+    dev = agg.ctx.plan.device
+    data = torch.Generator(device=dev).manual_seed(SEED)
+    workers = [
+        {"w": 0.1 * torch.randn((AGG["rows"], AGG["cols"]), generator=data, device=dev),
+         "b": 0.1 * torch.randn((AGG["cols"],), generator=data, device=dev)}
+        for _ in range(AGG["workers"])
+    ]
+    values = sum(x.numel() for x in workers[0].values())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    keys = agg.keygen(gen)
+    mean, launches = counted(torch, lambda: aggregation.he_aggregate_gradients(
+        agg, workers, gen, keys))
+    expect_launches(launches, {"fused_polymul": 2 * AGG["workers"] + 1, "compose": 1},
+                    "he_aggregate_gradients")
+    err = max((mean[k] - sum(x[k] for x in workers) / AGG["workers"]).abs().max().item()
+              for k in ("w", "b"))
+    if not err <= AGG_ATOL:
+        raise AssertionError(f"he_aggregate_gradients: max |HE mean - plain mean| = {err}")
+    round_ms = host_ms(torch, lambda: aggregation.he_aggregate_gradients(agg, workers, gen, keys))
+    cts = [agg.encrypt_grads(gen, torch.cat([x["b"], x["w"].reshape(-1)]), keys)
+           for x in workers]
+    limbs = bfv._phase_limbs(agg.aggregate(cts), keys, agg.ctx)
+    rounding_ms = host_ms(torch, lambda: bfv._round(bfv._phase_ints(limbs, agg.ctx), agg.ctx))
+    log(f"[bfv] he_aggregate_gradients, {AGG['workers']} workers x {values} float32 values "
+        f"({cts[0].c.shape[2]} ciphertexts a worker, n={AGG['n']}, t={AGG['t']}): "
+        f"{launched(launches)}; "
+        f"max |HE mean - plain mean| = {err:.3e} (<= {AGG_ATOL:g}); round {round_ms:.1f} ms, "
+        f"of which the host rounding {rounding_ms:.1f} ms (host clock, median of {HOST_RUNS}); "
+        f"{card}")
+    return launches
+
+
+def drive_inference(card: str) -> dict[str, int]:
+    """Phase 4b: the encrypted-inference example's main on the card, its
+    assertion (encrypted == plaintext predictions on all 20 samples) and
+    its launches."""
+    import torch
+
+    from repro_torch.examples import encrypted_inference
+
+    t0 = time.perf_counter()
+    rc, launches = counted(torch, lambda: encrypted_inference.main([]))
+    ms = (time.perf_counter() - t0) * 1e3
+    if rc != 0:
+        raise AssertionError(f"encrypted_inference.main returned {rc}")
+    expect_launches(launches, INFER_LAUNCHES, "encrypted_inference")
+    log(f"[bfv] encrypted_inference (n=256, t=3, v=30): {launched(launches)}; "
+        f"encrypted == plaintext "
+        f"predictions on all {INFER_SAMPLES} samples; {ms:.1f} ms (host clock, one run); {card}")
+    return launches
+
+
+def drive_he(pl, inputs, card: str) -> dict[str, dict[str, int]]:
+    """Phase 4b, each path with the launch counters zeroed around each of
+    its calls: kernel -> path -> launches."""
+    paths = {
+        "execute": drive_front_door(pl, inputs),
+        "bfv": drive_bfv(card),
+        "he_aggregation": drive_aggregation(card),
+        "encrypted_inference": drive_inference(card),
+    }
+    by_kernel = {}
+    for path, got in paths.items():
+        for name, k in launched(got).items():
+            by_kernel.setdefault(name, {})[path] = k
+    return by_kernel
+
+
+# --------------------------------------------------------------------------
 # K7: flash attention
 # --------------------------------------------------------------------------
 
@@ -1240,7 +1550,11 @@ def main() -> int:
         raise AssertionError(f"plan() resolved to {pl.config}")
     launches, inputs = drive_main_path(pl)
     attn_launches = drive_attention(attn_model)
+    he_launches = drive_he(pl, inputs, card)
     entries = time_kernels(pl, inputs, launches, max_err)
+    for entry in entries:
+        if entry["name"] in he_launches:
+            entry["launches_by_path"] = {"main": entry["launches"], **he_launches[entry["name"]]}
     entries.append(time_attention(attn_model, attn_launches, attn_err))
     time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
 

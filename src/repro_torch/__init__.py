@@ -13,8 +13,19 @@ The main path runs one hand-written CUDA kernel
 :func:`decompose` and :func:`compose` run the stage kernels
 (``csrc/ntt_channels.cu``, ``intt_channels.cu``, ``decompose.cu``,
 ``compose.cu``), as does every stage of ``backend="cuda"``.
-``plan(..., device="cpu")`` runs the plain-PyTorch versions.  The
-package imports neither JAX nor ``repro``.
+``plan(..., device="cpu")`` runs the plain-PyTorch versions.
+:func:`execute` is :func:`polymul` under the serving signature, and
+:func:`plan_from_params` wraps an existing ``ParenttParams``.
+
+The BFV layer of the paper's HE applications sits on these entry points:
+:mod:`repro_torch.core.bfv` (``make_context``, ``keygen``, ``encrypt``,
+``decrypt``, ``add``, ``add_many``, ``mul_plain``, ``noise_budget_bits``;
+every product on :func:`negacyclic_mul`, every decrypt on
+:func:`compose`), the host bigint reference with ct x ct multiplication
+:mod:`repro_torch.core.bfv_ref`, HE gradient aggregation
+:mod:`repro_torch.train.aggregation`, and the example
+``python -m repro_torch.examples.encrypted_inference``.  The package
+imports neither JAX nor ``repro``.
 """
 from repro_torch.api import (
     BACKENDS,
@@ -22,11 +33,13 @@ from repro_torch.api import (
     PlanConfig,
     compose,
     decompose,
+    execute,
     from_limbs,
     intt,
     negacyclic_mul,
     ntt,
     plan,
+    plan_from_params,
     plan_key,
     polymul,
     polymul_ints,
@@ -43,11 +56,13 @@ __all__ = [
     "UnservableConfigError",
     "compose",
     "decompose",
+    "execute",
     "from_limbs",
     "intt",
     "negacyclic_mul",
     "ntt",
     "plan",
+    "plan_from_params",
     "plan_key",
     "polymul",
     "polymul_ints",

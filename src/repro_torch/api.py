@@ -7,20 +7,26 @@ Usage::
 
     pl = repro_torch.plan(n=4096, t=6, v=30)     # paper's preferred point
     limbs = repro_torch.polymul(pl, za, zb)      # (..., n, S) -> (..., n, L)
+    limbs = repro_torch.execute(pl, za, zb)      # the serving layer's hook
 
 :func:`plan` resolves every knob once into a frozen :class:`PlanConfig`
-and uploads the tables to the plan's device.  Plans run on the CUDA card
-unless the caller passes ``device="cpu"``; with no card and no device
-asked for, :func:`plan` raises.  ``backend="auto"`` resolves to
+and uploads the tables to the plan's device; :func:`plan_from_params`
+wraps an existing :class:`ParenttParams` (honouring its ``backend``
+field and its device) through the same admission.  Plans run on the CUDA
+card unless the caller passes ``device="cpu"``; with no card and no
+device asked for, :func:`plan` raises.  ``backend="auto"`` resolves to
 ``"cuda_fused_e2e"`` on the card and ``"torch"`` on the CPU.  A kernel
 backend refuses, at plan time, an ``n`` whose shared-memory working set
 does not fit one block.  Every datapath decomposes through the Alg-2
-SAU circuits.  Besides the multiplier, the stage entry points
+SAU circuits.  :func:`execute` is :func:`polymul` under the reference's
+serving signature.  Besides the multiplier, the stage entry points
 :func:`ntt`, :func:`intt`, :func:`decompose`, :func:`compose` and
-:func:`negacyclic_mul` run one stage each on the plan's backend.  The
-reference's ``execute`` and ``plan_from_params``, its ``schedule``,
-``tiling``, ``channel_grid``, ``tuning`` and ``use_sau`` knobs and its
-wide and oracle widths (v > 31) are not ported yet.
+:func:`negacyclic_mul` run one stage each on the plan's backend; the BFV
+layer (:mod:`repro_torch.core.bfv`) runs every homomorphic product
+through :func:`negacyclic_mul` and every decrypt through :func:`compose`.
+The reference's ``schedule``, ``tiling``, ``channel_grid`` and
+``tuning`` knobs, ``use_sau=False`` and its wide and oracle widths
+(v > 31) are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,11 +49,13 @@ __all__ = [
     "PlanConfig",
     "compose",
     "decompose",
+    "execute",
     "from_limbs",
     "intt",
     "negacyclic_mul",
     "ntt",
     "plan",
+    "plan_from_params",
     "plan_key",
     "polymul",
     "polymul_ints",
@@ -115,6 +123,8 @@ def _resolve_device(device) -> torch.device:
             f"device={device!r} asked for, but no CUDA device is available",
             knob="device", value=device, alternatives=("cpu",),
         )
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cpu", "cuda"):
         raise UnknownKnobError(
             f"device must be a CPU or CUDA device, got {device!r}",
@@ -151,14 +161,28 @@ def plan(
             f"v must be an int in [{_V_MIN}, {_V_MAX}], got v={v!r}",
             knob="v", value=v, alternatives=(),
         )
+    _check_width(v)
+    dev = _resolve_device(device)
+    backend = ops_mod.resolve_backend(backend, dev)
+    params = _admit(backend, n, t, v, dev)
+    return _plan_of(params, backend, dev)
+
+
+def _check_width(v: int) -> None:
     if v > _V_INT64_MAX:
         raise UnservableConfigError(
             f"the port serves the int64 width (v <= {_V_INT64_MAX}); v={v} needs the "
             "wide or oracle datapath, which is not ported yet",
             knob="v", value=v, alternatives=(30,),
         )
-    dev = _resolve_device(device)
-    backend = ops_mod.resolve_backend(backend, dev)
+
+
+def _admit(backend: str, n: int, t: int, v: int, dev: torch.device,
+           params: ParenttParams | None = None) -> ParenttParams:
+    """The kernel backends' admission, shared by :func:`plan` and
+    :func:`plan_from_params`: refuse an ``n`` whose working set exceeds
+    one block's shared memory (before the prime search), build the
+    params unless given, and refuse S or L past the kernels' limb arrays."""
     if backend in KERNEL_BACKENDS:
         need = {
             "cuda": ntt_kernels.stage_smem_bytes(n),
@@ -173,7 +197,8 @@ def plan(
                 "block may use (multi-block transforms are not ported yet)",
                 knob="n", value=n, alternatives=("backend='torch'",),
             )
-    params = make_params(n=n, t=t, v=v, device=dev)
+    if params is None:
+        params = make_params(n=n, t=t, v=v, device=dev)
     rp = params.plan
     if backend in KERNEL_BACKENDS and (
         rp.dec is None
@@ -186,11 +211,40 @@ def plan(
             f"{rp.dec is not None})",
             knob="t", value=t, alternatives=("backend='torch'",),
         )
+    return params
+
+
+def _plan_of(params: ParenttParams, backend: str, dev: torch.device) -> Plan:
+    rp = params.plan
     cfg = PlanConfig(
-        n=n, t=t, v=v, backend=backend, device=str(dev),
+        n=params.n, t=params.t, v=params.v, backend=backend, device=str(dev),
         seg_count=rp.seg_count, w=rp.w, L=rp.L,
     )
     return Plan(config=cfg, params=params)
+
+
+def plan_from_params(
+    params: ParenttParams,
+    *,
+    backend: str | None = None,
+    use_sau: bool = True,
+) -> Plan:
+    """Wrap an existing :class:`ParenttParams` into a :class:`Plan` on the
+    params' device: ``backend`` if given, else ``params.backend``
+    (``"auto"`` resolves by the device as in :func:`plan`), through the
+    same admission as :func:`plan`.  ``use_sau=False`` (the generic
+    decompose) is not ported yet and raises."""
+    if use_sau is not True:
+        raise UnservableConfigError(
+            f"use_sau={use_sau!r}: the port decomposes through the Alg-2 SAU circuits "
+            "only; the generic decompose is not ported yet",
+            knob="use_sau", value=use_sau, alternatives=(True,),
+        )
+    _check_width(params.v)
+    dev = _resolve_device(params.device)
+    backend = ops_mod.resolve_backend(params.backend if backend is None else backend, dev)
+    _admit(backend, params.n, params.t, params.v, dev, params=params)
+    return _plan_of(params, backend, dev)
 
 
 def _require_plan(pl: Plan, fn: str) -> PlanConfig:
@@ -208,6 +262,17 @@ def polymul(pl: Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
     plan's backend.  Operands must lie on the plan's device."""
     cfg = _require_plan(pl, "polymul")
     return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend)
+
+
+def execute(pl: Plan, za: torch.Tensor, zb: torch.Tensor, *,
+            donate: bool = False) -> torch.Tensor:
+    """:func:`polymul` under the reference's serving signature (the hook
+    a serving engine or stage profiler calls).  Eager PyTorch keeps no
+    compiled entry per :func:`plan_key` and donates no buffers, so
+    ``donate`` is accepted for call sites ported one to one and changes
+    nothing: ``za`` and ``zb`` stay valid."""
+    del donate
+    return polymul(pl, za, zb)
 
 
 def ntt(pl: Plan, a: torch.Tensor) -> torch.Tensor:

@@ -3,6 +3,9 @@
 
 The paper's preferred hardware config is t=6, v=30, n=4096 (a 180-bit q).
 The port serves the int64 width (v <= 31); ``tables`` is None above it.
+``backend`` is the datapath :func:`repro_torch.api.plan_from_params`
+takes when its caller names none (a :data:`repro_torch.BACKENDS` entry
+or ``"auto"``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ class ParenttParams:
     primes: tuple[primes_mod.SpecialPrime, ...]
     plan: rns_mod.RnsPlan
     tables: ntt_mod.ChannelTables | None  # None for v > 31
+    backend: str = "auto"  # default datapath of plan_from_params
 
     @property
     def q(self) -> int:
@@ -36,6 +40,13 @@ class ParenttParams:
     @property
     def device(self) -> torch.device:
         return self.plan.device
+
+    def with_backend(self, backend: str) -> "ParenttParams":
+        from repro_torch.kernels.ops import validate_backend  # ops imports this module
+
+        if backend != "auto":
+            validate_backend(backend)
+        return dataclasses.replace(self, backend=backend)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,5 +62,6 @@ def _make_params_base(n: int, t: int, v: int, device: str) -> ParenttParams:
 
 def make_params(n: int = 4096, t: int = 6, v: int = 30, device="cpu") -> ParenttParams:
     """Build (cached per device) params: primes, RNS plan and NTT tables,
-    with their device copies uploaded once."""
+    with their device copies uploaded once; ``with_backend`` variants
+    share them."""
     return _make_params_base(n, t, v, str(torch.device(device)))

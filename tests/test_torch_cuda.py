@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core import bigint, polymul as host
+from repro_torch.core import bfv, bigint, polymul as host
+from repro_torch.core.params import make_params
 from repro_torch.kernels import attention, crt
 from repro_torch.kernels import ntt as kern
 
@@ -406,3 +407,86 @@ def test_attention_variants_match_plain_version(cuda_device, monkeypatch, shape,
         again = attention.flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         assert torch.equal(again, got)
+
+
+# --------------------------------------------------------------------------
+# the BFV layer and the front door on the card
+# --------------------------------------------------------------------------
+
+
+def test_execute_launches_k2_once(cuda_device):
+    pl = repro_torch.plan(4096, 6, 30)
+    za, zb, _, _ = _inputs(pl, 4, seed=18, device=pl.device)
+    for w in STAGE_WRAPPERS:
+        w.launches = 0
+    out = repro_torch.execute(pl, za, zb, donate=True)
+    torch.cuda.synchronize()
+    assert tuple(w.launches for w in STAGE_WRAPPERS) == (0, 1, 0, 0, 0, 0)
+    assert torch.equal(out, repro_torch.polymul(pl, za, zb))
+    assert repro_torch.plan_from_params(make_params(4096, 6, 30, device="cuda")).config == pl.config
+
+
+def _bfv_run(ctx, seed: int, counts: dict):
+    """keygen, three encrypts of a (3, n) batch, add_many, mul_plain and
+    decrypt from one generator seed: every ciphertext and decrypt, with
+    each call's (K1, K6) launches recorded in ``counts``."""
+    gen = torch.Generator(device=ctx.plan.device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    n = ctx.params.n
+    ms = [rng.integers(0, ctx.pt_mod, size=(3, n), dtype=np.int64) for _ in range(3)]
+    w = rng.integers(-8, 9, size=(n,), dtype=np.int64)
+
+    def counted(name, fn):
+        kern.fused_polymul_cuda.launches = crt.compose_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts[name] = (kern.fused_polymul_cuda.launches, crt.compose_cuda.launches)
+        return out
+
+    kp = counted("keygen", lambda: bfv.keygen(gen, ctx))
+    cts = [counted("encrypt", lambda: bfv.encrypt(gen, m, kp, ctx)) for m in ms]
+    total = counted("add_many", lambda: bfv.add_many(cts, ctx))
+    prod = counted("mul_plain", lambda: bfv.mul_plain(total, w, ctx))
+    decs = [counted("decrypt", lambda: bfv.decrypt(ct, kp, ctx)) for ct in cts + [total, prod]]
+    return ms, w, [kp.sk, kp.pk] + [ct.c for ct in cts + [total, prod]], decs
+
+
+@pytest.mark.parametrize("n,t", [(256, 6), (4096, 6)])
+def test_bfv_on_the_kernels_matches_the_plain_backend(cuda_device, n, t):
+    """BFV on the auto plan (every product on K1, every compose on K6)
+    equals BFV on a backend="torch" plan on the card from the same seed:
+    every residue and every decrypt; the decrypts are right."""
+    counts, plain_counts = {}, {}
+    auto = bfv.make_context(n=n, t=t, v=30, pt_mod=1 << 24)
+    plain = bfv.make_context(n=n, t=t, v=30, pt_mod=1 << 24, backend="torch")
+    assert auto.plan.config.backend == "cuda_fused_e2e" and auto.plan.device.type == "cuda"
+    ms, w, tensors, decs = _bfv_run(auto, 5, counts)
+    _, _, plain_tensors, plain_decs = _bfv_run(plain, 5, plain_counts)
+    assert counts == {"keygen": (1, 0), "encrypt": (2, 0), "add_many": (0, 0),
+                      "mul_plain": (2, 0), "decrypt": (1, 1)}
+    assert set(plain_counts.values()) == {(0, 0)}
+    for got, want in zip(tensors, plain_tensors):
+        assert torch.equal(got, want)
+    for got, want in zip(decs, plain_decs):
+        assert np.array_equal(got, want)
+    pt = auto.pt_mod
+    total = sum(ms) % pt
+    for got, want in zip(decs, ms + [total]):
+        assert np.array_equal(got, want)
+    assert np.array_equal(decs[-1], _negacyclic_mod(total, w, pt))
+    if n <= 256:
+        want = host.schoolbook_negacyclic(total[0].tolist(), [int(x) % pt for x in w], pt)
+        assert decs[-1][0].tolist() == want
+
+
+def _negacyclic_mod(m: np.ndarray, w: np.ndarray, pt: int) -> np.ndarray:
+    """Rows of m times w mod (x^n + 1, pt) by exact int64 convolution
+    (|m| < 2^24, |w| <= 8: every sum stays below 2^40)."""
+    n = m.shape[-1]
+    out = []
+    for row in m.reshape(-1, n):
+        c = np.convolve(row, w)
+        p = c[:n].copy()
+        p[:n - 1] -= c[n:]
+        out.append(p % pt)
+    return np.stack(out).reshape(m.shape)
