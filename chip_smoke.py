@@ -7,11 +7,12 @@ GPU.  Run from the repository root with no arguments:
 Phases, each raising on failure (so the run exits non-zero):
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. the build of all seven CUDA kernels (``nvcc``, one process per
+2. the build of all ten CUDA sources (``nvcc``, one process per
    source, all started together) into the checkout's ``build/``: K1
    fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
-   NTT, K5 decompose, K6 compose, K7 flash attention; ptxas's registers,
-   stack frame and spills of each K1-K6 instance (``[ptxas]``);
+   NTT, K5 decompose, K6 compose, K7 flash attention, and the
+   multi-block K1-fs, K3-fs, K4-fs; ptxas's registers, stack frame and
+   spills of each K1-K6 and K1-fs-K4-fs instance (``[ptxas]``);
 3. each kernel against its plain PyTorch version on the card: K1-K6 with
    exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
    rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
@@ -33,7 +34,11 @@ Phases, each raising on failure (so the run exits non-zero):
    kernel is built for, each of its three variants: ``wgmma`` for bf16
    prefill, ``decode`` for bf16 with at most 8 query rows per kv head,
    ``simt`` for float32); at each model shape a control that rounds the
-   probabilities to bfloat16 must fall outside that tolerance;
+   probabilities to bfloat16 must fall outside that tolerance; K1-fs,
+   K3-fs and K4-fs (``csrc/*_fs.cu``) at ``FS_POINTS`` (n = 16 ... 65536,
+   t = 3, 2 rows, all three regimes) equal to their plain versions (the
+   four-step plain PyTorch) and, where K1, K3 or K4 also serve n, to
+   them, with the CTAs an SM holds of each launch;
 4. the paths through the entry points a user calls, each with every
    launch counter zeroed just before it and read just after:
    ``repro_torch.plan(n=4096, t=6, v=30)`` (auto: ``cuda_fused_e2e``) ->
@@ -69,6 +74,14 @@ Phases, each raising on failure (so the run exits non-zero):
    with its host-clock time; and the encrypted-inference example
    (``repro_torch.examples.encrypted_inference``), whose assertion must
    hold;
+4c. the front door past one CTA (``[fs]`` lines): ``plan(n, 6, 30)`` at
+   n = 65536 (16 rows) and 32768 (32 rows), ``FS_MAIN``, under ``auto``
+   (which must resolve to ``cuda_fused`` with a multi-block schedule) and
+   ``backend="cuda"``: ``polymul``, ``negacyclic_mul``, ``ntt`` and
+   ``intt``, each call with the counters zeroed around it and launching
+   what ``FS_LAUNCHES`` says, bit-exact against a ``backend="torch"``
+   plan on the card, and two polymul rows a size against the host bigint
+   oracle;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
@@ -83,10 +96,13 @@ Phases, each raising on failure (so the run exits non-zero):
    ``scaled_dot_product_attention`` at yi-6b, the compiled
    ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b; each
    K7 variant's ptxas registers, spills and shared memory, and the
-   achieved TFLOP/s (prefill) or TB/s (decode);
+   achieved TFLOP/s (prefill) or TB/s (decode); K1-fs, K3-fs and K4-fs
+   at (6, 16, 65536), one call and back to back, beside their plain
+   versions and bounds;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend, and of one ``negacyclic_mul`` call on the auto plan
-   (host clock, synchronised).
+   (host clock, synchronised), and at FS_MAIN's n and rows on
+   ``cuda_fused``, ``cuda`` and ``torch``.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -100,7 +116,8 @@ two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
 ``launches_by_path`` beside ``launches``, the main path's count, with
-phase 4b's paths) and ends with
+phase 4b's paths; K1-fs's, K3-fs's and K4-fs's ``launches`` sum phase
+4c's calls, each one a path of ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
 non-zero before printing any result.
@@ -134,8 +151,8 @@ SMALL = [dict(n=64, t=3, v=v, rows=3) for v in (29, 30, 31)]
 # strict) with one channel a CTA (n = 16384) and two (n = 8192)
 E2E_WIDE = [dict(n=8192, t=6, v=30, rows=4)] + [
     dict(n=n, t=t, v=v, rows=2)
-    for n, t, v in ((16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
-                    (8192, 10, 29), (8192, 14, 30), (8192, 13, 31))
+    for n, t, v in ((16384, 8, 29), (16384, 8, 30), (16384, 8, 31),
+                    (8192, 15, 29), (8192, 14, 30), (8192, 13, 31))
 ]
 # K1, K3 and K4 at the edges of their register passes, t = 3, 2 rows, in
 # all three regimes (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31):
@@ -146,6 +163,30 @@ PASS_POINTS = {
     "fused_polymul": ("cuda_fused", (4, 8, 2048, 4096, 16384)),
     "ntt_channels": ("cuda", (4, 8, 2048, 4096, 32768)),
     "intt_channels": ("cuda", (4, 8, 2048, 4096, 32768)),
+}
+# K1-fs, K3-fs and K4-fs (the multi-block kernels) at t = 3, 2 rows, in all
+# three regimes: n = 16 and 256 (one tile a polynomial, few passes), 1024,
+# 4096 and 16384, where K1, K3 and K4 also serve and must give the same
+# outputs, and past them, 32768 and 65536
+FS_POINTS = (16, 256, 1024, 4096, 16384, 32768, 65536)
+# the front door at full width past one CTA, t = 6, v = 30: n -> rows (2^20
+# coefficients an operand, as many as the paper point's 256 rows of 4096)
+FS_MAIN = {65536: 16, 32768: 32}
+FS_T, FS_V = 6, 30
+# K1-fs, K3-fs, K4-fs launches of each call on the auto plan (cuda_fused)
+# and on backend="cuda", at n = 65536 and at 32768, where K3 and K4 hold a
+# polynomial in one CTA
+FS_LAUNCHES = {
+    ("cuda_fused", "polymul"): {"decompose": 2, "fused_polymul_fs": 1, "compose": 1},
+    ("cuda_fused", "negacyclic_mul"): {"fused_polymul_fs": 1},
+    ("cuda", "polymul", 65536): {"decompose": 2, "ntt_channels_fs": 2, "intt_channels_fs": 1,
+                                 "compose": 1},
+    ("cuda", "polymul", 32768): {"decompose": 2, "ntt_channels": 2, "intt_channels": 1,
+                                 "compose": 1},
+    ("cuda", "negacyclic_mul", 65536): {"ntt_channels_fs": 2, "intt_channels_fs": 1},
+    ("cuda", "negacyclic_mul", 32768): {"ntt_channels": 2, "intt_channels": 1},
+    ("ntt", 65536): {"ntt_channels_fs": 1}, ("ntt", 32768): {"ntt_channels": 1},
+    ("intt", 65536): {"intt_channels_fs": 1}, ("intt", 32768): {"intt_channels": 1},
 }
 # K6 at the largest t whose limbs it holds (L = 16) in each regime, beside
 # the paper's point; each at 1, 255 and 257 rows (a partial last tile)
@@ -453,6 +494,9 @@ def wrappers():
         "decompose": crt.decompose_cuda,
         "compose": crt.compose_cuda,
         "attention": attention.flash_attention_cuda,
+        "fused_polymul_fs": kern.fused_polymul_fs_cuda,
+        "ntt_channels_fs": kern.ntt_channels_fs_cuda,
+        "intt_channels_fs": kern.intt_channels_fs_cuda,
     }
 
 
@@ -560,6 +604,61 @@ def pass_kernel(name: str) -> tuple:
     }[name]
 
 
+def fs_kernel(name: str) -> tuple:
+    """K1-fs's, K3-fs's or K4-fs's (``name``) wrapper, plain version, the
+    one-block kernel of the same function with its fit test, and the CTAs
+    an SM holds of each launch."""
+    from repro_torch.kernels import ntt as kern
+
+    return {
+        "fused_polymul_fs": (kern.fused_polymul_fs_cuda, kern.fused_polymul_fs_ref,
+                             kern.fused_polymul_cuda, kern.cascade_fits,
+                             kern.cascade_fs_blocks_per_sm),
+        "ntt_channels_fs": (kern.ntt_channels_fs_cuda, kern.ntt_channels_fs_ref,
+                            kern.ntt_channels_cuda, kern.stage_fits, kern.ntt_fs_blocks_per_sm),
+        "intt_channels_fs": (kern.intt_channels_fs_cuda, kern.intt_channels_fs_ref,
+                             kern.intt_channels_cuda, kern.stage_fits,
+                             kern.intt_fs_blocks_per_sm),
+    }[name]
+
+
+def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
+    """Phase 3 for K1-fs, K3-fs and K4-fs at FS_POINTS in every regime:
+    exact equality with their plain versions (the four-step plain PyTorch
+    on the card) and, where the one-block kernel also serves n, with it;
+    the CTAs an SM holds of each launch."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    t0 = time.perf_counter()
+    for n in FS_POINTS:
+        for v in (29, 30, 31):
+            pl = repro_torch.plan(n, 3, v, backend="cuda", device=dev)
+            tables = pl.params.tables
+            _, _, ra, rb = seeded_inputs(torch, np, pl, 2, SEED + 3 * n + v, dev)
+            ra[:, 0, :2] = pl.params.plan.qs_d[:, None] - 1  # the largest canonical residue
+            seen = []
+            for name in FS_KERNELS:
+                cuda, ref, one_block, fits, blocks_per_sm = fs_kernel(name)
+                operands = (ra, rb) if name == "fused_polymul_fs" else (ra,)
+                got = cuda(*operands, tables)
+                torch.cuda.synchronize()
+                err = exact(got, ref(*operands, tables), f"{name} n={n} t=3 v={v}")
+                if fits(n):
+                    exact(got, one_block(*operands, tables), f"{name} vs one block n={n} v={v}")
+                max_err[name] = max(max_err.get(name, 0), err)
+                seen.append(f"{name} {blocks_per_sm(tables)}" + (" = one block" if fits(n) else ""))
+            log(f"[kernels] multi-block n={n} t=3 v={v} rows=2 (mode, window)="
+                f"{kern.reduction_mode(tables)[:2]} split {kern.fs_split(n)}, "
+                f"{kern.fs_threads(n)} threads, {kern.fs_tile(n)}-element tiles: equal to the "
+                "plain versions bit for bit (and to K1/K3/K4 where marked); CTAs an SM holds "
+                "per launch: " + ", ".join(seen))
+    log(f"[kernels] multi-block checks took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
 def check_compose_edges(dev, max_err: dict[str, int]) -> None:
     """Phase 3 for K6 at COMPOSE_ROWS rows, with r = 0 and r = q - 1 in
     every channel, at the paper's point and at COMPOSE_CORNERS: exact
@@ -599,13 +698,13 @@ def expect_cluster(pl, what: str) -> None:
                              f"expected {want}")
 
 
-def check_oracle(pl, za, zb, out, what: str) -> None:
-    """``out`` rows of ORACLE_ROWS equal the host bigint oracle."""
+def check_oracle(pl, za, zb, out, what: str, rows=ORACLE_ROWS) -> None:
+    """``out`` rows ``rows`` equal the host bigint oracle."""
     from repro_torch.core import bigint, polymul as host
 
     import repro_torch
 
-    for r in ORACLE_ROWS:
+    for r in rows:
         a = bigint.limbs_to_ints(za[r].cpu().numpy(), pl.config.v)
         b = bigint.limbs_to_ints(zb[r].cpu().numpy(), pl.config.v)
         if repro_torch.from_limbs(pl, out[r]) != host.oracle_multiply(a, b, pl.params):
@@ -696,7 +795,129 @@ def drive_main_path(pl):
     return launches, (za, zb, ra, rb)
 
 
-# K1-K6: kernel -> (source, the TPU kernel it replaces)
+def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
+    """Phase 4c: ``plan(n, 6, 30)`` at FS_MAIN's n, past one CTA, under
+    ``auto`` (which must resolve to cuda_fused on multi-block kernels) and
+    ``backend="cuda"``: ``polymul`` on FS_MAIN rows, ``negacyclic_mul``,
+    ``ntt`` and ``intt`` on (6, rows, n) residues, each call with the
+    launch counters zeroed just before it and read just after
+    (FS_LAUNCHES), bit-exact against a ``backend="torch"`` plan on the card
+    and two polymul rows against the host bigint oracle.  Returns (the
+    multi-block kernels' launches: kernel -> path -> count, n -> inputs)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+
+    t0 = time.perf_counter()
+    launches, inputs = {}, {}
+    for n, rows in FS_MAIN.items():
+        auto = repro_torch.plan(n, FS_T, FS_V)
+        spec = auto.config.schedule
+        if auto.config.backend != "cuda_fused" or not spec.multi_block:
+            raise AssertionError(f"plan(n={n}, t={FS_T}, v={FS_V}) resolved to {auto.config}")
+        plain = repro_torch.plan(n, FS_T, FS_V, backend="torch", device=auto.device)
+        za, zb, ra, rb = seeded_inputs(torch, np, auto, rows, SEED + n, auto.device)
+        inputs[n] = (za, zb, ra, rb)
+        want = {
+            "polymul": repro_torch.polymul(plain, za, zb),
+            "negacyclic_mul": repro_torch.negacyclic_mul(plain, ra, rb),
+            "ntt": repro_torch.ntt(plain, ra),
+            "intt": repro_torch.intt(plain, ra),
+        }
+        for backend, pl in (("cuda_fused", auto), ("cuda", repro_torch.plan(n, FS_T, FS_V,
+                                                                             backend="cuda"))):
+            for fn in ("polymul", "negacyclic_mul", "ntt", "intt"):
+                args = (za, zb) if fn == "polymul" else (ra, rb) if fn == "negacyclic_mul" else (ra,)
+                out, got = counted(torch, lambda: getattr(repro_torch, fn)(pl, *args))
+                key = ((backend, fn) if (backend, fn) in FS_LAUNCHES else (backend, fn, n)
+                       if fn in ("polymul", "negacyclic_mul") else (fn, n))
+                expect_launches(got, FS_LAUNCHES[key], f"{fn} n={n} ({backend})")
+                for name, k in launched(got).items():
+                    if name in FS_KERNELS:
+                        launches.setdefault(name, {})[f"{fn} n={n} {backend}"] = k
+                exact(out, want[fn], f"{fn} n={n} ({backend}) vs backend='torch'")
+            log(f"[fs] plan(n={n}, t={FS_T}, v={FS_V}, backend={backend!r}) {pl.config.schedule}: "
+                f"polymul on {tuple(za.shape)}, negacyclic_mul, ntt, intt on {tuple(ra.shape)} "
+                f"launched as FS_LAUNCHES; equal to the backend='torch' plan on the card; {card}")
+        oracle_rows = (0, rows - 1)
+        check_oracle(auto, za, zb, want["polymul"], f"polymul n={n}", oracle_rows)
+        log(f"[fs] n={n}: polymul rows {oracle_rows} equal the host bigint oracle (every "
+            f"backend's polymul equals them bit for bit); auto plan {auto.config.schedule!s}, "
+            f"card split {spec.card_split}, {spec.smem_bytes} B of shared memory a CTA")
+    log(f"[fs] phase 4c took {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches, inputs
+
+
+def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, int],
+                    card: str) -> list[dict]:
+    """Phase 5 for K1-fs, K3-fs and K4-fs at the largest FS_MAIN shape:
+    one call between two events, back to back, the plain version, and the
+    bound for the least traffic (one int64 read of each operand and one
+    write a coefficient) against the same operation counts as K1/K3/K4."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    n = max(FS_MAIN)
+    _, _, ra, rb = inputs[n]
+    tables = repro_torch.plan(n, FS_T, FS_V).params.tables
+    mode, window = kern.reduction_mode(tables)[:2]
+    polys = FS_T * FS_MAIN[n]
+    work_of = {
+        "fused_polymul_fs": (3 * polys * n * 8, polys * cascade_ops(n, mode, window)),
+        "ntt_channels_fs": (2 * polys * n * 8, polys * transform_ops(n, mode, window, False)),
+        "intt_channels_fs": (2 * polys * n * 8, polys * transform_ops(n, mode, window, True)),
+    }
+    entries = []
+    for name, (source, replaces) in FS_KERNELS.items():
+        cuda, ref, _, _, blocks_per_sm = fs_kernel(name)
+        operands = (ra, rb) if name == "fused_polymul_fs" else (ra,)
+        fn = lambda: cuda(*operands, tables)
+        ms = time_launches(torch, fn, TIMED_LAUNCHES)
+        device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
+        plain_ms = time_launches(torch, lambda: ref(*operands, tables), PLAIN_RUNS, warmup=1)
+        nbytes, ops = work_of[name]
+        bound_ms, bound_by = bound(nbytes, ops)
+        blocks = blocks_per_sm(tables)
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.get(name, {}).values()),
+            "launches_by_path": launches.get(name, {}), "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "device_ms": device_ms, "shape": [FS_T, FS_MAIN[n], n],
+            "blocks_per_sm": list(blocks),
+        })
+        log(f"[time] {name} at (t, rows, n) = ({FS_T}, {FS_MAIN[n]}, {n}): {ms:.4f} ms per call "
+            f"(median of {TIMED_LAUNCHES}, one call between two events, "
+            f"{'three' if name == 'fused_polymul_fs' else 'two'} launches), {device_ms:.4f} ms "
+            f"back to back (device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes} bytes, {ops} int ops); CTAs an SM holds per launch {blocks}; "
+            f"no single PyTorch call computes this function, so library_ms is null; {card}")
+    return entries
+
+
+def time_fs_walls() -> None:
+    """Phase 6 at FS_MAIN: the wall of one synchronised ``polymul`` and
+    ``negacyclic_mul`` call per backend that serves n (host clock)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+
+    for n, rows in FS_MAIN.items():
+        for backend in ("cuda_fused", "cuda", "torch"):
+            pl = repro_torch.plan(n, FS_T, FS_V, backend=backend, device="cuda")
+            za, zb, ra, rb = seeded_inputs(torch, np, pl, rows, SEED + n, pl.device)
+            ms = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb))
+            nms = wall_ms(torch, lambda: repro_torch.negacyclic_mul(pl, ra, rb))
+            log(f"[e2e] n={n} polymul backend={backend} on {tuple(za.shape)}: {ms:.4f} ms per "
+                f"call, {rows * 1e3 / ms:.0f} products/s; negacyclic_mul on {tuple(ra.shape)}: "
+                f"{nms:.4f} ms per call (median of {E2E_RUNS}, host clock)")
+
+
+# K1-K6: kernel -> (source, the TPU kernel it replaces)# K1-K6: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_polymul": ("src/repro_torch/csrc/fused_polymul.cu", "src/repro/kernels/ntt.py:757"),
     "fused_e2e_polymul": ("src/repro_torch/csrc/fused_e2e_polymul.cu",
@@ -705,6 +926,15 @@ KERNELS = {
     "intt_channels": ("src/repro_torch/csrc/intt_channels.cu", "src/repro/kernels/ntt.py:721"),
     "decompose": ("src/repro_torch/csrc/decompose.cu", "src/repro/kernels/crt.py:180"),
     "compose": ("src/repro_torch/csrc/compose.cu", "src/repro/kernels/crt.py:266"),
+}
+# K1-fs, K3-fs, K4-fs: the multi-block forms of K1, K3, K4 (the four-step
+# bodies of the same TPU kernels)
+FS_KERNELS = {
+    "fused_polymul_fs": ("src/repro_torch/csrc/fused_polymul_fs.cu",
+                         "src/repro/kernels/ntt.py:757"),
+    "ntt_channels_fs": ("src/repro_torch/csrc/ntt_channels_fs.cu", "src/repro/kernels/ntt.py:680"),
+    "intt_channels_fs": ("src/repro_torch/csrc/intt_channels_fs.cu",
+                         "src/repro/kernels/ntt.py:721"),
 }
 ATTN_SOURCE = "src/repro_torch/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention.py:82"
@@ -864,8 +1094,8 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
 
 def ptxas_entries(name: str) -> list[str]:
     """One line per kernel instance that ``-Xptxas -v`` reported for
-    ``csrc/<name>.cu``: its template arguments, registers, stack frame and
-    spills."""
+    ``csrc/<name>.cu``: its kernel, template arguments, registers, stack
+    frame and spills."""
     import re
 
     from repro_torch.kernels import _build
@@ -874,12 +1104,14 @@ def ptxas_entries(name: str) -> list[str]:
     for line in _build.ptxas_report(name).read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            entry = {"args": ",".join(re.findall(r"L[ib](\d+)E", mangled)) or "-"}
+            entry = {"args": ",".join(re.findall(r"L[ib](\d+)E", mangled)) or "-",
+                     "kernel": re.search(r"([a-z_]+_kernel)", mangled).group(1)}
         elif entry is not None and "stack frame" in line:
             entry["frame"] = line.strip()
         elif entry is not None and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            lines.append(f"<{entry['args']}>: {regs} registers, {entry.get('frame', '')}")
+            lines.append(f"{entry['kernel']}<{entry['args']}>: {regs} registers, "
+                         f"{entry.get('frame', '')}")
             entry = None
     return lines
 
@@ -1543,6 +1775,7 @@ def main() -> int:
     max_err = check_kernels(dev)
     check_pass_kernels(dev, max_err)
     check_compose_edges(dev, max_err)
+    check_fs_kernels(dev, max_err)
     attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
@@ -1551,12 +1784,15 @@ def main() -> int:
     launches, inputs = drive_main_path(pl)
     attn_launches = drive_attention(attn_model)
     he_launches = drive_he(pl, inputs, card)
+    fs_launches, fs_inputs = drive_fs_front_door(card)
     entries = time_kernels(pl, inputs, launches, max_err)
     for entry in entries:
         if entry["name"] in he_launches:
             entry["launches_by_path"] = {"main": entry["launches"], **he_launches[entry["name"]]}
     entries.append(time_attention(attn_model, attn_launches, attn_err))
+    entries += time_fs_kernels(fs_inputs, fs_launches, max_err, card)
     time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
+    time_fs_walls()
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)

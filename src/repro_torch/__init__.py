@@ -31,6 +31,7 @@ from repro_torch.api import (
     BACKENDS,
     Plan,
     PlanConfig,
+    ScheduleSpec,
     compose,
     decompose,
     execute,
@@ -52,6 +53,7 @@ __all__ = [
     "Plan",
     "PlanConfig",
     "PlanError",
+    "ScheduleSpec",
     "UnknownKnobError",
     "UnservableConfigError",
     "compose",

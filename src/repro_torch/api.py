@@ -11,20 +11,30 @@ Usage::
 
 :func:`plan` resolves every knob once into a frozen :class:`PlanConfig`
 and uploads the tables to the plan's device; :func:`plan_from_params`
-wraps an existing :class:`ParenttParams` (honouring its ``backend``
-field and its device) through the same admission.  Plans run on the CUDA
-card unless the caller passes ``device="cpu"``; with no card and no
-device asked for, :func:`plan` raises.  ``backend="auto"`` resolves to
-``"cuda_fused_e2e"`` on the card and ``"torch"`` on the CPU.  A kernel
-backend refuses, at plan time, an ``n`` whose shared-memory working set
-does not fit one block.  Every datapath decomposes through the Alg-2
-SAU circuits.  :func:`execute` is :func:`polymul` under the reference's
+wraps an existing :class:`ParenttParams` (honouring its ``backend`` and
+``schedule`` fields and its device) through the same admission.  Plans
+run on the CUDA card unless the caller passes ``device="cpu"``; with no
+card and no device asked for, :func:`plan` raises.  ``backend="auto"``
+resolves at plan time, and the result is what ``PlanConfig.backend``
+holds: ``"cuda_fused_e2e"`` on the card where its kernel holds (n, t)
+(n <= 16384 at t <= 8), ``"cuda_fused"`` past it, and
+``"torch"`` on the CPU.  The kernel backends serve every n up to 65536
+(one-block kernels where a polynomial fits a CTA, multi-block kernels
+past it) and refuse larger n at plan time, as does an explicit
+``"cuda_fused_e2e"`` past its kernel's reach.  ``schedule`` (``"auto"``,
+``"radix2"``, ``"four_step"``, ``"four_step:h"`` or a
+:class:`ScheduleSpec`) and a ``tiling`` chain resolve, as in the
+reference, into the :class:`ScheduleSpec` of ``PlanConfig.schedule``,
+which :func:`plan_key` carries; ``backend="torch"`` runs the four-step
+schedule it names, the kernel backends record it (the card's own split
+and shared memory are in the spec).  Every datapath decomposes through
+the Alg-2 SAU circuits.  :func:`execute` is :func:`polymul` under the reference's
 serving signature.  Besides the multiplier, the stage entry points
 :func:`ntt`, :func:`intt`, :func:`decompose`, :func:`compose` and
 :func:`negacyclic_mul` run one stage each on the plan's backend; the BFV
 layer (:mod:`repro_torch.core.bfv`) runs every homomorphic product
 through :func:`negacyclic_mul` and every decrypt through :func:`compose`.
-The reference's ``schedule``, ``tiling``, ``channel_grid`` and
+The reference's ``row_blk``, integer ``tiling``, ``channel_grid`` and
 ``tuning`` knobs, ``use_sau=False`` and its wide and oracle widths
 (v > 31) are not ported yet.
 """
@@ -36,7 +46,9 @@ from typing import Any
 import torch
 
 from repro_torch.core import bigint
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.params import ParenttParams, make_params
+from repro_torch.core.schedule import ScheduleSpec
 from repro_torch.errors import UnknownKnobError, UnservableConfigError
 from repro_torch.kernels import crt as crt_kernels
 from repro_torch.kernels import ntt as ntt_kernels
@@ -47,6 +59,7 @@ __all__ = [
     "BACKENDS",
     "Plan",
     "PlanConfig",
+    "ScheduleSpec",
     "compose",
     "decompose",
     "execute",
@@ -74,6 +87,7 @@ class PlanConfig:
     t: int
     v: int
     backend: str  # BACKENDS entry
+    schedule: ScheduleSpec  # the resolved NTT schedule, with the card's accounting
     device: str  # torch device string the plan's tables live on
     seg_count: int  # S: base-2^v segments per input coefficient
     w: int  # output limb width (base 2^w)
@@ -139,15 +153,23 @@ def plan(
     v: int = 30,
     *,
     backend: str = "auto",
+    schedule="auto",
+    tiling=None,
     device=None,
 ) -> Plan:
     """Build an executable plan: search the primes, precompute and upload
     every table, and resolve the knobs into a frozen :class:`PlanConfig`.
 
+    ``schedule`` resolves as in the reference (``"auto"``: four-step from
+    n = 256; ``"four_step:h"`` asserts the hierarchical chain, from
+    n = 8192); a tuple ``tiling`` asserts the canonical chain.
+
     Raises :class:`repro_torch.UnknownKnobError` for a knob outside its
     vocabulary and :class:`repro_torch.UnservableConfigError` for a valid
-    combination the port cannot serve (v > 31, no card, an ``n`` whose
-    kernel working set exceeds one block's shared memory)."""
+    combination the port cannot serve (v > 31, no card, n above 65536 on a
+    kernel backend, n or t past the e2e kernel's reach on
+    ``"cuda_fused_e2e"``, ``"four_step:h"`` below n = 8192, a mismatched
+    ``tiling``), each with the same ``knob`` as the reference."""
     if not isinstance(n, int) or n < 4 or n & (n - 1):
         raise UnknownKnobError(
             f"n must be a power of two >= 4, got n={n!r}", knob="n", value=n, alternatives=()
@@ -163,9 +185,10 @@ def plan(
         )
     _check_width(v)
     dev = _resolve_device(device)
-    backend = ops_mod.resolve_backend(backend, dev)
-    params = _admit(backend, n, t, v, dev)
-    return _plan_of(params, backend, dev)
+    backend = ops_mod.resolve_backend(backend, dev, n, t)
+    spec = schedule_mod.resolve_spec(n, schedule, tiling=tiling, backend=backend, t=t)
+    params = _admit(backend, spec, n, t, v, dev)
+    return _plan_of(params, backend, spec, dev)
 
 
 def _check_width(v: int) -> None:
@@ -177,26 +200,25 @@ def _check_width(v: int) -> None:
         )
 
 
-def _admit(backend: str, n: int, t: int, v: int, dev: torch.device,
+def _admit(backend: str, spec: ScheduleSpec, n: int, t: int, v: int, dev: torch.device,
            params: ParenttParams | None = None) -> ParenttParams:
     """The kernel backends' admission, shared by :func:`plan` and
-    :func:`plan_from_params`: refuse an ``n`` whose working set exceeds
-    one block's shared memory (before the prime search), build the
-    params unless given, and refuse S or L past the kernels' limb arrays."""
-    if backend in KERNEL_BACKENDS:
-        need = {
-            "cuda": ntt_kernels.stage_smem_bytes(n),
-            "cuda_fused": ntt_kernels.cascade_smem_bytes(n),
-            "cuda_fused_e2e": max(ntt_kernels.cascade_smem_bytes(n),
-                                  ntt_kernels.e2e_smem_bytes(n, t)),
-        }[backend]
-        if need > ntt_kernels.MAX_SMEM_BYTES:
-            raise UnservableConfigError(
-                f"backend={backend!r} keeps a block's residues in shared memory: n={n}, "
-                f"t={t} need {need} bytes, above the {ntt_kernels.MAX_SMEM_BYTES} one "
-                "block may use (multi-block transforms are not ported yet)",
-                knob="n", value=n, alternatives=("backend='torch'",),
-            )
+    :func:`plan_from_params`: refuse n above the multi-block kernels'
+    reach, or a kernel whose CTA the spec's accounting does not fit
+    (before the prime search), build the params unless given, and refuse
+    S or L past the kernels' limb arrays."""
+    if backend in KERNEL_BACKENDS and n > ntt_kernels.FS_MAX_N:
+        raise UnservableConfigError(
+            f"backend={backend!r} serves n <= {ntt_kernels.FS_MAX_N}, got n={n}",
+            knob="n", value=n, alternatives=("backend='torch'",),
+        )
+    if backend in KERNEL_BACKENDS and spec.smem_bytes > spec.smem_budget:
+        raise UnservableConfigError(
+            f"backend={backend!r} keeps one channel's residues a CTA in shared memory: "
+            f"n={n}, t={t} need {spec.smem_bytes} bytes, above the {spec.smem_budget} one "
+            "CTA may use (backend='cuda_fused' serves it on multi-block kernels)",
+            knob="n", value=n, alternatives=("backend='cuda_fused'", "backend='torch'"),
+        )
     if params is None:
         params = make_params(n=n, t=t, v=v, device=dev)
     rp = params.plan
@@ -214,10 +236,11 @@ def _admit(backend: str, n: int, t: int, v: int, dev: torch.device,
     return params
 
 
-def _plan_of(params: ParenttParams, backend: str, dev: torch.device) -> Plan:
+def _plan_of(params: ParenttParams, backend: str, spec: ScheduleSpec,
+             dev: torch.device) -> Plan:
     rp = params.plan
     cfg = PlanConfig(
-        n=params.n, t=params.t, v=params.v, backend=backend, device=str(dev),
+        n=params.n, t=params.t, v=params.v, backend=backend, schedule=spec, device=str(dev),
         seg_count=rp.seg_count, w=rp.w, L=rp.L,
     )
     return Plan(config=cfg, params=params)
@@ -231,8 +254,8 @@ def plan_from_params(
 ) -> Plan:
     """Wrap an existing :class:`ParenttParams` into a :class:`Plan` on the
     params' device: ``backend`` if given, else ``params.backend``
-    (``"auto"`` resolves by the device as in :func:`plan`), through the
-    same admission as :func:`plan`.  ``use_sau=False`` (the generic
+    (``"auto"`` resolves as in :func:`plan`), with ``params.schedule``,
+    through the same admission as :func:`plan`.  ``use_sau=False`` (the generic
     decompose) is not ported yet and raises."""
     if use_sau is not True:
         raise UnservableConfigError(
@@ -242,9 +265,11 @@ def plan_from_params(
         )
     _check_width(params.v)
     dev = _resolve_device(params.device)
-    backend = ops_mod.resolve_backend(params.backend if backend is None else backend, dev)
-    _admit(backend, params.n, params.t, params.v, dev, params=params)
-    return _plan_of(params, backend, dev)
+    backend = ops_mod.resolve_backend(params.backend if backend is None else backend, dev,
+                                      params.n, params.t)
+    spec = schedule_mod.resolve_spec(params.n, params.schedule, backend=backend, t=params.t)
+    _admit(backend, spec, params.n, params.t, params.v, dev, params=params)
+    return _plan_of(params, backend, spec, dev)
 
 
 def _require_plan(pl: Plan, fn: str) -> PlanConfig:
@@ -261,7 +286,8 @@ def polymul(pl: Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
     limbs of ``a * b mod (x^n + 1, q)``: the whole Fig-10 pipeline on the
     plan's backend.  Operands must lie on the plan's device."""
     cfg = _require_plan(pl, "polymul")
-    return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend)
+    return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend,
+                                     schedule=cfg.schedule)
 
 
 def execute(pl: Plan, za: torch.Tensor, zb: torch.Tensor, *,
@@ -279,21 +305,22 @@ def ntt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
     """a: ``(t, ..., n)`` canonical residues -> forward NTT per RNS channel
     (natural-order in, bit-reversed out: the no-shuffle convention)."""
     cfg = _require_plan(pl, "ntt")
-    return ops_mod.ntt_forward(a, pl.params, backend=cfg.backend)
+    return ops_mod.ntt_forward(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
 
 
 def intt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
     """a: ``(t, ..., n)`` canonical bit-reversed spectra -> natural-order
     residues (n^-1 folded into the per-stage halving)."""
     cfg = _require_plan(pl, "intt")
-    return ops_mod.ntt_inverse(a, pl.params, backend=cfg.backend)
+    return ops_mod.ntt_inverse(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
 
 
 def negacyclic_mul(pl: Plan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(t, ..., n) x (t, ..., n)`` canonical residues -> per-channel
     negacyclic products (the residue-domain cascade)."""
     cfg = _require_plan(pl, "negacyclic_mul")
-    return ops_mod.negacyclic_mul(a, b, pl.params, backend=cfg.backend)
+    return ops_mod.negacyclic_mul(a, b, pl.params, backend=cfg.backend,
+                                  schedule=cfg.schedule)
 
 
 def decompose(pl: Plan, z: torch.Tensor) -> torch.Tensor:

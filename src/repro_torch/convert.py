@@ -11,6 +11,13 @@ Keys of ``arrays`` (int64 numpy arrays, reference names):
 * NTT tables: ``qs`` (t,), ``fwd``/``inv`` (t, n), ``half`` (t,), and,
   where the configuration has them, ``mul_eps`` (t,) and
   ``fwd_shoup``/``inv_shoup`` (t, n);
+* four-step tables (n >= 4): ``fs_row_fwd``/``fs_row_inv`` (t, n2, n1),
+  ``fs_sub_fwd``/``fs_sub_inv`` (a tuple of (t, r_l, c_l) per level of the
+  chain beyond the first), and, with the Shoup tables,
+  ``fs_row_fwd_shoup``/``fs_row_inv_shoup`` and
+  ``fs_sub_fwd_shoup``/``fs_sub_inv_shoup``; each one missing is gathered
+  from the stage tables as :func:`repro_torch.core.ntt.four_step_tables`
+  builds it;
 * decompose circuits (``repro.kernels.crt.plan_dec_arrays`` layout):
   ``sau_eps``, ``sau_s2``, ``acc_eps`` (t,), ``beta_e``/``beta_s``
   (t, terms), ``block_consts`` (t, n_blocks);
@@ -21,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core import bigint, modmath
-from repro_torch.core.ntt import ChannelTables
+from repro_torch.core.ntt import ChannelTables, four_step_tables
 from repro_torch.core.rns import ChannelDecompose, RnsPlan
 
 W = 28  # output limb width of the int64 width
@@ -51,10 +58,16 @@ def tables_from_reference(arrays: dict[str, np.ndarray],
     window = beta = None
     if fwd_shoup is not None:
         window, beta = modmath.lazy_params(qs)
+    four = four_step_tables(fwd, inv, fwd_shoup, inv_shoup)
+    for key in four:
+        given = arrays.get(key)
+        if given is not None:
+            four[key] = (tuple(np.asarray(x, dtype=np.int64) for x in given)
+                         if isinstance(four[key], tuple) else _get(arrays, key))
     tables = ChannelTables(
         qs=qs, fwd=fwd, inv=inv, half=_get(arrays, "half"), mul_eps=eps,
         mul_shifts=shifts, fwd_shoup=fwd_shoup, inv_shoup=inv_shoup,
-        lazy_window=window, shoup_beta=beta, device=device,
+        lazy_window=window, shoup_beta=beta, device=device, **four,
     )
 
     q = 1

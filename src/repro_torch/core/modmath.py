@@ -61,17 +61,30 @@ def div2_mod(x: Lanes, q_half: Lanes) -> Lanes:
 
 
 def barrett_constants(q: int, c: int, v: int) -> tuple[int, int, int]:
-    """Constants for reducing x < 2^c mod q (q of v bits), 63-bit safe:
-    q_hat = ((x >> (v-1)) * eps) >> (c - v + 1), eps = floor(2^c / q)."""
-    if 2 * (c - v + 1) > 63:
+    """Constants for reducing x < 2^c mod q (q of v bits):
+    q_hat = ((x >> (v-1)) * eps) >> (c - v + 1), eps = floor(2^c / q).
+    Both factors of the quotient lie below 2^(c - v + 1), the window,
+    which may reach 32 bits: the reference stops at 31 (a 63-bit
+    product), where the default primes of n >= 32768 at t = 6 put the
+    SAU words of the decompose out of reach; :func:`barrett_reduce` forms
+    the wider product exactly, and the kernels form it as one unsigned
+    32x32->64 product."""
+    if c - v + 1 > 32:
         raise ValueError(f"Barrett window c={c} too wide for v={v} (q={q})")
     eps = (1 << c) // q
     return eps, v - 1, c - v + 1
 
 
 def barrett_reduce(x: Lanes, q: Lanes, eps: Lanes, s1: int, s2: int) -> Lanes:
-    """x mod q for x < 2^c (see barrett_constants)."""
-    qhat = ((x >> s1) * eps) >> s2
+    """x mod q for x < 2^c (see barrett_constants).  A 32-bit window's
+    quotient product (up to 2^64) is taken with eps split in 16-bit
+    halves, floor((a e_hi 2^16 + a e_lo) / 2^s2) =
+    floor((a e_hi + floor(a e_lo / 2^16)) / 2^(s2 - 16)), exact in int64."""
+    a = x >> s1
+    if 2 * s2 > 63:
+        qhat = (a * (eps >> 16) + ((a * (eps & 0xFFFF)) >> 16)) >> (s2 - 16)
+    else:
+        qhat = (a * eps) >> s2
     r = x - qhat * q
     for _ in range(3):
         r = torch.where(r >= q, r - q, r)

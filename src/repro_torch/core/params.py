@@ -5,7 +5,8 @@ The paper's preferred hardware config is t=6, v=30, n=4096 (a 180-bit q).
 The port serves the int64 width (v <= 31); ``tables`` is None above it.
 ``backend`` is the datapath :func:`repro_torch.api.plan_from_params`
 takes when its caller names none (a :data:`repro_torch.BACKENDS` entry
-or ``"auto"``).
+or ``"auto"``), and ``schedule`` the NTT stage schedule it resolves
+(:data:`repro_torch.core.schedule.SCHEDULE_STRINGS`, default ``"auto"``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.core import ntt as ntt_mod
 from repro_torch.core import primes as primes_mod
 from repro_torch.core import rns as rns_mod
+from repro_torch.core.schedule import parse_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +30,7 @@ class ParenttParams:
     plan: rns_mod.RnsPlan
     tables: ntt_mod.ChannelTables | None  # None for v > 31
     backend: str = "auto"  # default datapath of plan_from_params
+    schedule: str = "auto"  # NTT stage schedule of plan_from_params
 
     @property
     def q(self) -> int:
@@ -47,6 +50,10 @@ class ParenttParams:
         if backend != "auto":
             validate_backend(backend)
         return dataclasses.replace(self, backend=backend)
+
+    def with_schedule(self, schedule: str) -> "ParenttParams":
+        parse_schedule(schedule)
+        return dataclasses.replace(self, schedule=schedule)
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,7 +4,8 @@ Pre-processing (Alg 1 / Alg 2): coefficients arrive as base-B segments
 (B = 2^v) and each residue is ``sum_k z_k * (B^k mod q_i) mod q_i``.
 ``decompose_sau`` is the paper's shift-add-unit network with Alg-2 blocks
 of t' = 3 segments, SAU depth capped at 1 with a Barrett between SAU
-applications (63-bit safety).  The reference's generic ``decompose``
+applications (int64 safety, with Barrett windows up to 32 bits:
+:func:`repro_torch.core.modmath.barrett_reduce`).  The reference's generic ``decompose``
 (its ``use_sau=False`` path) is not ported.
 
 Post-processing (Eq 10): ``p = sum_i [p_i * q~_i]_{q_i} * q^_i mod q``
@@ -59,7 +60,7 @@ class RnsPlan:
     # block-product Barrett constants ``block_m`` and the SAU multipliers
     # ``beta``); None when the int64
     # kernels cannot serve the config (v > 31, or an SAU word outside the
-    # 63-bit-safe Barrett window 2*(v1 + 4) <= 63)
+    # 32-bit Barrett window v1 + 4 <= 32, make_dec)
     dec: tuple[ChannelDecompose, ...] | None = None
     device: torch.device = torch.device("cpu")
 
@@ -124,8 +125,10 @@ def dec_arrays(plan: RnsPlan) -> dict[str, np.ndarray]:
 
 def make_dec(qs, v: int, beta_terms, block_consts) -> tuple[ChannelDecompose, ...] | None:
     """Per-channel decompose circuits, or None outside the int64 kernels'
-    envelope (v > 31, or 2*(v1 + 4) > 63 for some channel)."""
-    if v > 31 or not all(2 * (terms[0][0] + 4) <= 63 for terms in beta_terms):
+    envelope (v > 31, or a SAU Barrett window v1 + 4 above 32 bits for
+    some channel; the reference stops at 31 bits, 2*(v1 + 4) <= 63, and
+    so refuses the default primes of n >= 32768 at t = 6, whose v1 is 28)."""
+    if v > 31 or not all(terms[0][0] + 4 <= 32 for terms in beta_terms):
         return None
     return tuple(
         ChannelDecompose(

@@ -26,7 +26,8 @@
 // * The SAU network's words reach 2^59 and stay 64-bit.  Its shifts and
 //   adds are one product by beta (exact mod 2^64), its Barrett quotient
 //   one 32x32->64 product (inside the configuration's window x >> s1 and
-//   eps are both below 2^31), and below q < 2^30 its remainders 32-bit.
+//   eps are both below 2^32; RnsPlan.dec admits windows up to 32 bits),
+//   and below q < 2^30 its remainders 32-bit.
 // * The decompose block products [blk * beta^{t' rho}]_q and the compose
 //   products y = r * q~ mod q (K6), below q^2, use the Barrett of
 //   block_barrett (m = floor(2^(b+31) / q)), exact for every x < 2^(2b)
@@ -372,15 +373,16 @@ struct ChannelTabs {
   const i64* inv_sh;
 };
 
-// A pass of G forward stages from s0 over NPOLY polynomials, read from
-// `in` and left in `out`.  In the first pass (s0 = 0) thread p holds
-// elements p + m 2^(log_n - G), so consecutive threads read consecutive
-// words; in the last (s0 = log_n - G) its 2^G elements are contiguous.
+// G forward stages from s0 over NPOLY polynomials for the groups p0 .. p1 - 1
+// of a length-2^log_n transform, read from `in` and left in `out`.  Group
+// p holds elements base + m 2^log_st (forward_pass); a multi-block kernel
+// runs the groups of its span of the polynomial.
 template <int G, int NPOLY, typename In, typename Out>
-__device__ __forceinline__ void forward_pass(const In& in, const Out& out, int s0, int log_n,
-                                             const ChannelTabs& tb, const Reduce& r) {
+__device__ __forceinline__ void forward_span(const In& in, const Out& out, int s0, int log_n,
+                                             int p0, int p1, const ChannelTabs& tb,
+                                             const Reduce& r) {
   const int log_st = log_n - s0 - G;
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
     const int hi = p >> log_st;
     const int base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1));
     res_t x[1 << G], y[1 << G];
@@ -398,27 +400,45 @@ __device__ __forceinline__ void forward_pass(const In& in, const Out& out, int s
   }
 }
 
+// A pass of G forward stages from s0 over NPOLY whole polynomials.  In the
+// first pass (s0 = 0) thread p holds elements p + m 2^(log_n - G), so
+// consecutive threads read consecutive words; in the last
+// (s0 = log_n - G) its 2^G elements are contiguous.
+template <int G, int NPOLY, typename In, typename Out>
+__device__ __forceinline__ void forward_pass(const In& in, const Out& out, int s0, int log_n,
+                                             const ChannelTabs& tb, const Reduce& r) {
+  forward_span<G, NPOLY>(in, out, s0, log_n, 0, 1 << (log_n - G), tb, r);
+}
+
 // The last G forward stages, the canonical pointwise product and the
-// first G inverse stages: both passes touch the same 2^G contiguous
-// elements, so they share one trip through shared memory.
-template <int G>
-__device__ __forceinline__ void middle_pass(res_t* A, const res_t* B, int log_n,
-                                            const ChannelTabs& tb, const Reduce& r) {
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+// first G inverse stages for the groups p0 .. p1 - 1: both touch the same
+// 2^G contiguous elements, so they share one trip.  Reads both operands
+// from `in`, leaves the product's partial inverse in `out`.
+template <int G, typename In, typename Out>
+__device__ __forceinline__ void middle_span(const In& in, const Out& out, int log_n, int p0,
+                                            int p1, const ChannelTabs& tb, const Reduce& r) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
     const int base = p << G;
     res_t x[1 << G], y[1 << G];
 #pragma unroll
     for (int m = 0; m < (1 << G); ++m) {
-      x[m] = A[pad(base + m)];
-      y[m] = B[pad(base + m)];
+      x[m] = in.load(0, base + m);
+      y[m] = in.load(1, base + m);
     }
     ct_group<G, 2>(x, y, p, log_n - G, tb.fwd, tb.fwd_sh, r);
 #pragma unroll
     for (int m = 0; m < (1 << G); ++m) x[m] = mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r);
     gs_group<G>(x, p, 0, log_n, tb.inv, tb.inv_sh, r);
 #pragma unroll
-    for (int m = 0; m < (1 << G); ++m) A[pad(base + m)] = x[m];
+    for (int m = 0; m < (1 << G); ++m) out.store(0, base + m, x[m], r);
   }
+}
+
+// middle_span over whole polynomials A and B in shared memory, into A.
+template <int G>
+__device__ __forceinline__ void middle_pass(res_t* A, res_t* B, int log_n, const ChannelTabs& tb,
+                                            const Reduce& r) {
+  middle_span<G>(SharedPolys<2>{{A, B}}, SharedPolys<1>{{A}}, log_n, 0, 1 << (log_n - G), tb, r);
 }
 
 // What the last inverse pass does to each value before it stores it.
@@ -426,15 +446,14 @@ struct Keep {
   __device__ __forceinline__ res_t operator()(res_t x, const Reduce&) const { return x; }
 };
 
-// A pass of G inverse stages from s0, read from `in` and left in `out`,
-// each value through `finish` first.  In the last pass (s0 = log_n - G)
-// thread p holds elements p + m 2^s0, so consecutive threads store
-// consecutive words.
+// G inverse stages from s0 for the groups p0 .. p1 - 1 of a length-2^log_n
+// transform, read from `in` and left in `out`, each value through
+// `finish` first.  Group p holds elements base + m 2^s0.
 template <int G, typename In, typename Out, typename Finish>
-__device__ __forceinline__ void inverse_pass(const In& in, const Out& out, int s0, int log_n,
-                                             const Finish& finish, const ChannelTabs& tb,
-                                             const Reduce& r) {
-  for (int p = threadIdx.x; p < (1 << (log_n - G)); p += blockDim.x) {
+__device__ __forceinline__ void inverse_span(const In& in, const Out& out, int s0, int log_n,
+                                             int p0, int p1, const Finish& finish,
+                                             const ChannelTabs& tb, const Reduce& r) {
+  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
     const int hi = p >> s0;
     const int base = (hi << (s0 + G)) + (p & ((1 << s0) - 1));
     res_t x[1 << G];
@@ -444,6 +463,16 @@ __device__ __forceinline__ void inverse_pass(const In& in, const Out& out, int s
 #pragma unroll
     for (int m = 0; m < (1 << G); ++m) out.store(0, base + (m << s0), finish(x[m], r), r);
   }
+}
+
+// A pass of G inverse stages from s0 over a whole polynomial.  In the last
+// pass (s0 = log_n - G) thread p holds elements p + m 2^s0, so
+// consecutive threads store consecutive words.
+template <int G, typename In, typename Out, typename Finish>
+__device__ __forceinline__ void inverse_pass(const In& in, const Out& out, int s0, int log_n,
+                                             const Finish& finish, const ChannelTabs& tb,
+                                             const Reduce& r) {
+  inverse_span<G>(in, out, s0, log_n, 0, 1 << (log_n - G), finish, tb, r);
 }
 
 // g in 1 .. kMaxGroup
@@ -493,6 +522,277 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 #define LAST(G) inverse_pass<G>(a, out, s0, log_n, finish, tb, r)
   PARENTT_DISPATCH_G(g0, LAST)
 #undef LAST
+}
+
+// --------------------------------------------------------------------------
+// Multi-block (four-step) transforms (K1-fs, K3-fs, K4-fs)
+// --------------------------------------------------------------------------
+//
+// A polynomial too long for one CTA's shared memory is the same radix-2
+// flow graph viewed as an (n1, n2) tile, element x = r n2 + c, with
+// n2 = 2^ceil(L/2), n1 = n / n2 (L = log2 n; kernels/ntt.py fs_split).
+// Each launch's CTAs take kFsTile = 4096 elements (E = min(n, 4096)):
+//
+// * Column stages s = 0 .. L1 - 1 (L1 = log2 n1) pair x with x + n/2^(s+1),
+//   rows apart in one column.  A column CTA takes C = E / n1 adjacent
+//   columns of every row as a virtual length-E polynomial v = r C + cc.
+//   Virtual stage s pairs v with v + E/2^(s+1), the same rows, and its
+//   twiddle fwd[2^s + (v >> (log E - s))] = fwd[2^s + (r >> (L1 - s))] is
+//   the real one (the fwd[:n1] prefix), so the register passes run on the
+//   virtual tile unchanged with log_n = log E.  The inverse column stages
+//   u = L2 .. L - 1 (stride 2^u) are virtual stages log C + u - L2, whose
+//   twiddle inv[(E >> (u'+1)) + (v >> (u'+1))] is the real
+//   inv[(n >> (u+1)) + (x >> (u+1))] too.
+// * Row stages s = L1 .. L - 1 pair inside rows.  A row CTA takes
+//   R = E / n2 whole rows, the contiguous span [x0, x0 + E), and runs
+//   the passes on real indices over the groups of that span; the
+//   twiddle fwd[2^s + (x >> (L - s))] is fwd[((n1 + r) << k) + low] with
+//   k = s - L1, the reference's four_step_row_indices, read from the
+//   stage table itself.
+//
+// Between launches the values stay lazy (below W q, or q when strict) as
+// 32-bit words in a (t, rows, n) scratch tensor: a butterfly's window
+// does not depend on its stage, so the row stages continue from the
+// column stages' bounds.  Each launch's first pass reads device memory,
+// its last writes it, and the passes between run through the CTA's tile
+// in shared memory (padded one word in 16 against bank conflicts).
+
+constexpr int kLogFsTile = 12;
+constexpr int kFsThreads = 256;  // pass_threads(kFsTile)
+static_assert(kLogFsTile <= 12, "kFsThreads holds pass_threads of a tile");
+
+// Where a CTA of a multi-block launch sits: its polynomial, channel and
+// tile, and the split.
+struct FsGeom {
+  int log_n, log_n1, log_n2, log_e, log_c;  // log E, log C (columns a column CTA)
+  int c;                                    // channel
+  size_t poly;                              // offset of the (channel, row) polynomial
+  int blk;                                  // tile of the polynomial
+};
+
+__device__ __forceinline__ FsGeom fs_geom(int log_n, int rows) {
+  FsGeom g;
+  g.log_n = log_n;
+  g.log_n2 = (log_n + 1) / 2;
+  g.log_n1 = log_n - g.log_n2;
+  g.log_e = log_n < kLogFsTile ? log_n : kLogFsTile;
+  g.log_c = g.log_e - g.log_n1;
+  const int tiles_log = log_n - g.log_e;
+  const int poly = blockIdx.x >> tiles_log;
+  g.blk = blockIdx.x & ((1 << tiles_log) - 1);
+  g.c = poly / rows;
+  g.poly = (size_t)poly << log_n;
+  return g;
+}
+
+// A column CTA's virtual element v -> its place x in the polynomial.
+struct ColMap {
+  int log_c, log_n2, c0;
+  __device__ __forceinline__ int operator()(int v) const {
+    return ((v >> log_c) << log_n2) + c0 + (v & ((1 << log_c) - 1));
+  }
+};
+
+struct RowMap {
+  __device__ __forceinline__ int operator()(int x) const { return x; }
+};
+
+__device__ __forceinline__ res_t read_word(const i64* p) { return (res_t)__ldg(p); }
+// the scratch is read as plain loads: the cascade's row pass rewrites what it read
+__device__ __forceinline__ res_t read_word(const res_t* p) { return *p; }
+
+// NPOLY polynomials in device memory (int64 residues, or 32-bit scratch).
+template <typename T, int NPOLY, typename Map>
+struct GlobalIn {
+  const T* poly[NPOLY];
+  Map map;
+  __device__ __forceinline__ res_t load(int k, int i) const { return read_word(poly[k] + map(i)); }
+};
+
+// NPOLY 32-bit scratch polynomials: lazy values stored as they are.
+template <int NPOLY, typename Map>
+struct ScratchOut {
+  res_t* poly[NPOLY];
+  Map map;
+  __device__ __forceinline__ void store(int k, int i, res_t x, const Reduce&) const {
+    poly[k][map(i)] = x;
+  }
+};
+
+// One int64 polynomial in device memory, stored canonical.
+template <typename Map>
+struct CanonOut {
+  i64* poly;
+  Map map;
+  __device__ __forceinline__ void store(int, int i, res_t x, const Reduce& r) const {
+    poly[map(i)] = canonicalize(x, r);
+  }
+};
+
+// A CTA's tile of NPOLY polynomials in shared memory, element i at
+// pad(i - off) (off: the first element of a row CTA's span).
+template <int NPOLY>
+struct TilePolys {
+  res_t* poly[NPOLY];
+  int off;
+  __device__ __forceinline__ res_t load(int k, int i) const { return poly[k][pad(i - off)]; }
+  __device__ __forceinline__ void store(int k, int i, res_t x, const Reduce&) const {
+    poly[k][pad(i - off)] = x;
+  }
+};
+
+// Forward stages s_begin .. s_end - 1 of a length-2^log_n transform over the
+// groups of the span [x0, x0 + 2^log_span), in passes of K stages after a
+// first of g0: the first pass reads `in`, the last writes `out`, the passes
+// between go through `tile` with a barrier after each pass that writes it.
+// No barrier follows the last pass.
+template <int NPOLY, typename In, typename Tile, typename Out>
+__device__ __forceinline__ void forward_stages(const In& in, const Tile& tile, const Out& out,
+                                               int s_begin, int s_end, int log_n, int x0,
+                                               int log_span, int K, const ChannelTabs& tb,
+                                               const Reduce& r) {
+  const int passes = (s_end - s_begin + K - 1) / K;
+  const int g0 = s_end - s_begin - K * (passes - 1);
+  int s0 = s_begin;
+  for (int q = 0; q < passes; ++q) {
+    const int G = q == 0 ? g0 : K;
+    const int p0 = x0 >> G, p1 = (x0 + (1 << log_span)) >> G;
+    if (passes == 1) {
+#define ONE(G) forward_span<G, NPOLY>(in, out, s0, log_n, p0, p1, tb, r)
+      PARENTT_DISPATCH_G(G, ONE)
+#undef ONE
+    } else if (q == 0) {
+#define FIRST(G) forward_span<G, NPOLY>(in, tile, s0, log_n, p0, p1, tb, r)
+      PARENTT_DISPATCH_G(G, FIRST)
+#undef FIRST
+    } else if (q + 1 < passes) {
+#define MID(G) forward_span<G, NPOLY>(tile, tile, s0, log_n, p0, p1, tb, r)
+      PARENTT_DISPATCH_G(G, MID)
+#undef MID
+    } else {
+#define LAST(G) forward_span<G, NPOLY>(tile, out, s0, log_n, p0, p1, tb, r)
+      PARENTT_DISPATCH_G(G, LAST)
+#undef LAST
+    }
+    if (q + 1 < passes) __syncthreads();
+    s0 += G;
+  }
+}
+
+// Inverse stages u_begin .. u_end - 1 (stride 2^u) likewise, in passes of K
+// stages and a last of g0; the last pass stores each value through `finish`.
+template <typename In, typename Tile, typename Out>
+__device__ __forceinline__ void inverse_stages(const In& in, const Tile& tile, const Out& out,
+                                               int u_begin, int u_end, int log_n, int x0,
+                                               int log_span, int K, const ChannelTabs& tb,
+                                               const Reduce& r) {
+  const int passes = (u_end - u_begin + K - 1) / K;
+  const int g0 = u_end - u_begin - K * (passes - 1);
+  int s0 = u_begin;
+  for (int q = 0; q < passes; ++q) {
+    const int G = q + 1 < passes ? K : g0;
+    const int p0 = x0 >> G, p1 = (x0 + (1 << log_span)) >> G;
+    if (passes == 1) {
+#define ONE(G) inverse_span<G>(in, out, s0, log_n, p0, p1, Keep{}, tb, r)
+      PARENTT_DISPATCH_G(G, ONE)
+#undef ONE
+    } else if (q == 0) {
+#define FIRST(G) inverse_span<G>(in, tile, s0, log_n, p0, p1, Keep{}, tb, r)
+      PARENTT_DISPATCH_G(G, FIRST)
+#undef FIRST
+    } else if (q + 1 < passes) {
+#define MID(G) inverse_span<G>(tile, tile, s0, log_n, p0, p1, Keep{}, tb, r)
+      PARENTT_DISPATCH_G(G, MID)
+#undef MID
+    } else {
+#define LAST(G) inverse_span<G>(tile, out, s0, log_n, p0, p1, Keep{}, tb, r)
+      PARENTT_DISPATCH_G(G, LAST)
+#undef LAST
+    }
+    if (q + 1 < passes) __syncthreads();
+    s0 += G;
+  }
+}
+
+// Arguments of the multi-block launches: the int64 operands the first
+// launch reads, the 32-bit scratch between launches, the int64 output of
+// the last, and the channel tables (t, n) with their Shoup constants.
+struct FsArgs {
+  const i64* in[2];
+  res_t* scratch[2];
+  i64* out;
+  const i64* qs;
+  const i64* half;
+  const i64* eps;
+  const i64* fwd;
+  const i64* inv;
+  const i64* fwd_sh;
+  const i64* inv_sh;
+  int rows;
+  int log_n;
+  int mode;
+  int window;
+  int beta;
+  int s1;
+  int s2;
+};
+
+// Channel c's reduction constants and tables for a multi-block launch.
+template <int REG>
+__device__ __forceinline__ Reduce fs_reduce(const FsArgs& a, int c) {
+  return regime_reduce<REG>(a.qs, a.half, a.eps, c, a.mode, a.window, a.beta, a.s1, a.s2);
+}
+
+__device__ __forceinline__ ChannelTabs fs_tabs(const FsArgs& a, int c) {
+  const size_t off = (size_t)c << a.log_n;
+  return ChannelTabs{a.fwd + off, a.inv + off, a.fwd_sh + off, a.inv_sh + off};
+}
+
+// Forward column stages: NPOLY int64 operands -> 32-bit scratch.
+template <int REG, int NPOLY>
+__device__ __forceinline__ void fs_cols_forward(const FsArgs& a, res_t* smem) {
+  const FsGeom g = fs_geom(a.log_n, a.rows);
+  const Reduce r = fs_reduce<REG>(a, g.c);
+  const ColMap map{g.log_c, g.log_n2, g.blk << g.log_c};
+  const int E = 1 << g.log_e;
+  GlobalIn<i64, NPOLY, ColMap> in{{}, map};
+  ScratchOut<NPOLY, ColMap> out{{}, map};
+  TilePolys<NPOLY> tile{{}, 0};
+  for (int k = 0; k < NPOLY; ++k) {
+    in.poly[k] = a.in[k] + g.poly;
+    out.poly[k] = a.scratch[k] + g.poly;
+    tile.poly[k] = smem + k * padded(E);
+  }
+  forward_stages<NPOLY>(in, tile, out, 0, g.log_n1, g.log_e, 0, g.log_e, pass_group(E),
+                        fs_tabs(a, g.c), r);
+}
+
+// Inverse column stages: 32-bit scratch -> canonical int64 output.
+template <int REG>
+__device__ __forceinline__ void fs_cols_inverse(const FsArgs& a, res_t* smem) {
+  const FsGeom g = fs_geom(a.log_n, a.rows);
+  const Reduce r = fs_reduce<REG>(a, g.c);
+  const ColMap map{g.log_c, g.log_n2, g.blk << g.log_c};
+  const int E = 1 << g.log_e;
+  const GlobalIn<res_t, 1, ColMap> in{{a.scratch[0] + g.poly}, map};
+  const CanonOut<ColMap> out{a.out + g.poly, map};
+  const TilePolys<1> tile{{smem}, 0};
+  inverse_stages(in, tile, out, g.log_c, g.log_e, g.log_e, 0, g.log_e, pass_group(E),
+                 fs_tabs(a, g.c), r);
+}
+
+// Kernel launch geometry shared by the host entry points: CTAs of one
+// multi-block launch over t x rows polynomials, and its threads.
+inline int fs_blocks(int t, int rows, int log_n) {
+  const int log_e = log_n < kLogFsTile ? log_n : kLogFsTile;
+  return t * rows << (log_n - log_e);
+}
+inline int fs_threads(int log_n) {
+  return pass_threads(1 << (log_n < kLogFsTile ? log_n : kLogFsTile));
+}
+// Shared memory of a launch that holds NPOLY tiles.
+inline size_t fs_smem(int log_n, int npoly) {
+  return (size_t)npoly * padded(1 << (log_n < kLogFsTile ? log_n : kLogFsTile)) * sizeof(res_t);
 }
 
 // --------------------------------------------------------------------------
@@ -561,7 +861,7 @@ __device__ __forceinline__ void load_decompose(DecomposeShared& sh, const Decomp
 }
 
 // Barrett of a non-negative SAU word x < 2^c (repro_torch.core.modmath
-// barrett_reduce): x >> s1 and eps lie below 2^31 there, so the quotient
+// barrett_reduce): x >> s1 and eps lie below 2^32 there, so the quotient
 // is one 32x32->64 product, and the remainder lies in [0, 4q).  NARROW
 // (q < 2^30) keeps the remainder in 32 bits, exact since 4q < 2^32.
 template <bool NARROW>

@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = (
     "fused_polymul", "fused_e2e_polymul",
     "ntt_channels", "intt_channels", "decompose", "compose", "attention",
+    "fused_polymul_fs", "ntt_channels_fs", "intt_channels_fs",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

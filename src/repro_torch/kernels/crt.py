@@ -60,7 +60,7 @@ def require_dec(plan: RnsPlan):
     if plan.dec is None:
         raise ValueError(
             f"plan (v={plan.v}) has no in-kernel decompose constants: the int64 "
-            "kernels need v <= 31 and SAU words inside the 63-bit Barrett window"
+            "kernels need v <= 31 and SAU words inside the 32-bit Barrett window"
         )
     return plan.dec
 

@@ -25,6 +25,22 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   with the Eq-24 halving, bit-reversed in, natural and canonical out, on
   the inverse register passes with one operand.
 
+* :func:`fused_polymul_fs_cuda` (``csrc/fused_polymul_fs.cu``, K1-fs),
+  :func:`ntt_channels_fs_cuda` (``csrc/ntt_channels_fs.cu``, K3-fs) and
+  :func:`intt_channels_fs_cuda` (``csrc/intt_channels_fs.cu``, K4-fs)
+  replace the four-step bodies of those three TPU kernels
+  (``repro/kernels/ntt.py:312-371``, ``:158-204``, ``:266``, ``:282``): the
+  same transforms as multi-block kernels for polynomials that do not fit
+  one CTA, on the card's own split n = n1 n2 (:func:`fs_split`).  A
+  column launch and a row launch (three launches for the cascade: forward
+  columns, one row pass around the product, inverse columns) of
+  :func:`fs_threads` threads a CTA over :data:`FS_TILE`-element tiles
+  keep lazy 32-bit values in a scratch tensor between launches.  Their
+  plain versions are the four-step plain PyTorch of
+  :mod:`repro_torch.core.ntt` in the reference's grouping: the outputs
+  are canonical, so they agree whatever the split.  ``.launches`` counts
+  calls, each of two (K3-fs, K4-fs) or three (K1-fs) CUDA launches.
+
 Each wrapper runs its plain version (the ``*_ref`` functions) only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 ``<wrapper>.launches`` counts the launches, and nothing else adds to it.
@@ -42,6 +58,7 @@ import ctypes
 import torch
 
 from repro_torch.core import modmath
+from repro_torch.core import ntt as ntt_mod
 from repro_torch.core.modmath import add_mod, div2_mod, mul_mod, sub_mod
 from repro_torch.core.ntt import ChannelTables, channel_scalars, ct_stages, gs_stages, twiddles
 from repro_torch.core.rns import RnsPlan
@@ -79,6 +96,89 @@ def stage_smem_bytes(n: int) -> int:
 def cascade_smem_bytes(n: int) -> int:
     """Shared memory of one fused-cascade block (K1): both operands, padded."""
     return 2 * padded_words(n) * RESIDUE_BYTES
+
+
+def stage_fits(n: int) -> bool:
+    """Whether one CTA of K3 or K4 holds an n-point polynomial; past it the
+    multi-block K3-fs and K4-fs serve."""
+    return stage_smem_bytes(n) <= MAX_SMEM_BYTES
+
+
+def cascade_fits(n: int) -> bool:
+    """Whether one CTA of K1 holds both n-point operands; past it K1-fs
+    serves."""
+    return cascade_smem_bytes(n) <= MAX_SMEM_BYTES
+
+
+# the multi-block kernels (csrc/parentt.cuh, "Multi-block transforms")
+FS_TILE = 4096  # elements a CTA of a multi-block launch takes (kLogFsTile)
+# the largest n a kernel backend admits: the reference's largest servable
+# n at t = 6, and the largest the multi-block kernels are held at on the card
+FS_MAX_N = 65536
+
+
+def fs_split(n: int) -> tuple[int, int]:
+    """(n1, n2) of the multi-block kernels: n2 = 2^ceil(log2(n) / 2) row
+    length, n1 = n / n2 rows (csrc/parentt.cuh ``fs_geom``); 256 x 256 at
+    n = 65536, 128 x 256 at 32768."""
+    log_n = _check_n(n, "fs_split")
+    n2 = 1 << ((log_n + 1) // 2)
+    return n // n2, n2
+
+
+def fs_tile(n: int) -> int:
+    """Elements one CTA of a multi-block launch takes: min(n, FS_TILE); a
+    column CTA takes n1 rows x fs_tile / n1 columns, a row CTA
+    fs_tile / n2 whole rows."""
+    return min(n, FS_TILE)
+
+
+def fs_threads(n: int) -> int:
+    """Threads of a multi-block CTA: pass_threads of its tile."""
+    return pass_threads(fs_tile(n))
+
+
+def fs_blocks(t: int, rows: int, n: int) -> int:
+    """CTAs of one multi-block launch over t x rows polynomials."""
+    return t * rows * (n // fs_tile(n))
+
+
+def ntt_fs_smem_bytes(n: int) -> int:
+    """Shared memory of a K3-fs CTA (either launch): one padded tile."""
+    return padded_words(fs_tile(n)) * RESIDUE_BYTES
+
+
+def intt_fs_smem_bytes(n: int) -> int:
+    """Shared memory of a K4-fs CTA (either launch): one padded tile."""
+    return padded_words(fs_tile(n)) * RESIDUE_BYTES
+
+
+def cascade_fs_smem_bytes(n: int) -> int:
+    """Shared memory of a K1-fs CTA at most: two padded tiles (its forward
+    column and row launches; the inverse column launch holds one)."""
+    return 2 * padded_words(fs_tile(n)) * RESIDUE_BYTES
+
+
+def e2e_fits(n: int, t: int) -> bool:
+    """Whether the fused e2e kernel K2 holds (n, t): one channel's two
+    polynomials and its staging a CTA (and K1's operands, which its stage
+    entry points run)."""
+    return max(cascade_smem_bytes(n), e2e_smem_bytes(n, t)) <= MAX_SMEM_BYTES
+
+
+def main_path_kernel_smem(backend: str, n: int, t: int) -> tuple[bool, int]:
+    """(multi_block, shared memory of one CTA) of the kernel a kernel
+    backend's main path launches at (n, t): K3 / K4 or K3-fs / K4-fs
+    (``"cuda"``), K1 or K1-fs (``"cuda_fused"``), K2 (``"cuda_fused_e2e"``,
+    one block a channel; admission refuses what it cannot hold)."""
+    if backend == "cuda":
+        return (False, stage_smem_bytes(n)) if stage_fits(n) else (True, ntt_fs_smem_bytes(n))
+    if backend == "cuda_fused":
+        return ((False, cascade_smem_bytes(n)) if cascade_fits(n)
+                else (True, cascade_fs_smem_bytes(n)))
+    if backend == "cuda_fused_e2e":
+        return False, max(cascade_smem_bytes(n), e2e_smem_bytes(n, t))
+    raise ValueError(f"main_path_kernel_smem: {backend!r} is not a kernel backend")
 
 
 # the fused e2e kernel's cluster (csrc/fused_e2e_polymul.cu): at most the
@@ -222,6 +322,24 @@ def fused_polymul_ref(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables) -
     return intt_channels_ref(prod, tables)
 
 
+def ntt_channels_fs_ref(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
+    """Plain version of K3-fs: the four-step forward transform of
+    :mod:`repro_torch.core.ntt` in the reference's grouping, (t, rows, n)
+    canonical residues -> canonical bit-reversed spectra."""
+    return ntt_mod.ntt_channels(a, tables, "four_step")
+
+
+def intt_channels_fs_ref(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
+    """Plain version of K4-fs: the four-step inverse transform."""
+    return ntt_mod.intt_channels(a, tables, "four_step")
+
+
+def fused_polymul_fs_ref(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables
+                         ) -> torch.Tensor:
+    """Plain version of K1-fs: the four-step no-shuffle cascade."""
+    return ntt_mod.negacyclic_mul_channels(a, b, tables, "four_step")
+
+
 def fused_e2e_polymul_ref(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
                           plan: RnsPlan) -> torch.Tensor:
     """Plain version of the e2e kernel: segments (rows, n, S) x 2 ->
@@ -242,6 +360,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _STAGE_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _CASCADE_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
 _E2E_ARGTYPES = [_P] * 19 + [_I] * 14 + [_P]
+_FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+_FS_CASCADE_ARGTYPES = [_P] * 12 + [_I] * 8 + [_P]
+# each K1/K3/K4 source's shared memory a CTA, one-block and multi-block
+_SMEM = {
+    "fused_polymul": cascade_smem_bytes, "ntt_channels": stage_smem_bytes,
+    "intt_channels": stage_smem_bytes, "fused_polymul_fs": cascade_fs_smem_bytes,
+    "ntt_channels_fs": ntt_fs_smem_bytes, "intt_channels_fs": intt_fs_smem_bytes,
+}
 
 
 def _check_tables_device(tables: ChannelTables, device: torch.device, fn: str) -> None:
@@ -267,8 +393,9 @@ def _check_n(n: int, fn: str) -> int:
 
 def _table_constants(tables: ChannelTables, source: str, fn_name: str) -> tuple[tuple, tuple]:
     """The checked (table pointers, ints after ``rows``) of a K1, K3 or K4
-    launch: worked out at the tables' first launch of ``source`` and kept
-    on the tables, so a short call does not pay for them again."""
+    launch, or of their multi-block forms: worked out at the tables' first
+    launch of ``source`` and kept on the tables, so a short call does not
+    pay for them again."""
     kept = tables.__dict__.get("_launch")
     if kept is None:
         kept = {}
@@ -277,8 +404,7 @@ def _table_constants(tables: ChannelTables, source: str, fn_name: str) -> tuple[
         return kept[source]
     n = tables.n
     log_n = _check_n(n, fn_name)
-    smem = cascade_smem_bytes(n) if source == "fused_polymul" else stage_smem_bytes(n)
-    if smem > MAX_SMEM_BYTES:
+    if _SMEM[source](n) > MAX_SMEM_BYTES:
         raise ValueError(f"{fn_name}: n={n} does not fit one block's shared memory")
     eps, fsh, ish = _optional_tables(tables)
     head = (tables.qs_d, tables.half_d, eps)
@@ -286,7 +412,7 @@ def _table_constants(tables: ChannelTables, source: str, fn_name: str) -> tuple[
         "fused_polymul": (tables.fwd_d, tables.inv_d, fsh, ish),
         "ntt_channels": (tables.fwd_d, fsh),
         "intt_channels": (tables.inv_d, ish),
-    }[source]
+    }[source.removesuffix("_fs")]
     kept[source] = (tuple(ptr(x) for x in head + tabs), (log_n, *reduction_mode(tables)))
     return kept[source]
 
@@ -376,6 +502,110 @@ def _blocks_per_sm(tables: ChannelTables, source: str) -> int:
     if count < 0:
         _build.check(source, -count)
     return count
+
+
+def _launch_fs(operands: tuple, tables: ChannelTables, source: str, fn_name: str
+               ) -> torch.Tensor:
+    """One call of a multi-block kernel (K1-fs on two operands, K3-fs or
+    K4-fs on one) on (t, rows, n): its 32-bit scratch (one tensor an
+    operand) and its output allocated here, its two or three launches in
+    the C entry point."""
+    t, n = tables.t, tables.n
+    a = operands[0]
+    rows = a.shape[1] if a.dim() == 3 else -1
+    for name, x in zip("ab", operands):
+        check_operand(x, (t, rows, n), name, fn_name)
+        if x.device != a.device:
+            raise ValueError(f"{fn_name}: operands on {a.device} and {x.device}")
+    pointers, ints = _table_constants(tables, source, fn_name)
+    argtypes = _FS_CASCADE_ARGTYPES if len(operands) == 2 else _FS_STAGE_ARGTYPES
+    launch = _build.load(source, f"parentt_{source}", argtypes)
+    _check_tables_device(tables, a.device, fn_name)
+    out = torch.empty_like(a)
+    if rows == 0:
+        return out
+    scratch = [torch.empty((t, rows, n), dtype=torch.int32, device=a.device) for _ in operands]
+    with torch.cuda.device(a.device):
+        code = launch(*(ptr(x) for x in operands), *(ptr(x) for x in scratch), ptr(out),
+                      *pointers, t, rows, *ints, _build.stream_of(a))
+    _build.check(source, code)
+    return out
+
+
+def ntt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
+    """K3-fs: (t, rows, n) canonical residues -> (t, rows, n) canonical
+    spectra in bit-reversed order, as a multi-block transform.  CPU tensors
+    run the plain version; CUDA tensors launch ``csrc/ntt_channels_fs.cu``
+    (two launches) on the current stream."""
+    if a.device.type == "cpu":
+        return ntt_channels_fs_ref(a, tables)
+    out = _launch_fs((a,), tables, "ntt_channels_fs", "ntt_channels_fs_cuda")
+    ntt_channels_fs_cuda.launches += 1
+    return out
+
+
+ntt_channels_fs_cuda.launches = 0
+
+
+def intt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor:
+    """K4-fs: (t, rows, n) canonical bit-reversed spectra -> (t, rows, n)
+    canonical residues in natural order, as a multi-block transform.  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/intt_channels_fs.cu`` (two launches)."""
+    if a.device.type == "cpu":
+        return intt_channels_fs_ref(a, tables)
+    out = _launch_fs((a,), tables, "intt_channels_fs", "intt_channels_fs_cuda")
+    intt_channels_fs_cuda.launches += 1
+    return out
+
+
+intt_channels_fs_cuda.launches = 0
+
+
+def fused_polymul_fs_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables
+                          ) -> torch.Tensor:
+    """K1-fs: (t, rows, n) x (t, rows, n) canonical residues -> (t, rows, n)
+    negacyclic products per channel, as a multi-block cascade whose
+    NTT-domain product never reaches device memory.  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/fused_polymul_fs.cu`` (three
+    launches)."""
+    if a.device.type == "cpu":
+        return fused_polymul_fs_ref(a, b, tables)
+    out = _launch_fs((a, b), tables, "fused_polymul_fs", "fused_polymul_fs_cuda")
+    fused_polymul_fs_cuda.launches += 1
+    return out
+
+
+fused_polymul_fs_cuda.launches = 0
+
+
+def _fs_blocks_per_sm(tables: ChannelTables, source: str, passes: int) -> tuple[int, ...]:
+    """CTAs an SM of the current card holds at once of each launch of the
+    multi-block kernel ``csrc/<source>.cu`` at these tables' n and regime."""
+    launch = _build.load(source, f"parentt_{source}_blocks_per_sm", [_I] * 4)
+    mode, window = reduction_mode(tables)[:2]
+    counts = []
+    for p in range(passes):
+        count = launch(p, tables.n.bit_length() - 1, mode, window)
+        if count < 0:
+            _build.check(source, -count)
+        counts.append(count)
+    return tuple(counts)
+
+
+def cascade_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int, int]:
+    """K1-fs's CTAs an SM holds: (forward columns, rows, inverse columns)."""
+    return _fs_blocks_per_sm(tables, "fused_polymul_fs", 3)
+
+
+def ntt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
+    """K3-fs's CTAs an SM holds: (columns, rows)."""
+    return _fs_blocks_per_sm(tables, "ntt_channels_fs", 2)
+
+
+def intt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
+    """K4-fs's CTAs an SM holds: (rows, columns)."""
+    return _fs_blocks_per_sm(tables, "intt_channels_fs", 2)
 
 
 def cascade_blocks_per_sm(tables: ChannelTables) -> int:

@@ -18,9 +18,24 @@ Backends
   closest kernel datapath (:func:`_stage_backend`): the residue-domain
   product runs K1, every other stage its ``cuda`` kernel.
 
-``backend="auto"`` resolves to ``cuda_fused_e2e`` on a CUDA device and to
-``torch`` on the CPU.  The kernel backends accept CPU tensors too: their
-wrappers then run the kernels' plain versions.
+``backend="auto"`` resolves at plan time: to ``cuda_fused_e2e`` on a CUDA
+device where K2 holds (n, t) (n <= 16384 at t <= 8), to ``cuda_fused``
+past it, and to ``torch`` on the CPU.  The kernel backends accept CPU
+tensors too: their wrappers then run the kernels' plain versions.
+
+Schedules
+---------
+``schedule`` (a string or a resolved
+:class:`repro_torch.core.schedule.ScheduleSpec`; by default the params'
+``schedule``, ``"auto"``: four-step from n = 256) regroups one flow graph,
+so every choice gives the same canonical outputs (DESIGN.md §6).  The
+``torch`` backend runs what it names, as the reference's ``jnp`` does:
+:func:`repro_torch.core.ntt.ntt_raw_hier` in the reference's chain for
+four-step, the radix-2 loops otherwise.  The kernel backends record it
+and choose their kernels by what fits a CTA: K1, K3 and K4 where the
+polynomial fits one CTA's shared memory, their multi-block forms K1-fs,
+K3-fs and K4-fs (on the card's own split, ``kernels.ntt.fs_split``)
+where it does not.
 
 Shape contracts: residues ``(t, ..., n)``, segments ``(..., n, S)``,
 limbs ``(..., n, L)``; violations raise before any work.
@@ -31,6 +46,7 @@ import torch
 
 from repro_torch.core import ntt as ntt_mod
 from repro_torch.core import rns as rns_mod
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.modmath import mul_mod
 from repro_torch.core.params import ParenttParams
 from repro_torch.errors import UnknownKnobError
@@ -50,10 +66,23 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
-def resolve_backend(backend: str, device: torch.device) -> str:
+def resolve_backend(backend: str, device: torch.device, n: int, t: int) -> str:
+    """A concrete backend for (n, t) on ``device``: ``"auto"`` is the fused
+    e2e kernel K2 where it holds (n, t), the fused cascade past it, the
+    plain ``torch`` on the CPU."""
     if backend == "auto":
-        return "cuda_fused_e2e" if torch.device(device).type == "cuda" else "torch"
+        if torch.device(device).type != "cuda":
+            return "torch"
+        return "cuda_fused_e2e" if ntt_kernels.e2e_fits(n, t) else "cuda_fused"
     return validate_backend(backend)
+
+
+def resolve_schedule(params: ParenttParams, schedule=None) -> schedule_mod.ScheduleSpec:
+    """The concrete schedule: explicit ``schedule`` > ``params.schedule``
+    (``"auto"``: four-step from n = 256); a resolved spec passes through."""
+    if schedule is None:
+        schedule = params.schedule
+    return schedule_mod.concrete_spec(params.n, schedule)
 
 
 def _stage_backend(backend: str, cascade: bool = False) -> str:
@@ -107,32 +136,49 @@ def _fold_rows(x: torch.Tensor, params: ParenttParams) -> torch.Tensor:
     return x.reshape(params.t, -1, params.n).contiguous()
 
 
-def ntt_forward(a: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
+def _forward_kernel(n: int):
+    """K3 where one CTA holds the polynomial, else K3-fs."""
+    return ntt_kernels.ntt_channels_cuda if ntt_kernels.stage_fits(n) else \
+        ntt_kernels.ntt_channels_fs_cuda
+
+
+def _inverse_kernel(n: int):
+    """K4 where one CTA holds the polynomial, else K4-fs."""
+    return ntt_kernels.intt_channels_cuda if ntt_kernels.stage_fits(n) else \
+        ntt_kernels.intt_channels_fs_cuda
+
+
+def ntt_forward(a: torch.Tensor, params: ParenttParams, *, backend: str,
+                schedule=None) -> torch.Tensor:
     """a: (t, ..., n) canonical residues -> forward NTT per RNS channel
     (natural order in, bit-reversed out)."""
     backend = _stage_backend(backend)
+    spec = resolve_schedule(params, schedule)
     ct = _require_tables(params, "ntt_forward")
     _check_residues(a, params, "ntt_forward")
     if backend == "torch":
-        return ntt_mod.ntt_channels(a, ct)
-    return ntt_kernels.ntt_channels_cuda(_fold_rows(a, params), ct).reshape(a.shape)
+        return ntt_mod.ntt_channels(a, ct, spec)
+    return _forward_kernel(params.n)(_fold_rows(a, params), ct).reshape(a.shape)
 
 
-def ntt_inverse(a: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
+def ntt_inverse(a: torch.Tensor, params: ParenttParams, *, backend: str,
+                schedule=None) -> torch.Tensor:
     """a: (t, ..., n) canonical bit-reversed spectra -> natural-order
     residues per RNS channel."""
     backend = _stage_backend(backend)
+    spec = resolve_schedule(params, schedule)
     ct = _require_tables(params, "ntt_inverse")
     _check_residues(a, params, "ntt_inverse")
     if backend == "torch":
-        return ntt_mod.intt_channels(a, ct)
-    return ntt_kernels.intt_channels_cuda(_fold_rows(a, params), ct).reshape(a.shape)
+        return ntt_mod.intt_channels(a, ct, spec)
+    return _inverse_kernel(params.n)(_fold_rows(a, params), ct).reshape(a.shape)
 
 
 def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, params: ParenttParams, *,
-                   backend: str) -> torch.Tensor:
+                   backend: str, schedule=None) -> torch.Tensor:
     """(t, ..., n) x (t, ..., n) -> negacyclic products per RNS channel."""
     backend = _stage_backend(backend, cascade=True)
+    spec = resolve_schedule(params, schedule)
     ct = _require_tables(params, "negacyclic_mul")
     _check_residues(a, params, "negacyclic_mul")
     _check_residues(b, params, "negacyclic_mul")
@@ -141,16 +187,18 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, params: ParenttParams, *,
             f"negacyclic_mul: operand shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}"
         )
     if backend == "torch":
-        return ntt_mod.negacyclic_mul_channels(a, b, ct)
+        return ntt_mod.negacyclic_mul_channels(a, b, ct, spec)
     a3, b3 = _fold_rows(a, params), _fold_rows(b, params)
     if backend == "cuda_fused":
-        return ntt_kernels.fused_polymul_cuda(a3, b3, ct).reshape(a.shape)
+        cascade = (ntt_kernels.fused_polymul_cuda if ntt_kernels.cascade_fits(params.n)
+                   else ntt_kernels.fused_polymul_fs_cuda)
+        return cascade(a3, b3, ct).reshape(a.shape)
     # "cuda": per-stage kernels, the spectra round-trip device memory
-    fa = ntt_kernels.ntt_channels_cuda(a3, ct)
-    fb = ntt_kernels.ntt_channels_cuda(b3, ct)
+    forward = _forward_kernel(params.n)
+    fa, fb = forward(a3, ct), forward(b3, ct)
     q, _, eps = ntt_mod.channel_scalars(ct, 3)
     prod = mul_mod(fa, fb, q, eps, ct.mul_shifts)
-    return ntt_kernels.intt_channels_cuda(prod, ct).reshape(a.shape)
+    return _inverse_kernel(params.n)(prod, ct).reshape(a.shape)
 
 
 def rns_decompose(z: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
@@ -186,7 +234,7 @@ def rns_compose(residues: torch.Tensor, params: ParenttParams, *, backend: str) 
 
 
 def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams, *,
-                      backend: str) -> torch.Tensor:
+                      backend: str, schedule=None) -> torch.Tensor:
     """za, zb: (..., n, S) segments -> (..., n, L) product limbs:
     decompose -> per-channel cascade -> compose.  On ``cuda_fused_e2e``
     all three run in one kernel; other backends compose the stage
@@ -206,8 +254,8 @@ def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams,
     if backend != "cuda_fused_e2e":
         ra = rns_decompose(za, params, backend=backend)
         rb = rns_decompose(zb, params, backend=backend)
-        return rns_compose(negacyclic_mul(ra, rb, params, backend=backend), params,
-                           backend=backend)
+        prod = negacyclic_mul(ra, rb, params, backend=backend, schedule=schedule)
+        return rns_compose(prod, params, backend=backend)
     ct = _require_tables(params, "fused_polymul_e2e")
     lead = za.shape[:-2]
     z3a = za.reshape((-1,) + za.shape[-2:]).contiguous()

@@ -371,12 +371,13 @@ def test_plan_from_params_refuses_what_plan_refuses():
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"), use_sau=False)
     assert (err.value.knob, err.value.value, err.value.alternatives) == ("use_sau", False, (True,))
-    # the shared admission: one block's shared memory and the kernels' limb arrays
+    # the shared admission: the e2e kernel's shared memory and the kernels' limb arrays
     big = tparams.make_params(1 << 15, 1, 30, device="cpu")
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan_from_params(big, backend="cuda_fused")
+        repro_torch.plan_from_params(big, backend="cuda_fused_e2e")
     assert err.value.knob == "n"
     assert repro_torch.plan_from_params(big, backend="cuda").config.backend == "cuda"
+    assert repro_torch.plan_from_params(big, backend="cuda_fused").config.schedule.multi_block
     wide = tparams.make_params(N, 16, 30, device="cpu")
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan_from_params(wide, backend="cuda")

@@ -122,9 +122,11 @@ def test_main_path_launches_the_kernels(cuda_device):
 # the largest (n, t) plan() admits on the e2e backend in each regime
 # (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31), with one channel a
 # CTA (n = 16384, t <= 8) and two (n = 8192, t > 8): about 170-207 KB of
-# shared memory a CTA, so one CTA an SM and clusters of up to 8 SMs
-E2E_CORNERS = [(16384, 7, 29), (16384, 8, 30), (16384, 8, 31),
-               (8192, 10, 29), (8192, 14, 30), (8192, 13, 31)]
+# shared memory a CTA, so one CTA an SM and clusters of up to 8 SMs.  At
+# v = 29 the SAU words of t = 8 (n = 16384) and t = 11 .. 15 (n = 8192)
+# need the 32-bit Barrett window (RnsPlan.dec)
+E2E_CORNERS = [(16384, 8, 29), (16384, 8, 30), (16384, 8, 31),
+               (8192, 15, 29), (8192, 14, 30), (8192, 13, 31)]
 
 
 @pytest.mark.parametrize("n,t,v", [(n, t, v) for n, t, v, _ in PRESETS]
@@ -254,21 +256,104 @@ def test_compose_kernel_at_odd_rows_and_the_limb_corners(cuda_device, n, t, v):
 
 def test_pass_kernel_admission_edges_did_not_move():
     """Runs without a card: with K1's and K3's padded shared layout
-    (stage_smem_bytes, cascade_smem_bytes) plan() still admits
+    (stage_smem_bytes, cascade_smem_bytes) the one-block kernels serve
     backend="cuda_fused" up to n = 16384 and backend="cuda" up to
-    n = 32768, and refuses twice those; the largest n chip_smoke.py
+    n = 32768, and the multi-block kernels twice those (plan() records
+    which, and admits up to n = 65536); the largest n chip_smoke.py
     checks K1 and K3 at is that edge."""
     for backend, edge in (("cuda_fused", 16384), ("cuda", 32768)):
         for t in (1, 3):
             pl = repro_torch.plan(edge, t, 30, backend=backend, device="cpu")
-            assert pl.config.backend == backend
+            assert pl.config.backend == backend and not pl.config.schedule.multi_block
+            pl = repro_torch.plan(2 * edge, t, 30, backend=backend, device="cpu")
+            assert pl.config.schedule.multi_block
             with pytest.raises(repro_torch.UnservableConfigError) as err:
-                repro_torch.plan(2 * edge, t, 30, backend=backend, device="cpu")
+                repro_torch.plan(131072, t, 30, backend=backend, device="cpu")
             assert err.value.knob == "n"
     assert kern.cascade_smem_bytes(16384) <= kern.MAX_SMEM_BYTES < kern.cascade_smem_bytes(32768)
     assert kern.stage_smem_bytes(32768) <= kern.MAX_SMEM_BYTES < kern.stage_smem_bytes(65536)
     assert {backend: max(ns) for backend, ns in SMOKE_PASS_POINTS.values()} == {
         "cuda_fused": 16384, "cuda": 32768}
+
+
+# K1-fs, K3-fs and K4-fs, the multi-block kernels, at chip_smoke.py's
+# FS_POINTS (n = 16 ... 65536), where n <= 16384 (K1) or 32768 (K3, K4) is
+# served by the one-block kernels too
+SMOKE_FS_POINTS = _chip_smoke().FS_POINTS
+
+
+@pytest.mark.parametrize("v", (29, 30, 31))
+@pytest.mark.parametrize("n", SMOKE_FS_POINTS)
+def test_multi_block_kernels_match_plain_versions(cuda_device, n, v):
+    """K1-fs, K3-fs and K4-fs equal their plain versions (the four-step
+    plain PyTorch) bit for bit in every regime at an odd row count, equal
+    K1, K3 and K4 where those serve n too, and an SM holds at least one
+    CTA of each of their launches."""
+    pl = repro_torch.plan(n, 3, v, backend="cuda", device=cuda_device)
+    tables = pl.params.tables
+    _, _, ra, rb = _inputs(pl, 3, seed=n + v + 11, device=cuda_device)
+    ra[:, 0, :2] = pl.params.plan.qs_d[:, None] - 1
+    for cuda, ref, one_block, fits, operands, blocks in (
+        (kern.fused_polymul_fs_cuda, kern.fused_polymul_fs_ref, kern.fused_polymul_cuda,
+         kern.cascade_fits, (ra, rb), kern.cascade_fs_blocks_per_sm),
+        (kern.ntt_channels_fs_cuda, kern.ntt_channels_fs_ref, kern.ntt_channels_cuda,
+         kern.stage_fits, (ra,), kern.ntt_fs_blocks_per_sm),
+        (kern.intt_channels_fs_cuda, kern.intt_channels_fs_ref, kern.intt_channels_cuda,
+         kern.stage_fits, (ra,), kern.intt_fs_blocks_per_sm),
+    ):
+        got = cuda(*operands, tables)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref(*operands, tables))
+        if fits(n):
+            assert torch.equal(got, one_block(*operands, tables))
+        assert min(blocks(tables)) >= 1
+
+
+def test_multi_block_admission_edges():
+    """Runs without a card: plan() admits n = 65536 at t = 6 on cuda and
+    cuda_fused (multi-block kernels) and refuses 131072 there, and an
+    explicit cuda_fused_e2e above n = 16384 (knob n); the launch geometry
+    of the multi-block kernels at 32768 and 65536 for t up to 14 comes
+    from their own helpers."""
+    for backend in ("cuda", "cuda_fused"):
+        pl = repro_torch.plan(65536, 6, 30, backend=backend, device="cpu")
+        assert pl.config.schedule.multi_block and pl.config.schedule.card_split == (256, 256)
+        with pytest.raises(repro_torch.UnservableConfigError) as err:
+            repro_torch.plan(131072, 6, 30, backend=backend, device="cpu")
+        assert err.value.knob == "n"
+    for n in (32768, 65536):
+        with pytest.raises(repro_torch.UnservableConfigError) as err:
+            repro_torch.plan(n, 6, 30, backend="cuda_fused_e2e", device="cpu")
+        assert err.value.knob == "n"
+        for t in (1, 6, 14):
+            assert kern.fs_blocks(t, 16, n) * kern.fs_tile(n) == t * 16 * n
+        assert kern.fs_threads(n) == 256
+        assert max(kern.ntt_fs_smem_bytes(n), kern.intt_fs_smem_bytes(n),
+                   kern.cascade_fs_smem_bytes(n)) <= kern.MAX_SMEM_BYTES
+
+
+def test_front_door_past_one_cta(cuda_device):
+    """plan(65536, 6, 30) under auto is cuda_fused on K1-fs; polymul,
+    negacyclic_mul, ntt and intt on it and on backend="cuda" equal a
+    backend="torch" plan on the card, and a polymul row the host oracle."""
+    n = 65536
+    auto = repro_torch.plan(n, 6, 30)
+    assert auto.config.backend == "cuda_fused" and auto.config.schedule.multi_block
+    plain = repro_torch.plan(n, 6, 30, backend="torch", device=auto.device)
+    za, zb, ra, rb = _inputs(auto, 2, seed=7, device=auto.device)
+    za[..., -1] = zb[..., -1] = 0  # below q
+    for pl in (auto, repro_torch.plan(n, 6, 30, backend="cuda")):
+        kern.fused_polymul_fs_cuda.launches = 0
+        out = repro_torch.polymul(pl, za, zb)
+        assert torch.equal(out, repro_torch.polymul(plain, za, zb))
+        assert torch.equal(repro_torch.negacyclic_mul(pl, ra, rb),
+                           repro_torch.negacyclic_mul(plain, ra, rb))
+        assert torch.equal(repro_torch.ntt(pl, ra), repro_torch.ntt(plain, ra))
+        assert torch.equal(repro_torch.intt(pl, ra), repro_torch.intt(plain, ra))
+        assert kern.fused_polymul_fs_cuda.launches == (2 if pl is auto else 0)
+    a = bigint.limbs_to_ints(za[1].cpu().numpy(), auto.v)
+    b = bigint.limbs_to_ints(zb[1].cpu().numpy(), auto.v)
+    assert repro_torch.from_limbs(auto, out[1]) == host.oracle_multiply(a, b, auto.params)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

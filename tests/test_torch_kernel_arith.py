@@ -30,6 +30,7 @@ import torch
 
 from repro.core import modmath as jmod
 from repro_torch.core import modmath as tmod
+from repro_torch.core.ntt import four_step_row_indices as tntt_row_indices
 from repro_torch.core import primes as tprimes
 from repro_torch.core import rns as trns
 from repro_torch.core.params import make_params
@@ -600,6 +601,220 @@ def test_inverse_register_passes_match_plain_version(n, t, v):
     a[:, -1, -2:] = 0
     assert np.array_equal(passes_emulated(a, None, p.tables, "inverse"),
                           tkern.intt_channels_ref(torch.as_tensor(a), p.tables).numpy())
+
+
+# --------------------------------------------------------------------------
+# the multi-block kernels K1-fs, K3-fs, K4-fs (csrc/*_fs.cu, parentt.cuh
+# "Multi-block transforms")
+# --------------------------------------------------------------------------
+
+
+def fs_geometry(n):
+    """(log n1, log n2, E, log C, tiles a polynomial, K) as the kernels
+    derive them (parentt.cuh fs_geom), checked against the host helpers."""
+    L = n.bit_length() - 1
+    log_n2 = (L + 1) // 2
+    log_n1 = L - log_n2
+    log_e = min(L, 12)
+    E = 1 << log_e
+    assert tkern.fs_split(n) == (1 << log_n1, 1 << log_n2) and tkern.fs_tile(n) == E
+    assert tkern.fs_threads(n) == tkern.pass_threads(E) <= 256
+    return log_n1, log_n2, E, log_e - log_n1, n // E, tkern.pass_group(E)
+
+
+def fs_passes(begin, end, K, inverse):
+    """(s0, G) of each pass of forward_stages / inverse_stages: passes of K
+    stages after a first of g0 (forward) or before a last of g0 (inverse)."""
+    passes = -(-(end - begin) // K)
+    g0 = end - begin - K * (passes - 1)
+    out, s0 = [], begin
+    for q in range(passes):
+        G = (K if q + 1 < passes else g0) if inverse else (g0 if q == 0 else K)
+        out.append((s0, G))
+        s0 += G
+    assert s0 == end
+    return out
+
+
+def fs_emulated(a, b, tables, kernel):
+    """K3-fs ("forward"), K4-fs ("inverse") or K1-fs ("cascade") on (t,
+    rows, n) canonical residues, launch by launch as the kernels run them:
+    the column CTAs' virtual length-E tiles (v = r C + cc, gathered through
+    the kernels' ColMap), the row CTAs' spans of E/n2 whole rows, passes of
+    G <= 3 stages over their groups p0 .. p1 - 1 with the kernels' twiddle
+    indices, and 32-bit values below W q (q when strict) in the scratch
+    between launches.  Every pass's groups of a CTA's span hold each of its
+    elements once."""
+    r = Regime(tables)
+    t, rows, n = a.shape
+    L = n.bit_length() - 1
+    log_n1, log_n2, E, log_c, tiles, K = fs_geometry(n)
+    log_e = E.bit_length() - 1
+    # ColMap: column CTA blk's virtual element v -> x = r n2 + c0 + cc
+    v = np.arange(E)
+    colmap = (((v >> log_c) << log_n2)[None, :] + (np.arange(tiles) << log_c)[:, None]
+              + (v & ((1 << log_c) - 1)))
+    assert np.array_equal(np.sort(colmap.ravel()), np.arange(n))
+    assert E % (1 << log_n2) == 0  # a row CTA's span holds whole rows
+    fwd, inv = U(tables.fwd), U(tables.inv)
+    fsh = U(tables.fwd_shoup) if tables.fwd_shoup is not None else np.zeros_like(fwd)
+    ish = U(tables.inv_shoup) if tables.inv_shoup is not None else np.zeros_like(inv)
+    tw = lambda tab, idx: tab[:, idx][:, None, :]
+    bound = r.window * r.q if r.mode == LAZY else r.q
+
+    def groups(N, G, log_st, span):
+        """(hi, element indices per m) of every group, the CTAs' spans of
+        ``span`` elements taken together (p0 = x0 >> G, p1 = (x0 + span) >> G)."""
+        p = np.arange(N >> G)
+        hi = p >> log_st
+        base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1))
+        idx = [base + (m << log_st) for m in range(1 << G)]
+        assert all(np.array_equal(i // span, p // (span >> G)) for i in idx)
+        assert np.array_equal(np.sort(np.concatenate(idx)), np.arange(N))
+        return hi, idx
+
+    def forward(X, begin, end, log_n, span):  # X: (t, R, N) uint64, in place
+        for s0, G in fs_passes(begin, end, K, inverse=False):
+            hi, idx = groups(X.shape[-1], G, log_n - s0 - G, span)
+            xs = [X[..., i] for i in idx]
+            for j in range(G):
+                half = 1 << (G - 1 - j)
+                for blk in range(1 << j):
+                    ti = (1 << (s0 + j)) + (hi << j) + blk
+                    for k in range(half):
+                        m = blk * 2 * half + k
+                        xs[m], xs[m + half] = ct(xs[m], xs[m + half], tw(fwd, ti), tw(fsh, ti), r)
+            for i, x in zip(idx, xs):
+                X[..., i] = x
+
+    def inverse(X, begin, end, log_n, span):
+        for s0, G in fs_passes(begin, end, K, inverse=True):
+            hi, idx = groups(X.shape[-1], G, s0, span)
+            xs = [X[..., i] for i in idx]
+            for j in range(G):
+                half = 1 << j
+                for blk in range(1 << (G - 1 - j)):
+                    ti = (1 << (log_n - 1 - s0 - j)) + (hi << (G - 1 - j)) + blk
+                    for k in range(half):
+                        m = blk * 2 * half + k
+                        xs[m], xs[m + half] = gs(xs[m], xs[m + half], tw(inv, ti), tw(ish, ti), r)
+            for i, x in zip(idx, xs):
+                X[..., i] = x
+
+    def middle(A, B, G, span):  # middle_span: last G forward, product, first G inverse
+        p = np.arange(n >> G)
+        assert np.array_equal((p << G) // span, p // (span >> G))
+        x = [A[..., (p << G) + m] for m in range(1 << G)]
+        y = [B[..., (p << G) + m] for m in range(1 << G)]
+        for j in range(G):
+            half = 1 << (G - 1 - j)
+            for blk in range(1 << j):
+                ti = (1 << (L - G + j)) + (p << j) + blk
+                for k in range(half):
+                    m = blk * 2 * half + k
+                    for z in (x, y):
+                        z[m], z[m + half] = ct(z[m], z[m + half], tw(fwd, ti), tw(fsh, ti), r)
+        x = [mul_mod(canonicalize(x[m], r), canonicalize(y[m], r), r) for m in range(1 << G)]
+        for j in range(G):
+            half = 1 << j
+            for blk in range(1 << (G - 1 - j)):
+                ti = (1 << (L - 1 - j)) + (p << (G - 1 - j)) + blk
+                for k in range(half):
+                    m = blk * 2 * half + k
+                    x[m], x[m + half] = gs(x[m], x[m + half], tw(inv, ti), tw(ish, ti), r)
+        for m in range(1 << G):
+            A[..., (p << G) + m] = x[m]
+
+    def tiles_of(X):  # the column CTAs' virtual tiles, (t, rows * tiles, E)
+        return X[..., colmap].reshape(t, rows * tiles, E)
+
+    def untile(V):
+        X = np.zeros((t, rows, n), dtype=np.uint64)
+        X[..., colmap] = V.reshape(t, rows, tiles, E)
+        return X
+
+    def scratch(X):  # 32-bit words under the lazy window
+        assert (X < bound).all() and (X <= M32).all()
+        return X
+
+    A = U(a).copy()
+    if kernel == "inverse":
+        inverse(A, 0, log_n2, L, E)  # rows
+        V = tiles_of(scratch(A))
+        inverse(V, log_c, log_e, log_e, E)  # columns, virtual stages log C ..
+        return _int64(canonicalize(untile(V), r))
+    polys = [A] if kernel == "forward" else [A, U(b).copy()]
+    for i, P in enumerate(polys):  # forward columns, virtual stages 0 .. log n1 - 1
+        V = tiles_of(P)
+        forward(V, 0, log_n1, log_e, E)
+        polys[i] = scratch(untile(V))
+    A = polys[0]
+    if kernel == "forward":
+        forward(A, log_n1, L, L, E)  # rows
+        return _int64(canonicalize(A, r))
+    B = polys[1]
+    if log_n2 <= K:  # one row pass around the product
+        middle(A, B, log_n2, E)
+    else:
+        forward(A, log_n1, L - K, L, E)
+        forward(B, log_n1, L - K, L, E)
+        middle(A, B, K, E)
+        inverse(A, K, log_n2, L, E)
+    V = tiles_of(scratch(A))
+    inverse(V, log_c, log_e, log_e, E)
+    return _int64(canonicalize(untile(V), r))
+
+
+# the points chip_smoke.py holds the multi-block kernels at (FS_POINTS),
+# and n = 4 and 8, where a launch is one pass and the row cascade one
+# middle pass
+FS_PRESETS = [(n, v) for n in (4, 8, 16, 256, 1024, 4096) for v in (29, 30, 31)] + [
+    (16384, 30), (32768, 29), (65536, 30), (65536, 31)]
+
+
+@pytest.mark.parametrize("n,v", FS_PRESETS)
+def test_multi_block_passes_match_plain_versions(n, v):
+    """K3-fs, K4-fs and K1-fs, launch by launch and pass by pass with
+    32-bit values in the scratch between launches, equal their plain
+    versions (the four-step plain PyTorch) and the radix-2 ones, in the
+    regime of each point, with 0 and q - 1 among the inputs."""
+    p = make_params(n, 2, v)
+    rows = 1 if n >= 16384 else 2
+    rng = np.random.default_rng(SEED + 17 * n + v)
+    qs = p.qs[:, None, None]
+    a = rng.integers(0, 1 << 62, size=(2, rows, n), dtype=np.int64) % qs
+    b = rng.integers(0, 1 << 62, size=(2, rows, n), dtype=np.int64) % qs
+    a[:, 0, :2] = qs[:, 0] - 1
+    b[:, -1, -2:] = 0
+    T = torch.as_tensor
+    fwd = fs_emulated(a, None, p.tables, "forward")
+    assert np.array_equal(fwd, tkern.ntt_channels_fs_ref(T(a), p.tables).numpy())
+    assert np.array_equal(fwd, tkern.ntt_channels_ref(T(a), p.tables).numpy())
+    back = fs_emulated(a, None, p.tables, "inverse")
+    assert np.array_equal(back, tkern.intt_channels_fs_ref(T(a), p.tables).numpy())
+    assert np.array_equal(back, tkern.intt_channels_ref(T(a), p.tables).numpy())
+    prod = fs_emulated(a, b, p.tables, "cascade")
+    assert np.array_equal(prod, tkern.fused_polymul_fs_ref(T(a), T(b), p.tables).numpy())
+    assert np.array_equal(prod, tkern.fused_polymul_ref(T(a), T(b), p.tables).numpy())
+
+
+def test_multi_block_row_twiddles_are_the_reference_row_tables():
+    """The row CTAs read fwd[2^s + (x >> (L - s))] at row stage k = s - log
+    n1 of element x = j n2 + c: the reference's twist-merged row table
+    ``four_step_row_indices(n1, n2)`` at (2^k + (c >> (log n2 - k)), j),
+    ((n1 + j) << k) + low, for the split the kernels choose at every n
+    from 1024 to 65536."""
+    for n in (1 << k for k in range(10, 17)):
+        n1, n2 = tkern.fs_split(n)
+        assert n1 * n2 == n and n1 <= n2 <= 2 * n1
+        L, log_n1, log_n2 = n.bit_length() - 1, n1.bit_length() - 1, n2.bit_length() - 1
+        idx = tntt_row_indices(n1, n2)
+        j, c = np.divmod(np.arange(n), n2)
+        for k in range(log_n2):
+            s = log_n1 + k
+            kernel = (1 << s) + (np.arange(n) >> (L - s))
+            assert np.array_equal(kernel, idx[(1 << k) + (c >> (log_n2 - k)), j])
+        assert tkern.fs_blocks(6, 16, n) * tkern.fs_tile(n) == 6 * 16 * n
 
 
 def test_kernel_block_barrett_constant_for_every_31_bit_special_prime():

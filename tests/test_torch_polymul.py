@@ -159,8 +159,10 @@ def test_plan_rejects_unservable_and_unknown_knobs():
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan(1 << 15, 6, 30, backend="cuda_fused_e2e", device="cpu")
     assert err.value.knob == "n"
-    with pytest.raises(repro_torch.UnservableConfigError):
-        repro_torch.plan(1 << 15, 1, 30, backend="cuda_fused", device="cpu")
+    # the multi-block kernels serve n up to 65536 on the other kernel backends
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(1 << 17, 1, 30, backend="cuda_fused", device="cpu")
+    assert err.value.knob == "n"
     with pytest.raises(repro_torch.UnknownKnobError):
         repro_torch.plan(64, 3, 30, backend="pallas", device="cpu")
     with pytest.raises(repro_torch.UnknownKnobError):

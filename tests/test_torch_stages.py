@@ -131,9 +131,10 @@ def test_plan_resolves_the_cuda_backend():
     assert (cfg.backend, cfg.device, cfg.seg_count, cfg.L) == ("cuda", "cpu", 3, 4)
     assert "cuda" in repro_torch.BACKENDS
     assert {"ntt", "intt", "decompose", "compose"} <= set(repro_torch.__all__)
-    # one 4n-byte polynomial per block: n = 65536 needs 256 KiB
+    # n = 65536 runs on the multi-block K3-fs and K4-fs; past it the kernel
+    # backends refuse
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(65536, 2, 30, backend="cuda", device="cpu")
+        repro_torch.plan(131072, 2, 30, backend="cuda", device="cpu")
     assert err.value.knob == "n"
 
 
