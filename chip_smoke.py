@@ -7,12 +7,12 @@ GPU.  Run from the repository root with no arguments:
 Phases, each raising on failure (so the run exits non-zero):
 
 1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` reports it;
-2. the build of all ten CUDA sources (``nvcc``, one process per
+2. the build of all eleven CUDA sources (``nvcc``, one process per
    source, all started together) into the checkout's ``build/``: K1
    fused cascade, K2 fused e2e multiplier, K3 forward NTT, K4 inverse
    NTT, K5 decompose, K6 compose, K7 flash attention, and the
-   multi-block K1-fs, K3-fs, K4-fs; ptxas's registers, stack frame and
-   spills of each K1-K6 and K1-fs-K4-fs instance (``[ptxas]``);
+   multi-block K1-fs, K3-fs, K4-fs, K2-fs; ptxas's registers, stack
+   frame and spills of each K1-K6 and multi-block instance (``[ptxas]``);
 3. each kernel against its plain PyTorch version on the card: K1-K6 with
    exact int64 equality, at the paper's point (n=4096, t=6, v=30, 256
    rows) and at n=64, t=3 in all three reduction regimes (v = 29, 30,
@@ -38,7 +38,12 @@ Phases, each raising on failure (so the run exits non-zero):
    K3-fs and K4-fs (``csrc/*_fs.cu``) at ``FS_POINTS`` (n = 16 ... 65536,
    t = 3, 2 rows, all three regimes) equal to their plain versions (the
    four-step plain PyTorch) and, where K1, K3 or K4 also serve n, to
-   them, with the CTAs an SM holds of each launch;
+   them, with the CTAs an SM holds of each launch; K2-fs
+   (``csrc/fused_e2e_polymul_fs.cu``) at ``FS_POINTS`` x t = 3, 6, 8
+   (``E2E_FS_T``), 2 rows, every regime ``plan()`` admits, equal to its
+   plain version (K2's over the four-step cascade) and, where K2 also
+   serves n, to K2, as clusters of min(t, 8) CTAs of which the card holds
+   at least one;
 4. the paths through the entry points a user calls, each with every
    launch counter zeroed just before it and read just after:
    ``repro_torch.plan(n=4096, t=6, v=30)`` (auto: ``cuda_fused_e2e``) ->
@@ -76,12 +81,13 @@ Phases, each raising on failure (so the run exits non-zero):
    hold;
 4c. the front door past one CTA (``[fs]`` lines): ``plan(n, 6, 30)`` at
    n = 65536 (16 rows) and 32768 (32 rows), ``FS_MAIN``, under ``auto``
-   (which must resolve to ``cuda_fused`` with a multi-block schedule) and
-   ``backend="cuda"``: ``polymul``, ``negacyclic_mul``, ``ntt`` and
-   ``intt``, each call with the counters zeroed around it and launching
-   what ``FS_LAUNCHES`` says, bit-exact against a ``backend="torch"``
-   plan on the card, and two polymul rows a size against the host bigint
-   oracle;
+   (which must resolve to ``cuda_fused_e2e`` with a multi-block schedule:
+   its ``polymul`` is one K2-fs call and nothing else),
+   ``backend="cuda_fused"`` and ``backend="cuda"``: ``polymul``,
+   ``negacyclic_mul``, ``ntt`` and ``intt``, each call with the counters
+   zeroed around it and launching what ``FS_LAUNCHES`` says, bit-exact
+   against a ``backend="torch"`` plan on the card, and two polymul rows a
+   size against the host bigint oracle;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
@@ -97,16 +103,22 @@ Phases, each raising on failure (so the run exits non-zero):
    ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b; each
    K7 variant's ptxas registers, spills and shared memory, and the
    achieved TFLOP/s (prefill) or TB/s (decode); K1-fs, K3-fs and K4-fs
-   at (6, 16, 65536), one call and back to back, beside their plain
-   versions and bounds;
+   at (6, 16, 65536) and K2-fs at (16, 65536, 6), one call and back to
+   back, beside their plain versions and bounds (K2-fs's also with its
+   32-bit scratch) and, for K2-fs, the clusters the card holds and each
+   of its three launches' device time from a ``torch.profiler`` trace,
+   beside cuda_fused's kernels (K5 on each operand, K1-fs's launches, K6)
+   on the same inputs;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend, and of one ``negacyclic_mul`` call on the auto plan
    (host clock, synchronised), and at FS_MAIN's n and rows on
-   ``cuda_fused``, ``cuda`` and ``torch``.
+   ``cuda_fused_e2e`` (auto, K2-fs), ``cuda_fused``, ``cuda`` and
+   ``torch``.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
-...) of the checkout at DIR (for instance the parent commit unpacked with
+..., and ``fused_e2e_polymul_fs``, K2-fs at (16, 65536, 6)) of the
+checkout at DIR (for instance the parent commit unpacked with
 ``git archive``) at the main path's shape, one call between two events
 and back to back (K2 also at one row), after checking each against its
 plain version, and prints one ``[time-kernels]`` line per kernel; so
@@ -116,8 +128,8 @@ two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
 ``launches_by_path`` beside ``launches``, the main path's count, with
-phase 4b's paths; K1-fs's, K3-fs's and K4-fs's ``launches`` sum phase
-4c's calls, each one a path of ``launches_by_path``) and ends with
+phase 4b's paths; K1-fs's, K3-fs's, K4-fs's and K2-fs's ``launches``
+sum phase 4c's calls, each one a path of ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
 non-zero before printing any result.
@@ -169,14 +181,21 @@ PASS_POINTS = {
 # 4096 and 16384, where K1, K3 and K4 also serve and must give the same
 # outputs, and past them, 32768 and 65536
 FS_POINTS = (16, 256, 1024, 4096, 16384, 32768, 65536)
+# K2-fs at FS_POINTS in the three regimes at these t (one channel a CTA of
+# clusters of t CTAs), 2 rows, where plan() admits (n, t, v) on a kernel
+# backend; against K2 where K2 also serves (n <= 16384)
+E2E_FS_T = (3, 6, 8)
 # the front door at full width past one CTA, t = 6, v = 30: n -> rows (2^20
 # coefficients an operand, as many as the paper point's 256 rows of 4096)
 FS_MAIN = {65536: 16, 32768: 32}
 FS_T, FS_V = 6, 30
-# K1-fs, K3-fs, K4-fs launches of each call on the auto plan (cuda_fused)
-# and on backend="cuda", at n = 65536 and at 32768, where K3 and K4 hold a
-# polynomial in one CTA
+# the multi-block kernels' launches of each call on the auto plan
+# (cuda_fused_e2e: K2-fs for polymul, K1-fs for negacyclic_mul, the cuda
+# stage kernels for ntt and intt) and on backends cuda_fused and cuda, at
+# n = 65536 and at 32768, where K3 and K4 hold a polynomial in one CTA
 FS_LAUNCHES = {
+    ("cuda_fused_e2e", "polymul"): {"fused_e2e_polymul_fs": 1},
+    ("cuda_fused_e2e", "negacyclic_mul"): {"fused_polymul_fs": 1},
     ("cuda_fused", "polymul"): {"decompose": 2, "fused_polymul_fs": 1, "compose": 1},
     ("cuda_fused", "negacyclic_mul"): {"fused_polymul_fs": 1},
     ("cuda", "polymul", 65536): {"decompose": 2, "ntt_channels_fs": 2, "intt_channels_fs": 1,
@@ -324,6 +343,34 @@ def time_back_to_back(torch, fn, launches: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def launch_split(torch, fn, calls: int = TIMED_LAUNCHES) -> dict[str, float]:
+    """Device milliseconds per call of each CUDA kernel that ``fn``
+    launches, from a ``torch.profiler`` trace of ``calls`` calls after a
+    warm-up: kernel name -> ms (the trace's self device time over the
+    calls)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = re.search(r"(\w+_kernel)<", e.key)
+        if us and name:
+            split[name.group(1)] = split.get(name.group(1), 0.0) + us / 1e3 / calls
+    if not split:
+        raise AssertionError("torch.profiler's trace holds no device time of a kernel")
+    return split
 
 
 def time_launches(torch, fn, launches: int, warmup: int = 3) -> float:
@@ -497,6 +544,7 @@ def wrappers():
         "fused_polymul_fs": kern.fused_polymul_fs_cuda,
         "ntt_channels_fs": kern.ntt_channels_fs_cuda,
         "intt_channels_fs": kern.intt_channels_fs_cuda,
+        "fused_e2e_polymul_fs": kern.fused_e2e_polymul_fs_cuda,
     }
 
 
@@ -641,7 +689,7 @@ def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
             _, _, ra, rb = seeded_inputs(torch, np, pl, 2, SEED + 3 * n + v, dev)
             ra[:, 0, :2] = pl.params.plan.qs_d[:, None] - 1  # the largest canonical residue
             seen = []
-            for name in FS_KERNELS:
+            for name in FS_TRANSFORMS:
                 cuda, ref, one_block, fits, blocks_per_sm = fs_kernel(name)
                 operands = (ra, rb) if name == "fused_polymul_fs" else (ra,)
                 got = cuda(*operands, tables)
@@ -657,6 +705,62 @@ def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
                 "plain versions bit for bit (and to K1/K3/K4 where marked); CTAs an SM holds "
                 "per launch: " + ", ".join(seen))
     log(f"[kernels] multi-block checks took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def check_e2e_fs(dev, max_err: dict[str, int]) -> None:
+    """Phase 3 for K2-fs at FS_POINTS x E2E_FS_T in every regime, where
+    plan() admits (n, t, v) on cuda_fused_e2e: exact equality with its
+    plain version (K2's over the four-step cascade, on the card) and,
+    where K2 also serves n, with K2; its clusters of min(t, 8) CTAs, and
+    the card holds at least one cluster of each cluster launch (the row
+    launch is K1-fs's).  One coefficient of row 0 is 0, one of row 1 is
+    q - 1 in both operands."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    t0 = time.perf_counter()
+    refused = []
+    for t in E2E_FS_T:
+        for n in FS_POINTS:
+            seen = []
+            for v in (29, 30, 31):
+                try:
+                    pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device=dev)
+                except repro_torch.UnservableConfigError as err:
+                    refused.append(f"(n={n}, t={t}, v={v}) knob {err.knob}")
+                    continue
+                p = pl.params
+                za, zb, _, _ = seeded_inputs(torch, np, pl, 2, SEED + 5 * n + t + v, dev)
+                za[0, 0] = zb[0, 1] = 0
+                za[1, 0] = zb[1, 0] = repro_torch.to_segments(pl, [pl.q - 1])[0]
+                kern.fused_e2e_polymul_fs_cuda.cluster = 0
+                got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+                torch.cuda.synchronize()
+                what = f"fused_e2e_polymul_fs n={n} t={t} v={v}"
+                if kern.fused_e2e_polymul_fs_cuda.cluster != min(t, kern.MAX_CLUSTER):
+                    raise AssertionError(f"{what}: clusters of "
+                                         f"{kern.fused_e2e_polymul_fs_cuda.cluster} CTAs")
+                err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan), what)
+                if kern.e2e_fits(n, t):
+                    exact(got, kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan),
+                          f"{what} vs K2")
+                clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
+                if min(clusters) < 1:
+                    raise AssertionError(f"{what}: the card holds no cluster of a launch: "
+                                         f"{clusters}")
+                max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
+                seen.append(f"v={v} {kern.reduction_mode(p.tables)[:2]} {clusters}"
+                            + (" = K2" if kern.e2e_fits(n, t) else ""))
+            log(f"[kernels] fused_e2e_polymul_fs n={n} t={t} rows=2, clusters of "
+                f"{min(t, kern.MAX_CLUSTER)} CTAs, {kern.fs_threads(n)} threads, "
+                f"{kern.fs_tile(n)}-element tiles: equal to its plain version bit for bit (and "
+                "to K2 where marked); (mode, window) (clusters resident of the forward and of "
+                "the inverse column launch): " + ", ".join(seen))
+    log(f"[kernels] fused_e2e_polymul_fs checks took {time.perf_counter() - t0:.1f} s (host "
+        f"clock); plan() refuses, so no kernel backend serves: " + ("; ".join(refused) or "none"))
 
 
 def check_compose_edges(dev, max_err: dict[str, int]) -> None:
@@ -696,6 +800,17 @@ def expect_cluster(pl, what: str) -> None:
     if kern.fused_e2e_polymul_cuda.cluster != want:
         raise AssertionError(f"{what}: cluster of {kern.fused_e2e_polymul_cuda.cluster} CTAs, "
                              f"expected {want}")
+
+
+def expect_e2e_fs_cluster(pl, what: str) -> None:
+    """K2-fs's last call ran its cluster launches as clusters of min(t, 8)
+    CTAs."""
+    from repro_torch.kernels import ntt as kern
+
+    want = min(pl.config.t, kern.MAX_CLUSTER)
+    if kern.fused_e2e_polymul_fs_cuda.cluster != want:
+        raise AssertionError(f"{what}: clusters of {kern.fused_e2e_polymul_fs_cuda.cluster} "
+                             f"CTAs, expected {want}")
 
 
 def check_oracle(pl, za, zb, out, what: str, rows=ORACLE_ROWS) -> None:
@@ -797,8 +912,9 @@ def drive_main_path(pl):
 
 def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
     """Phase 4c: ``plan(n, 6, 30)`` at FS_MAIN's n, past one CTA, under
-    ``auto`` (which must resolve to cuda_fused on multi-block kernels) and
-    ``backend="cuda"``: ``polymul`` on FS_MAIN rows, ``negacyclic_mul``,
+    ``auto`` (which must resolve to cuda_fused_e2e on multi-block kernels),
+    ``backend="cuda_fused"`` and ``backend="cuda"``: ``polymul`` on
+    FS_MAIN rows, ``negacyclic_mul``,
     ``ntt`` and ``intt`` on (6, rows, n) residues, each call with the
     launch counters zeroed just before it and read just after
     (FS_LAUNCHES), bit-exact against a ``backend="torch"`` plan on the card
@@ -814,7 +930,7 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
     for n, rows in FS_MAIN.items():
         auto = repro_torch.plan(n, FS_T, FS_V)
         spec = auto.config.schedule
-        if auto.config.backend != "cuda_fused" or not spec.multi_block:
+        if auto.config.backend != "cuda_fused_e2e" or not spec.multi_block:
             raise AssertionError(f"plan(n={n}, t={FS_T}, v={FS_V}) resolved to {auto.config}")
         plain = repro_torch.plan(n, FS_T, FS_V, backend="torch", device=auto.device)
         za, zb, ra, rb = seeded_inputs(torch, np, auto, rows, SEED + n, auto.device)
@@ -825,8 +941,9 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
             "ntt": repro_torch.ntt(plain, ra),
             "intt": repro_torch.intt(plain, ra),
         }
-        for backend, pl in (("cuda_fused", auto), ("cuda", repro_torch.plan(n, FS_T, FS_V,
-                                                                             backend="cuda"))):
+        for backend, pl in (("cuda_fused_e2e", auto),
+                            ("cuda_fused", repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused")),
+                            ("cuda", repro_torch.plan(n, FS_T, FS_V, backend="cuda"))):
             for fn in ("polymul", "negacyclic_mul", "ntt", "intt"):
                 args = (za, zb) if fn == "polymul" else (ra, rb) if fn == "negacyclic_mul" else (ra,)
                 out, got = counted(torch, lambda: getattr(repro_torch, fn)(pl, *args))
@@ -837,6 +954,8 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
                     if name in FS_KERNELS:
                         launches.setdefault(name, {})[f"{fn} n={n} {backend}"] = k
                 exact(out, want[fn], f"{fn} n={n} ({backend}) vs backend='torch'")
+                if (backend, fn) == ("cuda_fused_e2e", "polymul"):
+                    expect_e2e_fs_cluster(auto, f"polymul n={n} (auto)")
             log(f"[fs] plan(n={n}, t={FS_T}, v={FS_V}, backend={backend!r}) {pl.config.schedule}: "
                 f"polymul on {tuple(za.shape)}, negacyclic_mul, ntt, intt on {tuple(ra.shape)} "
                 f"launched as FS_LAUNCHES; equal to the backend='torch' plan on the card; {card}")
@@ -851,10 +970,12 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
 
 def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, int],
                     card: str) -> list[dict]:
-    """Phase 5 for K1-fs, K3-fs and K4-fs at the largest FS_MAIN shape:
-    one call between two events, back to back, the plain version, and the
-    bound for the least traffic (one int64 read of each operand and one
-    write a coefficient) against the same operation counts as K1/K3/K4."""
+    """Phase 5 for K1-fs, K3-fs, K4-fs and K2-fs at the largest FS_MAIN
+    shape: one call between two events, back to back, the plain version,
+    and the bound for the least traffic (one int64 read of each operand
+    and one write a coefficient; K2-fs: 2S segments in and L limbs out,
+    with the bound of its traffic with the 32-bit scratch beside it)
+    against the same operation counts as K1/K3/K4/K2."""
     import torch
 
     import repro_torch
@@ -871,7 +992,8 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
         "intt_channels_fs": (2 * polys * n * 8, polys * transform_ops(n, mode, window, True)),
     }
     entries = []
-    for name, (source, replaces) in FS_KERNELS.items():
+    for name in FS_TRANSFORMS:
+        source, replaces = FS_KERNELS[name]
         cuda, ref, _, _, blocks_per_sm = fs_kernel(name)
         operands = (ra, rb) if name == "fused_polymul_fs" else (ra,)
         fn = lambda: cuda(*operands, tables)
@@ -895,7 +1017,79 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
             f"back to back (device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({nbytes} bytes, {ops} int ops); CTAs an SM holds per launch {blocks}; "
             f"no single PyTorch call computes this function, so library_ms is null; {card}")
+    entries.append(time_e2e_fs(inputs, launches, max_err, card))
     return entries
+
+
+def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, int],
+                card: str) -> dict:
+    """Phase 5 for K2-fs at (FS_T, FS_MAIN rows, largest FS_MAIN n): one
+    call between two events and back to back, the plain version, the bound
+    for the least traffic (2S int64 segments in and L limbs out a
+    coefficient) against e2e_ops, the bound of its traffic with the 32-bit
+    scratch (six words a channel-coefficient: two written and read between
+    launches 1 and 2, one between 2 and 3), and the clusters the card holds."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    n = max(FS_MAIN)
+    rows = FS_MAIN[n]
+    za, zb, _, _ = inputs[n]
+    pl = repro_torch.plan(n, FS_T, FS_V)
+    p, cfg = pl.params, pl.config
+    mode, window = kern.reduction_mode(p.tables)[:2]
+    coeffs = rows * n
+    least = (2 * cfg.seg_count + cfg.L) * 8
+    with_scratch = least + 6 * cfg.t * 4
+    ops = e2e_ops(pl, mode, window, rows)
+    fn = lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+    ms = time_launches(torch, fn, TIMED_LAUNCHES)
+    device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
+    plain_ms = time_launches(torch, lambda: kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
+                             PLAIN_RUNS, warmup=1)
+    bound_ms, bound_by = bound(least * coeffs, ops)
+    scratch_ms, scratch_by = bound(with_scratch * coeffs, ops)
+    clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
+    # device time of each launch, beside cuda_fused's kernels on the same
+    # inputs (K5 on each operand, K1-fs's three launches, K6)
+    from repro_torch.kernels import crt
+
+    _, _, ra, rb = inputs[n]
+    split = launch_split(torch, fn)
+    staged = {
+        "decompose x2": 2 * sum(launch_split(torch, lambda: crt.decompose_cuda(
+            za.reshape(-1, cfg.seg_count), p.plan)).values()),
+        **launch_split(torch, lambda: kern.fused_polymul_fs_cuda(ra, rb, p.tables)),
+        "compose": sum(launch_split(torch, lambda: crt.compose_cuda(ra.reshape(cfg.t, -1),
+                                                                     p.plan)).values()),
+    }
+    log(f"[time] fused_e2e_polymul_fs launches at ({cfg.t}, {rows}, {n}), device ms a call "
+        f"(torch.profiler, {TIMED_LAUNCHES} calls): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f" (sum {sum(split.values()):.4f}); cuda_fused's kernels on the same inputs: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in staged.items())
+        + f" (sum {sum(staged.values()):.4f}); {card}")
+    name = "fused_e2e_polymul_fs"
+    source, replaces = FS_KERNELS[name]
+    log(f"[time] {name} at (t, rows, n) = ({cfg.t}, {rows}, {n}): {ms:.4f} ms per call (median "
+        f"of {TIMED_LAUNCHES}, one call between two events, three launches), {device_ms:.4f} ms "
+        f"back to back (device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({least} B a coefficient, {least * coeffs} bytes, {ops} int ops); with the "
+        f"32-bit scratch {with_scratch} B a coefficient, bound {scratch_ms:.4f} ms by "
+        f"{scratch_by}; clusters of {kern.e2e_cluster(cfg.t)[0]} CTAs, clusters resident of "
+        f"the forward and of the inverse column launch {clusters}; no single PyTorch call "
+        f"computes this function, so library_ms is null; {card}")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sum(launches.get(name, {}).values()),
+        "launches_by_path": launches.get(name, {}), "max_abs_err": max_err[name], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "device_ms": device_ms, "bound_ms_with_scratch": scratch_ms, "shape": [rows, n, cfg.t],
+        "cluster": kern.e2e_cluster(cfg.t)[0], "max_active_clusters": list(clusters),
+        "launch_ms": split, "cuda_fused_launch_ms": staged,
+    }
 
 
 def time_fs_walls() -> None:
@@ -907,7 +1101,7 @@ def time_fs_walls() -> None:
     import repro_torch
 
     for n, rows in FS_MAIN.items():
-        for backend in ("cuda_fused", "cuda", "torch"):
+        for backend in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch"):
             pl = repro_torch.plan(n, FS_T, FS_V, backend=backend, device="cuda")
             za, zb, ra, rb = seeded_inputs(torch, np, pl, rows, SEED + n, pl.device)
             ms = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb))
@@ -917,7 +1111,7 @@ def time_fs_walls() -> None:
                 f"{nms:.4f} ms per call (median of {E2E_RUNS}, host clock)")
 
 
-# K1-K6: kernel -> (source, the TPU kernel it replaces)# K1-K6: kernel -> (source, the TPU kernel it replaces)
+# K1-K6: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_polymul": ("src/repro_torch/csrc/fused_polymul.cu", "src/repro/kernels/ntt.py:757"),
     "fused_e2e_polymul": ("src/repro_torch/csrc/fused_e2e_polymul.cu",
@@ -927,15 +1121,19 @@ KERNELS = {
     "decompose": ("src/repro_torch/csrc/decompose.cu", "src/repro/kernels/crt.py:180"),
     "compose": ("src/repro_torch/csrc/compose.cu", "src/repro/kernels/crt.py:266"),
 }
-# K1-fs, K3-fs, K4-fs: the multi-block forms of K1, K3, K4 (the four-step
-# bodies of the same TPU kernels)
+# K1-fs, K3-fs, K4-fs, K2-fs: the multi-block forms of K1, K3, K4, K2 (the
+# four-step bodies of the same TPU kernels)
 FS_KERNELS = {
     "fused_polymul_fs": ("src/repro_torch/csrc/fused_polymul_fs.cu",
                          "src/repro/kernels/ntt.py:757"),
     "ntt_channels_fs": ("src/repro_torch/csrc/ntt_channels_fs.cu", "src/repro/kernels/ntt.py:680"),
     "intt_channels_fs": ("src/repro_torch/csrc/intt_channels_fs.cu",
                          "src/repro/kernels/ntt.py:721"),
+    "fused_e2e_polymul_fs": ("src/repro_torch/csrc/fused_e2e_polymul_fs.cu",
+                             "src/repro/kernels/ntt.py:802"),
 }
+# the multi-block transforms (K1-fs, K3-fs, K4-fs), checked and timed alike
+FS_TRANSFORMS = ("fused_polymul_fs", "ntt_channels_fs", "intt_channels_fs")
 ATTN_SOURCE = "src/repro_torch/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention.py:82"
 
@@ -1059,17 +1257,18 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     DIR (its ``src/`` imported, its kernels built into its ``build/``) at
     the main path's shape, each first checked against its plain version:
     one call between two events (``ms``) and back to back (``device_ms``),
-    K2 also at one row (``k2_times``), so two commits compare in one call."""
+    K2 also at one row (``k2_times``), K2-fs (``fused_e2e_polymul_fs``)
+    at the largest FS_MAIN shape, so two commits compare in one call."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    unknown = [name for name in names if name not in KERNELS]
+    known = [*KERNELS, "fused_e2e_polymul_fs"]
+    unknown = [name for name in names if name not in known]
     if unknown or not names:
-        print(f"chip_smoke: --time-kernels takes names of {list(KERNELS)}, got {names}",
-              file=sys.stderr)
+        print(f"chip_smoke: --time-kernels takes names of {known}, got {names}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(checkout.resolve() / "src"))
     import repro_torch
@@ -1078,6 +1277,14 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
     inputs = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
     calls = kernel_calls(pl, inputs)
+    if "fused_e2e_polymul_fs" in names:  # K2-fs at the largest FS_MAIN shape
+        n = max(FS_MAIN)
+        fs = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e").params
+        za, zb, _, _ = seeded_inputs(torch, np, repro_torch.plan(n, FS_T, FS_V), FS_MAIN[n],
+                                     SEED + n, pl.device)
+        calls["fused_e2e_polymul_fs"] = (
+            lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, fs.tables, fs.plan),
+            lambda: kern.fused_e2e_polymul_fs_ref(za, zb, fs.tables, fs.plan))
     log(card_line())
     for name in names:
         fn, ref = calls[name]
@@ -1104,8 +1311,13 @@ def ptxas_entries(name: str) -> list[str]:
     for line in _build.ptxas_report(name).read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
+            # the kernel's <length><name> in the mangled name
+            kernel = next((mangled[m.end(1):m.end(1) + int(m.group(1))]
+                           for m in re.finditer(r"(?=(\d+))", mangled)
+                           if mangled[m.end(1):m.end(1) + int(m.group(1))].endswith("_kernel")),
+                          mangled)
             entry = {"args": ",".join(re.findall(r"L[ib](\d+)E", mangled)) or "-",
-                     "kernel": re.search(r"([a-z_]+_kernel)", mangled).group(1)}
+                     "kernel": kernel}
         elif entry is not None and "stack frame" in line:
             entry["frame"] = line.strip()
         elif entry is not None and "Used" in line and "registers" in line:
@@ -1776,6 +1988,7 @@ def main() -> int:
     check_pass_kernels(dev, max_err)
     check_compose_edges(dev, max_err)
     check_fs_kernels(dev, max_err)
+    check_e2e_fs(dev, max_err)
     attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])

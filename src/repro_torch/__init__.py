@@ -7,7 +7,8 @@ NVIDIA H100 (the int64-width multiplier and its stage entry points).
     limbs = repro_torch.polymul(pl, za, zb)    # (..., n, S) -> (..., n, L)
 
 The main path runs one hand-written CUDA kernel
-(``csrc/fused_e2e_polymul.cu``); the residue-domain product
+(``csrc/fused_e2e_polymul.cu``; past one CTA, n = 32768 and 65536, its
+multi-block form ``csrc/fused_e2e_polymul_fs.cu``); the residue-domain product
 :func:`negacyclic_mul` runs the fused cascade kernel
 (``csrc/fused_polymul.cu``), and :func:`ntt`, :func:`intt`,
 :func:`decompose` and :func:`compose` run the stage kernels

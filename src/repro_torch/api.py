@@ -16,12 +16,14 @@ wraps an existing :class:`ParenttParams` (honouring its ``backend`` and
 run on the CUDA card unless the caller passes ``device="cpu"``; with no
 card and no device asked for, :func:`plan` raises.  ``backend="auto"``
 resolves at plan time, and the result is what ``PlanConfig.backend``
-holds: ``"cuda_fused_e2e"`` on the card where its kernel holds (n, t)
-(n <= 16384 at t <= 8), ``"cuda_fused"`` past it, and
+holds: ``"cuda_fused_e2e"`` on the card where its kernels hold (n, t)
+(K2 up to n = 16384, the multi-block K2-fs past it, at t <= 8; K2 alone
+at larger t), ``"cuda_fused"`` past them, and
 ``"torch"`` on the CPU.  The kernel backends serve every n up to 65536
 (one-block kernels where a polynomial fits a CTA, multi-block kernels
-past it) and refuse larger n at plan time, as does an explicit
-``"cuda_fused_e2e"`` past its kernel's reach.  ``schedule`` (``"auto"``,
+past it) and refuse larger n at plan time; an explicit
+``"cuda_fused_e2e"`` past K2's reach at t > 8 is refused (knob ``t``):
+K2-fs's clusters hold one channel a CTA.  ``schedule`` (``"auto"``,
 ``"radix2"``, ``"four_step"``, ``"four_step:h"`` or a
 :class:`ScheduleSpec`) and a ``tiling`` chain resolve, as in the
 reference, into the :class:`ScheduleSpec` of ``PlanConfig.schedule``,
@@ -167,9 +169,9 @@ def plan(
     Raises :class:`repro_torch.UnknownKnobError` for a knob outside its
     vocabulary and :class:`repro_torch.UnservableConfigError` for a valid
     combination the port cannot serve (v > 31, no card, n above 65536 on a
-    kernel backend, n or t past the e2e kernel's reach on
-    ``"cuda_fused_e2e"``, ``"four_step:h"`` below n = 8192, a mismatched
-    ``tiling``), each with the same ``knob`` as the reference."""
+    kernel backend, t > 8 past K2's reach on ``"cuda_fused_e2e"``,
+    ``"four_step:h"`` below n = 8192, a mismatched ``tiling``), each with
+    the same ``knob`` as the reference."""
     if not isinstance(n, int) or n < 4 or n & (n - 1):
         raise UnknownKnobError(
             f"n must be a power of two >= 4, got n={n!r}", knob="n", value=n, alternatives=()
@@ -204,13 +206,21 @@ def _admit(backend: str, spec: ScheduleSpec, n: int, t: int, v: int, dev: torch.
            params: ParenttParams | None = None) -> ParenttParams:
     """The kernel backends' admission, shared by :func:`plan` and
     :func:`plan_from_params`: refuse n above the multi-block kernels'
-    reach, or a kernel whose CTA the spec's accounting does not fit
-    (before the prime search), build the params unless given, and refuse
-    S or L past the kernels' limb arrays."""
+    reach, ``cuda_fused_e2e`` where neither K2 nor K2-fs holds (n, t), or
+    a kernel whose CTA the spec's accounting does not fit (before the
+    prime search), build the params unless given, and refuse S or L past
+    the kernels' limb arrays."""
     if backend in KERNEL_BACKENDS and n > ntt_kernels.FS_MAX_N:
         raise UnservableConfigError(
             f"backend={backend!r} serves n <= {ntt_kernels.FS_MAX_N}, got n={n}",
             knob="n", value=n, alternatives=("backend='torch'",),
+        )
+    if backend == "cuda_fused_e2e" and not (ntt_kernels.e2e_fits(n, t)
+                                            or ntt_kernels.e2e_fs_fits(n, t)):
+        raise UnservableConfigError(
+            f"backend='cuda_fused_e2e' past one CTA (n={n} at t={t}) runs the multi-block "
+            f"K2-fs, whose clusters hold t <= {ntt_kernels.MAX_CLUSTER} channels, one a CTA",
+            knob="t", value=t, alternatives=("backend='cuda_fused'", "backend='torch'"),
         )
     if backend in KERNEL_BACKENDS and spec.smem_bytes > spec.smem_budget:
         raise UnservableConfigError(

@@ -174,8 +174,12 @@ def validate_lazy_envelope(q: int, window: int, beta: int) -> None:
 
 
 def shoup_constants(table: Lanes, q: int, beta: int) -> np.ndarray:
-    """w' = floor(w * 2^beta / q) per twiddle (host bigints, any shape)."""
+    """w' = floor(w * 2^beta / q) per twiddle w in [0, q) (any shape): in
+    int64 lanes where w * 2^beta < 2^63 (q <= 2^(63 - beta)), else with
+    host bigints; the same integers either way."""
     tab = np.asarray(table, dtype=np.int64)
+    if int(q) << beta <= 1 << 63:
+        return (tab << beta) // int(q)
     flat = [((int(w) << beta) // int(q)) for w in tab.reshape(-1)]
     return np.array(flat, dtype=np.int64).reshape(tab.shape)
 

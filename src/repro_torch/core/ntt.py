@@ -67,14 +67,31 @@ class NttTables(NamedTuple):
     mul_shifts: tuple[int, int] | None = None
 
 
+def _powers(base: int, n: int, q: int) -> np.ndarray:
+    """base^k mod q for k = 0 .. n - 1: by doubling in int64 lanes where
+    every product stays below 2^63 (q < 2^31), else with host bigints;
+    the same integers either way."""
+    if q >= 1 << 31:
+        return np.array([pow(base, k, q) for k in range(n)], dtype=np.int64)
+    out = np.empty(n, dtype=np.int64)
+    out[0] = 1
+    m, step = 1, base % q
+    while m < n:
+        k = min(m, n - m)
+        out[m:m + k] = out[:k] * step % q
+        step = step * step % q
+        m *= 2
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def make_tables(q: int, n: int) -> NttTables:
-    """Precompute twiddles (host-side Python bigints, cached)."""
+    """Precompute twiddles (cached): psi^brv(i) and psi^-brv(i) mod q."""
     psi = primes_mod.root_of_unity(q, 2 * n)
     brv = bit_reverse_indices(n)
-    fwd = np.array([pow(psi, int(b), q) for b in brv], dtype=np.int64)
+    fwd = _powers(psi, n, q)[brv]
     psi_inv = pow(psi, q - 2, q)
-    inv = np.array([pow(psi_inv, int(b), q) for b in brv], dtype=np.int64)
+    inv = _powers(psi_inv, n, q)[brv]
     eps, shifts = modmath.mul_barrett_constants([q])
     return NttTables(
         q=q,

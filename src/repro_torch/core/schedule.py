@@ -263,9 +263,10 @@ def resolve_spec(n: int, schedule, *, tiling=None, backend: str = "torch",
     reference's TPU knob and is not ported (knob ``tiling``).  The card's
     fields describe the kernel the backend's main path launches at n: K3
     and K4 (``"cuda"``), K1 (``"cuda_fused"``), each one-block where the
-    polynomial fits a CTA and multi-block past it, or K2
-    (``"cuda_fused_e2e"``, one channel's polynomials a CTA).  Whether that
-    kernel fits its budget is the caller's admission."""
+    polynomial fits a CTA and multi-block past it, or K2 and K2-fs
+    (``"cuda_fused_e2e"``: one channel's polynomials a CTA, multi-block
+    past it).  Whether that kernel serves (n, t) is the caller's
+    admission."""
     spec = concrete_spec(n, schedule)
     if tiling is not None:
         if isinstance(tiling, int):

@@ -18,11 +18,11 @@
 //   by one word in 16 against bank conflicts), and the coefficient slice
 //   [ceil(r n / C), ceil((r + 1) n / C)), which is uneven when C does not
 //   divide n;
-// * decompose: copies its slice's segments of both operands, a chunk at a
-//   time, into shared memory (cp.async, coalesced), runs every channel's
-//   SAU circuit on them (half the threads per operand) and stores each
-//   residue straight into the owning CTA's shared memory over DSMEM;
-//   cluster.sync();
+// * decompose (parentt.cuh cluster_decompose, shared with K2-fs): copies
+//   its slice's segments of both operands, a chunk at a time, into shared
+//   memory (cp.async, coalesced), runs every channel's SAU circuit on them
+//   (half the threads per operand) and stores each residue straight into
+//   the owning CTA's shared memory over DSMEM; cluster.sync();
 // * cascade: per owned channel, NTT(a) and NTT(b), the pointwise product,
 //   the iNTT and y_i = p_i * q~_i mod q_i, on the register passes of
 //   parentt.cuh (channel_cascade, shared with K1 and K3).  A thread keeps
@@ -31,7 +31,8 @@
 //   and the last forward trip, the product and the first inverse trip are
 //   one (at n = 4096: 6 barriers a channel, against 37 when every stage is
 //   one); cluster.sync();
-// * compose: reads y_i of its slice from every peer over DSMEM, runs the
+// * compose (parentt.cuh cluster_compose, shared with K2-fs): reads y_i
+//   of its slice from every peer over DSMEM, runs the
 //   Eq-10 limb sums and the tail (the quotient floor(value / q) =
 //   floor(sum y_i / q_i) estimated in double and corrected by one
 //   conditional add or subtract of q, in place of t - 1 conditional
@@ -118,14 +119,6 @@ __host__ __device__ inline size_t e2e_dynamic_smem(int n, int slots, int S, int 
   return residue_bytes(n, slots) + (size_t)stage_words_of(pass_threads(n), S, L) * sizeof(i64);
 }
 
-// y = canonical(p) * q~ mod q: what K2's last inverse pass stores.
-struct TildeProduct {
-  res_t tilde;
-  __device__ __forceinline__ res_t operator()(res_t x, const Reduce& r) const {
-    return mul_mod(canonicalize(x, r), tilde, r);
-  }
-};
-
 template <int REG, int MAXL>
 __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
     fused_e2e_polymul_kernel(const E2EArgs args) {
@@ -149,27 +142,13 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
 
   // Step 1: decompose this CTA's slice of both operands into every
   // channel, each residue stored in its owner's shared memory.
-  const int CH = T / 2;
-  const int op = threadIdx.x / CH;  // 0: a, 1: b
-  const int jj = threadIdx.x - op * CH;
-  for (int jc = j0; jc < j1; jc += CH) {
-    const int cnt = min(CH, j1 - jc);
-    const size_t seg = (row * n + jc) * S;
-    stage_words(stage, args.za + seg, cnt * S);
-    stage_words(stage + CH * S, args.zb + seg, cnt * S);
-    __syncthreads();
-    if (jj < cnt) {
-      const i64* z = stage + (op * CH + jj) * S;
-      const int at = (op * PS) + pad(jc + jj);
-      int owner = 0, slot = 0;
-      for (int c = 0; c < t; ++c) {
-        const i64 x = decompose<REG != kStrict>(z, S, dsh.ch[c], dsh);
-        cluster.map_shared_rank(res, owner)[slot * 2 * PS + at] = (res_t)x;
-        if (++owner == C) owner = 0, ++slot;
-      }
-    }
-    __syncthreads();
-  }
+  cluster_decompose<REG != kStrict>(
+      cluster, res, PS, C, t, S, j0, j1, stage, dsh,
+      [&](i64* sa, i64* sb, int jc, int cnt) {
+        const size_t seg = (row * n + jc) * S;
+        stage_words(sa, args.za + seg, cnt * S);
+        stage_words(sb, args.zb + seg, cnt * S);
+      });
   cluster.sync();
 
   // Steps 2-3: the cascade and y_i = p_i * q~_i mod q_i per owned channel.
@@ -188,34 +167,11 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
 
   // Step 4: Eq-10 limb sums over the peers' y, the compose tail, and the
   // (chunk, L) limbs staged and written coalesced.
-  for (int jc = j0; jc < j1; jc += T) {
-    const int cnt = min(T, j1 - jc);
-    const int j = threadIdx.x;
-    if (j < cnt) {
-      const int at = pad(jc + j);
-      i64 acc[MAXL];
-      int owner = 0, off = at;  // channel c sits on CTA c % C at slot c / C
-      double quotient = 0.0;    // sum_c y_c / q_c
-      crt_limb_sums(
-          acc,
-          [&](int c) {
-            const res_t y = cluster.map_shared_rank(res, owner)[off];
-            if (++owner == C) owner = 0, off += 2 * PS;
-            quotient = fma((double)y, dsh.ch[c].inv_q, quotient);
-            return (i64)y;
-          },
-          args.star, t, L);
-      compose_finalize_quotient(acc, (int)quotient, args.q_limbs, L, args.w);
-#pragma unroll
-      for (int l = 0; l < MAXL; ++l) {
-        if (l < L) stage[j * L + l] = acc[l];
-      }
-    }
-    __syncthreads();
-    i64* po = args.out + (row * n + jc) * L;
-    for (int i = threadIdx.x; i < cnt * L; i += T) po[i] = stage[i];
-    __syncthreads();
-  }
+  cluster_compose<MAXL>(cluster, res, PS, C, t, L, args.w, j0, j1, args.star, args.q_limbs, stage,
+                        dsh, [&](const i64* st, int jc, int cnt) {
+                          i64* po = args.out + (row * n + jc) * L;
+                          for (int i = threadIdx.x; i < cnt * L; i += T) po[i] = st[i];
+                        });
   cluster.sync();  // peers have read this CTA's y before it exits
 }
 

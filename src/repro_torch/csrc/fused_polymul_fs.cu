@@ -16,7 +16,8 @@
 //      adjacent columns of both operands (coalesced int64 row segments)
 //      and stores their lazy values as 32-bit words to two scratch
 //      tensors;
-//   2. one row pass: a CTA takes E/n2 whole rows of both, runs the forward
+//   2. one row pass (parentt.cuh fs_rows_cascade, which K2-fs's row launch
+//      runs too): a CTA takes E/n2 whole rows of both, runs the forward
 //      row stages, the canonical pointwise product and the inverse row
 //      stages (the last forward and first inverse stages share one trip,
 //      middle_span, as in K1) in its shared memory, and stores the
@@ -45,29 +46,7 @@ __global__ void __launch_bounds__(kFsThreads, 4) fused_fs_cols_kernel(const FsAr
 template <int REG>
 __global__ void __launch_bounds__(kFsThreads, 4) fused_fs_rows_kernel(const FsArgs a) {
   extern __shared__ res_t smem[];
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const ChannelTabs tb = fs_tabs(a, g.c);
-  const int E = 1 << g.log_e;
-  const int x0 = g.blk << g.log_e;
-  const int K = pass_group(E);
-  const GlobalIn<res_t, 2, RowMap> in{{a.scratch[0] + g.poly, a.scratch[1] + g.poly}, RowMap{}};
-  const ScratchOut<1, RowMap> out{{a.scratch[0] + g.poly}, RowMap{}};
-  if (g.log_n2 <= K) {  // one pass: the row stages around the product, in registers
-#define ONE(G) middle_span<G>(in, out, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
-    PARENTT_DISPATCH_G(g.log_n2, ONE)
-#undef ONE
-    return;
-  }
-  const TilePolys<2> ab{{smem, smem + padded(E)}, x0};
-  const TilePolys<1> prod{{smem}, x0};
-  forward_stages<2>(in, ab, ab, g.log_n1, g.log_n - K, g.log_n, x0, g.log_e, K, tb, r);
-  __syncthreads();
-#define MIDDLE(G) middle_span<G>(ab, prod, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
-  PARENTT_DISPATCH_G(K, MIDDLE)
-#undef MIDDLE
-  __syncthreads();
-  inverse_stages(prod, prod, out, K, g.log_n2, g.log_n, x0, g.log_e, K, tb, r);
+  fs_rows_cascade<REG>(a, smem);
 }
 
 template <int REG>

@@ -1,9 +1,11 @@
 // Device functions shared by the port's kernels: the fused cascade
 // (fused_polymul.cu), the fused end-to-end multiplier
-// (fused_e2e_polymul.cu) and the stage kernels (ntt_channels.cu,
-// intt_channels.cu, decompose.cu, compose.cu), among them the register
-// passes of the transforms that K1-K4 run and the Eq-10 compose tail that
-// K2 and K6 run.
+// (fused_e2e_polymul.cu), the stage kernels (ntt_channels.cu,
+// intt_channels.cu, decompose.cu, compose.cu) and their multi-block forms
+// (*_fs.cu), among them the register passes of the transforms that K1-K4
+// run, the multi-block column and row stages, the Eq-10 compose tail that
+// K2 and K6 run, and the cluster steps (DSMEM decompose, compose over the
+// peers' y) that K2 and K2-fs run.
 //
 // Every function stores, word for word, what the int64 arithmetic of the
 // plain PyTorch versions (repro_torch/core/modmath.py,
@@ -525,7 +527,7 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 }
 
 // --------------------------------------------------------------------------
-// Multi-block (four-step) transforms (K1-fs, K3-fs, K4-fs)
+// Multi-block (four-step) transforms (K1-fs, K3-fs, K4-fs, K2-fs)
 // --------------------------------------------------------------------------
 //
 // A polynomial too long for one CTA's shared memory is the same radix-2
@@ -767,6 +769,38 @@ __device__ __forceinline__ void fs_cols_forward(const FsArgs& a, res_t* smem) {
                         fs_tabs(a, g.c), r);
 }
 
+// The row launch of the multi-block cascade (K1-fs, K2-fs): a CTA takes
+// E / n2 whole rows of both operands' 32-bit scratch, runs the forward row
+// stages, the canonical pointwise product and the inverse row stages in
+// its shared memory (two padded tiles), and stores the product's lazy
+// values over the first operand's scratch.
+template <int REG>
+__device__ __forceinline__ void fs_rows_cascade(const FsArgs& a, res_t* smem) {
+  const FsGeom g = fs_geom(a.log_n, a.rows);
+  const Reduce r = fs_reduce<REG>(a, g.c);
+  const ChannelTabs tb = fs_tabs(a, g.c);
+  const int E = 1 << g.log_e;
+  const int x0 = g.blk << g.log_e;
+  const int K = pass_group(E);
+  const GlobalIn<res_t, 2, RowMap> in{{a.scratch[0] + g.poly, a.scratch[1] + g.poly}, RowMap{}};
+  const ScratchOut<1, RowMap> out{{a.scratch[0] + g.poly}, RowMap{}};
+  if (g.log_n2 <= K) {  // one pass: the row stages around the product, in registers
+#define ONE(G) middle_span<G>(in, out, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
+    PARENTT_DISPATCH_G(g.log_n2, ONE)
+#undef ONE
+    return;
+  }
+  const TilePolys<2> ab{{smem, smem + padded(E)}, x0};
+  const TilePolys<1> prod{{smem}, x0};
+  forward_stages<2>(in, ab, ab, g.log_n1, g.log_n - K, g.log_n, x0, g.log_e, K, tb, r);
+  __syncthreads();
+#define MIDDLE(G) middle_span<G>(ab, prod, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
+  PARENTT_DISPATCH_G(K, MIDDLE)
+#undef MIDDLE
+  __syncthreads();
+  inverse_stages(prod, prod, out, K, g.log_n2, g.log_n, x0, g.log_e, K, tb, r);
+}
+
 // Inverse column stages: 32-bit scratch -> canonical int64 output.
 template <int REG>
 __device__ __forceinline__ void fs_cols_inverse(const FsArgs& a, res_t* smem) {
@@ -1000,6 +1034,104 @@ __device__ __forceinline__ void compose_finalize_quotient(i64 (&acc)[MAXL], int 
   }
 #pragma unroll
   for (int l = 0; l < MAXL; ++l) acc[l] = limb[l];
+}
+
+// --------------------------------------------------------------------------
+// Cluster steps of the fused e2e kernels (K2, K2-fs)
+// --------------------------------------------------------------------------
+//
+// A thread-block cluster of C CTAs shares a run of coefficients j (a row
+// for K2, a column tile for K2-fs), and CTA `rank` takes the slice
+// [ceil(rank m / C), ceil((rank + 1) m / C)) of the run's m coefficients.
+// Channel c lives on CTA c % C as slot c / C: its two residue
+// polynomials at res + slot * 2 * PS (a, then b at + PS), element j at
+// pad(j); after the cascade y(c) sits where a was.  `Cluster` is
+// cooperative_groups' cluster_group.
+
+// y = canonical(p) * q~ mod q: what the cascade's last inverse pass
+// stores for the compose.
+struct TildeProduct {
+  res_t tilde;
+  __device__ __forceinline__ res_t operator()(res_t x, const Reduce& r) const {
+    return mul_mod(canonicalize(x, r), tilde, r);
+  }
+};
+
+// Decompose the slice [j0, j1) of both operands into every channel, each
+// residue stored in its owner's shared memory over DSMEM.  A chunk of
+// blockDim / 2 coefficients at a time: stage_in(sa, sb, jc, cnt), run by
+// the whole block, leaves the S segments of coefficients jc .. jc + cnt - 1
+// of operand a at sa and of b at sb; then half the threads decompose a,
+// half b.  The caller synchronises the cluster before (every peer runs)
+// and after (every residue landed).
+template <bool NARROW, typename Cluster, typename StageIn>
+__device__ __forceinline__ void cluster_decompose(Cluster& cluster, res_t* res, int PS, int C,
+                                                  int t, int S, int j0, int j1, i64* stage,
+                                                  const DecomposeShared& dsh,
+                                                  const StageIn& stage_in) {
+  const int CH = blockDim.x / 2;
+  const int op = threadIdx.x / CH;  // 0: a, 1: b
+  const int jj = threadIdx.x - op * CH;
+  for (int jc = j0; jc < j1; jc += CH) {
+    const int cnt = min(CH, j1 - jc);
+    stage_in(stage, stage + CH * S, jc, cnt);
+    __syncthreads();
+    if (jj < cnt) {
+      const i64* z = stage + (op * CH + jj) * S;
+      const int at = (op * PS) + pad(jc + jj);
+      int owner = 0, slot = 0;
+      for (int c = 0; c < t; ++c) {
+        const i64 x = decompose<NARROW>(z, S, dsh.ch[c], dsh);
+        cluster.map_shared_rank(res, owner)[slot * 2 * PS + at] = (res_t)x;
+        if (++owner == C) owner = 0, ++slot;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Eq-10 limb sums over the peers' y for the slice [j0, j1), the compose
+// tail (the quotient floor(value / q) = floor(sum y_c / q_c) estimated in
+// double, one conditional correction), and the (chunk, L) limbs staged in
+// `stage`, a chunk of blockDim coefficients at a time; store_out(stage,
+// jc, cnt), run by the whole block, writes a chunk's limbs out.  The
+// caller synchronises the cluster before (every y stored) and after (the
+// peers have read this CTA's y before it exits).
+template <int MAXL, typename Cluster, typename StoreOut>
+__device__ __forceinline__ void cluster_compose(Cluster& cluster, res_t* res, int PS, int C,
+                                                int t, int L, int w, int j0, int j1,
+                                                const i64* __restrict__ star,
+                                                const i64* __restrict__ q_limbs, i64* stage,
+                                                const DecomposeShared& dsh,
+                                                const StoreOut& store_out) {
+  const int T = blockDim.x;
+  for (int jc = j0; jc < j1; jc += T) {
+    const int cnt = min(T, j1 - jc);
+    const int j = threadIdx.x;
+    if (j < cnt) {
+      const int at = pad(jc + j);
+      i64 acc[MAXL];
+      int owner = 0, off = at;  // channel c sits on CTA c % C at slot c / C
+      double quotient = 0.0;    // sum_c y_c / q_c
+      crt_limb_sums(
+          acc,
+          [&](int c) {
+            const res_t y = cluster.map_shared_rank(res, owner)[off];
+            if (++owner == C) owner = 0, off += 2 * PS;
+            quotient = fma((double)y, dsh.ch[c].inv_q, quotient);
+            return (i64)y;
+          },
+          star, t, L);
+      compose_finalize_quotient(acc, (int)quotient, q_limbs, L, w);
+#pragma unroll
+      for (int l = 0; l < MAXL; ++l) {
+        if (l < L) stage[j * L + l] = acc[l];
+      }
+    }
+    __syncthreads();
+    store_out(stage, jc, cnt);
+    __syncthreads();
+  }
 }
 
 // --------------------------------------------------------------------------

@@ -40,6 +40,16 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   :mod:`repro_torch.core.ntt` in the reference's grouping: the outputs
   are canonical, so they agree whatever the split.  ``.launches`` counts
   calls, each of two (K3-fs, K4-fs) or three (K1-fs) CUDA launches.
+* :func:`fused_e2e_polymul_fs_cuda` (``csrc/fused_e2e_polymul_fs.cu``,
+  K2-fs) replaces the four-step body of ``fused_e2e_polymul_pallas``: K2's
+  function past one CTA (n > 16384 at t <= 8), three launches over the
+  same tiles: the forward columns with the decompose fused in, as a
+  cluster of min(t, 8) CTAs per (row, column tile) whose residues move
+  through distributed shared memory; K1-fs's row launch; the inverse
+  columns with the compose fused in, as the same clusters.  Only 32-bit
+  lazy words reach device memory between the launches.  Its plain version
+  is K2's over the four-step cascade; ``.launches`` counts calls and
+  ``.cluster`` is the cluster size of the last.
 
 Each wrapper runs its plain version (the ``*_ref`` functions) only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -166,18 +176,46 @@ def e2e_fits(n: int, t: int) -> bool:
     return max(cascade_smem_bytes(n), e2e_smem_bytes(n, t)) <= MAX_SMEM_BYTES
 
 
+# the smallest n K2-fs takes (a column tile of 16 elements, 8 threads a CTA)
+E2E_FS_MIN_N = 16
+
+
+def e2e_fs_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) -> int:
+    """Shared memory of a K2-fs CTA at most (csrc/fused_e2e_polymul_fs.cu
+    ``pass_smem``): its forward column launch holds both operands' padded
+    tiles and half a block's segments per operand, its inverse column
+    launch the y tile and a block's limbs, both the decompose circuit
+    table; its row launch is K1-fs's (two tiles).  ``S`` and ``L`` default
+    to the kernel's largest counts (an upper bound for admission)."""
+    words, threads = padded_words(fs_tile(n)), fs_threads(n)
+    tiles = lambda k: -(-k * words * RESIDUE_BYTES // 16) * 16
+    cols = tiles(2) + 2 * (threads // 2) * S * 8
+    inv_cols = tiles(1) + threads * L * 8
+    return max(cols, inv_cols) + DECOMPOSE_SHARED_BYTES
+
+
+def e2e_fs_fits(n: int, t: int) -> bool:
+    """Whether the multi-block e2e kernel K2-fs holds (n, t): n >= 16, one
+    channel a CTA of its clusters (t <= 8), its CTAs within one block's
+    shared memory."""
+    return (n >= E2E_FS_MIN_N and t <= MAX_CLUSTER
+            and e2e_fs_smem_bytes(n, t) <= MAX_SMEM_BYTES)
+
+
 def main_path_kernel_smem(backend: str, n: int, t: int) -> tuple[bool, int]:
     """(multi_block, shared memory of one CTA) of the kernel a kernel
     backend's main path launches at (n, t): K3 / K4 or K3-fs / K4-fs
-    (``"cuda"``), K1 or K1-fs (``"cuda_fused"``), K2 (``"cuda_fused_e2e"``,
-    one block a channel; admission refuses what it cannot hold)."""
+    (``"cuda"``), K1 or K1-fs (``"cuda_fused"``), K2 or K2-fs
+    (``"cuda_fused_e2e"``; admission refuses what neither holds)."""
     if backend == "cuda":
         return (False, stage_smem_bytes(n)) if stage_fits(n) else (True, ntt_fs_smem_bytes(n))
     if backend == "cuda_fused":
         return ((False, cascade_smem_bytes(n)) if cascade_fits(n)
                 else (True, cascade_fs_smem_bytes(n)))
     if backend == "cuda_fused_e2e":
-        return False, max(cascade_smem_bytes(n), e2e_smem_bytes(n, t))
+        if e2e_fits(n, t):
+            return False, max(cascade_smem_bytes(n), e2e_smem_bytes(n, t))
+        return True, e2e_fs_smem_bytes(n, t)
     raise ValueError(f"main_path_kernel_smem: {backend!r} is not a kernel backend")
 
 
@@ -341,15 +379,22 @@ def fused_polymul_fs_ref(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables
 
 
 def fused_e2e_polymul_ref(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
-                          plan: RnsPlan) -> torch.Tensor:
+                          plan: RnsPlan, cascade=fused_polymul_ref) -> torch.Tensor:
     """Plain version of the e2e kernel: segments (rows, n, S) x 2 ->
     product limbs (rows, n, L), through the per-channel SAU circuits, the
-    cascade and the Eq-10 compose."""
-    p = fused_polymul_ref(decompose_ref(za, plan), decompose_ref(zb, plan), tables)  # (t, rows, n)
+    cascade (``cascade``: K1's plain version) and the Eq-10 compose."""
+    p = cascade(decompose_ref(za, plan), decompose_ref(zb, plan), tables)  # (t, rows, n)
     q, _, eps = channel_scalars(tables, 3)
     y = mul_mod(p, plan.qi_tilde_d.view(plan.t, 1, 1), q, eps, tables.mul_shifts)
     acc = (y[..., None] * plan.qi_star_limbs_d.view(plan.t, 1, 1, plan.L)).sum(dim=0)
     return compose_finalize(acc, plan.q_limbs, w=plan.w, t=plan.t)
+
+
+def fused_e2e_polymul_fs_ref(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
+                             plan: RnsPlan) -> torch.Tensor:
+    """Plain version of K2-fs: K2's over the four-step cascade (K1-fs's
+    plain version)."""
+    return fused_e2e_polymul_ref(za, zb, tables, plan, cascade=fused_polymul_fs_ref)
 
 
 # --------------------------------------------------------------------------
@@ -360,6 +405,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _STAGE_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _CASCADE_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
 _E2E_ARGTYPES = [_P] * 19 + [_I] * 14 + [_P]
+_E2E_FS_ARGTYPES = [_P] * 21 + [_I] * 14 + [_P]
 _FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _FS_CASCADE_ARGTYPES = [_P] * 12 + [_I] * 8 + [_P]
 # each K1/K3/K4 source's shared memory a CTA, one-block and multi-block
@@ -623,19 +669,24 @@ def intt_blocks_per_sm(tables: ChannelTables) -> int:
     return _blocks_per_sm(tables, "intt_channels")
 
 
-def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
-    """The checked (pointers, ints) of a K2 launch that depend only on the
-    plan and its tables: worked out at the plan's first launch with
-    ``tables`` and kept on the plan, so a short call does not pay for them
-    again."""
+def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str,
+                   smem_bytes=e2e_smem_bytes) -> tuple[tuple, tuple]:
+    """The checked (pointers, ints) of a K2 or K2-fs (``fn_name``, whose
+    CTAs hold ``smem_bytes(n, t, S, L)``) launch that depend only on the
+    plan and its tables: worked out at the plan's first launch of that
+    kernel with ``tables`` and kept on the plan, so a short call does not
+    pay for them again."""
     kept = plan.__dict__.get("_e2e_launch")
-    if kept is not None and kept[0] is tables:
-        return kept[1]
+    if kept is None:
+        kept = {}
+        object.__setattr__(plan, "_e2e_launch", kept)
+    if fn_name in kept and kept[fn_name][0] is tables:
+        return kept[fn_name][1]
     t, n, S, L = plan.t, plan.n, plan.seg_count, plan.L
     log_n = _check_n(n, fn_name)
     if S > MAX_SEGMENTS or L > MAX_LIMBS:
         raise ValueError(f"{fn_name}: S={S}, L={L} exceed the kernel's {MAX_SEGMENTS}/{MAX_LIMBS}")
-    if e2e_smem_bytes(n, t, S, L) > MAX_SMEM_BYTES:
+    if smem_bytes(n, t, S, L) > MAX_SMEM_BYTES:
         raise ValueError(f"{fn_name}: n={n}, t={t} do not fit one CTA's shared memory")
     dec = require_dec(plan)
     check_dec_limits(plan, fn_name)
@@ -651,8 +702,25 @@ def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str) -> tuple[
     ))
     ints = (log_n, t, S, L, plan.n_blocks, dec[0].acc_barrett[1], dec[0].acc_barrett[2], plan.w,
             mode, window, beta, s1, s2)
-    object.__setattr__(plan, "_e2e_launch", (tables, (pointers, ints)))
+    kept[fn_name] = (tables, (pointers, ints))
     return pointers, ints
+
+
+def _check_segments(za: torch.Tensor, zb: torch.Tensor, plan: RnsPlan, fn_name: str) -> int:
+    """The rows of two (rows, n, S) segment operands a K2 or K2-fs launch
+    takes; raises on what the kernel does not take."""
+    rows = za.shape[0] if za.dim() == 3 else -1
+    check_operand(za, (rows, plan.n, plan.seg_count), "za", fn_name)
+    check_operand(zb, (rows, plan.n, plan.seg_count), "zb", fn_name)
+    if zb.device != za.device:
+        raise ValueError(f"{fn_name}: operands on {za.device} and {zb.device}")
+    return rows
+
+
+def _check_plan_device(plan: RnsPlan, device: torch.device, fn_name: str) -> None:
+    if plan.qs_d.device != device:
+        raise ValueError(f"{fn_name}: plan and tables live on {plan.qs_d.device}, operands on "
+                         f"{device}")
 
 
 def fused_e2e_polymul_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
@@ -663,16 +731,10 @@ def fused_e2e_polymul_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTa
     if za.device.type == "cpu":
         return fused_e2e_polymul_ref(za, zb, tables, plan)
     fn_name = "fused_e2e_polymul_cuda"
-    rows = za.shape[0] if za.dim() == 3 else -1
-    check_operand(za, (rows, plan.n, plan.seg_count), "za", fn_name)
-    check_operand(zb, (rows, plan.n, plan.seg_count), "zb", fn_name)
-    if zb.device != za.device:
-        raise ValueError(f"{fn_name}: operands on {za.device} and {zb.device}")
+    rows = _check_segments(za, zb, plan, fn_name)
     pointers, ints = _e2e_constants(tables, plan, fn_name)
     launch = _build.load("fused_e2e_polymul", "parentt_fused_e2e_polymul", _E2E_ARGTYPES)
-    if plan.qs_d.device != za.device:
-        raise ValueError(f"{fn_name}: plan and tables live on {plan.qs_d.device}, operands on "
-                         f"{za.device}")
+    _check_plan_device(plan, za.device, fn_name)
     out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=za.device)
     if rows == 0:
         return out
@@ -697,3 +759,55 @@ def e2e_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> int:
     if count < 0:
         _build.check("fused_e2e_polymul", -count)
     return count
+
+
+def fused_e2e_polymul_fs_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
+                              plan: RnsPlan) -> torch.Tensor:
+    """K2-fs: segments (rows, n, S) x 2 -> product limbs (rows, n, L) as the
+    multi-block e2e kernel, three launches of ``csrc/fused_e2e_polymul_fs.cu``
+    (two of them clusters of min(t, 8) CTAs) with 32-bit scratch between
+    them, allocated here.  Takes n >= 16 and t <= 8.  CPU tensors run the
+    plain version."""
+    if za.device.type == "cpu":
+        return fused_e2e_polymul_fs_ref(za, zb, tables, plan)
+    fn_name = "fused_e2e_polymul_fs_cuda"
+    rows = _check_segments(za, zb, plan, fn_name)
+    if plan.n < E2E_FS_MIN_N or plan.t > MAX_CLUSTER:
+        raise ValueError(f"{fn_name}: takes n >= {E2E_FS_MIN_N} and t <= {MAX_CLUSTER} (one "
+                         f"channel a CTA of its clusters), got n={plan.n}, t={plan.t}")
+    pointers, ints = _e2e_constants(tables, plan, fn_name, e2e_fs_smem_bytes)
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_fused_e2e_polymul_fs", _E2E_FS_ARGTYPES)
+    _check_plan_device(plan, za.device, fn_name)
+    out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=za.device)
+    if rows == 0:
+        return out
+    scratch = [torch.empty((plan.t, rows, plan.n), dtype=torch.int32, device=za.device)
+               for _ in range(2)]
+    with torch.cuda.device(za.device):
+        code = launch(ptr(za), ptr(zb), *(ptr(x) for x in scratch), ptr(out), *pointers, rows,
+                      *ints, _build.stream_of(za))
+    _build.check("fused_e2e_polymul_fs", code)
+    fused_e2e_polymul_fs_cuda.launches += 1
+    fused_e2e_polymul_fs_cuda.cluster = e2e_cluster(plan.t)[0]
+    return out
+
+
+fused_e2e_polymul_fs_cuda.launches = 0
+fused_e2e_polymul_fs_cuda.cluster = 0  # CTAs per (row, column tile) of the last call
+
+
+def e2e_fs_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> tuple[int, int]:
+    """How many clusters of K2-fs's two cluster launches (forward columns,
+    inverse columns) the current card holds at once at this configuration
+    (``cudaOccupancyMaxActiveClusters``); its row launch is K1-fs's
+    (:func:`cascade_fs_blocks_per_sm`)."""
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_fused_e2e_polymul_fs_max_clusters",
+                         [_I] * 7)
+    mode, window = reduction_mode(tables)[:2]
+    counts = []
+    for p in (0, 2):
+        count = launch(p, plan.n.bit_length() - 1, plan.t, plan.seg_count, plan.L, mode, window)
+        if count < 0:
+            _build.check("fused_e2e_polymul_fs", -count)
+        counts.append(count)
+    return tuple(counts)

@@ -12,15 +12,20 @@ Backends
   one CUDA kernel (K1, :func:`repro_torch.kernels.ntt.fused_polymul_cuda`)
   and compose (K6).  Mirrors ``pallas_fused``.
 * ``"cuda_fused_e2e"`` — decompose -> cascade -> compose in ONE CUDA
-  kernel (K2, :func:`repro_torch.kernels.ntt.fused_e2e_polymul_cuda`);
-  residues never reach device memory.  Mirrors ``pallas_fused_e2e``.  The
-  stage entry points have no single-kernel form under it and take the
-  closest kernel datapath (:func:`_stage_backend`): the residue-domain
-  product runs K1, every other stage its ``cuda`` kernel.
+  kernel (K2, :func:`repro_torch.kernels.ntt.fused_e2e_polymul_cuda`)
+  where a CTA holds a channel's polynomials (n <= 16384), in the
+  multi-block K2-fs past it
+  (:func:`repro_torch.kernels.ntt.fused_e2e_polymul_fs_cuda`: one call of
+  three launches, only 32-bit lazy words between them); int64 residues
+  never reach device memory.  Mirrors ``pallas_fused_e2e``.  The stage
+  entry points have no single-kernel form under it and take the closest
+  kernel datapath (:func:`_stage_backend`): the residue-domain product
+  runs K1 (K1-fs), every other stage its ``cuda`` kernel.
 
 ``backend="auto"`` resolves at plan time: to ``cuda_fused_e2e`` on a CUDA
-device where K2 holds (n, t) (n <= 16384 at t <= 8), to ``cuda_fused``
-past it, and to ``torch`` on the CPU.  The kernel backends accept CPU
+device where K2 or K2-fs holds (n, t) (n <= 65536 at t <= 8, and K2's
+reach at larger t), to ``cuda_fused`` past it, and to ``torch`` on the
+CPU.  The kernel backends accept CPU
 tensors too: their wrappers then run the kernels' plain versions.
 
 Schedules
@@ -68,12 +73,13 @@ def validate_backend(backend: str) -> str:
 
 def resolve_backend(backend: str, device: torch.device, n: int, t: int) -> str:
     """A concrete backend for (n, t) on ``device``: ``"auto"`` is the fused
-    e2e kernel K2 where it holds (n, t), the fused cascade past it, the
-    plain ``torch`` on the CPU."""
+    e2e backend where K2 or K2-fs holds (n, t), the fused cascade past
+    them, the plain ``torch`` on the CPU."""
     if backend == "auto":
         if torch.device(device).type != "cuda":
             return "torch"
-        return "cuda_fused_e2e" if ntt_kernels.e2e_fits(n, t) else "cuda_fused"
+        e2e = ntt_kernels.e2e_fits(n, t) or ntt_kernels.e2e_fs_fits(n, t)
+        return "cuda_fused_e2e" if e2e else "cuda_fused"
     return validate_backend(backend)
 
 
@@ -237,8 +243,8 @@ def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams,
                       backend: str, schedule=None) -> torch.Tensor:
     """za, zb: (..., n, S) segments -> (..., n, L) product limbs:
     decompose -> per-channel cascade -> compose.  On ``cuda_fused_e2e``
-    all three run in one kernel; other backends compose the stage
-    dispatchers."""
+    all three run in one kernel, K2 where it holds (n, t), else K2-fs;
+    other backends compose the stage dispatchers."""
     backend = validate_backend(backend)
     for name, z in (("za", za), ("zb", zb)):
         if z.dim() < 2 or z.shape[-2] != params.n:
@@ -260,5 +266,7 @@ def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams,
     lead = za.shape[:-2]
     z3a = za.reshape((-1,) + za.shape[-2:]).contiguous()
     z3b = zb.reshape((-1,) + zb.shape[-2:]).contiguous()
-    out = ntt_kernels.fused_e2e_polymul_cuda(z3a, z3b, ct, params.plan)
+    e2e = (ntt_kernels.fused_e2e_polymul_cuda if ntt_kernels.e2e_fits(params.n, params.t)
+           else ntt_kernels.fused_e2e_polymul_fs_cuda)
+    out = e2e(z3a, z3b, ct, params.plan)
     return out.reshape(lead + (params.n, params.plan.L))

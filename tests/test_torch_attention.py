@@ -23,6 +23,8 @@ from repro.kernels import attention as jattn
 
 from repro_torch.kernels import attention as tattn
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 F32_TOL = 1e-5
 
 

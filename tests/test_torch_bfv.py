@@ -32,6 +32,8 @@ from repro_torch.examples import encrypted_inference
 from repro_torch.kernels import ntt as tkern
 from repro_torch.train import aggregation as tagg
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 N, T, V, PT = 64, 3, 30, 1 << 16
 BATCHES = [(), (4,)]
 
@@ -371,11 +373,14 @@ def test_plan_from_params_refuses_what_plan_refuses():
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"), use_sau=False)
     assert (err.value.knob, err.value.value, err.value.alternatives) == ("use_sau", False, (True,))
-    # the shared admission: the e2e kernel's shared memory and the kernels' limb arrays
+    # the shared admission: the e2e kernels' reach (K2-fs past one CTA, at
+    # t <= 8) and the kernels' limb arrays
     big = tparams.make_params(1 << 15, 1, 30, device="cpu")
+    assert repro_torch.plan_from_params(big, backend="cuda_fused_e2e").config.schedule.multi_block
+    big9 = tparams.make_params(1 << 15, 9, 30, device="cpu")
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan_from_params(big, backend="cuda_fused_e2e")
-    assert err.value.knob == "n"
+        repro_torch.plan_from_params(big9, backend="cuda_fused_e2e")
+    assert err.value.knob == "t"
     assert repro_torch.plan_from_params(big, backend="cuda").config.backend == "cuda"
     assert repro_torch.plan_from_params(big, backend="cuda_fused").config.schedule.multi_block
     wide = tparams.make_params(N, 16, 30, device="cpu")

@@ -32,6 +32,8 @@ from repro_torch.core import polymul as tpm
 from repro_torch.core import rns as trns
 from repro_torch.kernels import ntt as tkern
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 # (n, t, v): the paper's point and its test presets, plus the v = 29
@@ -298,6 +300,7 @@ def test_host_oracles_match_reference():
 _PURITY_PROBE = """
 import importlib, importlib.util, pkgutil, sys
 import repro_torch
+
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)

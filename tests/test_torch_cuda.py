@@ -21,6 +21,8 @@ from repro_torch.core.params import make_params
 from repro_torch.kernels import attention, crt
 from repro_torch.kernels import ntt as kern
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -127,6 +129,10 @@ def test_main_path_launches_the_kernels(cuda_device):
 # need the 32-bit Barrett window (RnsPlan.dec)
 E2E_CORNERS = [(16384, 8, 29), (16384, 8, 30), (16384, 8, 31),
                (8192, 15, 29), (8192, 14, 30), (8192, 13, 31)]
+# K2-fs's (n, t, v) past one CTA at t <= 8 that plan() refuses on every
+# kernel backend: at v = 31 the in-kernel decompose constants stop at t = 6
+# for n = 32768 and t = 3 for 65536 (knob t)
+E2E_FS_REFUSED = {(32768, 8, 31), (65536, 6, 31), (65536, 8, 31)}
 
 
 @pytest.mark.parametrize("n,t,v", [(n, t, v) for n, t, v, _ in PRESETS]
@@ -152,13 +158,29 @@ def test_e2e_and_decompose_kernels_at_one_and_odd_rows(cuda_device, n, t, v):
 
 
 def test_e2e_corners_are_the_edge_of_admission():
-    """Runs without a card: each corner is admitted, and one step past it
-    in t (or n) is not, so the corners cover the largest CTAs served."""
+    """Runs without a card: each corner is admitted on K2 (one block a
+    channel), and one step past it in t is refused (knob t), so the
+    corners cover the largest CTAs K2 serves; one step past it in n is the
+    multi-block K2-fs's at t <= 8 (up to n = 65536; 131072 is refused,
+    knob n) and refused past t = 8, where no K2-fs cluster holds the
+    channels, and where the decompose constants stop (E2E_FS_REFUSED;
+    knob t)."""
     for n, t, v in E2E_CORNERS:
-        repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device="cpu")
-        for bigger in ((n, t + 1, v), (2 * n, t, v)):
-            with pytest.raises(repro_torch.UnservableConfigError):
-                repro_torch.plan(*bigger, backend="cuda_fused_e2e", device="cpu")
+        pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device="cpu")
+        assert not pl.config.schedule.multi_block
+        with pytest.raises(repro_torch.UnservableConfigError) as err:
+            repro_torch.plan(n, t + 1, v, backend="cuda_fused_e2e", device="cpu")
+        assert err.value.knob == "t"
+        if t <= kern.MAX_CLUSTER and (2 * n, t, v) not in E2E_FS_REFUSED:
+            pl = repro_torch.plan(2 * n, t, v, backend="cuda_fused_e2e", device="cpu")
+            assert pl.config.schedule.multi_block
+            with pytest.raises(repro_torch.UnservableConfigError) as err:
+                repro_torch.plan(131072, t, v, backend="cuda_fused_e2e", device="cpu")
+            assert err.value.knob == "n"
+        else:
+            with pytest.raises(repro_torch.UnservableConfigError) as err:
+                repro_torch.plan(2 * n, t, v, backend="cuda_fused_e2e", device="cpu")
+            assert err.value.knob == "t"
 
 
 @pytest.mark.parametrize("n,t,v", [(64, 3, 30), (256, 6, 30), (4096, 6, 30), (64, 9, 30)])
@@ -310,50 +332,104 @@ def test_multi_block_kernels_match_plain_versions(cuda_device, n, v):
 
 
 def test_multi_block_admission_edges():
-    """Runs without a card: plan() admits n = 65536 at t = 6 on cuda and
-    cuda_fused (multi-block kernels) and refuses 131072 there, and an
-    explicit cuda_fused_e2e above n = 16384 (knob n); the launch geometry
+    """Runs without a card: plan() admits n = 65536 at t = 6 on cuda,
+    cuda_fused and cuda_fused_e2e (multi-block kernels: K2-fs on the
+    last) and refuses 131072 there (knob n), and an explicit
+    cuda_fused_e2e above n = 16384 at t = 9 (knob t); the launch geometry
     of the multi-block kernels at 32768 and 65536 for t up to 14 comes
     from their own helpers."""
-    for backend in ("cuda", "cuda_fused"):
+    for backend in ("cuda", "cuda_fused", "cuda_fused_e2e"):
         pl = repro_torch.plan(65536, 6, 30, backend=backend, device="cpu")
         assert pl.config.schedule.multi_block and pl.config.schedule.card_split == (256, 256)
         with pytest.raises(repro_torch.UnservableConfigError) as err:
             repro_torch.plan(131072, 6, 30, backend=backend, device="cpu")
         assert err.value.knob == "n"
     for n in (32768, 65536):
+        pl = repro_torch.plan(n, 6, 30, backend="cuda_fused_e2e", device="cpu")
+        assert pl.config.schedule.card_split == kern.fs_split(n)
         with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, 6, 30, backend="cuda_fused_e2e", device="cpu")
-        assert err.value.knob == "n"
+            repro_torch.plan(n, 9, 30, backend="cuda_fused_e2e", device="cpu")
+        assert err.value.knob == "t"
         for t in (1, 6, 14):
             assert kern.fs_blocks(t, 16, n) * kern.fs_tile(n) == t * 16 * n
         assert kern.fs_threads(n) == 256
         assert max(kern.ntt_fs_smem_bytes(n), kern.intt_fs_smem_bytes(n),
-                   kern.cascade_fs_smem_bytes(n)) <= kern.MAX_SMEM_BYTES
+                   kern.cascade_fs_smem_bytes(n),
+                   kern.e2e_fs_smem_bytes(n, kern.MAX_CLUSTER)) <= kern.MAX_SMEM_BYTES
 
 
 def test_front_door_past_one_cta(cuda_device):
-    """plan(65536, 6, 30) under auto is cuda_fused on K1-fs; polymul,
-    negacyclic_mul, ntt and intt on it and on backend="cuda" equal a
-    backend="torch" plan on the card, and a polymul row the host oracle."""
+    """plan(65536, 6, 30) under auto is cuda_fused_e2e on K2-fs (its
+    negacyclic_mul on K1-fs); polymul, negacyclic_mul, ntt and intt on it
+    and on backends cuda_fused and cuda equal a backend="torch" plan on the
+    card, and a polymul row the host oracle."""
     n = 65536
     auto = repro_torch.plan(n, 6, 30)
-    assert auto.config.backend == "cuda_fused" and auto.config.schedule.multi_block
+    assert auto.config.backend == "cuda_fused_e2e" and auto.config.schedule.multi_block
     plain = repro_torch.plan(n, 6, 30, backend="torch", device=auto.device)
     za, zb, ra, rb = _inputs(auto, 2, seed=7, device=auto.device)
     za[..., -1] = zb[..., -1] = 0  # below q
-    for pl in (auto, repro_torch.plan(n, 6, 30, backend="cuda")):
-        kern.fused_polymul_fs_cuda.launches = 0
+    for pl, want in ((auto, (1, 1)), (repro_torch.plan(n, 6, 30, backend="cuda_fused"), (2, 0)),
+                     (repro_torch.plan(n, 6, 30, backend="cuda"), (0, 0))):
+        kern.fused_polymul_fs_cuda.launches = kern.fused_e2e_polymul_fs_cuda.launches = 0
         out = repro_torch.polymul(pl, za, zb)
         assert torch.equal(out, repro_torch.polymul(plain, za, zb))
         assert torch.equal(repro_torch.negacyclic_mul(pl, ra, rb),
                            repro_torch.negacyclic_mul(plain, ra, rb))
         assert torch.equal(repro_torch.ntt(pl, ra), repro_torch.ntt(plain, ra))
         assert torch.equal(repro_torch.intt(pl, ra), repro_torch.intt(plain, ra))
-        assert kern.fused_polymul_fs_cuda.launches == (2 if pl is auto else 0)
+        assert (kern.fused_polymul_fs_cuda.launches,
+                kern.fused_e2e_polymul_fs_cuda.launches) == want
     a = bigint.limbs_to_ints(za[1].cpu().numpy(), auto.v)
     b = bigint.limbs_to_ints(zb[1].cpu().numpy(), auto.v)
     assert repro_torch.from_limbs(auto, out[1]) == host.oracle_multiply(a, b, auto.params)
+
+
+# K2-fs at chip_smoke.py's FS_POINTS, with clusters of 3, 6 and 8 CTAs
+@pytest.mark.parametrize("t", (3, 6, 8))
+@pytest.mark.parametrize("n", SMOKE_FS_POINTS)
+def test_multi_block_e2e_kernel_matches_plain_version_and_k2(cuda_device, n, t):
+    """K2-fs equals its plain version (K2's over the four-step cascade)
+    bit for bit at an odd row count in each regime, equals K2 where K2
+    also serves n, runs clusters of min(t, 8) CTAs, and the card holds at
+    least one cluster of each of its cluster launches."""
+    for v in (29, 30, 31):
+        if (n, t, v) in E2E_FS_REFUSED:
+            with pytest.raises(repro_torch.UnservableConfigError):
+                repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device=cuda_device)
+            continue
+        pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device=cuda_device)
+        p = pl.params
+        za, zb, _, _ = _inputs(pl, 3, seed=n + t + v + 13, device=cuda_device)
+        za[..., -1] = zb[..., -1] = 0  # below q
+        got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+        torch.cuda.synchronize()
+        assert kern.fused_e2e_polymul_fs_cuda.cluster == min(t, 8)
+        assert torch.equal(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan))
+        if kern.e2e_fits(n, t):
+            assert torch.equal(got, kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan))
+        assert min(kern.e2e_fs_max_active_clusters(p.tables, p.plan)) >= 1
+
+
+def test_auto_polymul_past_one_cta_launches_only_k2fs(cuda_device):
+    """An auto polymul at (65536, 6, 30) is one K2-fs call (its three
+    launches) and nothing else, equal to a backend="torch" plan on the
+    card and to the host oracle on a row."""
+    pl = repro_torch.plan(65536, 6, 30)
+    za, zb, _, _ = _inputs(pl, 2, seed=17, device=pl.device)
+    za[..., -1] = zb[..., -1] = 0  # below q
+    wrappers = STAGE_WRAPPERS + (kern.fused_polymul_fs_cuda, kern.ntt_channels_fs_cuda,
+                                 kern.intt_channels_fs_cuda, kern.fused_e2e_polymul_fs_cuda)
+    for w in wrappers:
+        w.launches = 0
+    out = repro_torch.polymul(pl, za, zb)
+    torch.cuda.synchronize()
+    assert tuple(w.launches for w in wrappers) == (0,) * (len(wrappers) - 1) + (1,)
+    plain = repro_torch.plan(65536, 6, 30, backend="torch", device=pl.device)
+    assert torch.equal(out, repro_torch.polymul(plain, za, zb))
+    a = bigint.limbs_to_ints(za[0].cpu().numpy(), pl.v)
+    b = bigint.limbs_to_ints(zb[0].cpu().numpy(), pl.v)
+    assert repro_torch.from_limbs(pl, out[0]) == host.oracle_multiply(a, b, pl.params)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

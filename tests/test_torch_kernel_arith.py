@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from repro.core import modmath as jmod
+from repro_torch.core import bigint as tbigint
 from repro_torch.core import modmath as tmod
 from repro_torch.core.ntt import four_step_row_indices as tntt_row_indices
 from repro_torch.core import primes as tprimes
@@ -36,6 +37,8 @@ from repro_torch.core import rns as trns
 from repro_torch.core.params import make_params
 from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
+
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 M32 = np.uint64(0xFFFFFFFF)
 LAZY, REM = tkern.MODE_LAZY, tkern.MODE_REM
@@ -636,7 +639,7 @@ def fs_passes(begin, end, K, inverse):
     return out
 
 
-def fs_emulated(a, b, tables, kernel):
+def fs_emulated(a, b, tables, kernel, e2e=None):
     """K3-fs ("forward"), K4-fs ("inverse") or K1-fs ("cascade") on (t,
     rows, n) canonical residues, launch by launch as the kernels run them:
     the column CTAs' virtual length-E tiles (v = r C + cc, gathered through
@@ -644,9 +647,23 @@ def fs_emulated(a, b, tables, kernel):
     G <= 3 stages over their groups p0 .. p1 - 1 with the kernels' twiddle
     indices, and 32-bit values below W q (q when strict) in the scratch
     between launches.  Every pass's groups of a CTA's span hold each of its
-    elements once."""
+    elements once.
+
+    K2-fs ("e2e", ``e2e`` = (za, zb, plan), segments (rows, n, S)): K1-fs's
+    launches with the decompose fused into the forward column launch and
+    the compose into the inverse one, as the clusters of C = t CTAs per
+    (row, column tile) run them: CTA r decomposes the segments of its
+    slice ``e2e_slice(E, C, r)`` of the tile's virtual elements into every
+    channel, each residue landing in its owner's tile (DSMEM); after the
+    inverse column stages each CTA holds y = canonical(p) q~ mod q of its
+    channel, and composes its slice from every channel's y (the quotient
+    tail), its limbs written through ColMap.  Returns (rows, n, L) limbs."""
     r = Regime(tables)
-    t, rows, n = a.shape
+    if kernel == "e2e":
+        za, zb, plan = e2e
+        t, (rows, n) = tables.t, za.shape[:2]
+    else:
+        t, rows, n = a.shape
     L = n.bit_length() - 1
     log_n1, log_n2, E, log_c, tiles, K = fs_geometry(n)
     log_e = E.bit_length() - 1
@@ -737,13 +754,42 @@ def fs_emulated(a, b, tables, kernel):
         assert (X < bound).all() and (X <= M32).all()
         return X
 
-    A = U(a).copy()
-    if kernel == "inverse":
-        inverse(A, 0, log_n2, L, E)  # rows
-        V = tiles_of(scratch(A))
-        inverse(V, log_c, log_e, log_e, E)  # columns, virtual stages log C ..
-        return _int64(canonicalize(untile(V), r))
-    polys = [A] if kernel == "forward" else [A, U(b).copy()]
+    def slices():  # the cluster's CTAs: (rank, its slice of a tile's virtual elements)
+        C = tkern.e2e_cluster(t)[0]
+        assert C == t and all(list(tkern.e2e_channels(t, C, c)) == [c] for c in range(t))
+        taken = np.zeros(E, dtype=np.int64)
+        for rank in range(C):
+            sl = np.asarray(tkern.e2e_slice(E, C, rank), dtype=np.int64)
+            taken[sl] += 1
+            yield rank, sl
+        assert (taken == 1).all()
+
+    def cluster_decompose(z):  # launch 1's first step -> the residues' tiles
+        V = np.zeros((t, rows * tiles, E), dtype=np.uint64)
+        for _, sl in slices():
+            seg = z[:, colmap[:, sl], :].reshape(-1, z.shape[-1])  # (rows, tiles, |sl|, S)
+            res = decompose_emulated(seg, plan, tables.lazy is not None)
+            V[:, :, sl] = U(res).reshape(t, rows * tiles, len(sl))
+        return untile(V)
+
+    def cluster_compose(V):  # launch 3's y and compose -> (rows, n, L) limbs
+        y = mul_mod(canonicalize(V, r), U(plan.qi_tilde).reshape(-1, 1, 1), r)
+        out = np.zeros((rows, n, plan.L), dtype=np.int64)
+        for _, sl in slices():
+            limbs = compose_quotient_emulated(_int64(y[:, :, sl].reshape(t, -1)), plan)
+            out[:, colmap[:, sl]] = limbs.reshape(rows, tiles, len(sl), plan.L)
+        return out
+
+    if kernel == "e2e":
+        polys = [cluster_decompose(za), cluster_decompose(zb)]
+    else:
+        A = U(a).copy()
+        if kernel == "inverse":
+            inverse(A, 0, log_n2, L, E)  # rows
+            V = tiles_of(scratch(A))
+            inverse(V, log_c, log_e, log_e, E)  # columns, virtual stages log C ..
+            return _int64(canonicalize(untile(V), r))
+        polys = [A] if kernel == "forward" else [A, U(b).copy()]
     for i, P in enumerate(polys):  # forward columns, virtual stages 0 .. log n1 - 1
         V = tiles_of(P)
         forward(V, 0, log_n1, log_e, E)
@@ -762,6 +808,8 @@ def fs_emulated(a, b, tables, kernel):
         inverse(A, K, log_n2, L, E)
     V = tiles_of(scratch(A))
     inverse(V, log_c, log_e, log_e, E)
+    if kernel == "e2e":
+        return cluster_compose(V)
     return _int64(canonicalize(untile(V), r))
 
 
@@ -815,6 +863,31 @@ def test_multi_block_row_twiddles_are_the_reference_row_tables():
             kernel = (1 << s) + (np.arange(n) >> (L - s))
             assert np.array_equal(kernel, idx[(1 << k) + (c >> (log_n2 - k)), j])
         assert tkern.fs_blocks(6, 16, n) * tkern.fs_tile(n) == 6 * 16 * n
+
+
+# K2-fs at the multi-block geometry of one tile (n = 16, 256) and of a
+# column tile across rows (1024), with clusters of 3 and 6 CTAs (even and
+# uneven slices of a tile), in the three regimes
+E2E_FS_PRESETS = [(n, t, v) for n in (16, 256, 1024) for t in (3, 6) for v in (29, 30, 31)]
+
+
+@pytest.mark.parametrize("n,t,v", E2E_FS_PRESETS)
+def test_multi_block_e2e_matches_plain_versions(n, t, v):
+    """K2-fs launch by launch (the clusters' DSMEM slices of the
+    decompose, 32-bit scratch between launches, K1-fs's row pass, y = p q~
+    and the quotient compose over uneven slices) equals its plain version
+    and K2's, with the zero coefficient and q - 1 among the inputs."""
+    p = make_params(n, t, v)
+    rng = np.random.default_rng(SEED + 11 * n + t + v)
+    za, zb = _segments(p.plan, (2, n), rng), _segments(p.plan, (2, n), rng)
+    za[0, 0] = zb[0, 1] = 0
+    za[1, 0] = zb[1, 0] = tbigint.ints_to_limbs([p.plan.q - 1], v, p.plan.seg_count)[0]
+    got = fs_emulated(None, None, p.tables, "e2e", (za, zb, p.plan))
+    T = torch.as_tensor
+    assert np.array_equal(got, tkern.fused_e2e_polymul_fs_ref(T(za), T(zb), p.tables,
+                                                               p.plan).numpy())
+    assert np.array_equal(got, tkern.fused_e2e_polymul_ref(T(za), T(zb), p.tables,
+                                                            p.plan).numpy())
 
 
 def test_kernel_block_barrett_constant_for_every_31_bit_special_prime():

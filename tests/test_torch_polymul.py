@@ -21,6 +21,8 @@ from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 # (n, t, v): the three reduction regimes at n = 64 and the paper's t = 6
 PRESETS = [(64, 3, 29), (64, 3, 30), (64, 3, 31), (256, 6, 30),
            # outside the regime presets: t = 4 strict, t = 9 (two channels on
@@ -111,6 +113,25 @@ def test_polymul_matches_host_oracle(reference, n, t, v):
         assert repro_torch.from_limbs(pl, got[r]) == tpm.oracle_multiply(a, b, pl.params)
 
 
+def test_e2e_backend_past_one_cta_matches_reference_jnp():
+    """A cuda_fused_e2e plan at the smallest multi-block point, n = 32768
+    (t = 3, v = 30: the reference's SAU window holds its words there, not
+    at t = 6), runs K2-fs's plain version; one row equals repro.polymul on
+    jnp bit for bit."""
+    n, t, v = 32768, 3, 30
+    pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device="cpu")
+    assert pl.config.schedule.multi_block
+    rng = np.random.default_rng(n + v)
+    S = pl.config.seg_count
+    top = pl.q >> (v * (S - 1))  # keeps the values below q
+    za, zb = (np.concatenate([rng.integers(0, 1 << v, size=(1, n, S - 1), dtype=np.int64),
+                              rng.integers(0, top, size=(1, n, 1), dtype=np.int64)], axis=-1)
+              for _ in range(2))
+    want = np.asarray(repro.execute(repro.plan(n, t, v, backend="jnp"), za, zb))
+    got = repro_torch.polymul(pl, torch.as_tensor(za), torch.as_tensor(zb))
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_polymul_batch_shapes_and_ints():
     """Leading batch dims fold and unfold; the int convenience path."""
     pl = repro_torch.plan(64, 3, 30, device="cpu")
@@ -154,10 +175,13 @@ def test_plan_rejects_unservable_and_unknown_knobs():
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan(64, 4, 45, device="cpu")
     assert err.value.knob == "v"
-    # e2e working set of one CTA, one channel's two polynomials and more:
-    # n = 32768 needs over 272 KiB of shared memory
+    # past one CTA (n = 32768 needs over 272 KiB of shared memory for K2)
+    # the e2e backend runs K2-fs, whose clusters hold t <= 8 channels
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(1 << 15, 6, 30, backend="cuda_fused_e2e", device="cpu")
+        repro_torch.plan(1 << 15, 9, 30, backend="cuda_fused_e2e", device="cpu")
+    assert err.value.knob == "t"
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(1 << 17, 6, 30, backend="cuda_fused_e2e", device="cpu")
     assert err.value.knob == "n"
     # the multi-block kernels serve n up to 65536 on the other kernel backends
     with pytest.raises(repro_torch.UnservableConfigError) as err:
@@ -206,6 +230,7 @@ class _FakeCudaTensor:
 WRAPPERS = {
     "fused_polymul_cuda": (tkern, "fused_polymul_ref", [(3, 2, 64), (3, 2, 64)]),
     "fused_e2e_polymul_cuda": (tkern, "fused_e2e_polymul_ref", [(2, 64, 3), (2, 64, 3)]),
+    "fused_e2e_polymul_fs_cuda": (tkern, "fused_e2e_polymul_fs_ref", [(2, 64, 3), (2, 64, 3)]),
     "ntt_channels_cuda": (tkern, "ntt_channels_ref", [(3, 2, 64)]),
     "intt_channels_cuda": (tkern, "intt_channels_ref", [(3, 2, 64)]),
     "decompose_cuda": (tcrt, "decompose_ref", [(2, 3)]),
@@ -231,6 +256,7 @@ def _call_wrapper(name, operands, p):
     extra = {
         "fused_polymul_cuda": (p.tables,), "ntt_channels_cuda": (p.tables,),
         "intt_channels_cuda": (p.tables,), "fused_e2e_polymul_cuda": (p.tables, p.plan),
+        "fused_e2e_polymul_fs_cuda": (p.tables, p.plan),
         "decompose_cuda": (p.plan,), "compose_cuda": (p.plan,), "flash_attention_cuda": (),
     }[name]
     return getattr(mod, name)(*operands, *extra)

@@ -37,6 +37,8 @@ from repro_torch.core import schedule as tsched
 from repro_torch.kernels import ntt as tkern
 from repro_torch.kernels import ops as tops
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 NS = [1 << k for k in range(2, 17)]  # n = 4 ... 65536
 SEED = 19
 
@@ -138,14 +140,16 @@ def test_hier_transforms_match_reference_at_each_depth(n, t, rows, depth, v):
         got = tntt.negacyclic_mul_channels(A, B, tt, spec)
         want = jax.jit(lambda x, y: jntt.negacyclic_mul_channels(x, y, jt, jspec))(a, b)
         assert np.array_equal(got.numpy(), np.asarray(want))
-    if depth == 1:  # the historical depth-1 entry points
+    if depth == 1:  # the historical depth-1 entry points (reference under jax.jit)
         got = tntt.ntt_raw_four_step(A[0], torch.as_tensor(tt.fwd[0]), torch.as_tensor(rows_f[0]),
                                      q, eps, tt.mul_shifts)
-        want = jntt.ntt_raw_four_step(a[0], jt.fwd[0], rows_f[0], q, eps, tt.mul_shifts)
+        jf = jax.jit(functools.partial(jntt.ntt_raw_four_step, shifts=tt.mul_shifts))
+        want = jf(a[0], jt.fwd[0], rows_f[0], q, eps)
         assert np.array_equal(got.numpy(), np.asarray(want))
         got = tntt.intt_raw_four_step(A[0], torch.as_tensor(tt.inv[0]),
                                       torch.as_tensor(rows_i[0]), q, half, eps, tt.mul_shifts)
-        want = jntt.intt_raw_four_step(a[0], jt.inv[0], rows_i[0], q, half, eps, tt.mul_shifts)
+        ji = jax.jit(functools.partial(jntt.intt_raw_four_step, shifts=tt.mul_shifts))
+        want = ji(a[0], jt.inv[0], rows_i[0], q, half, eps)
         assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -257,27 +261,55 @@ def test_plan_resolves_schedule_and_tiling_into_plan_key():
 
 def test_plan_records_the_cards_accounting():
     """The spec records the kernel of each backend's main path: one-block
-    K3/K4 and K1 while a CTA holds the polynomial, multi-block past it,
-    up to n = 65536; n = 131072 and an explicit e2e backend past its
-    kernel's reach are refused (knob n), and auto takes cuda_fused there."""
+    K3/K4, K1 and K2 while a CTA holds the polynomial, multi-block past it,
+    up to n = 65536; n = 131072 is refused (knob n), an explicit e2e
+    backend past t = 8 beyond K2's reach too (knob t), and auto takes
+    cuda_fused there."""
     for n, t, backend, multi in ((32768, 2, "cuda", False), (65536, 2, "cuda", True),
                                  (16384, 2, "cuda_fused", False), (32768, 2, "cuda_fused", True),
-                                 (65536, 2, "cuda_fused", True), (16384, 6, "cuda_fused_e2e", False)):
+                                 (65536, 2, "cuda_fused", True), (16384, 6, "cuda_fused_e2e", False),
+                                 (32768, 2, "cuda_fused_e2e", True)):
         spec = repro_torch.plan(n, t, 30, backend=backend, device="cpu").config.schedule
         assert spec.multi_block == multi and spec.smem_budget == tkern.MAX_SMEM_BYTES
         assert 0 < spec.smem_bytes <= spec.smem_budget
         assert spec.card_split == (tkern.fs_split(n) if multi else ())
     assert tkern.fs_split(65536) == (256, 256) and tkern.fs_split(32768) == (128, 256)
-    for n, backend in ((131072, "cuda"), (131072, "cuda_fused"), (32768, "cuda_fused_e2e")):
+    for n, t, backend, knob in ((131072, 6, "cuda", "n"), (131072, 6, "cuda_fused", "n"),
+                                (131072, 6, "cuda_fused_e2e", "n"), (32768, 9, "cuda_fused_e2e", "t")):
         with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, 6, 30, backend=backend, device="cpu")
-        assert err.value.knob == "n"
-    # auto on a card: the e2e kernel where it holds (n, t), the fused cascade past it
-    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6) == "cuda_fused"
-    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6) == "cuda_fused"
+            repro_torch.plan(n, t, 30, backend=backend, device="cpu")
+        assert err.value.knob == knob
+    # auto on a card: the e2e kernels where they hold (n, t), the fused cascade past them
+    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6) == "cuda_fused_e2e"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6) == "cuda_fused_e2e"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 9) == "cuda_fused"
     assert tops.resolve_backend("auto", torch.device("cuda"), 16384, 6) == "cuda_fused_e2e"
     assert tops.resolve_backend("auto", torch.device("cpu"), 65536, 6) == "torch"
     assert repro_torch.plan(131072, 1, 30, backend="torch", device="cpu").config.n == 131072
+
+
+def test_e2e_backend_serves_past_one_cta():
+    """auto on a card resolves to cuda_fused_e2e at n = 32768 and 65536
+    for every t <= 8 (K2-fs, the multi-block e2e kernel) and to cuda_fused
+    at t = 9; an explicit cuda_fused_e2e plan there records the multi-block
+    kernel with the card's split and K2-fs's shared memory, and is refused
+    at t = 9 (knob t)."""
+    cuda = torch.device("cuda")
+    for n, split in ((32768, (128, 256)), (65536, (256, 256))):
+        for t in range(1, 9):
+            assert tops.resolve_backend("auto", cuda, n, t) == "cuda_fused_e2e"
+            assert tkern.e2e_fs_fits(n, t) and not tkern.e2e_fits(n, t)
+        assert tops.resolve_backend("auto", cuda, n, 9) == "cuda_fused"
+        for t in (1, 6, 8):
+            pl = repro_torch.plan(n, t, 30, backend="cuda_fused_e2e", device="cpu")
+            spec = pl.config.schedule
+            assert pl.config.backend == "cuda_fused_e2e" and spec.multi_block
+            assert spec.card_split == split == tkern.fs_split(n)
+            assert spec.smem_bytes == tkern.e2e_fs_smem_bytes(n, t) <= spec.smem_budget
+        with pytest.raises(repro_torch.UnservableConfigError) as err:
+            repro_torch.plan(n, 9, 30, backend="cuda_fused_e2e", device="cpu")
+        assert (err.value.knob, err.value.value) == ("t", 9)
+    assert not tkern.e2e_fs_fits(8, 3) and not tkern.e2e_fs_fits(65536, 9)
 
 
 def test_four_step_h_datapaths_match_reference_jnp():

@@ -23,6 +23,8 @@ from repro_torch.core import bigint as tbigint
 from repro_torch.kernels import crt as tcrt
 from repro_torch.kernels import ntt as tkern
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
+
 # (n, t, v, reference backend)
 PRESETS = [(64, 3, 29, "pallas"), (64, 3, 30, "pallas"), (64, 3, 31, "pallas"),
            (256, 6, 30, "jnp")]
