@@ -21,10 +21,14 @@ Phases, each raising on failure (so the run exits non-zero):
    ``plan()`` admits for each, 16384 for K1 and 32768 for K3 and K4;
    t = 3, 2 rows), with the CTAs an SM holds; K6 also at 1, 255 and 257
    rows with r = 0 and r = q - 1 in every channel, at the paper's point
-   and at the largest t it holds (16 limbs) in each regime
-   (``COMPOSE_CORNERS``); K2 also at n=8192, t=6 (4 rows) and at the largest (n, t)
-   ``plan()`` admits in each regime (``E2E_WIDE``), as clusters of
-   min(t, 8) CTAs of which the card holds at least one; K7 in float32,
+   and at one chunk of 16 limbs, 17, 32 and 45 limbs (``COMPOSE_CORNERS``);
+   K2 also at n=8192, t=6 (4 rows) and at the largest t ``plan()`` serves
+   on K2 in each regime (``E2E_WIDE``: n = 16384, t = 8; n = 8192, t = 24;
+   n = 4096, t = 48), as clusters of min(t, 8) CTAs of which the card holds
+   at least one; K5, K6, K2 and K2-fs past 16 segments, limbs and channels
+   (``CHANNEL_EDGES``: t = 9, 15, 16, 20, 30 at n = 64 and 4096, and at
+   4096 t = 48 for K2/K2-fs and t = 169 for K5/K6), each also against the
+   other e2e kernel; K7 in float32,
    every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
    of the plain output, at the attention layers
    of gemma2-2b (global and local prefill at 8192 tokens, decode against
@@ -88,6 +92,15 @@ Phases, each raising on failure (so the run exits non-zero):
    zeroed around it and launching what ``FS_LAUNCHES`` says, bit-exact
    against a ``backend="torch"`` plan on the card, and two polymul rows a
    size against the host bigint oracle;
+4d. the slice's points past 16 channels at full width (``[wide]`` lines):
+   W1 = ``plan(32768, 15, 30)`` (32 rows) and W2 = ``plan(16384, 30,
+   30)`` (64 rows), ``WIDE_POINTS``, under ``auto`` (which must keep
+   ``cuda_fused``) and on ``cuda_fused_e2e`` (one K2-fs call, two and four
+   channels a CTA), ``cuda_fused``, ``cuda`` and ``torch``: ``polymul``
+   with the counters zeroed around each call (``WIDE_LAUNCHES``), bit-exact
+   against the torch plan on the card and one row against the host
+   oracle; K2-fs, K5 and K6 on the points' operands against their plain
+   versions;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
@@ -109,11 +122,13 @@ Phases, each raising on failure (so the run exits non-zero):
    of its three launches' device time from a ``torch.profiler`` trace,
    beside cuda_fused's kernels (K5 on each operand, K1-fs's launches, K6)
    on the same inputs;
+   and at W1 and W2: K2-fs, K5 and K6 one call and back to back, plain,
+   bound, and K2-fs's launches beside cuda_fused's kernels;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend, and of one ``negacyclic_mul`` call on the auto plan
-   (host clock, synchronised), and at FS_MAIN's n and rows on
+   (host clock, synchronised), at FS_MAIN's n and rows on
    ``cuda_fused_e2e`` (auto, K2-fs), ``cuda_fused``, ``cuda`` and
-   ``torch``.
+   ``torch``, and at W1 and W2 on the four backends.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -123,13 +138,18 @@ checkout at DIR (for instance the parent commit unpacked with
 and back to back (K2 also at one row), after checking each against its
 plain version, and prints one ``[time-kernels]`` line per kernel; so
 two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
-``--time-kernels DIR fused_e2e_polymul``.
+``--time-kernels DIR fused_e2e_polymul``.  ``--compose-variants`` times
+K6 beside copies of its source with one of its two load orders switched
+off (``COMPOSE_VARIANTS``) at ``COMPOSE_SHAPES``.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
 ``launches_by_path`` beside ``launches``, the main path's count, with
 phase 4b's paths; K1-fs's, K3-fs's, K4-fs's and K2-fs's ``launches``
-sum phase 4c's calls, each one a path of ``launches_by_path``) and ends with
+sum phase 4c's and 4d's calls, each one a path of ``launches_by_path``;
+the other kernels on phase 4d's paths list them in ``launches_by_path``
+too; K2-fs's, K5's and K6's a ``wide`` object with their W1/W2 numbers)
+and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
 non-zero before printing any result.
@@ -159,12 +179,14 @@ BF16_FLOPS_PER_S = 989e12
 MAIN = dict(n=4096, t=6, v=30, rows=256)
 SMALL = [dict(n=64, t=3, v=v, rows=3) for v in (29, 30, 31)]
 # K2 at twice the paper's n, which one CTA per channel now holds, and at
-# the largest (n, t) plan() admits in each regime (lazy W=4, lazy W=2,
-# strict) with one channel a CTA (n = 16384) and two (n = 8192)
+# the largest t plan() serves on K2 in each regime (lazy W=4, lazy W=2,
+# strict) with one channel a CTA (n = 16384) and three (n = 8192; at
+# v = 31 the in-kernel decompose constants stop at t = 13 there), and at
+# n = 4096, t = 48 (six channels a CTA, the staging cut to fit)
 E2E_WIDE = [dict(n=8192, t=6, v=30, rows=4)] + [
     dict(n=n, t=t, v=v, rows=2)
     for n, t, v in ((16384, 8, 29), (16384, 8, 30), (16384, 8, 31),
-                    (8192, 15, 29), (8192, 14, 30), (8192, 13, 31))
+                    (8192, 24, 29), (8192, 24, 30), (8192, 13, 31), (4096, 48, 30))
 ]
 # K1, K3 and K4 at the edges of their register passes, t = 3, 2 rows, in
 # all three regimes (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31):
@@ -207,10 +229,36 @@ FS_LAUNCHES = {
     ("ntt", 65536): {"ntt_channels_fs": 1}, ("ntt", 32768): {"ntt_channels": 1},
     ("intt", 65536): {"intt_channels_fs": 1}, ("intt", 32768): {"intt_channels": 1},
 }
-# K6 at the largest t whose limbs it holds (L = 16) in each regime, beside
-# the paper's point; each at 1, 255 and 257 rows (a partial last tile)
-COMPOSE_CORNERS = [dict(n=64, t=15, v=29), dict(n=64, t=14, v=30), dict(n=64, t=14, v=31)]
+# K6 at one chunk of 16 limbs in each regime (t = 15, 14, 14 at v = 29,
+# 30, 31), at 17 limbs (a second chunk of one), 32 (two chunks, three
+# groups of channels) and 45, beside the paper's point; each at 1, 255
+# and 257 rows (a partial last tile)
+COMPOSE_CORNERS = [dict(n=64, t=15, v=29), dict(n=64, t=14, v=30), dict(n=64, t=14, v=31),
+                   dict(n=64, t=15, v=30), dict(n=64, t=29, v=30), dict(n=64, t=40, v=31)]
 COMPOSE_ROWS = (1, 255, 257)
+# K5, K6, K2 and K2-fs past 16 segments, limbs and channels (v = 30): at
+# n = 64 and 4096, t = 9 (two channels on some CTAs of a cluster), 15, 16
+# (past 15 channels: the limb sums normalise between groups), 20 and 30
+# (S = 30, L = 32/33, 10 Alg-2 blocks); at 4096 also t = 48, the most
+# K2 and K2-fs serve there, and t = 169, the most primes the search gives
+# at n = 4096, which only K5 and K6 (cuda, cuda_fused) serve: (n, t, rows)
+CHANNEL_EDGES = [(64, t, 3) for t in (9, 15, 16, 20, 30)] + [
+    (4096, t, 1) for t in (9, 15, 16, 20, 30, 48, 169)]
+# the slice's points at full width, 2^20 coefficients an operand as at
+# every earlier point: W1 = plan(32768, 15, 30), 32 rows (S = 15, L = 16,
+# a 443-bit q: K2-fs past t = 8, two channels on some CTAs); W2 =
+# plan(16384, 30, 30), 64 rows (S = 30, L = 32, 10 Alg-2 blocks, an
+# 888-bit q: four channels a CTA): name -> (n, t, rows)
+WIDE_POINTS = {"W1": (32768, 15, 32), "W2": (16384, 30, 64)}
+WIDE_V = 30
+# the kernels of one polymul call at each W point: backend -> launches
+WIDE_LAUNCHES = {
+    "cuda_fused_e2e": {"fused_e2e_polymul_fs": 1},
+    ("cuda_fused", 32768): {"decompose": 2, "fused_polymul_fs": 1, "compose": 1},
+    ("cuda_fused", 16384): {"decompose": 2, "fused_polymul": 1, "compose": 1},
+    "cuda": {"decompose": 2, "ntt_channels": 2, "intt_channels": 1, "compose": 1},
+    "torch": {},
+}
 LATENCY_ROWS = 1  # K2 is also timed at one row: the latency the paper is about
 BACK_TO_BACK = 50  # calls queued behind one spin of the card (time_back_to_back)
 SPIN_CYCLES = 50_000_000  # about 30 ms at the H100's clock: longer than issuing them
@@ -744,7 +792,8 @@ def check_e2e_fs(dev, max_err: dict[str, int]) -> None:
                     raise AssertionError(f"{what}: clusters of "
                                          f"{kern.fused_e2e_polymul_fs_cuda.cluster} CTAs")
                 err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan), what)
-                if kern.e2e_fits(n, t):
+                k2 = kern.e2e_fits(n, t, pl.config.seg_count, pl.config.L)
+                if k2:
                     exact(got, kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan),
                           f"{what} vs K2")
                 clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
@@ -753,7 +802,7 @@ def check_e2e_fs(dev, max_err: dict[str, int]) -> None:
                                          f"{clusters}")
                 max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
                 seen.append(f"v={v} {kern.reduction_mode(p.tables)[:2]} {clusters}"
-                            + (" = K2" if kern.e2e_fits(n, t) else ""))
+                            + (" = K2" if k2 else ""))
             log(f"[kernels] fused_e2e_polymul_fs n={n} t={t} rows=2, clusters of "
                 f"{min(t, kern.MAX_CLUSTER)} CTAs, {kern.fs_threads(n)} threads, "
                 f"{kern.fs_tile(n)}-element tiles: equal to its plain version bit for bit (and "
@@ -790,6 +839,76 @@ def check_compose_edges(dev, max_err: dict[str, int]) -> None:
         log(f"[kernels] compose n={cfg['n']} t={cfg['t']} v={cfg['v']} L={rp.L}: rows "
             f"{COMPOSE_ROWS} with r = 0 and r = q - 1 in every channel equal the plain version "
             "bit for bit")
+
+
+def check_channel_edges(dev, max_err: dict[str, int]) -> None:
+    """Phase 3 past 16 segments, limbs and channels (CHANNEL_EDGES, v =
+    30): K5 and K6 on the plan's segments and residues, and K2 and K2-fs
+    wherever plan() serves cuda_fused_e2e (each also against the other),
+    exact against their plain versions, with the clusters the card holds;
+    one coefficient of row 0 is 0, one of row 1 (or the second
+    coefficient) q - 1 in both operands, and one residue 0 and one q - 1
+    in every channel."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import crt
+    from repro_torch.kernels import ntt as kern
+
+    t0 = time.perf_counter()
+    for n, t, rows in CHANNEL_EDGES:
+        pl = repro_torch.plan(n, t, WIDE_V, backend="cuda", device=dev)
+        p, cfg = pl.params, pl.config
+        za, zb, ra, _ = seeded_inputs(torch, np, pl, rows, SEED + 7 * n + t, dev)
+        za[0, 0] = zb[0, 1] = 0
+        za[-1, -1] = zb[-1, -1] = repro_torch.to_segments(pl, [pl.q - 1])[0]
+        z2 = za.reshape(-1, cfg.seg_count)
+        r2 = ra.reshape(t, -1).contiguous()
+        r2[:, 0] = 0
+        r2[:, 1] = p.plan.qs_d - 1
+        what = f"n={n} t={t} v={WIDE_V} S={cfg.seg_count} L={cfg.L}"
+        seen = [f"decompose ({crt.decompose_rows(t, cfg.seg_count)} rows a block)",
+                f"compose ({crt.compose_rows(t, cfg.L)} rows a CTA)"]
+        for name, fn, ref in (("decompose", crt.decompose_cuda, crt.decompose_ref),
+                              ("compose", crt.compose_cuda, crt.compose_ref)):
+            arg = z2 if name == "decompose" else r2
+            got = fn(arg, p.plan)
+            torch.cuda.synchronize()
+            max_err[name] = max(max_err[name], exact(got, ref(arg, p.plan), f"{name} {what}"))
+        S, L = cfg.seg_count, cfg.L
+        outs = []
+        if kern.e2e_fits(n, t, S, L):
+            got = kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
+            torch.cuda.synchronize()
+            expect_cluster(pl, f"fused_e2e_polymul {what}")
+            err = exact(got, kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan),
+                        f"fused_e2e_polymul {what}")
+            max_err["fused_e2e_polymul"] = max(max_err["fused_e2e_polymul"], err)
+            clusters = kern.e2e_max_active_clusters(p.tables, p.plan)
+            if clusters < 1:
+                raise AssertionError(f"fused_e2e_polymul {what}: the card holds no cluster")
+            outs.append(got)
+            seen.append(f"fused_e2e_polymul ({kern.e2e_cluster(t)[1]} slots, "
+                        f"{kern.e2e_smem_bytes(n, t, S, L)} B, {clusters} clusters resident)")
+        if kern.e2e_fs_fits(n, t, S, L):
+            got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+            torch.cuda.synchronize()
+            expect_e2e_fs_cluster(pl, f"fused_e2e_polymul_fs {what}")
+            err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
+                        f"fused_e2e_polymul_fs {what}")
+            max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
+            clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
+            if min(clusters) < 1:
+                raise AssertionError(f"fused_e2e_polymul_fs {what}: no cluster resident "
+                                     f"{clusters}")
+            for other in outs:
+                exact(got, other, f"fused_e2e_polymul_fs {what} vs K2")
+            seen.append(f"fused_e2e_polymul_fs ({kern.e2e_fs_smem_bytes(n, t, S, L)} B, "
+                        f"clusters resident {clusters})" + (" = K2" if outs else ""))
+        log(f"[kernels] {what}, {rows} rows: " + ", ".join(seen) + " equal their plain "
+            "versions bit for bit")
+    log(f"[kernels] channel-edge checks took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
 def expect_cluster(pl, what: str) -> None:
@@ -1111,6 +1230,149 @@ def time_fs_walls() -> None:
                 f"{nms:.4f} ms per call (median of {E2E_RUNS}, host clock)")
 
 
+def drive_wide(card: str) -> tuple[dict[str, dict[str, int]], dict]:
+    """Phase 4d at WIDE_POINTS: ``plan(n, t, 30)`` under ``auto`` (which
+    keeps cuda_fused there) and on each backend, cuda_fused_e2e (K2-fs),
+    cuda_fused, cuda and torch: ``polymul`` on the point's rows, each call
+    with the launch counters zeroed just before it and read just after
+    (WIDE_LAUNCHES), bit-exact against the torch plan on the card, and one
+    row against the host bigint oracle; then K2-fs, K5 and K6 on the
+    point's operands against their plain versions.  Returns (kernel ->
+    path -> launches, name -> inputs)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import crt
+    from repro_torch.kernels import ntt as kern
+
+    t0 = time.perf_counter()
+    launches, inputs = {}, {}
+    for point, (n, t, rows) in WIDE_POINTS.items():
+        auto = repro_torch.plan(n, t, WIDE_V)
+        plans = {b: repro_torch.plan(n, t, WIDE_V, backend=b)
+                 for b in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch")}
+        if auto.config.backend != "cuda_fused":
+            raise AssertionError(f"{point}: auto resolved to {auto.config}")
+        cfg = plans["cuda_fused_e2e"].config
+        if not cfg.schedule.multi_block:
+            raise AssertionError(f"{point}: cuda_fused_e2e resolved to {cfg}")
+        za, zb, ra, _ = seeded_inputs(torch, np, auto, rows, SEED + n + t, auto.device)
+        inputs[point] = (za, zb, ra)
+        want, _ = counted(torch, lambda: repro_torch.polymul(plans["torch"], za, zb))
+        for backend, pl in plans.items():
+            if backend == "torch":
+                continue
+            out, got = counted(torch, lambda: repro_torch.polymul(pl, za, zb))
+            key = backend if backend in WIDE_LAUNCHES else (backend, n)
+            expect_launches(got, WIDE_LAUNCHES[key], f"polymul {point} ({backend})")
+            for name, k in launched(got).items():
+                launches.setdefault(name, {})[f"polymul {point} {backend}"] = k
+            exact(out, want, f"polymul {point} ({backend}) vs backend='torch'")
+            if backend == "cuda_fused_e2e":
+                expect_e2e_fs_cluster(pl, f"polymul {point}")
+            log(f"[wide] {point} plan(n={n}, t={t}, v={WIDE_V}, backend={backend!r}) "
+                f"{pl.config.schedule}: polymul on {tuple(za.shape)} launched {launched(got)}; "
+                f"equal to the backend='torch' plan on the card; {card}")
+        check_oracle(auto, za, zb, want, f"polymul {point}", (rows - 1,))
+        p = plans["cuda_fused_e2e"].params
+        z2 = za.reshape(-1, cfg.seg_count)
+        r2 = ra.reshape(t, -1)
+        for name, fn, ref in (
+            ("fused_e2e_polymul_fs", lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan),
+             lambda: kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan)),
+            ("decompose", lambda: crt.decompose_cuda(z2, p.plan),
+             lambda: crt.decompose_ref(z2, p.plan)),
+            ("compose", lambda: crt.compose_cuda(r2, p.plan), lambda: crt.compose_ref(r2, p.plan)),
+        ):
+            got = fn()
+            torch.cuda.synchronize()
+            exact(got, ref(), f"{name} {point}")
+        log(f"[wide] {point}: S={cfg.seg_count}, L={cfg.L}, q of {auto.q.bit_length()} bits, "
+            f"{kern.e2e_cluster(t)[1]} channels a CTA of clusters of {kern.e2e_cluster(t)[0]}; "
+            f"polymul row {rows - 1} equals the host bigint oracle; K2-fs, K5 and K6 on the "
+            f"point's operands equal their plain versions bit for bit; auto -> cuda_fused")
+    log(f"[wide] phase 4d took {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches, inputs
+
+
+def time_wide(inputs, card: str) -> dict[str, dict]:
+    """Phase 5/6 at WIDE_POINTS: each backend's polymul wall (host clock,
+    median of E2E_RUNS synchronised calls; torch of 3), K2-fs one call and
+    back to back with its launches' device time (torch.profiler) beside
+    cuda_fused's kernels, K5 and K6 back to back, each plain version once,
+    and each kernel's bound at the point's shapes.  Returns kernel ->
+    point -> numbers for the kernels line."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import crt
+    from repro_torch.kernels import ntt as kern
+
+    out = {"fused_e2e_polymul_fs": {}, "decompose": {}, "compose": {}}
+    for point, (n, t, rows) in WIDE_POINTS.items():
+        za, zb, ra = inputs[point]
+        walls = {}
+        for backend in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch"):
+            pl = repro_torch.plan(n, t, WIDE_V, backend=backend)
+            walls[backend] = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb),
+                                     3 if backend == "torch" else E2E_RUNS)
+        log(f"[wide] {point} polymul walls on {tuple(za.shape)}, ms (median of {E2E_RUNS}, "
+            f"torch of 3, host clock): " + ", ".join(f"{b} {ms:.4f}" for b, ms in walls.items())
+            + f"; cuda_fused_e2e / cuda_fused = {walls['cuda_fused_e2e'] / walls['cuda_fused']:.3f}"
+            f"; auto takes cuda_fused; {card}")
+        pl = repro_torch.plan(n, t, WIDE_V, backend="cuda_fused_e2e")
+        p, cfg = pl.params, pl.config
+        mode, window = kern.reduction_mode(p.tables)[:2]
+        coeffs = rows * n
+        z2 = za.reshape(-1, cfg.seg_count)
+        r2 = ra.reshape(t, -1)
+        calls = {
+            "fused_e2e_polymul_fs": (
+                lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan),
+                lambda: kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
+                (2 * cfg.seg_count + cfg.L) * coeffs * 8, e2e_ops(pl, mode, window, rows)),
+            "decompose": (lambda: crt.decompose_cuda(z2, p.plan),
+                          lambda: crt.decompose_ref(z2, p.plan),
+                          (cfg.seg_count + t) * coeffs * 8, coeffs * channel_decompose_ops(pl)),
+            "compose": (lambda: crt.compose_cuda(r2, p.plan), lambda: crt.compose_ref(r2, p.plan),
+                        (t + cfg.L) * coeffs * 8, coeffs * compose_ops(t, cfg.L)),
+        }
+        for name, (fn, ref, nbytes, ops) in calls.items():
+            ms = time_launches(torch, fn, TIMED_LAUNCHES)
+            device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
+            plain_ms = time_launches(torch, ref, 1, warmup=0)
+            bound_ms, bound_by = bound(nbytes, ops)
+            out[name][point] = {"shape": [rows, n, t], "ms": ms, "device_ms": device_ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                                "wall_ms": walls}
+            log(f"[time] {name} at {point} (rows, n, t) = ({rows}, {n}, {t}): {ms:.4f} ms per "
+                f"call (median of {TIMED_LAUNCHES}), {device_ms:.4f} ms back to back (device "
+                f"time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes} bytes, {ops} int ops); {card}")
+        fs = calls["fused_e2e_polymul_fs"][0]
+        split = launch_split(torch, fs)
+        cascade = kern.fused_polymul_fs_cuda if n > 16384 else kern.fused_polymul_cuda
+        rb = ra.flip(1).contiguous()
+        staged = {
+            "decompose x2": 2 * sum(launch_split(torch, calls["decompose"][0]).values()),
+            **launch_split(torch, lambda: cascade(ra, rb, p.tables)),
+            "compose": sum(launch_split(torch, calls["compose"][0]).values()),
+        }
+        out["fused_e2e_polymul_fs"][point].update(launch_ms=split, cuda_fused_launch_ms=staged,
+                                                  max_active_clusters=list(
+                                                      kern.e2e_fs_max_active_clusters(p.tables,
+                                                                                      p.plan)))
+        log(f"[time] fused_e2e_polymul_fs launches at {point}, device ms a call "
+            f"(torch.profiler, {TIMED_LAUNCHES} calls): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f" (sum {sum(split.values()):.4f}); cuda_fused's kernels on the same inputs: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in staged.items())
+            + f" (sum {sum(staged.values()):.4f}); clusters resident "
+            f"{out['fused_e2e_polymul_fs'][point]['max_active_clusters']}; {card}")
+    return out
+
+
 # K1-K6: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_polymul": ("src/repro_torch/csrc/fused_polymul.cu", "src/repro/kernels/ntt.py:757"),
@@ -1296,6 +1558,93 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
             times["device_ms"] = time_back_to_back(torch, fn, TIMED_LAUNCHES)
         log(f"[time-kernels] {name} {checkout} ({repro_torch.__file__}): " + ", ".join(
             f"{k} {v:.4f}" for k, v in times.items()))
+    return 0
+
+
+# K6's two load orders (csrc/compose.cu), each switched off in a copy of
+# the source that --compose-variants builds beside it
+COMPOSE_VARIANTS = {
+    "no_preload": ("crt_compose<MAXL, !kSingle, kSingle>(", "crt_compose<MAXL, false, kSingle>("),
+    "no_hoist": ("[&](int c) { return kSingle ? first[c] : (res_t)__ldg(r + (size_t)c * args.rows); }",
+                 "[&](int c) { return (res_t)__ldg(r + (size_t)c * args.rows); }"),
+}
+# (n, t, rows) of its timings: L = 4, 7, 8 (the 8-limb instance), 9, 13,
+# 16 (16 limbs, three CTAs an SM; W1) and 32 (two CTAs; W2)
+COMPOSE_SHAPES = ((4096, 3, 256), (4096, 6, 256), (4096, 7, 256), (4096, 8, 256),
+                  (4096, 12, 256), (32768, 15, 32), (16384, 30, 64))
+
+
+def time_compose_variants() -> int:
+    """``--compose-variants``: K6 built from csrc/compose.cu beside copies
+    with one load order switched off (COMPOSE_VARIANTS: the 16-limb
+    instances' PRELOAD, the 8-limb instance's reads before the table
+    fills), each build's ptxas lines, and each checked against the plain
+    version and timed back to back at COMPOSE_SHAPES, in the order as
+    built, variants, variants reversed, as built."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.kernels import _build, crt
+
+    src = (_build.CSRC / "compose.cu").read_text()
+    sources = {"as_built": src}
+    for name, (old, new) in COMPOSE_VARIANTS.items():
+        if old not in src:
+            print(f"chip_smoke: csrc/compose.cu no longer holds {old!r}", file=sys.stderr)
+            return 1
+        sources[name] = src.replace(old, new)
+    out = _build.BUILD_DIR / "compose_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        (out / f"{name}.cu").write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    fns = {}
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            print(f"chip_smoke: nvcc failed on {name}:\n{text}", file=sys.stderr)
+            return 1
+        _build.ptxas_report(f"compose_variants/{name}").write_text(text)
+        for line in ptxas_entries(f"compose_variants/{name}"):
+            log(f"[ptxas compose {name}] {line}")
+        fn = ctypes.CDLL(str(out / f"lib{name}.so")).parentt_compose
+        fn.argtypes = [P] * 7 + [LL] + [I] * 5 + [P]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    log(card_line())
+    order = [*sources, *reversed(sources)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for n, t, rows in COMPOSE_SHAPES:
+        plan = repro_torch.plan(n, t, 30, backend="cuda").params.plan
+        qs = plan.qs_d.reshape(t, 1)
+        res = (torch.rand((t, rows * n), generator=gen, device="cuda", dtype=torch.float64)
+               * qs).long().clamp_(max=qs - 1)
+        res[:, :4] = qs - 1
+        want = crt.compose_ref(res, plan)
+        pointers, ints = crt._compose_constants(plan, "--compose-variants")
+        times = []
+        for name in order:
+            got = torch.empty((rows * n, plan.L), dtype=torch.int64, device="cuda")
+            call = lambda fn=fns[name], got=got: fn(
+                _build.ptr(res), _build.ptr(got), *pointers, rows * n, *ints,
+                _build.stream_of(res))
+            if call() != 0:
+                raise RuntimeError(f"K6 {name} failed to launch at {(n, t, rows)}")
+            torch.cuda.synchronize()
+            exact(got, want, f"K6 {name} at {(n, t, rows)}")
+            times.append(f"{name} {time_back_to_back(torch, call, TIMED_LAUNCHES):.4f}")
+        log(f"[compose-variants] n={n} t={t} L={plan.L} rows={rows}, ms back to back: "
+            + ", ".join(times))
     return 0
 
 
@@ -1905,13 +2254,13 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
     }
 
 
-def wall_ms(torch, fn) -> float:
-    """Median wall milliseconds of one synchronised call over E2E_RUNS
+def wall_ms(torch, fn, runs: int = E2E_RUNS) -> float:
+    """Median wall milliseconds of one synchronised call over ``runs``
     after a warm-up (host clock)."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(E2E_RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1948,6 +2297,8 @@ def main() -> int:
         return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
     if len(sys.argv) >= 3 and sys.argv[1] == "--time-kernels":
         return time_checkout(Path(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:] == ["--compose-variants"]:
+        return time_compose_variants()
     # the yardstick's torch.compile caches stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / sub)
@@ -1989,6 +2340,7 @@ def main() -> int:
     check_compose_edges(dev, max_err)
     check_fs_kernels(dev, max_err)
     check_e2e_fs(dev, max_err)
+    check_channel_edges(dev, max_err)
     attn_err, attn_model = check_attention(dev)
 
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
@@ -1998,12 +2350,23 @@ def main() -> int:
     attn_launches = drive_attention(attn_model)
     he_launches = drive_he(pl, inputs, card)
     fs_launches, fs_inputs = drive_fs_front_door(card)
+    wide_launches, wide_inputs = drive_wide(card)
     entries = time_kernels(pl, inputs, launches, max_err)
     for entry in entries:
         if entry["name"] in he_launches:
             entry["launches_by_path"] = {"main": entry["launches"], **he_launches[entry["name"]]}
     entries.append(time_attention(attn_model, attn_launches, attn_err))
     entries += time_fs_kernels(fs_inputs, fs_launches, max_err, card)
+    wide = time_wide(wide_inputs, card)
+    for entry in entries:  # phase 4d's paths and times beside each kernel's
+        name = entry["name"]
+        if name in wide:
+            entry["wide"] = wide[name]
+        paths = wide_launches.get(name, {})
+        if paths:
+            entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)
+            if name in FS_KERNELS:  # the multi-block kernels count their paths' calls
+                entry["launches"] += sum(paths.values())
     time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
     time_fs_walls()
 

@@ -5,12 +5,16 @@ Pre-processing (Alg 1 / Alg 2): coefficients arrive as base-B segments
 ``decompose_sau`` is the paper's shift-add-unit network with Alg-2 blocks
 of t' = 3 segments, SAU depth capped at 1 with a Barrett between SAU
 applications (int64 safety, with Barrett windows up to 32 bits:
-:func:`repro_torch.core.modmath.barrett_reduce`).  The reference's generic ``decompose``
-(its ``use_sau=False`` path) is not ported.
+:func:`repro_torch.core.modmath.barrett_reduce`).  ``decompose`` is the
+reference's generic residue computation (its ``use_sau=False`` path).
 
 Post-processing (Eq 10): ``p = sum_i [p_i * q~_i]_{q_i} * q^_i mod q``
 with q^_i as base-2^w limbs; the sum is < t*q and is finished with t-1
-conditional big-integer subtractions.
+conditional big-integer subtractions.  The limb sums run
+:data:`SUM_CHANNELS` channels at a time with a carry normalisation
+between (:func:`limb_sums`), as the CUDA kernels do, so they are exact
+in int64 for every t (the reference's one int64 sum, < t * 2^59, can
+wrap past 15 channels).
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ class RnsPlan:
 
     def __post_init__(self):
         object.__setattr__(self, "device", torch.device(self.device))
-        for name in ("qs", "qi_tilde", "qi_star_limbs", "q_limbs"):
+        for name in ("qs", "beta_pows", "qi_tilde", "qi_star_limbs", "q_limbs"):
             dev = torch.as_tensor(getattr(self, name), device=self.device)
             object.__setattr__(self, name + "_d", dev)
         dec_d = None
@@ -81,6 +85,12 @@ class RnsPlan:
             )
             arrays["beta"] = np.array(
                 [sum(s << e for e, s in c.beta_terms) - 1 for c in self.dec], dtype=np.int64
+            )
+            # the Horner step [beta^t']_q between two Alg-2 blocks, which
+            # the kernels take in place of a constant a block
+            arrays["horner"] = np.array(
+                [c.block_consts[1] if len(c.block_consts) > 1 else 0 for c in self.dec],
+                dtype=np.int64,
             )
             dec_d = {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
         object.__setattr__(self, "dec_d", dec_d)
@@ -137,11 +147,34 @@ def make_dec(qs, v: int, beta_terms, block_consts) -> tuple[ChannelDecompose, ..
             block_consts=tuple(int(c) for c in block_consts[i]),
             # SAU output + block-sum headroom: c = v + v1 + 3 bits
             sau_barrett=barrett_constants(int(qi), v + terms[0][0] + 3, v),
-            # accumulator of <= n_blocks reduced terms: < 2^{v+3}
-            acc_barrett=barrett_constants(int(qi), v + 3, v),
+            # accumulator of n_blocks reduced terms
+            acc_barrett=barrett_constants(int(qi), v + acc_bits(len(block_consts[i])), v),
         )
         for i, (qi, terms) in enumerate(zip(qs, beta_terms))
     )
+
+
+def acc_bits(n_blocks: int) -> int:
+    """Bits of the Alg-2 accumulator's Barrett window past v: the sum of
+    n_blocks reduced terms lies below n_blocks q <= 2^(v + k), k =
+    ceil(log2 n_blocks); at least 3, the reference's window (v + 3), which
+    holds up to 8 blocks.  Past 16 blocks the reference's window leaves
+    its remainder up to n_blocks / 8 + 2 q, beyond its three conditional
+    subtractions; this one keeps it below 3q for any number."""
+    return max(3, (n_blocks - 1).bit_length())
+
+
+LIMB_BITS = 28  # w: the post-processing limb width
+
+
+def counts(qs, v: int) -> tuple[int, int]:
+    """(S, L) of the moduli qs at segment width v: the base-2^v segments
+    of a coefficient below q = prod(qs), and the base-2^w limbs of the
+    compose's final accumulator (< t q)."""
+    q = 1
+    for qi in qs:
+        q *= int(qi)
+    return -(-q.bit_length() // v), -(-(q.bit_length() + len(qs).bit_length()) // LIMB_BITS)
 
 
 def make_plan(qs, n: int, v: int, beta_terms, t_prime: int = 3, device="cpu") -> RnsPlan:
@@ -149,7 +182,7 @@ def make_plan(qs, n: int, v: int, beta_terms, t_prime: int = 3, device="cpu") ->
     q = 1
     for qi in qs:
         q *= int(qi)
-    seg_count = -(-q.bit_length() // v)
+    seg_count, L = counts(qs, v)
     beta_pows = np.array(
         [[pow(1 << v, k, int(qi)) for k in range(seg_count)] for qi in qs],
         dtype=np.int64,
@@ -159,8 +192,7 @@ def make_plan(qs, n: int, v: int, beta_terms, t_prime: int = 3, device="cpu") ->
         [[pow(1 << v, t_prime * r, int(qi)) for r in range(n_blocks)] for qi in qs],
         dtype=np.int64,
     )
-    w = 28
-    L = -(-(q.bit_length() + t.bit_length()) // w)  # final accumulator < t * q
+    w = LIMB_BITS
     qi_star = [q // int(qi) for qi in qs]
     qi_tilde = np.array(
         [pow(s % int(qi), int(qi) - 2, int(qi)) for s, qi in zip(qi_star, qs)],
@@ -192,6 +224,16 @@ def make_plan(qs, n: int, v: int, beta_terms, t_prime: int = 3, device="cpu") ->
 # --------------------------------------------------------------------------
 
 
+def decompose(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Generic residue computation (the reference's ``use_sau=False``
+    path): z (..., S) base-2^v segments (each < 2^v) -> residues (t, ...),
+    sum_k z_k [B^k]_{q_i} mod q_i, each product below 2^(2v) <= 2^62 and
+    the sum of S reduced terms below S q_i."""
+    terms = (z[..., None, :] * plan.beta_pows_d) % plan.qs_d[:, None]  # (..., t, S)
+    r = terms.sum(dim=-1) % plan.qs_d  # (..., t)
+    return torch.movedim(r, -1, 0)
+
+
 def _sau_mul_beta(z: torch.Tensor, terms) -> torch.Tensor:
     """z * beta via shifts/adds; beta = sum(sign * 2^e) - 1 (Eq 5)."""
     acc = -z
@@ -216,7 +258,7 @@ def decompose_sau(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
         terms = plan.beta_terms[i]
         v1 = terms[0][0]
         eps, s1, s2 = barrett_constants(qi, plan.v + v1 + 3, plan.v)
-        epsa, sa1, sa2 = barrett_constants(qi, plan.v + 3, plan.v)
+        epsa, sa1, sa2 = barrett_constants(qi, plan.v + acc_bits(n_blocks), plan.v)
         acc = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
         for rho in range(n_blocks):
             blk = z[..., rho * tp]
@@ -243,13 +285,32 @@ def decompose_sau(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+# channels whose Eq-10 products one limb sum takes between two carry
+# normalisations (csrc/parentt.cuh kSumChannels): 15 products below 2^59
+# on a normalised limb stay below 2^63
+SUM_CHANNELS = 15
+
+
+def limb_sums(y: torch.Tensor, star: torch.Tensor, w: int) -> torch.Tensor:
+    """sum_c y_c * star_c over the channel axis 0 of y (t, ...) and star
+    (t, ..., L) broadcast together -> (..., L) limb sums of one value
+    below 2^(wL), exact for every t: SUM_CHANNELS channels' products at a
+    time, every limb carry-normalised below 2^w before the next group is
+    added."""
+    acc = None
+    for c0 in range(0, y.shape[0], SUM_CHANNELS):
+        part = (y[c0:c0 + SUM_CHANNELS, ..., None] * star[c0:c0 + SUM_CHANNELS]).sum(dim=0)
+        acc = part if acc is None else bigint.carry_normalize(acc, w) + part
+    return acc
+
+
 def compose(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
     """Inverse CRT per Eq 10: residues (t, ...) -> base-2^w limbs (..., L)."""
     shape = (plan.t,) + (1,) * (residues.dim() - 1)
     qs = plan.qs_d.view(shape)
     y = (residues * plan.qi_tilde_d.view(shape)) % qs  # (t, ...)
     star = plan.qi_star_limbs_d.view(shape + (plan.L,))
-    acc = (y[..., None] * star).sum(dim=0)  # (..., L), < t * 2^59
+    acc = limb_sums(y, star, plan.w)  # (..., L)
     acc = bigint.carry_normalize(acc, plan.w)
     q_b = plan.q_limbs_d.expand(acc.shape)
     return bigint.mod_by_subtraction(acc, q_b, plan.w, plan.t - 1)

@@ -252,10 +252,10 @@ def tile_bytes_model(
 
 
 def resolve_spec(n: int, schedule, *, tiling=None, backend: str = "torch",
-                 t: int = 1) -> ScheduleSpec:
+                 t: int = 1, seg_count: int = 1, limbs: int = 2) -> ScheduleSpec:
     """Plan-time resolution of ``schedule`` and ``tiling`` into a
     :class:`ScheduleSpec` with the card's accounting for ``backend`` at
-    (n, t).
+    (n, t) and the plan's S (``seg_count``) and L (``limbs``).
 
     ``tiling``: a tuple of per-level ``(columns, rows)`` pairs asserts the
     canonical chain (a mismatch is unservable, knob ``tiling``: the chain
@@ -286,7 +286,7 @@ def resolve_spec(n: int, schedule, *, tiling=None, backend: str = "torch",
         return spec
     from repro_torch.kernels import ntt as ntt_kernels
 
-    multi, smem = ntt_kernels.main_path_kernel_smem(backend, n, t)
+    multi, smem = ntt_kernels.main_path_kernel_smem(backend, n, t, seg_count, limbs)
     return dataclasses.replace(
         spec, multi_block=multi, card_split=ntt_kernels.fs_split(n) if multi else (),
         smem_bytes=smem, smem_budget=ntt_kernels.MAX_SMEM_BYTES,

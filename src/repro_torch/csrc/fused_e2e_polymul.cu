@@ -13,13 +13,16 @@
 // over the cluster and meet through distributed shared memory (DSMEM).
 // CTA r of a cluster
 //
-// * owns the channels r, r + C, ... (one at t <= 8), each as two 32-bit
-//   residue polynomials in its shared memory (8n bytes a channel, padded
-//   by one word in 16 against bank conflicts), and the coefficient slice
+// * owns the channels r, r + C, ... (one at t <= 8, ceil(t / 8) slots past
+//   it), each as two 32-bit residue polynomials in its shared memory (8n
+//   bytes a channel, padded by one word in 16 against bank conflicts), and
+//   the coefficient slice
 //   [ceil(r n / C), ceil((r + 1) n / C)), which is uneven when C does not
 //   divide n;
 // * decompose (parentt.cuh cluster_decompose, shared with K2-fs): copies
-//   its slice's segments of both operands, a chunk at a time, into shared
+//   its slice's segments of both operands, a chunk at a time (dc
+//   coefficients an operand, fewer than half the threads where the
+//   staging beside the residues cannot hold more), into shared
 //   memory (cp.async, coalesced), runs every channel's SAU circuit on them
 //   (half the threads per operand) and stores each residue straight into
 //   the owning CTA's shared memory over DSMEM; cluster.sync();
@@ -43,10 +46,14 @@
 //
 // Butterflies and products are 32-bit, the decompose's SAU network one
 // product by beta (parentt.cuh); the regime (lazy W = 2, lazy W = 4,
-// strict) and the limb bound MAXL are template parameters, so the limb
-// sums live in registers.  One launch through cudaLaunchKernelEx with the
-// cluster dimension; a cluster that cannot be scheduled comes back as the
-// launch error.
+// strict) and the limb chunk MAXL (8 for L <= 8, else 16-limb chunks) are
+// template parameters, so the limb sums live in registers.  The
+// channels' circuits live in dynamic shared memory after the residues
+// (32 bytes a channel), the staging after them (e2e_geom: what is left of
+// 227 KB bounds the decompose and compose chunks).  One launch through
+// cudaLaunchKernelEx with the cluster dimension; the wrapper refuses a
+// shape whose CTA does not fit, and a cluster that cannot be scheduled
+// comes back as the launch error.
 //
 // What bounds it on an H100: device memory sees 2S int64 segments in and
 // L int64 limbs out per coefficient; the 3t transforms, the SAU networks
@@ -101,29 +108,42 @@ struct E2EArgs {
   int cluster;  // C: CTAs per row
   int slots;    // channels a CTA owns at most: ceil(t / C)
   int group;    // K: stages per register pass
+  int dc;       // coefficients an operand a decompose chunk
+  int cc;       // coefficients a compose chunk
 };
 
-// Geometry shared by the launch and the kernel (kernels/ntt.py mirrors it
-// in pass_threads and e2e_smem_bytes).
-// int64 words of the staging area: a chunk of threads / 2 coefficients'
-// segments per operand in, a chunk of `threads` coefficients' limbs out.
-__host__ __device__ inline int stage_words_of(int threads, int S, int L) {
-  const int in = 2 * (threads / 2) * S;
-  return in > threads * L ? in : threads * L;
-}
-// Bytes of the residue polynomials, rounded to 16 for the staging after them.
-__host__ __device__ inline size_t residue_bytes(int n, int slots) {
-  return ((size_t)slots * 2 * padded(n) * sizeof(res_t) + 15) / 16 * 16;
-}
-__host__ __device__ inline size_t e2e_dynamic_smem(int n, int slots, int S, int L) {
-  return residue_bytes(n, slots) + (size_t)stage_words_of(pass_threads(n), S, L) * sizeof(i64);
+// C = min(t, 8) CTAs a row, each owning at most ceil(t / C) channels
+// (kernels/ntt.py e2e_cluster mirrors it for plan admission).
+int cluster_of(int t) { return t < kMaxCluster ? t : kMaxCluster; }
+int slots_of(int t) { return (t + cluster_of(t) - 1) / cluster_of(t); }
+
+// Shared memory of a CTA (kernels/ntt.py e2e_smem_bytes mirrors it): the
+// residue polynomials (rounded to 16), the channels' circuits, and the
+// staging of a decompose chunk's segments (dc coefficients an operand) or
+// a compose chunk's limbs (cc coefficients), dc and cc as large as what is
+// left of kMaxSmem holds, up to half the threads and all of them.
+struct E2EGeom {
+  long long res, table, smem;
+  int dc, cc;
+};
+
+E2EGeom e2e_geom(int n, int t, int S, int L) {
+  E2EGeom g;
+  const int T = pass_threads(n);
+  g.res = ((long long)slots_of(t) * 2 * padded(n) * sizeof(res_t) + 15) / 16 * 16;
+  g.table = decompose_table_bytes(t);
+  const long long room = kMaxSmem - g.res - g.table;
+  g.dc = fit_chunk(T / 2, room, 2LL * S * sizeof(i64));
+  g.cc = fit_chunk(T, room, (long long)L * sizeof(i64));
+  const long long in = 2LL * g.dc * S, out = (long long)g.cc * L;
+  g.smem = g.res + g.table + (in > out ? in : out) * (long long)sizeof(i64);
+  return g;
 }
 
 template <int REG, int MAXL>
 __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
     fused_e2e_polymul_kernel(const E2EArgs args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ DecomposeShared dsh;
   cg::cluster_group cluster = cg::this_cluster();
   const int C = args.cluster;
   const int rank = (int)cluster.block_rank();
@@ -132,18 +152,19 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
   const int PS = padded(n);  // polynomial stride in shared memory
   const int T = blockDim.x;
   const int S = args.S, L = args.L, t = args.t;
+  const size_t res_bytes = ((size_t)args.slots * 2 * PS * sizeof(res_t) + 15) / 16 * 16;
   res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (slots, 2, PS)
-  i64* stage = reinterpret_cast<i64*>(smem_raw + residue_bytes(n, args.slots));
+  const DecomposeShared dsh = load_decompose(smem_raw + res_bytes, args.dec);
+  i64* stage = reinterpret_cast<i64*>(smem_raw + res_bytes + decompose_table_bytes(t));
   const int j0 = (rank * n + C - 1) / C;
   const int j1 = ((rank + 1) * n + C - 1) / C;
 
-  load_decompose(dsh, args.dec);
   cluster.sync();  // every CTA of the cluster runs before any DSMEM store
 
   // Step 1: decompose this CTA's slice of both operands into every
   // channel, each residue stored in its owner's shared memory.
   cluster_decompose<REG != kStrict>(
-      cluster, res, PS, C, t, S, j0, j1, stage, dsh,
+      cluster, res, PS, C, t, S, j0, j1, args.dc, stage, dsh,
       [&](i64* sa, i64* sb, int jc, int cnt) {
         const size_t seg = (row * n + jc) * S;
         stage_words(sa, args.za + seg, cnt * S);
@@ -167,11 +188,12 @@ __global__ void __launch_bounds__(kMaxThreads, REG == kStrict ? 1 : kMinBlocks)
 
   // Step 4: Eq-10 limb sums over the peers' y, the compose tail, and the
   // (chunk, L) limbs staged and written coalesced.
-  cluster_compose<MAXL>(cluster, res, PS, C, t, L, args.w, j0, j1, args.star, args.q_limbs, stage,
-                        dsh, [&](const i64* st, int jc, int cnt) {
-                          i64* po = args.out + (row * n + jc) * L;
-                          for (int i = threadIdx.x; i < cnt * L; i += T) po[i] = st[i];
-                        });
+  cluster_compose<MAXL>(cluster, res, 2 * PS, C, t, L, args.w, j0, j1, args.cc,
+                                 args.star, args.q_limbs, stage, dsh,
+                                 [&](const i64* st, int jc, int cnt) {
+                                   i64* po = args.out + (row * n + jc) * L;
+                                   for (int i = threadIdx.x; i < cnt * L; i += T) po[i] = st[i];
+                                 });
   cluster.sync();  // peers have read this CTA's y before it exits
 }
 
@@ -187,19 +209,14 @@ E2EKernel pick_kernel(int mode, int window, int L) {
   return kernels[reg][L <= 8 ? 0 : 1];
 }
 
-// C = min(t, 8) CTAs a row, each owning at most ceil(t / C) channels
-// (kernels/ntt.py e2e_cluster mirrors it for plan admission).
-int cluster_of(int t) { return t < kMaxCluster ? t : kMaxCluster; }
-int slots_of(int t) { return (t + cluster_of(t) - 1) / cluster_of(t); }
-
 // The launch configuration of one call; `attr` must outlive `cfg`.
-cudaLaunchConfig_t e2e_config(int rows, int n, int t, int S, int L, cudaStream_t stream,
+cudaLaunchConfig_t e2e_config(int rows, int n, int t, const E2EGeom& geo, cudaStream_t stream,
                               cudaLaunchAttribute* attr) {
   const int cluster = cluster_of(t);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)rows * cluster, 1, 1);
   cfg.blockDim = dim3(pass_threads(n), 1, 1);
-  cfg.dynamicSmemBytes = e2e_dynamic_smem(n, slots_of(t), S, L);
+  cfg.dynamicSmemBytes = (size_t)geo.smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -208,6 +225,16 @@ cudaLaunchConfig_t e2e_config(int rows, int n, int t, int S, int L, cudaStream_t
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// The geometry of (n, t, S, L), or cudaErrorInvalidValue where one CTA's
+// shared memory cannot hold it, with the kernel opted in to its shared
+// memory.
+cudaError_t prepare(E2EKernel kernel, int n, int t, int S, int L, E2EGeom* geo) {
+  *geo = e2e_geom(n, t, S, L);
+  if (geo->dc < 1 || geo->cc < 1 || geo->smem > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)geo->smem);
 }
 
 }  // namespace
@@ -222,22 +249,21 @@ int parentt_fused_e2e_polymul(
     const long long* half, const long long* eps, const long long* tilde, const long long* fwd,
     const long long* inv, const long long* fwd_shoup, const long long* inv_shoup,
     const long long* sau_beta, const long long* sau_eps, const long long* sau_s2,
-    const long long* acc_eps, const long long* block_m, const long long* block_consts,
-    const long long* star, const long long* q_limbs, int rows, int log_n, int t, int S, int L,
-    int n_blocks, int dec_s1, int acc_s2, int w, int mode, int window, int beta,
-    int s1, int s2, void* stream) {
+    const long long* horner, const long long* block_m, const long long* star,
+    const long long* q_limbs, int rows, int log_n, int t, int S, int L, int dec_s1, int w,
+    int mode, int window, int beta, int s1, int s2, void* stream) {
   const int n = 1 << log_n;
   const E2EKernel kernel = pick_kernel(mode, window, L);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)e2e_dynamic_smem(n, slots_of(t), S, L));
+  E2EGeom geo;
+  cudaError_t err = prepare(kernel, n, t, S, L, &geo);
   if (err != cudaSuccess) return (int)err;
-  const DecomposeTables dec{qs, sau_beta, sau_eps, sau_s2, acc_eps, block_m, block_consts,
-                            t,  n_blocks, dec_s1,   acc_s2};
-  const E2EArgs args{za,  zb,  out, qs,      half,  eps,      tilde, fwd,    inv, fwd_shoup,
-                     inv_shoup, dec, star, q_limbs, log_n, t, S, L, w, mode, window,
-                     beta, s1, s2, cluster_of(t), slots_of(t), pass_group(n)};
+  const DecomposeTables dec{qs, sau_beta, sau_eps, sau_s2, horner, block_m, t, dec_s1};
+  const E2EArgs args{za,        zb,     out,  qs,      half,  eps, tilde, fwd,
+                     inv,       fwd_shoup, inv_shoup, dec, star, q_limbs, log_n, t,
+                     S,         L,      w,    mode,    window, beta, s1, s2,
+                     cluster_of(t), slots_of(t), pass_group(n), geo.dc, geo.cc};
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = e2e_config(rows, n, t, S, L, (cudaStream_t)stream, &attr);
+  const cudaLaunchConfig_t cfg = e2e_config(rows, n, t, geo, (cudaStream_t)stream, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -248,11 +274,11 @@ int parentt_fused_e2e_polymul(
 int parentt_fused_e2e_max_clusters(int log_n, int t, int S, int L, int mode, int window) {
   const int n = 1 << log_n;
   const E2EKernel kernel = pick_kernel(mode, window, L);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)e2e_dynamic_smem(n, slots_of(t), S, L));
+  E2EGeom geo;
+  cudaError_t err = prepare(kernel, n, t, S, L, &geo);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = e2e_config(1, n, t, S, L, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = e2e_config(1, n, t, geo, nullptr, &attr);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, (void*)kernel, &cfg);
   return err == cudaSuccess ? count : -(int)err;

@@ -2,7 +2,7 @@
 // decompose -> per-channel NTT(a) (.) NTT(b) -> iNTT -> Eq-10 compose,
 // segments (rows, n, S) x 2 -> product limbs (rows, n, L), for n whose two
 // operands do not fit one CTA's shared memory (n = 32768 and 65536 on the
-// card), and any n >= 16, at t <= 8.
+// card), and any n >= 16, at any t whose CTAs fit (e2e_fs_geom).
 //
 // Replaces the four-step body of the TPU kernel fused_e2e_polymul_pallas
 // (src/repro/kernels/ntt.py:802, bodies :479 and :530 under
@@ -15,29 +15,33 @@
 // Design: three launches over E = min(n, 4096)-element tiles,
 // pass_threads(E) threads a CTA (256):
 //   1. forward columns with decompose: one thread-block cluster of
-//      C = min(t, 8) = t CTAs per (row, column tile), launched through
-//      cudaLaunchKernelEx as K2 is.  CTA r reads the segments of its slice
-//      of the tile's E coefficients (n1 rows x E/n1 adjacent columns,
-//      ColMap) once, runs every channel's SAU circuit on them and stores
-//      each residue into the owning CTA's shared memory over DSMEM (K2's
-//      cluster_decompose); after cluster.sync() it runs the forward column
-//      stages of its channel r on both operands and stores their lazy
-//      values as 32-bit words to two (t, rows, n) scratch tensors.  A
-//      cluster reads the segments once, where t independent CTAs would
-//      read them t times.
+//      C = min(t, 8) CTAs per (row, column tile), launched through
+//      cudaLaunchKernelEx as K2 is; CTA r owns K2's slots, the channels
+//      r, r + C, ... (one at t <= 8), each as two padded tiles.  CTA r
+//      reads the segments of its slice of the tile's E coefficients (n1
+//      rows x E/n1 adjacent columns, ColMap) once, runs every channel's
+//      SAU circuit on them and stores each residue into the owning CTA's
+//      shared memory over DSMEM (K2's cluster_decompose); after
+//      cluster.sync() it runs the forward column stages of each of its
+//      channels on both operands and stores their lazy values as 32-bit
+//      words to two (t, rows, n) scratch tensors.  A cluster reads the
+//      segments once, where t independent CTAs would read them t times.
 //   2. rows: K1-fs's row launch (parentt.cuh fs_rows_cascade): the
 //      forward row stages, the canonical pointwise product and the inverse
 //      row stages, the product's lazy values over a's scratch.
 //   3. inverse columns with compose, the geometry of launch 1: CTA r runs
-//      the inverse column stages of channel r, whose last pass forms
-//      y = canonical(p) * q~ mod q in its shared memory; after
+//      the inverse column stages of each of its channels, whose last pass
+//      forms y = canonical(p) * q~ mod q in a shared tile a slot; after
 //      cluster.sync() it composes its slice from every peer's y with K2's
 //      quotient tail (cluster_compose), stages the limbs and writes them in
 //      row segments of E/n1 coefficients x L words; a last cluster.sync()
 //      keeps its shared memory alive until every peer has read it.
-// The regime (lazy W = 2, lazy W = 4, strict) and the limb bound MAXL are
-// template parameters, as in K2.  A cluster that cannot be scheduled comes
-// back as the launch error.
+// The regime (lazy W = 2, lazy W = 4, strict) and the limb chunk MAXL (8
+// for L <= 8, else 16-limb chunks) are template parameters, as in K2;
+// the channels' circuits and the staging live in dynamic shared memory
+// after the tiles, the chunks as large as what is left of 227 KB holds.
+// The wrapper refuses a shape whose CTAs do not fit, and a cluster that
+// cannot be scheduled comes back as the launch error.
 //
 // What bounds it on an H100: device memory sees 2S int64 segments in and
 // L int64 limbs out per coefficient (152 bytes at S = 6, L = 7), and the
@@ -69,33 +73,62 @@ struct E2EFsArgs {
   int S;
   int L;
   int w;
-  int cluster;  // C = min(t, 8) = t: CTAs per (row, column tile)
+  int cluster;  // C = min(t, 8): CTAs per (row, column tile)
+  int slots;    // channels a CTA owns at most: ceil(t / C)
+  int dc;       // coefficients an operand a decompose chunk (pass 0)
+  int cc;       // coefficients a compose chunk (pass 2)
 };
 
-// Bytes of `npoly` padded tiles, rounded to 16 for the staging after them.
-__host__ __device__ inline size_t tiles_bytes(int E, int npoly) {
-  return ((size_t)npoly * padded(E) * sizeof(res_t) + 15) / 16 * 16;
+int cluster_of(int t) { return t < kMaxCluster ? t : kMaxCluster; }
+int slots_of(int t) { return (t + cluster_of(t) - 1) / cluster_of(t); }
+
+// Bytes of `npoly` padded tiles, rounded to 16 for the table after them.
+__host__ __device__ inline long long tiles_bytes(int E, int npoly) {
+  return ((long long)npoly * padded(E) * sizeof(res_t) + 15) / 16 * 16;
 }
 
 // Dynamic shared memory of each pass (kernels/ntt.py e2e_fs_smem_bytes
-// mirrors it): pass 0 (forward columns) holds both operands' tiles and
-// half a block's segments per operand, pass 1 (rows) K1-fs's two tiles,
-// pass 2 (inverse columns) the y tile and a block's limbs.
-size_t pass_smem(int pass, int log_n, int S, int L) {
+// mirrors it): pass 0 (forward columns) holds both operands' tiles of
+// each slot, the channels' circuits and dc coefficients' segments an
+// operand; pass 1 (rows) K1-fs's two tiles; pass 2 (inverse columns) the
+// y tile of each slot, the circuits (1/q) and cc coefficients' limbs.
+struct E2EFsGeom {
+  long long smem[3];
+  int dc, cc;
+};
+
+E2EFsGeom e2e_fs_geom(int log_n, int t, int S, int L) {
+  E2EFsGeom g;
   const int E = 1 << (log_n < kLogFsTile ? log_n : kLogFsTile);
   const int T = pass_threads(E);
-  if (pass == 0) return tiles_bytes(E, 2) + (size_t)2 * (T / 2) * S * sizeof(i64);
-  if (pass == 1) return fs_smem(log_n, 2);
-  return tiles_bytes(E, 1) + (size_t)T * L * sizeof(i64);
+  const int slots = slots_of(t);
+  const long long table = decompose_table_bytes(t);
+  const long long cols = tiles_bytes(E, 2 * slots) + table;
+  g.dc = fit_chunk(T / 2, kMaxSmem - cols, 2LL * S * sizeof(i64));
+  g.smem[0] = cols + 2LL * g.dc * S * sizeof(i64);
+  g.smem[1] = (long long)fs_smem(log_n, 2);
+  const long long inv = tiles_bytes(E, slots) + table;
+  g.cc = fit_chunk(T, kMaxSmem - inv, (long long)L * sizeof(i64));
+  g.smem[2] = inv + (long long)g.cc * L * sizeof(i64);
+  return g;
 }
 
-// Where a CTA of a cluster launch sits: its row, column tile and channel
-// (its rank), and the tile's ColMap.
+bool fits(const E2EFsGeom& g) {
+  return g.dc >= 1 && g.cc >= 1 && g.smem[0] <= kMaxSmem && g.smem[1] <= kMaxSmem &&
+         g.smem[2] <= kMaxSmem;
+}
+
+// Where a CTA of a cluster launch sits: its row, column tile and rank
+// (its channels rank, rank + C, ...), and the tile's ColMap.
 struct ClusterGeom {
-  FsGeom g;  // split and tile; g.c and g.poly are the CTA's channel's
+  FsGeom g;  // split and tile; g.c and g.poly unused
   size_t row;
   int rank;
   ColMap map;
+  // offset of channel c's polynomial of this row in a (t, rows, n) tensor
+  __device__ __forceinline__ size_t poly(int c, int rows) const {
+    return ((size_t)c * rows + row) << g.log_n;
+  }
 };
 
 __device__ __forceinline__ ClusterGeom cluster_geom(cg::cluster_group& cluster,
@@ -113,8 +146,6 @@ __device__ __forceinline__ ClusterGeom cluster_geom(cg::cluster_group& cluster,
   g.blk = tile & ((1 << tiles_log) - 1);
   geo.row = (size_t)(tile >> tiles_log);
   geo.rank = (int)cluster.block_rank();
-  g.c = geo.rank;
-  g.poly = ((size_t)g.c * a.fs.rows + geo.row) << g.log_n;
   geo.map = ColMap{g.log_c, g.log_n2, g.blk << g.log_c};
   return geo;
 }
@@ -133,7 +164,6 @@ template <int REG>
 __global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 2 : 4)
     e2e_fs_cols_kernel(const E2EFsArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ DecomposeShared dsh;
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterGeom geo = cluster_geom(cluster, a);
   const FsGeom& g = geo.g;
@@ -141,19 +171,20 @@ __global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 2 : 4)
   const int E = 1 << g.log_e;
   const int PS = padded(E);
   const int S = a.S;
-  res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (2, PS): a, b
-  i64* stage = reinterpret_cast<i64*>(smem_raw + tiles_bytes(E, 2));
+  const long long tiles = tiles_bytes(E, 2 * a.slots);
+  res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (slots, 2, PS): a, b of each channel
+  const DecomposeShared dsh = load_decompose(smem_raw + tiles, a.dec);
+  i64* stage = reinterpret_cast<i64*>(smem_raw + tiles + decompose_table_bytes(a.t));
   const int j0 = (geo.rank * E + C - 1) / C;
   const int j1 = ((geo.rank + 1) * E + C - 1) / C;
   const size_t row0 = geo.row << g.log_n;  // the row's first coefficient
 
-  load_decompose(dsh, a.dec);
   cluster.sync();  // every CTA of the cluster runs before any DSMEM store
 
   // the tile's virtual elements jc .. jc + cnt - 1, gathered through ColMap:
   // runs of E/n1 coefficients x S contiguous words
   cluster_decompose<REG != kStrict>(
-      cluster, res, PS, C, a.t, S, j0, j1, stage, dsh,
+      cluster, res, PS, C, a.t, S, j0, j1, a.dc, stage, dsh,
       [&](i64* sa, i64* sb, int jc, int cnt) {
         for (int i = threadIdx.x; i < cnt * S; i += blockDim.x) {
           const int j = i / S;
@@ -164,13 +195,19 @@ __global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 2 : 4)
       });
   cluster.sync();
 
-  // the forward column stages of channel `rank` on both operands, from the
-  // shared tiles to the 32-bit scratch
-  const Reduce r = fs_reduce<REG>(a.fs, g.c);
-  const TilePolys<2> tile{{res, res + PS}, 0};
-  const ScratchOut<2, ColMap> out{{a.fs.scratch[0] + g.poly, a.fs.scratch[1] + g.poly}, geo.map};
-  forward_stages<2>(tile, tile, out, 0, g.log_n1, g.log_e, 0, g.log_e, pass_group(E),
-                    fs_tabs(a.fs, g.c), r);
+  // the forward column stages of each owned channel on both operands, from
+  // the shared tiles to the 32-bit scratch
+  for (int slot = 0; slot < a.slots; ++slot) {
+    const int c = geo.rank + slot * C;
+    if (c >= a.t) break;
+    const Reduce r = fs_reduce<REG>(a.fs, c);
+    res_t* A = res + (size_t)slot * 2 * PS;
+    const TilePolys<2> tile{{A, A + PS}, 0};
+    const size_t poly = geo.poly(c, a.fs.rows);
+    const ScratchOut<2, ColMap> out{{a.fs.scratch[0] + poly, a.fs.scratch[1] + poly}, geo.map};
+    forward_stages<2>(tile, tile, out, 0, g.log_n1, g.log_e, 0, g.log_e, pass_group(E),
+                      fs_tabs(a.fs, c), r);
+  }
 }
 
 template <int REG>
@@ -183,7 +220,6 @@ template <int REG, int MAXL>
 __global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 2 : 4)
     e2e_fs_inv_cols_kernel(const E2EFsArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ DecomposeShared dsh;  // 1 / q of every channel for the quotient
   cg::cluster_group cluster = cg::this_cluster();
   const ClusterGeom geo = cluster_geom(cluster, a);
   const FsGeom& g = geo.g;
@@ -191,37 +227,44 @@ __global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 2 : 4)
   const int E = 1 << g.log_e;
   const int PS = padded(E);
   const int L = a.L;
-  res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (PS,): y of channel `rank`
-  i64* stage = reinterpret_cast<i64*>(smem_raw + tiles_bytes(E, 1));
+  const long long tiles = tiles_bytes(E, a.slots);
+  res_t* res = reinterpret_cast<res_t*>(smem_raw);  // (slots, PS): y of each owned channel
+  // 1 / q of every channel for the quotient
+  const DecomposeShared dsh = load_decompose(smem_raw + tiles, a.dec);
+  i64* stage = reinterpret_cast<i64*>(smem_raw + tiles + decompose_table_bytes(a.t));
   const int j0 = (geo.rank * E + C - 1) / C;
   const int j1 = ((geo.rank + 1) * E + C - 1) / C;
   const size_t row0 = geo.row << g.log_n;
 
-  load_decompose(dsh, a.dec);
-  // the inverse column stages of channel `rank`, from the scratch to y in
-  // the shared tile
-  const Reduce r = fs_reduce<REG>(a.fs, g.c);
-  const GlobalIn<res_t, 1, ColMap> in{{a.fs.scratch[0] + g.poly}, geo.map};
-  const TilePolys<1> tile{{res}, 0};
-  const TildeTile y{res, TildeProduct{(res_t)a.tilde[g.c]}};
-  inverse_stages(in, tile, y, g.log_c, g.log_e, g.log_e, 0, g.log_e, pass_group(E),
-                 fs_tabs(a.fs, g.c), r);
+  // the inverse column stages of each owned channel, from the scratch to y
+  // in its shared tile
+  for (int slot = 0; slot < a.slots; ++slot) {
+    const int c = geo.rank + slot * C;
+    if (c >= a.t) break;
+    const Reduce r = fs_reduce<REG>(a.fs, c);
+    res_t* Y = res + (size_t)slot * PS;
+    const GlobalIn<res_t, 1, ColMap> in{{a.fs.scratch[0] + geo.poly(c, a.fs.rows)}, geo.map};
+    const TilePolys<1> tile{{Y}, 0};
+    const TildeTile y{Y, TildeProduct{(res_t)a.tilde[c]}};
+    inverse_stages(in, tile, y, g.log_c, g.log_e, g.log_e, 0, g.log_e, pass_group(E),
+                   fs_tabs(a.fs, c), r);
+  }
   cluster.sync();  // every peer's y stored
 
   // the compose of this CTA's slice, its limbs written through ColMap:
   // runs of E/n1 coefficients x L contiguous words
-  cluster_compose<MAXL>(cluster, res, PS, C, a.t, L, a.w, j0, j1, a.star, a.q_limbs, stage, dsh,
-                        [&](const i64* st, int jc, int cnt) {
-                          for (int i = threadIdx.x; i < cnt * L; i += blockDim.x) {
-                            const int j = i / L;
-                            a.out[(row0 + geo.map(jc + j)) * L + (i - j * L)] = st[i];
-                          }
-                        });
+  cluster_compose<MAXL>(cluster, res, PS, C, a.t, L, a.w, j0, j1, a.cc, a.star,
+                                 a.q_limbs, stage, dsh, [&](const i64* st, int jc, int cnt) {
+                                   for (int i = threadIdx.x; i < cnt * L; i += blockDim.x) {
+                                     const int j = i / L;
+                                     a.out[(row0 + geo.map(jc + j)) * L + (i - j * L)] = st[i];
+                                   }
+                                 });
   cluster.sync();  // peers have read this CTA's y before it exits
 }
 
 // pass 0: forward columns with decompose, 2: inverse columns with compose
-// (clusters, templated on the regime and, pass 2, the limb bound);
+// (clusters, templated on the regime and, pass 2, the limb chunk);
 // pass 1: rows (K1-fs's row launch, on a.fs).
 const void* pick_kernel(int pass, int mode, int window, int L) {
   const int reg = regime_of(mode, window);
@@ -243,10 +286,8 @@ const void* pick_kernel(int pass, int mode, int window, int L) {
   return inv[reg][L <= 8 ? 0 : 1];
 }
 
-int cluster_of(int t) { return t < kMaxCluster ? t : kMaxCluster; }
-
 // The launch configuration of pass `pass`; `attr` must outlive `cfg`.
-cudaLaunchConfig_t pass_config(int pass, int rows, int log_n, int t, int S, int L,
+cudaLaunchConfig_t pass_config(int pass, int rows, int log_n, int t, const E2EFsGeom& geo,
                                cudaStream_t stream, cudaLaunchAttribute* attr) {
   const int cluster = pass == 1 ? 1 : cluster_of(t);
   cudaLaunchConfig_t cfg = {};
@@ -254,7 +295,7 @@ cudaLaunchConfig_t pass_config(int pass, int rows, int log_n, int t, int S, int 
   // (channel, row, tile)
   cfg.gridDim = dim3((unsigned)fs_blocks(pass == 1 ? t : cluster, rows, log_n), 1, 1);
   cfg.blockDim = dim3(fs_threads(log_n), 1, 1);
-  cfg.dynamicSmemBytes = pass_smem(pass, log_n, S, L);
+  cfg.dynamicSmemBytes = (size_t)geo.smem[pass];
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -265,8 +306,7 @@ cudaLaunchConfig_t pass_config(int pass, int rows, int log_n, int t, int S, int 
   return cfg;
 }
 
-cudaError_t allow_pass_smem(const void* kernel, int pass, int log_n, int S, int L) {
-  const size_t bytes = pass_smem(pass, log_n, S, L);
+cudaError_t allow_pass_smem(const void* kernel, long long bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
@@ -276,17 +316,19 @@ cudaError_t allow_pass_smem(const void* kernel, int pass, int log_n, int S, int 
 extern "C" {
 
 // Launches the three passes on `stream` (scratch_a, scratch_b: (t, rows, n)
-// 32-bit words each; t <= 8, which the wrapper checks); returns the CUDA
-// error of an attribute call or a launch (0 = launched).
+// 32-bit words each); returns the CUDA error of an attribute call or a
+// launch (0 = launched; cudaErrorInvalidValue where a CTA's shared memory
+// cannot hold the shape, which the wrapper refuses first).
 int parentt_fused_e2e_polymul_fs(
     const long long* za, const long long* zb, int* scratch_a, int* scratch_b, long long* out,
     const long long* qs, const long long* half, const long long* eps, const long long* tilde,
     const long long* fwd, const long long* inv, const long long* fwd_shoup,
     const long long* inv_shoup, const long long* sau_beta, const long long* sau_eps,
-    const long long* sau_s2, const long long* acc_eps, const long long* block_m,
-    const long long* block_consts, const long long* star, const long long* q_limbs, int rows,
-    int log_n, int t, int S, int L, int n_blocks, int dec_s1, int acc_s2, int w, int mode,
-    int window, int beta, int s1, int s2, void* stream) {
+    const long long* sau_s2, const long long* horner, const long long* block_m,
+    const long long* star, const long long* q_limbs, int rows, int log_n, int t, int S, int L,
+    int dec_s1, int w, int mode, int window, int beta, int s1, int s2, void* stream) {
+  const E2EFsGeom geo = e2e_fs_geom(log_n, t, S, L);
+  if (!fits(geo)) return (int)cudaErrorInvalidValue;
   const FsArgs fs{{nullptr, nullptr}, {(res_t*)scratch_a, (res_t*)scratch_b},
                   nullptr,            qs,
                   half,               eps,
@@ -296,16 +338,17 @@ int parentt_fused_e2e_polymul_fs(
                   mode,               window,
                   beta,               s1,
                   s2};
-  const DecomposeTables dec{qs, sau_beta, sau_eps, sau_s2, acc_eps, block_m, block_consts,
-                            t,  n_blocks, dec_s1,   acc_s2};
-  const E2EFsArgs args{fs, za, zb, out, tilde, dec, star, q_limbs, t, S, L, w, cluster_of(t)};
+  const DecomposeTables dec{qs, sau_beta, sau_eps, sau_s2, horner, block_m, t, dec_s1};
+  const E2EFsArgs args{fs, za, zb,           out,         tilde,  dec,   star, q_limbs,
+                       t,  S,  L,            w,           cluster_of(t), slots_of(t),
+                       geo.dc, geo.cc};
   for (int pass = 0; pass < 3; ++pass) {
     const void* kernel = pick_kernel(pass, mode, window, L);
-    cudaError_t err = allow_pass_smem(kernel, pass, log_n, S, L);
+    cudaError_t err = allow_pass_smem(kernel, geo.smem[pass]);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        pass_config(pass, rows, log_n, t, S, L, (cudaStream_t)stream, &attr);
+    const cudaLaunchConfig_t cfg = pass_config(pass, rows, log_n, t, geo, (cudaStream_t)stream,
+                                               &attr);
     void* params[] = {pass == 1 ? (void*)&fs : (void*)&args};  // the row launch takes FsArgs
     err = cudaLaunchKernelExC(&cfg, kernel, params);
     if (err != cudaSuccess) return (int)err;
@@ -319,11 +362,13 @@ int parentt_fused_e2e_polymul_fs(
 // (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
 int parentt_fused_e2e_polymul_fs_max_clusters(int pass, int log_n, int t, int S, int L, int mode,
                                               int window) {
+  const E2EFsGeom geo = e2e_fs_geom(log_n, t, S, L);
+  if (!fits(geo)) return -(int)cudaErrorInvalidValue;
   const void* kernel = pick_kernel(pass, mode, window, L);
-  cudaError_t err = allow_pass_smem(kernel, pass, log_n, S, L);
+  cudaError_t err = allow_pass_smem(kernel, geo.smem[pass]);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = pass_config(pass, 1, log_n, t, S, L, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = pass_config(pass, 1, log_n, t, geo, nullptr, &attr);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
   return err == cudaSuccess ? count : -(int)err;

@@ -30,15 +30,24 @@
 //   one 32x32->64 product (inside the configuration's window x >> s1 and
 //   eps are both below 2^32; RnsPlan.dec admits windows up to 32 bits),
 //   and below q < 2^30 its remainders 32-bit.
-// * The decompose block products [blk * beta^{t' rho}]_q and the compose
-//   products y = r * q~ mod q (K6), below q^2, use the Barrett of
-//   block_barrett (m = floor(2^(b+31) / q)), exact for every x < 2^(2b)
-//   with b = bit_length(q) <= 31.
+// * The decompose block products and the Horner steps acc * [beta^t']_q
+//   (Alg 2's blocks, the most significant first), and the compose products
+//   y = r * q~ mod q (K6), all below q^2, use the Barrett of block_barrett
+//   (m = floor(2^(b+31) / q)), exact for every x < 2^(2b) with
+//   b = bit_length(q) <= 31.
 // * The Eq-10 limb sums are 64-bit; each term is a 32x32->64 product
-//   (y < q < 2^31, limb < 2^28) and each sum stays below t * 2^59.
+//   (y < q < 2^31, limb < 2^28, so below 2^59).  A sum of kSumChannels = 15
+//   of them on a limb below 2^28 stays below 2^63; past 15 channels the
+//   sums are carry-normalised (every limb back below 2^w) before the next
+//   15, so they are exact for every t.
 //
 // No register array is indexed by a runtime count: the limb loops unroll
-// to a compile-time MAXL with predication.
+// to a compile-time MAXL with predication, and limb counts past MAXL run
+// in chunks of MAXL limbs with the carry passed between chunks.  Channel,
+// segment and limb counts are not compile-time limits: what a kernel
+// keeps per channel, per segment or per limb lives in dynamic shared
+// memory sized at launch, and the host refuses what one block's shared
+// memory cannot hold (kernels/ntt.py and kernels/crt.py mirror the sizes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,13 +59,34 @@ typedef long long i64;
 typedef uint32_t res_t;
 typedef uint64_t u64;
 
-// Upper limits the Python wrappers check before a launch.
-constexpr int kMaxSegments = 16;
-constexpr int kMaxLimbs = 16;
-constexpr int kMaxChannels = 16;
-constexpr int kTPrime = 3;     // Alg-2 block width t' of every plan
-constexpr int kMaxBlocks = 6;  // Alg-2 blocks: ceil(kMaxSegments / t')
+constexpr int kTPrime = 3;  // Alg-2 block width t' of every plan
 constexpr int kMaxThreads = 512;
+// dynamic shared memory one block may opt in to on an H100 (227 KB)
+constexpr long long kMaxSmem = 227 * 1024;
+// channels whose Eq-10 products a limb sum takes between two carry
+// normalisations: 15 * (2^59 - 2^31) + 2^36 < 2^63
+constexpr int kSumChannels = 15;
+
+// Items of `per` bytes a staging area of `room` bytes holds, at most
+// `cap`: all of cap if they fit, else a multiple of 32 where room allows
+// 32 or more, else what fits (0 when not one does).  The kernels' launch
+// code and kernels/ntt.py fit_chunk size their staging with it.
+__host__ __device__ inline int fit_chunk(int cap, long long room, long long per) {
+  const long long k = room > 0 ? room / per : 0;
+  if (k >= cap) return cap;
+  return k >= 32 ? (int)(k & ~31LL) : (int)k;
+}
+
+// Rows of a one-thread-a-row tile (K5, K6) whose `words` int64 words a row
+// stage in shared memory beside `fixed` bytes: up to 256 rows within 64 KB,
+// or 32 rows past it while one block's shared memory holds them
+// (kernels/crt.py tile_rows).
+__host__ __device__ inline int tile_rows(int words, long long fixed) {
+  const long long per = 8LL * words;
+  long long budget = 64 * 1024 > 32 * per ? 64 * 1024 : 32 * per;
+  if (budget > kMaxSmem - fixed) budget = kMaxSmem - fixed;
+  return fit_chunk(256, budget, per);
+}
 
 // Reduction regime of a table set (repro_torch.kernels.ntt.reduction_mode).
 enum Mode : int {
@@ -836,62 +866,59 @@ inline size_t fs_smem(int log_n, int npoly) {
 // Every channel's decompose circuit as the stacked (t,) device arrays of
 // RnsPlan.dec_d (repro_torch.core.rns).
 struct DecomposeTables {
-  const i64* qs;            // (t,)
-  const i64* beta;          // (t,) the SAU multiplier beta = sum(sign * 2^e) - 1
-  const i64* sau_eps;       // (t,)
-  const i64* sau_s2;        // (t,)
-  const i64* acc_eps;       // (t,)
-  const i64* block_m;       // (t,) block-product Barrett constant
-  const i64* block_consts;  // (t, n_blocks)
+  const i64* qs;       // (t,)
+  const i64* beta;     // (t,) the SAU multiplier beta = sum(sign * 2^e) - 1
+  const i64* sau_eps;  // (t,)
+  const i64* sau_s2;   // (t,)
+  const i64* horner;   // (t,) [beta^t']_q: the Horner step between blocks
+  const i64* block_m;  // (t,) block-product Barrett constant
   int t;
-  int n_blocks;
-  int s1;      // v - 1
-  int acc_s2;  // 4
+  int s1;  // v - 1: the Barrett windows and the block Barrett
 };
 
-// One channel's circuit, as a block keeps it in shared memory.
-// Every constant but 1/q is below 2^32 and kept as a 32-bit word; the
-// struct is 16-byte aligned for vector loads.
+// One channel's circuit, as a block keeps it in shared memory: every
+// constant but 1/q is below 2^32 and kept as a 32-bit word; 32 bytes, so
+// a table of t channels is 16-byte aligned.
 struct __align__(16) Decompose {
   double inv_q;  // 1 / q, for the compose's quotient estimate
   res_t q;
   res_t beta;
   res_t sau_eps;
-  res_t acc_eps;
   res_t block_m;
-  res_t sau_s2;                    // v1 + 4
-  res_t block_consts[kMaxBlocks];  // [beta^{t' rho}]_q
+  res_t sau_s2;  // v1 + 4
+  res_t horner;  // [beta^t']_q
 };
+static_assert(sizeof(Decompose) == 32, "the host sizes the table at 32 bytes a channel");
 
-// Every channel's circuit in shared memory, with the shifts they share.
+// Bytes of the table of t circuits (kernels/ntt.py decompose_table_bytes).
+__host__ __device__ inline long long decompose_table_bytes(int t) {
+  return (long long)t * sizeof(Decompose);
+}
+
+// Every channel's circuit in shared memory (t entries at `ch`), with the
+// shift they share.
 struct DecomposeShared {
-  Decompose ch[kMaxChannels];
+  Decompose* ch;
   int t;
-  int s1;      // v - 1: both Barrett windows and the block Barrett
-  int acc_s2;  // 4
+  int s1;
 };
 
-// Fill `sh` from the device tables (the caller synchronises the block).
-__device__ __forceinline__ void load_decompose(DecomposeShared& sh, const DecomposeTables& a) {
+// Fill the table at `at` (decompose_table_bytes(a.t) bytes of shared
+// memory, 16-byte aligned) from the device tables; the caller
+// synchronises the block before reading it.
+__device__ __forceinline__ DecomposeShared load_decompose(void* at, const DecomposeTables& a) {
+  Decompose* ch = reinterpret_cast<Decompose*>(at);
   for (int c = threadIdx.x; c < a.t; c += blockDim.x) {
-    Decompose& d = sh.ch[c];
+    Decompose& d = ch[c];
     d.q = (res_t)a.qs[c];
     d.inv_q = 1.0 / (double)a.qs[c];
     d.beta = (res_t)a.beta[c];
     d.sau_eps = (res_t)a.sau_eps[c];
-    d.acc_eps = (res_t)a.acc_eps[c];
     d.block_m = (res_t)a.block_m[c];
     d.sau_s2 = (res_t)a.sau_s2[c];
-    for (int k = 0; k < kMaxBlocks; ++k) {
-      d.block_consts[k] =
-          k < a.n_blocks ? (res_t)a.block_consts[(size_t)c * a.n_blocks + k] : 0;
-    }
+    d.horner = (res_t)a.horner[c];
   }
-  if (threadIdx.x == 0) {
-    sh.t = a.t;
-    sh.s1 = a.s1;
-    sh.acc_s2 = a.acc_s2;
-  }
+  return DecomposeShared{ch, a.t, a.s1};
 }
 
 // Barrett of a non-negative SAU word x < 2^c (repro_torch.core.modmath
@@ -921,119 +948,200 @@ __device__ __forceinline__ i64 sau(i64 x, const Decompose& d) {
 }
 
 // Alg-2 residue of one coefficient's S base-2^v segments `z` (shared
-// memory) mod d.q, in blocks of t' = kTPrime segments: z0 + SAU(z1) +
-// SAU(Barrett(SAU(z2))), one v x v product per later block, and a last
-// Barrett of the accumulator.
+// memory) mod d.q, in blocks of t' = kTPrime segments, each
+// blk = Barrett(z0 + SAU(z1) + SAU(Barrett(SAU(z2)))) < q, taken by
+// Horner from the most significant block down: acc = acc * [beta^t']_q +
+// blk mod q, one v x v product (block Barrett) and one conditional
+// subtraction a block, so acc stays canonical for any number of blocks
+// and the circuit needs one constant past the SAU's.  The plain version
+// sums blk * [beta^{t' rho}]_q mod q and reduces the sum; both give the
+// canonical residue.
 template <bool NARROW>
-__device__ __forceinline__ i64 decompose(const i64* z, int S, const Decompose& d,
-                                         const DecomposeShared& sh) {
+__device__ __forceinline__ i64 decompose(const i64* z, int S, const Decompose& d, int s1) {
   static_assert(kTPrime == 3, "the block body below is written for t' = 3");
   i64 acc = 0;
-#pragma unroll
-  for (int rho = 0; rho < kMaxBlocks; ++rho) {
-    const int base = rho * kTPrime;
-    if (base < S) {
-      i64 blk = z[base];
-      if (base + 1 < S) blk += sau(z[base + 1], d);
-      if (base + 2 < S) {
-        const i64 x = sau_barrett<NARROW>(sau(z[base + 2], d), d.q, d.sau_eps, sh.s1, d.sau_s2);
-        blk += sau_barrett<NARROW>(sau(x, d), d.q, d.sau_eps, sh.s1, d.sau_s2);
-      }
-      blk = sau_barrett<NARROW>(blk, d.q, d.sau_eps, sh.s1, d.sau_s2);
-      acc += rho == 0 ? blk
-                      : block_barrett<NARROW>((u64)(res_t)blk * (res_t)d.block_consts[rho], d.q,
-                                              d.block_m, sh.s1);
+  for (int base = (S - 1) / kTPrime * kTPrime; base >= 0; base -= kTPrime) {
+    i64 blk = z[base];
+    if (base + 1 < S) blk += sau(z[base + 1], d);
+    if (base + 2 < S) {
+      const i64 x = sau_barrett<NARROW>(sau(z[base + 2], d), d.q, d.sau_eps, s1, d.sau_s2);
+      blk += sau_barrett<NARROW>(sau(x, d), d.q, d.sau_eps, s1, d.sau_s2);
     }
+    blk = sau_barrett<NARROW>(blk, d.q, d.sau_eps, s1, d.sau_s2);
+    if (base + kTPrime < S) {
+      blk += block_barrett<NARROW>((u64)(res_t)acc * d.horner, d.q, d.block_m, s1);
+      blk = (i64)cond_sub64((u64)blk, d.q);
+    }
+    acc = blk;
   }
-  return sau_barrett<NARROW>(acc, d.q, d.acc_eps, sh.s1, sh.acc_s2);
+  return acc;
 }
 
 // --------------------------------------------------------------------------
 // Eq-10 compose
 // --------------------------------------------------------------------------
 
-// Eq-10 limb sums of one coefficient: acc[l] = sum_c y(c) * q^_c[l] over
-// the t channels, with y(c) = [p_c * q~_c]_{q_c} < 2^31 supplied by the
-// caller in channel order and `star` the (t, L) limbs (< 2^28) of q^_c.
-// Both loops unroll (channels to kMaxChannels, limbs to MAXL, predicated),
-// so the t values y(c) can be in flight together.  Limbs l >= L stay 0.
-template <int MAXL, typename Y>
-__device__ __forceinline__ void crt_limb_sums(i64 (&acc)[MAXL], Y y, const i64* __restrict__ star,
-                                              int t, int L) {
-#pragma unroll
-  for (int l = 0; l < MAXL; ++l) acc[l] = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < t) {
-      const res_t yc = (res_t)y(c);
-      const res_t* sc = reinterpret_cast<const res_t*>(star + (size_t)c * L);
-#pragma unroll
-      for (int l = 0; l < MAXL; ++l) {
-        if (l < L) acc[l] += (i64)((u64)yc * __ldg(sc + 2 * l));
-      }
-    }
-  }
-}
-
-// The Eq-10 tail on one coefficient (K2, K6): raw limb sums -> canonical
-// base-2^w limbs of the composed value mod q, for a caller that knows
-// k = floor(value / q) to within one: here k = floor(sum_c y_c / q_c) in
-// double precision (the exact quotient, since value / q = sum_c y_c / q_c,
-// up to a rounding error far below 1).  The carry ripple subtracts k q as
-// it goes; the result lies in [-q, 2q), and one conditional addition or
-// subtraction of q makes it canonical: the limbs of value mod q, as the
-// plain version's carry ripple and t - 1 conditional subtractions
-// (kernels/crt.py compose_finalize) give them.
+// Carry-normalise the limb sums of limbs l0 .. l0 + MAXL - 1: every limb
+// below the top one (L - 1) back to [0, 2^w), the top one keeping the
+// rest; returns the carry out of the chunk's last limb when that limb is
+// not the top one (0 otherwise).  The value the sums stand for is kept.
 template <int MAXL>
-__device__ __forceinline__ void compose_finalize_quotient(i64 (&acc)[MAXL], int k,
-                                                          const i64* __restrict__ q_limbs, int L,
-                                                          int w) {
+__device__ __forceinline__ i64 carry_normalize(i64 (&acc)[MAXL], int l0, int L, int w) {
   const i64 mask = (1LL << w) - 1;
-  const int* ql = reinterpret_cast<const int*>(q_limbs);  // limb l: low word ql[2 l]
-  int limb[MAXL];
   i64 carry = 0;
 #pragma unroll
   for (int l = 0; l < MAXL; ++l) {
-    limb[l] = 0;
-    if (l < L) {
-      const i64 s = acc[l] + carry - (i64)k * __ldg(ql + 2 * l);
-      limb[l] = (int)(s & mask);
-      carry = s >> w;  // floor: -1 or 0 past the top limb
+    if (l0 + l < L - 1) {
+      const i64 s = acc[l] + carry;
+      acc[l] = s & mask;
+      carry = s >> w;
+    } else if (l0 + l == L - 1) {
+      acc[l] += carry;
+      carry = 0;
     }
   }
-  if (carry < 0) {  // k was one too large
-    int c = 0;
+  return carry;
+}
+
+// Eq-10 limb sums of one coefficient over limbs l0 .. l0 + MAXL - 1 (those
+// below L): acc[l] = sum_c y_c * q^_c[l0 + l] over the t channels, with
+// y_c = finish(c, load(c)) = [p_c * q~_c]_{q_c} < 2^31 supplied by the
+// caller in two steps (a word read, then any arithmetic on it), called
+// for c = 0, 1, ..., t - 1 in order, and `star` the (t, L) limbs (< 2^28)
+// of q^_c.  Channels run kSumChannels at a time (the loop over them
+// unrolled; with PRELOAD the group's words are all read before its
+// arithmetic, so the reads are in flight together, at the cost of
+// kSumChannels registers), and between two groups the sums are
+// carry-normalised (every limb below 2^w, the top one too: the partial
+// value sum_c y_c q^_c < t q < 2^(wL)), so no sum passes 2^63.  Returns
+// the carries the normalisations pushed out of the chunk's last limb (0
+// when it holds limb L - 1), which belong to limb l0 + MAXL.  Limbs
+// l0 + l >= L stay 0.  SINGLE: the caller guarantees t <= kSumChannels,
+// so the group loop runs once as straight-line code.
+template <int MAXL, bool PRELOAD, bool SINGLE, typename Load, typename Finish>
+__device__ __forceinline__ i64 crt_limb_sums(i64 (&acc)[MAXL], const Load& load,
+                                             const Finish& finish, const i64* __restrict__ star,
+                                             int t, int L, int l0, int w) {
 #pragma unroll
-    for (int l = 0; l < MAXL; ++l) {
-      if (l < L) {
-        const int d = limb[l] + __ldg(ql + 2 * l) + c;
-        c = d >> w;
-        limb[l] = d & (int)mask;
-      }
+  for (int l = 0; l < MAXL; ++l) acc[l] = 0;
+  i64 spill = 0;
+  for (int c0 = 0; SINGLE ? c0 == 0 : c0 < t; c0 += kSumChannels) {
+    res_t raw[kSumChannels];
+    if (PRELOAD) {
+#pragma unroll
+      for (int k = 0; k < kSumChannels; ++k) raw[k] = c0 + k < t ? (res_t)load(c0 + k) : 0u;
     }
-  } else {  // k was one too small when the rest is still >= q
-    bool ge = true;
 #pragma unroll
-    for (int l = 0; l < MAXL; ++l) {
-      if (l < L) {
-        const int q = __ldg(ql + 2 * l);
-        if (limb[l] != q) ge = limb[l] > q;
-      }
-    }
-    if (ge) {
-      int borrow = 0;
+    for (int k = 0; k < kSumChannels; ++k) {
+      if (c0 + k < t) {
+        const int c = c0 + k;
+        const res_t yc = (res_t)finish(c, PRELOAD ? raw[k] : (res_t)load(c));
+        const res_t* sc = reinterpret_cast<const res_t*>(star + (size_t)c * L + l0);
 #pragma unroll
-      for (int l = 0; l < MAXL; ++l) {
-        if (l < L) {
-          const int d = limb[l] - __ldg(ql + 2 * l) - borrow;
-          borrow = d < 0;
-          limb[l] = d < 0 ? d + (1 << w) : d;
+        for (int l = 0; l < MAXL; ++l) {
+          if (l0 + l < L) acc[l] += (i64)((u64)yc * __ldg(sc + 2 * l));
         }
       }
     }
+    if (!SINGLE && c0 + kSumChannels < t) spill += carry_normalize(acc, l0, L, w);
   }
+  return spill;
+}
+
+// The carry ripple of limbs l0 .. l0 + MAXL - 1 (those below L) that
+// subtracts k q as it goes: each limb's low w bits to out[l0 + l], and
+// the floor carry out of the chunk returned (past the top limb: -1 or 0).
+template <int MAXL>
+__device__ __forceinline__ i64 ripple_limbs(const i64 (&acc)[MAXL], int l0, int k,
+                                            const int* __restrict__ ql, int L, int w, i64* out) {
+  const i64 mask = (1LL << w) - 1;
+  i64 carry = 0;
 #pragma unroll
-  for (int l = 0; l < MAXL; ++l) acc[l] = limb[l];
+  for (int l = 0; l < MAXL; ++l) {
+    if (l0 + l < L) {
+      const i64 s = acc[l] + carry - (i64)k * __ldg(ql + 2 * (l0 + l));
+      out[l0 + l] = s & mask;
+      carry = s >> w;
+    }
+  }
+  return carry;
+}
+
+// The canonical limbs of value - k q, from limbs with `carry` (-1 or 0)
+// left past the top one by the ripple that subtracted k q
+// (crt_compose): value - k q lies in [-q, 2q), so one addition of q when
+// the carry is negative (k one too large), or one subtraction of q when
+// the limbs are still >= q (k one too small), leaves value mod q.  The
+// limbs are in memory (the caller's stage), each in [0, 2^w).
+__device__ __forceinline__ void correct_limbs(i64* limb, i64 carry, const int* __restrict__ ql,
+                                              int L, int w) {
+  const int mask = (1 << w) - 1;
+  if (carry < 0) {
+    int c = 0;
+    for (int l = 0; l < L; ++l) {
+      const int d = (int)limb[l] + __ldg(ql + 2 * l) + c;
+      c = d >> w;
+      limb[l] = d & mask;
+    }
+    return;
+  }
+  // limbs >= q: the highest limb that differs from q's decides (nearly
+  // always the top one, so the scan stops there)
+  int top = L - 1;
+  while (top > 0 && (int)limb[top] == __ldg(ql + 2 * top)) --top;
+  if ((int)limb[top] < __ldg(ql + 2 * top)) return;
+  int borrow = 0;
+  for (int l = 0; l < L; ++l) {
+    const int d = (int)limb[l] - __ldg(ql + 2 * l) - borrow;
+    borrow = d < 0;
+    limb[l] = d < 0 ? d + (1 << w) : d;
+  }
+}
+
+// The Eq-10 compose of one coefficient (K2, K2-fs, K6) into its L
+// canonical base-2^w limbs at `out` (the caller's stage in shared memory):
+// y_c = finish(c, load(c)) as crt_limb_sums takes it (each called once for
+// each channel a chunk of MAXL limbs), inv_q(c) = 1 / q_c.  k = floor(sum_c y_c / q_c) in double
+// precision, formed in the first chunk's channel pass, is floor(value / q)
+// to within one: value / q = sum_c y_c / q_c exactly, each of the t fma
+// steps rounds a sum below t by at most t 2^-53 and each 1/q_c is within
+// 2^-53 of exact, so the estimate is within t (t + 1) 2^-53 of it, far
+// below 1 for any t a plan can have.  Each chunk's limb sums then ripple
+// into `out` subtracting k q as they go, the ripple's carry and the
+// chunk's normalisation carries passed to the next chunk, and
+// correct_limbs finishes: the limbs of value mod q, as the plain
+// version's carry ripple and t - 1 conditional subtractions
+// (kernels/crt.py compose_finalize) give them, with no loop of
+// big-integer compare-and-subtract steps.  SINGLE: the caller guarantees
+// L <= MAXL and t <= kSumChannels (one chunk, one channel group), so the
+// compose runs as straight-line code, as K6's 8-limb instance does.
+template <int MAXL, bool PRELOAD, bool SINGLE, typename Load, typename Finish, typename InvQ>
+__device__ __forceinline__ void crt_compose(const Load& load, const Finish& finish,
+                                            const InvQ& inv_q, const i64* __restrict__ star,
+                                            const i64* __restrict__ q_limbs, int t, int L, int w,
+                                            i64* out) {
+  const int* ql = reinterpret_cast<const int*>(q_limbs);  // limb l: low word ql[2 l]
+  double quotient = 0.0;                                   // sum_c y_c / q_c
+  const auto finish_first = [&](int c, res_t raw) {
+    const res_t v = (res_t)finish(c, raw);
+    quotient = fma((double)v, inv_q(c), quotient);
+    return v;
+  };
+  int k = 0;
+  i64 carry = 0;  // into limb l0
+  for (int l0 = 0; SINGLE ? l0 == 0 : l0 < L; l0 += MAXL) {
+    i64 acc[MAXL];
+    i64 spill;
+    if (l0 == 0) {  // the first chunk's channel pass also forms k
+      spill = crt_limb_sums<MAXL, PRELOAD, SINGLE>(acc, load, finish_first, star, t, L, 0, w);
+      k = (int)quotient;
+    } else {
+      spill = crt_limb_sums<MAXL, PRELOAD, SINGLE>(acc, load, finish, star, t, L, l0, w);
+    }
+    acc[0] += carry;
+    carry = spill + ripple_limbs(acc, l0, k, ql, L, w, out);
+  }
+  correct_limbs(out, carry, ql, L, w);  // carry: -1 or 0 past the top limb
 }
 
 // --------------------------------------------------------------------------
@@ -1045,7 +1153,8 @@ __device__ __forceinline__ void compose_finalize_quotient(i64 (&acc)[MAXL], int 
 // [ceil(rank m / C), ceil((rank + 1) m / C)) of the run's m coefficients.
 // Channel c lives on CTA c % C as slot c / C: its two residue
 // polynomials at res + slot * 2 * PS (a, then b at + PS), element j at
-// pad(j); after the cascade y(c) sits where a was.  `Cluster` is
+// pad(j); after the cascade y(c) sits at res + slot * slot_stride + pad(j)
+// (K2: where a was; K2-fs: its own tile a slot).  `Cluster` is
 // cooperative_groups' cluster_group.
 
 // y = canonical(p) * q~ mod q: what the cascade's last inverse pass
@@ -1058,30 +1167,30 @@ struct TildeProduct {
 };
 
 // Decompose the slice [j0, j1) of both operands into every channel, each
-// residue stored in its owner's shared memory over DSMEM.  A chunk of
-// blockDim / 2 coefficients at a time: stage_in(sa, sb, jc, cnt), run by
-// the whole block, leaves the S segments of coefficients jc .. jc + cnt - 1
-// of operand a at sa and of b at sb; then half the threads decompose a,
-// half b.  The caller synchronises the cluster before (every peer runs)
-// and after (every residue landed).
+// residue stored in its owner's shared memory over DSMEM.  A chunk of dc
+// coefficients an operand at a time (dc <= blockDim / 2, as the staging
+// holds them): stage_in(sa, sb, jc, cnt), run by the whole block, leaves
+// the S segments of coefficients jc .. jc + cnt - 1 of operand a at sa and
+// of b at sb; then dc threads decompose a, dc threads b.  The caller
+// synchronises the cluster before (every peer runs) and after (every
+// residue landed).
 template <bool NARROW, typename Cluster, typename StageIn>
 __device__ __forceinline__ void cluster_decompose(Cluster& cluster, res_t* res, int PS, int C,
-                                                  int t, int S, int j0, int j1, i64* stage,
-                                                  const DecomposeShared& dsh,
+                                                  int t, int S, int j0, int j1, int dc,
+                                                  i64* stage, const DecomposeShared& dsh,
                                                   const StageIn& stage_in) {
-  const int CH = blockDim.x / 2;
-  const int op = threadIdx.x / CH;  // 0: a, 1: b
-  const int jj = threadIdx.x - op * CH;
-  for (int jc = j0; jc < j1; jc += CH) {
-    const int cnt = min(CH, j1 - jc);
-    stage_in(stage, stage + CH * S, jc, cnt);
+  const int op = threadIdx.x / dc;  // 0: a, 1: b, past them idle
+  const int jj = threadIdx.x - op * dc;
+  for (int jc = j0; jc < j1; jc += dc) {
+    const int cnt = min(dc, j1 - jc);
+    stage_in(stage, stage + dc * S, jc, cnt);
     __syncthreads();
-    if (jj < cnt) {
-      const i64* z = stage + (op * CH + jj) * S;
+    if (op < 2 && jj < cnt) {
+      const i64* z = stage + (op * dc + jj) * S;
       const int at = (op * PS) + pad(jc + jj);
       int owner = 0, slot = 0;
       for (int c = 0; c < t; ++c) {
-        const i64 x = decompose<NARROW>(z, S, dsh.ch[c], dsh);
+        const i64 x = decompose<NARROW>(z, S, dsh.ch[c], dsh.s1);
         cluster.map_shared_rank(res, owner)[slot * 2 * PS + at] = (res_t)x;
         if (++owner == C) owner = 0, ++slot;
       }
@@ -1090,43 +1199,34 @@ __device__ __forceinline__ void cluster_decompose(Cluster& cluster, res_t* res, 
   }
 }
 
-// Eq-10 limb sums over the peers' y for the slice [j0, j1), the compose
-// tail (the quotient floor(value / q) = floor(sum y_c / q_c) estimated in
-// double, one conditional correction), and the (chunk, L) limbs staged in
-// `stage`, a chunk of blockDim coefficients at a time; store_out(stage,
-// jc, cnt), run by the whole block, writes a chunk's limbs out.  The
-// caller synchronises the cluster before (every y stored) and after (the
-// peers have read this CTA's y before it exits).
+// The Eq-10 compose (crt_compose) over the peers' y for the slice
+// [j0, j1), a chunk of cc coefficients (cc <= blockDim) at a time, each
+// chunk's (cc, L) limbs staged in `stage`; store_out(stage, jc, cnt), run
+// by the whole block, writes a chunk's limbs out.  The caller
+// synchronises the cluster before (every y stored) and after (the peers
+// have read this CTA's y before it exits).
 template <int MAXL, typename Cluster, typename StoreOut>
-__device__ __forceinline__ void cluster_compose(Cluster& cluster, res_t* res, int PS, int C,
-                                                int t, int L, int w, int j0, int j1,
-                                                const i64* __restrict__ star,
+__device__ __forceinline__ void cluster_compose(Cluster& cluster, res_t* res, int slot_stride,
+                                                int C, int t, int L, int w, int j0, int j1,
+                                                int cc, const i64* __restrict__ star,
                                                 const i64* __restrict__ q_limbs, i64* stage,
                                                 const DecomposeShared& dsh,
                                                 const StoreOut& store_out) {
-  const int T = blockDim.x;
-  for (int jc = j0; jc < j1; jc += T) {
-    const int cnt = min(T, j1 - jc);
+  for (int jc = j0; jc < j1; jc += cc) {
+    const int cnt = min(cc, j1 - jc);
     const int j = threadIdx.x;
     if (j < cnt) {
       const int at = pad(jc + j);
-      i64 acc[MAXL];
       int owner = 0, off = at;  // channel c sits on CTA c % C at slot c / C
-      double quotient = 0.0;    // sum_c y_c / q_c
-      crt_limb_sums(
-          acc,
+      crt_compose<MAXL, false, false>(
           [&](int c) {
+            if (c == 0) owner = 0, off = at;
             const res_t y = cluster.map_shared_rank(res, owner)[off];
-            if (++owner == C) owner = 0, off += 2 * PS;
-            quotient = fma((double)y, dsh.ch[c].inv_q, quotient);
-            return (i64)y;
+            if (++owner == C) owner = 0, off += slot_stride;
+            return y;
           },
-          star, t, L);
-      compose_finalize_quotient(acc, (int)quotient, q_limbs, L, w);
-#pragma unroll
-      for (int l = 0; l < MAXL; ++l) {
-        if (l < L) stage[j * L + l] = acc[l];
-      }
+          [](int, res_t y) { return y; }, [&](int c) { return dsh.ch[c].inv_q; }, star, q_limbs,
+          t, L, w, stage + j * L);
     }
     __syncthreads();
     store_out(stage, jc, cnt);

@@ -14,16 +14,23 @@ wrappers, launch counters and plain PyTorch versions (port of
   ``compose_pallas`` (``repro/kernels/crt.py:266``): the Eq-10 inverse
   CRT, residues ``(t, rows)`` -> base-2^w limbs ``(rows, L)``, one thread
   per coefficient on the fused e2e kernel's compose tail: y = r q~ mod q
-  by the same block Barrett, the quotient floor(value / q) from a double
-  sum and one correction, the limbs staged in shared memory and written
-  coalesced.
+  by the same block Barrett, the limb sums carry-normalised every 15
+  channels, the quotient floor(value / q) from a double sum and one
+  correction, the limbs staged in shared memory (:func:`compose_rows`
+  rows a CTA) and written coalesced, in 16-limb chunks past 16 limbs.
+
+Neither kernel caps t, S or L: what they keep per channel, segment or
+limb lives in dynamic shared memory, and a shape whose CTA cannot hold
+it (:func:`decompose_fits`, :func:`compose_fits`) is refused, at plan
+time by :func:`repro_torch.plan` and before a launch by the wrappers.
 
 :func:`decompose_stage` is one channel's Alg-2 SAU circuit and
 :func:`compose_finalize` the Eq-10 tail (carry ripple, then t-1
 conditional big-integer subtractions of q); the plain versions
 :func:`decompose_ref` and :func:`compose_ref`, and the fused e2e
-kernel's plain version, are built from them.  The device functions
-``decompose``, ``crt_limb_sums`` and ``compose_finalize_quotient`` in
+kernel's plain version, are built from them (the limb sums through
+:func:`repro_torch.core.rns.limb_sums`, exact for every t).  The device
+functions ``decompose``, ``crt_limb_sums`` and ``crt_compose`` in
 ``csrc/parentt.cuh`` compute the same values.
 
 Each wrapper runs its plain version only for tensors on the CPU; on a
@@ -40,18 +47,78 @@ import ctypes
 import torch
 
 from repro_torch.core import modmath
-from repro_torch.core.rns import ChannelDecompose, RnsPlan
+from repro_torch.core.rns import ChannelDecompose, RnsPlan, limb_sums
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_operand, ptr
 
-# the kernels' limits (csrc/parentt.cuh): segments and limbs of a
-# coefficient, channels and Alg-2 blocks of a decompose circuit, the
-# block width
-MAX_SEGMENTS = 16
-MAX_LIMBS = 16
-MAX_CHANNELS = 16
-MAX_BLOCKS = 6
 KERNEL_T_PRIME = 3  # the Alg-2 block width of every plan (core/rns.py make_plan)
+# dynamic shared memory one block may opt in to on an H100 (232,448 bytes;
+# csrc/parentt.cuh kMaxSmem)
+MAX_SMEM_BYTES = 227 * 1024
+# bytes of one channel's circuit in the kernels' shared table
+# (csrc/parentt.cuh Decompose) and of one channel's compose constants
+# (csrc/compose.cu ComposeChannel)
+DECOMPOSE_CHANNEL_BYTES = 32
+COMPOSE_CHANNEL_BYTES = 24
+
+
+def fit_chunk(cap: int, room: int, per: int) -> int:
+    """Items of ``per`` bytes a staging area of ``room`` bytes holds, at
+    most ``cap``: cap if all fit, else a multiple of 32 where room allows
+    32 or more, else what fits (0 when not one does); csrc/parentt.cuh
+    ``fit_chunk``."""
+    k = room // per if room > 0 else 0
+    if k >= cap:
+        return cap
+    return k & ~31 if k >= 32 else k
+
+
+def tile_rows(words: int, fixed: int) -> int:
+    """Rows of a K5 or K6 tile whose ``words`` int64 words a row sit in
+    shared memory beside ``fixed`` bytes: up to 256 within 64 KB, 32 past
+    it while one block's shared memory holds them (csrc/parentt.cuh
+    ``tile_rows``)."""
+    per = 8 * words
+    budget = min(max(64 * 1024, 32 * per), MAX_SMEM_BYTES - fixed)
+    return fit_chunk(256, budget, per)
+
+
+def decompose_table_bytes(t: int) -> int:
+    """Shared memory of t channels' decompose circuits (K2, K2-fs, K5)."""
+    return t * DECOMPOSE_CHANNEL_BYTES
+
+
+def compose_table_bytes(t: int) -> int:
+    """Shared memory of K6's t channel constants, rounded to 16."""
+    return -(-t * COMPOSE_CHANNEL_BYTES // 16) * 16
+
+
+def decompose_rows(t: int, S: int) -> int:
+    """Rows of a K5 block: its (rows, S) slab beside the circuits."""
+    return tile_rows(S, decompose_table_bytes(t))
+
+
+def compose_rows(t: int, L: int) -> int:
+    """Rows of a K6 CTA: its (rows, L) limb stage beside the channels."""
+    return tile_rows(L, compose_table_bytes(t))
+
+
+def decompose_smem_bytes(t: int, S: int) -> int:
+    return decompose_table_bytes(t) + decompose_rows(t, S) * S * 8
+
+
+def compose_smem_bytes(t: int, L: int) -> int:
+    return compose_table_bytes(t) + compose_rows(t, L) * L * 8
+
+
+def decompose_fits(t: int, S: int) -> bool:
+    """Whether a K5 block holds one row's segments beside t circuits."""
+    return decompose_rows(t, S) >= 1
+
+
+def compose_fits(t: int, L: int) -> bool:
+    """Whether a K6 CTA holds one row's limbs beside t channels."""
+    return compose_rows(t, L) >= 1
 
 
 def require_dec(plan: RnsPlan):
@@ -66,14 +133,12 @@ def require_dec(plan: RnsPlan):
 
 
 def check_dec_limits(plan: RnsPlan, fn: str) -> None:
-    """Raise unless the plan's decompose circuits fit the kernels' shared
-    table (parentt.cuh ``DecomposeShared``)."""
+    """Raise unless the plan's decompose circuits are what the kernels'
+    block body is written for (blocks of t' = 3 segments)."""
     require_dec(plan)
-    if plan.t > MAX_CHANNELS or plan.n_blocks > MAX_BLOCKS or plan.t_prime != KERNEL_T_PRIME:
-        raise ValueError(
-            f"{fn}: t={plan.t}, {plan.n_blocks} Alg-2 blocks of t'={plan.t_prime} segments: the "
-            f"kernels take t <= {MAX_CHANNELS}, <= {MAX_BLOCKS} blocks of t'={KERNEL_T_PRIME}"
-        )
+    if plan.t_prime != KERNEL_T_PRIME:
+        raise ValueError(f"{fn}: Alg-2 blocks of t'={plan.t_prime} segments: the kernels take "
+                         f"t'={KERNEL_T_PRIME}")
 
 
 def narrow_moduli(plan: RnsPlan) -> bool:
@@ -169,9 +234,10 @@ def decompose_ref(z: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 
 def compose_ref(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
     """Plain version of the compose kernel: residues (t, rows) -> limbs
-    (rows, L), the body of the reference's ``compose_pallas``."""
+    (rows, L), the body of the reference's ``compose_pallas`` with the
+    limb sums exact for every t."""
     y = (residues * plan.qi_tilde_d[:, None]) % plan.qs_d[:, None]  # (t, rows)
-    acc = (y[:, :, None] * plan.qi_star_limbs_d[:, None, :]).sum(dim=0)  # (rows, L)
+    acc = limb_sums(y, plan.qi_star_limbs_d[:, None, :], plan.w)  # (rows, L)
     return compose_finalize(acc, plan.q_limbs, w=plan.w, t=plan.t)
 
 
@@ -180,7 +246,7 @@ def compose_ref(residues: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_DECOMPOSE_ARGTYPES = [_P] * 9 + [_LL] + [_I] * 6 + [_P]
+_DECOMPOSE_ARGTYPES = [_P] * 8 + [_LL] + [_I] * 4 + [_P]
 _COMPOSE_ARGTYPES = [_P] * 7 + [_LL] + [_I] * 5 + [_P]
 
 
@@ -196,15 +262,15 @@ def _decompose_constants(plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
     if kept is not None:
         return kept
     S = plan.seg_count
-    if S > MAX_SEGMENTS:
-        raise ValueError(f"{fn_name}: S={S} exceeds the kernel's {MAX_SEGMENTS}")
+    if not decompose_fits(plan.t, S):
+        raise ValueError(f"{fn_name}: t={plan.t}, S={S}: one block's shared memory cannot hold "
+                         "a row's segments beside the channels' circuits")
     dec = require_dec(plan)
     check_dec_limits(plan, fn_name)
     d = plan.dec_d
     pointers = tuple(ptr(x) for x in (plan.qs_d, d["beta"], d["sau_eps"], d["sau_s2"],
-                                      d["acc_eps"], d["block_m"], d["block_consts"]))
-    ints = (plan.t, S, plan.n_blocks, dec[0].acc_barrett[1], dec[0].acc_barrett[2],
-            int(narrow_moduli(plan)))
+                                      d["horner"], d["block_m"]))
+    ints = (plan.t, S, dec[0].acc_barrett[1], int(narrow_moduli(plan)))
     object.__setattr__(plan, "_decompose_launch", (pointers, ints))
     return pointers, ints
 
@@ -239,9 +305,9 @@ def _compose_constants(plan: RnsPlan, fn_name: str) -> tuple[tuple, tuple]:
     kept = plan.__dict__.get("_compose_launch")
     if kept is not None:
         return kept
-    if plan.L > MAX_LIMBS or plan.t > MAX_CHANNELS:
-        raise ValueError(f"{fn_name}: t={plan.t}, L={plan.L}: the kernel takes t <= "
-                         f"{MAX_CHANNELS}, L <= {MAX_LIMBS}")
+    if not compose_fits(plan.t, plan.L):
+        raise ValueError(f"{fn_name}: t={plan.t}, L={plan.L}: one CTA's shared memory cannot "
+                         "hold a row's limbs beside the channels' constants")
     dec = require_dec(plan)
     pointers = tuple(ptr(x) for x in (plan.qs_d, plan.qi_tilde_d, plan.dec_d["block_m"],
                                       plan.qi_star_limbs_d, plan.q_limbs_d))

@@ -11,9 +11,12 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   replaces ``fused_e2e_polymul_pallas`` (``repro/kernels/ntt.py:802``):
   SAU decompose -> cascade -> Eq-10 compose in one launch, one
   thread-block cluster of min(t, 8) CTAs per row (:func:`e2e_cluster`);
-  each CTA owns channels and a coefficient slice (:func:`e2e_channels`,
-  :func:`e2e_slice`), and the residues move between the CTAs through
-  distributed shared memory, never through device memory.
+  each CTA owns channels (ceil(t / 8) slots past t = 8) and a coefficient
+  slice (:func:`e2e_channels`, :func:`e2e_slice`), and the residues move
+  between the CTAs through distributed shared memory, never through
+  device memory.  Its shared memory (:func:`e2e_geom`) holds the slots'
+  residues, the channels' circuits and a staging whose decompose and
+  compose chunks shrink to what is left of 227 KB.
   ``fused_e2e_polymul_cuda.cluster`` is the cluster size of its last
   launch.
 * :func:`ntt_channels_cuda` (``csrc/ntt_channels.cu``, K3) replaces
@@ -42,11 +45,12 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   calls, each of two (K3-fs, K4-fs) or three (K1-fs) CUDA launches.
 * :func:`fused_e2e_polymul_fs_cuda` (``csrc/fused_e2e_polymul_fs.cu``,
   K2-fs) replaces the four-step body of ``fused_e2e_polymul_pallas``: K2's
-  function past one CTA (n > 16384 at t <= 8), three launches over the
-  same tiles: the forward columns with the decompose fused in, as a
-  cluster of min(t, 8) CTAs per (row, column tile) whose residues move
-  through distributed shared memory; K1-fs's row launch; the inverse
-  columns with the compose fused in, as the same clusters.  Only 32-bit
+  function past one CTA (where K2's CTA does not hold (n, t)), three
+  launches over the same tiles: the forward columns with the decompose
+  fused in, as a cluster of min(t, 8) CTAs per (row, column tile), each
+  owning K2's slots of channels, whose residues move through distributed
+  shared memory; K1-fs's row launch; the inverse columns with the compose
+  fused in, as the same clusters (:func:`e2e_fs_geom`).  Only 32-bit
   lazy words reach device memory between the launches.  Its plain version
   is K2's over the four-step cascade; ``.launches`` counts calls and
   ``.cluster`` is the cluster size of the last.
@@ -71,20 +75,18 @@ from repro_torch.core import modmath
 from repro_torch.core import ntt as ntt_mod
 from repro_torch.core.modmath import add_mod, div2_mod, mul_mod, sub_mod
 from repro_torch.core.ntt import ChannelTables, channel_scalars, ct_stages, gs_stages, twiddles
-from repro_torch.core.rns import RnsPlan
+from repro_torch.core.rns import RnsPlan, limb_sums
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_operand, ptr
 from repro_torch.kernels.crt import (
-    MAX_LIMBS,
-    MAX_SEGMENTS,
+    MAX_SMEM_BYTES,
     check_dec_limits,
     compose_finalize,
     decompose_ref,
+    decompose_table_bytes,
+    fit_chunk,
     require_dec,
 )
-
-# shared memory one block may opt in to on an H100 (232,448 bytes)
-MAX_SMEM_BYTES = 227 * 1024
 RESIDUE_BYTES = 4  # residues are stored as 32-bit words in shared memory
 
 # reduction regimes (csrc/parentt.cuh: Mode)
@@ -169,42 +171,79 @@ def cascade_fs_smem_bytes(n: int) -> int:
     return 2 * padded_words(fs_tile(n)) * RESIDUE_BYTES
 
 
-def e2e_fits(n: int, t: int) -> bool:
-    """Whether the fused e2e kernel K2 holds (n, t): one channel's two
-    polynomials and its staging a CTA (and K1's operands, which its stage
-    entry points run)."""
-    return max(cascade_smem_bytes(n), e2e_smem_bytes(n, t)) <= MAX_SMEM_BYTES
+def e2e_geom(n: int, t: int, S: int, L: int) -> tuple[int, int, int]:
+    """(shared memory, dc, cc) of one K2 CTA (csrc/fused_e2e_polymul.cu
+    ``e2e_geom``): its slots' two residue polynomials (one pad word per
+    16, rounded to 16 bytes), the channels' circuits, and a staging of dc
+    coefficients' segments an operand (up to half the threads) or cc
+    coefficients' limbs (up to all of them), as many as what is left of
+    MAX_SMEM_BYTES holds."""
+    _, slots = e2e_cluster(t)
+    threads = pass_threads(n)
+    res = -(-slots * 2 * padded_words(n) * RESIDUE_BYTES // 16) * 16
+    fixed = res + decompose_table_bytes(t)
+    dc = fit_chunk(threads // 2, MAX_SMEM_BYTES - fixed, 2 * S * 8)
+    cc = fit_chunk(threads, MAX_SMEM_BYTES - fixed, L * 8)
+    return fixed + max(2 * dc * S, cc * L) * 8, dc, cc
+
+
+def e2e_smem_bytes(n: int, t: int, S: int, L: int) -> int:
+    """Shared memory of one K2 CTA at (n, t, S, L) (:func:`e2e_geom`)."""
+    return e2e_geom(n, t, S, L)[0]
+
+
+def e2e_fits(n: int, t: int, S: int, L: int) -> bool:
+    """Whether the fused e2e kernel K2 holds (n, t, S, L): its slots'
+    polynomials, the circuits and a staging of at least one coefficient a
+    CTA (and K1's operands, which its stage entry points run)."""
+    smem, dc, cc = e2e_geom(n, t, S, L)
+    return cascade_fits(n) and dc >= 1 and cc >= 1 and smem <= MAX_SMEM_BYTES
 
 
 # the smallest n K2-fs takes (a column tile of 16 elements, 8 threads a CTA)
 E2E_FS_MIN_N = 16
 
 
-def e2e_fs_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) -> int:
-    """Shared memory of a K2-fs CTA at most (csrc/fused_e2e_polymul_fs.cu
-    ``pass_smem``): its forward column launch holds both operands' padded
-    tiles and half a block's segments per operand, its inverse column
-    launch the y tile and a block's limbs, both the decompose circuit
-    table; its row launch is K1-fs's (two tiles).  ``S`` and ``L`` default
-    to the kernel's largest counts (an upper bound for admission)."""
+def e2e_fs_geom(n: int, t: int, S: int, L: int) -> tuple[tuple[int, int, int], int, int]:
+    """((shared memory of its forward column, row and inverse column
+    launches' CTAs), dc, cc) of K2-fs (csrc/fused_e2e_polymul_fs.cu
+    ``e2e_fs_geom``): the forward column CTA holds both operands' padded
+    tiles of each of its slots, the circuits and dc coefficients'
+    segments an operand; the row CTA is K1-fs's (two tiles); the inverse
+    column CTA one y tile a slot, the circuits and cc coefficients'
+    limbs."""
     words, threads = padded_words(fs_tile(n)), fs_threads(n)
+    _, slots = e2e_cluster(t)
     tiles = lambda k: -(-k * words * RESIDUE_BYTES // 16) * 16
-    cols = tiles(2) + 2 * (threads // 2) * S * 8
-    inv_cols = tiles(1) + threads * L * 8
-    return max(cols, inv_cols) + DECOMPOSE_SHARED_BYTES
+    cols = tiles(2 * slots) + decompose_table_bytes(t)
+    dc = fit_chunk(threads // 2, MAX_SMEM_BYTES - cols, 2 * S * 8)
+    inv_cols = tiles(slots) + decompose_table_bytes(t)
+    cc = fit_chunk(threads, MAX_SMEM_BYTES - inv_cols, L * 8)
+    return (cols + 2 * dc * S * 8, cascade_fs_smem_bytes(n), inv_cols + cc * L * 8), dc, cc
 
 
-def e2e_fs_fits(n: int, t: int) -> bool:
-    """Whether the multi-block e2e kernel K2-fs holds (n, t): n >= 16, one
-    channel a CTA of its clusters (t <= 8), its CTAs within one block's
-    shared memory."""
-    return (n >= E2E_FS_MIN_N and t <= MAX_CLUSTER
-            and e2e_fs_smem_bytes(n, t) <= MAX_SMEM_BYTES)
+def e2e_fs_smem_bytes(n: int, t: int, S: int, L: int) -> int:
+    """Shared memory of a K2-fs CTA at most (:func:`e2e_fs_geom`)."""
+    return max(e2e_fs_geom(n, t, S, L)[0])
 
 
-def main_path_kernel_smem(backend: str, n: int, t: int) -> tuple[bool, int]:
+def e2e_fs_fits(n: int, t: int, S: int, L: int) -> bool:
+    """Whether the multi-block e2e kernel K2-fs holds (n, t, S, L): n >= 16,
+    and each of its CTAs within one block's shared memory with a staging
+    of at least one coefficient."""
+    smem, dc, cc = e2e_fs_geom(n, t, S, L)
+    return n >= E2E_FS_MIN_N and dc >= 1 and cc >= 1 and max(smem) <= MAX_SMEM_BYTES
+
+
+def e2e_serves(n: int, t: int, S: int, L: int) -> bool:
+    """Whether backend ``cuda_fused_e2e`` has a kernel for (n, t, S, L):
+    K2, or K2-fs past it."""
+    return e2e_fits(n, t, S, L) or e2e_fs_fits(n, t, S, L)
+
+
+def main_path_kernel_smem(backend: str, n: int, t: int, S: int, L: int) -> tuple[bool, int]:
     """(multi_block, shared memory of one CTA) of the kernel a kernel
-    backend's main path launches at (n, t): K3 / K4 or K3-fs / K4-fs
+    backend's main path launches at (n, t, S, L): K3 / K4 or K3-fs / K4-fs
     (``"cuda"``), K1 or K1-fs (``"cuda_fused"``), K2 or K2-fs
     (``"cuda_fused_e2e"``; admission refuses what neither holds)."""
     if backend == "cuda":
@@ -213,24 +252,22 @@ def main_path_kernel_smem(backend: str, n: int, t: int) -> tuple[bool, int]:
         return ((False, cascade_smem_bytes(n)) if cascade_fits(n)
                 else (True, cascade_fs_smem_bytes(n)))
     if backend == "cuda_fused_e2e":
-        if e2e_fits(n, t):
-            return False, max(cascade_smem_bytes(n), e2e_smem_bytes(n, t))
-        return True, e2e_fs_smem_bytes(n, t)
+        if e2e_fits(n, t, S, L):
+            return False, max(cascade_smem_bytes(n), e2e_smem_bytes(n, t, S, L))
+        return True, e2e_fs_smem_bytes(n, t, S, L)
     raise ValueError(f"main_path_kernel_smem: {backend!r} is not a kernel backend")
 
 
 # the fused e2e kernel's cluster (csrc/fused_e2e_polymul.cu): at most the
 # portable cluster size of CTAs per row
 MAX_CLUSTER = 8
-# static shared memory of a decompose circuit table (parentt.cuh
-# DecomposeShared: 16 channels), an upper bound
-DECOMPOSE_SHARED_BYTES = 2048
 
 
 def e2e_cluster(t: int) -> tuple[int, int]:
-    """(C, slots) of the e2e kernel: C = min(t, 8) CTAs per row, each owning
-    at most ``slots`` = ceil(t / C) channels.  The kernel's launch derives
-    them itself; this copy serves plan admission and the tests."""
+    """(C, slots) of the e2e kernels: C = min(t, 8) CTAs per row (K2) or
+    per (row, column tile) (K2-fs), each owning at most ``slots`` =
+    ceil(t / C) channels.  The kernels' launch derives them itself; this
+    copy serves plan admission and the tests."""
     c = min(t, MAX_CLUSTER)
     return c, -(-t // c)
 
@@ -257,19 +294,6 @@ def pass_group(n: int) -> int:
     registers between two trips through shared memory, log2(n / threads)
     capped at 3 (csrc/parentt.cuh ``pass_group``)."""
     return min((n // pass_threads(n)).bit_length() - 1, 3)
-
-
-def e2e_smem_bytes(n: int, t: int, S: int = MAX_SEGMENTS, L: int = MAX_LIMBS) -> int:
-    """Shared memory of one e2e CTA: its channels' two residue polynomials
-    (one pad word per 16), the staging of half a block's threads'
-    segments per operand or of every thread's limbs, and the decompose
-    circuit table.  ``S`` and ``L``
-    default to the kernel's largest counts (an upper bound for admission)."""
-    _, slots = e2e_cluster(t)
-    threads = pass_threads(n)
-    res = -(-slots * 2 * padded_words(n) * RESIDUE_BYTES // 16) * 16
-    stage = max(2 * (threads // 2) * S, threads * L) * 8
-    return res + stage + DECOMPOSE_SHARED_BYTES
 
 
 def reduction_mode(tables: ChannelTables) -> tuple[int, int, int, int, int]:
@@ -386,7 +410,7 @@ def fused_e2e_polymul_ref(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTab
     p = cascade(decompose_ref(za, plan), decompose_ref(zb, plan), tables)  # (t, rows, n)
     q, _, eps = channel_scalars(tables, 3)
     y = mul_mod(p, plan.qi_tilde_d.view(plan.t, 1, 1), q, eps, tables.mul_shifts)
-    acc = (y[..., None] * plan.qi_star_limbs_d.view(plan.t, 1, 1, plan.L)).sum(dim=0)
+    acc = limb_sums(y, plan.qi_star_limbs_d.view(plan.t, 1, 1, plan.L), plan.w)
     return compose_finalize(acc, plan.q_limbs, w=plan.w, t=plan.t)
 
 
@@ -404,8 +428,8 @@ def fused_e2e_polymul_fs_ref(za: torch.Tensor, zb: torch.Tensor, tables: Channel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STAGE_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _CASCADE_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
-_E2E_ARGTYPES = [_P] * 19 + [_I] * 14 + [_P]
-_E2E_FS_ARGTYPES = [_P] * 21 + [_I] * 14 + [_P]
+_E2E_ARGTYPES = [_P] * 18 + [_I] * 12 + [_P]
+_E2E_FS_ARGTYPES = [_P] * 20 + [_I] * 12 + [_P]
 _FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 _FS_CASCADE_ARGTYPES = [_P] * 12 + [_I] * 8 + [_P]
 # each K1/K3/K4 source's shared memory a CTA, one-block and multi-block
@@ -670,9 +694,9 @@ def intt_blocks_per_sm(tables: ChannelTables) -> int:
 
 
 def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str,
-                   smem_bytes=e2e_smem_bytes) -> tuple[tuple, tuple]:
-    """The checked (pointers, ints) of a K2 or K2-fs (``fn_name``, whose
-    CTAs hold ``smem_bytes(n, t, S, L)``) launch that depend only on the
+                   fits=e2e_fits) -> tuple[tuple, tuple]:
+    """The checked (pointers, ints) of a K2 or K2-fs (``fn_name``, which
+    holds what ``fits(n, t, S, L)`` says) launch that depend only on the
     plan and its tables: worked out at the plan's first launch of that
     kernel with ``tables`` and kept on the plan, so a short call does not
     pay for them again."""
@@ -684,10 +708,9 @@ def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str,
         return kept[fn_name][1]
     t, n, S, L = plan.t, plan.n, plan.seg_count, plan.L
     log_n = _check_n(n, fn_name)
-    if S > MAX_SEGMENTS or L > MAX_LIMBS:
-        raise ValueError(f"{fn_name}: S={S}, L={L} exceed the kernel's {MAX_SEGMENTS}/{MAX_LIMBS}")
-    if smem_bytes(n, t, S, L) > MAX_SMEM_BYTES:
-        raise ValueError(f"{fn_name}: n={n}, t={t} do not fit one CTA's shared memory")
+    if not fits(n, t, S, L):
+        raise ValueError(f"{fn_name}: n={n}, t={t}, S={S}, L={L} do not fit one CTA's shared "
+                         "memory")
     dec = require_dec(plan)
     check_dec_limits(plan, fn_name)
     if plan.qs_d.device != tables.qs_d.device or tables.t != t or tables.n != n:
@@ -697,11 +720,10 @@ def _e2e_constants(tables: ChannelTables, plan: RnsPlan, fn_name: str,
     d = plan.dec_d
     pointers = tuple(ptr(x) for x in (
         tables.qs_d, tables.half_d, eps, plan.qi_tilde_d, tables.fwd_d, tables.inv_d, fsh, ish,
-        d["beta"], d["sau_eps"], d["sau_s2"], d["acc_eps"], d["block_m"], d["block_consts"],
+        d["beta"], d["sau_eps"], d["sau_s2"], d["horner"], d["block_m"],
         plan.qi_star_limbs_d, plan.q_limbs_d,
     ))
-    ints = (log_n, t, S, L, plan.n_blocks, dec[0].acc_barrett[1], dec[0].acc_barrett[2], plan.w,
-            mode, window, beta, s1, s2)
+    ints = (log_n, t, S, L, dec[0].acc_barrett[1], plan.w, mode, window, beta, s1, s2)
     kept[fn_name] = (tables, (pointers, ints))
     return pointers, ints
 
@@ -766,16 +788,13 @@ def fused_e2e_polymul_fs_cuda(za: torch.Tensor, zb: torch.Tensor, tables: Channe
     """K2-fs: segments (rows, n, S) x 2 -> product limbs (rows, n, L) as the
     multi-block e2e kernel, three launches of ``csrc/fused_e2e_polymul_fs.cu``
     (two of them clusters of min(t, 8) CTAs) with 32-bit scratch between
-    them, allocated here.  Takes n >= 16 and t <= 8.  CPU tensors run the
-    plain version."""
+    them, allocated here.  Takes what :func:`e2e_fs_fits` holds.  CPU
+    tensors run the plain version."""
     if za.device.type == "cpu":
         return fused_e2e_polymul_fs_ref(za, zb, tables, plan)
     fn_name = "fused_e2e_polymul_fs_cuda"
     rows = _check_segments(za, zb, plan, fn_name)
-    if plan.n < E2E_FS_MIN_N or plan.t > MAX_CLUSTER:
-        raise ValueError(f"{fn_name}: takes n >= {E2E_FS_MIN_N} and t <= {MAX_CLUSTER} (one "
-                         f"channel a CTA of its clusters), got n={plan.n}, t={plan.t}")
-    pointers, ints = _e2e_constants(tables, plan, fn_name, e2e_fs_smem_bytes)
+    pointers, ints = _e2e_constants(tables, plan, fn_name, e2e_fs_fits)
     launch = _build.load("fused_e2e_polymul_fs", "parentt_fused_e2e_polymul_fs", _E2E_FS_ARGTYPES)
     _check_plan_device(plan, za.device, fn_name)
     out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=za.device)
@@ -811,3 +830,13 @@ def e2e_fs_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> tuple[in
             _build.check("fused_e2e_polymul_fs", -count)
         counts.append(count)
     return tuple(counts)
+
+
+def e2e_clusters_resident(tables: ChannelTables, plan: RnsPlan) -> int:
+    """Clusters of the e2e kernel that serves the plan's (n, t, S, L) the
+    current card holds at once: K2's, or the fewer of K2-fs's two cluster
+    launches'.  :func:`repro_torch.plan` refuses ``cuda_fused_e2e`` where
+    it is 0, so no launch fails for want of a place to run."""
+    if e2e_fits(plan.n, plan.t, plan.seg_count, plan.L):
+        return e2e_max_active_clusters(tables, plan)
+    return min(e2e_fs_max_active_clusters(tables, plan))

@@ -13,8 +13,8 @@ Backends
   and compose (K6).  Mirrors ``pallas_fused``.
 * ``"cuda_fused_e2e"`` — decompose -> cascade -> compose in ONE CUDA
   kernel (K2, :func:`repro_torch.kernels.ntt.fused_e2e_polymul_cuda`)
-  where a CTA holds a channel's polynomials (n <= 16384), in the
-  multi-block K2-fs past it
+  where a CTA holds its channels' polynomials (n <= 16384, up to a t that
+  falls as n grows), in the multi-block K2-fs past it
   (:func:`repro_torch.kernels.ntt.fused_e2e_polymul_fs_cuda`: one call of
   three launches, only 32-bit lazy words between them); int64 residues
   never reach device memory.  Mirrors ``pallas_fused_e2e``.  The stage
@@ -23,10 +23,13 @@ Backends
   runs K1 (K1-fs), every other stage its ``cuda`` kernel.
 
 ``backend="auto"`` resolves at plan time: to ``cuda_fused_e2e`` on a CUDA
-device where K2 or K2-fs holds (n, t) (n <= 65536 at t <= 8, and K2's
-reach at larger t), to ``cuda_fused`` past it, and to ``torch`` on the
-CPU.  The kernel backends accept CPU
-tensors too: their wrappers then run the kernels' plain versions.
+device where K2 holds the plan, or K2-fs at t <= 8, with S and L <= 16
+(:func:`auto_backend`), to ``cuda_fused`` past it, and to ``torch`` on
+the CPU.  The kernel backends accept CPU tensors
+too: their wrappers then run the kernels' plain versions.  ``use_sau``
+picks the Alg-2 SAU circuits or the generic decompose on the ``torch``
+backend; the kernel backends always run the SAU circuits, as the
+reference's Pallas backends do.
 
 Schedules
 ---------
@@ -50,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ntt as ntt_mod
+from repro_torch.core import primes as primes_mod
 from repro_torch.core import rns as rns_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.modmath import mul_mod
@@ -71,16 +75,48 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
-def resolve_backend(backend: str, device: torch.device, n: int, t: int) -> str:
-    """A concrete backend for (n, t) on ``device``: ``"auto"`` is the fused
-    e2e backend where K2 or K2-fs holds (n, t), the fused cascade past
-    them, the plain ``torch`` on the CPU."""
+# the largest S and L at which backend="auto" took the e2e kernels
+# before they served more (AUTO_E2E_T, tests/test_torch_channels.py)
+AUTO_E2E_COUNTS = 16
+
+
+def auto_backend(n: int, t: int, S: int, L: int) -> str:
+    """``backend="auto"`` on a card at a plan's (n, t, S, L):
+    ``cuda_fused_e2e`` where K2 holds it, or K2-fs at t <= 8, with S and L
+    <= 16 (where auto took it before the e2e kernels served more);
+    ``cuda_fused`` everywhere else, where no wall shows the e2e kernels no
+    slower (at W1 and W2 chip_smoke's walls show them slower, PERF.md)."""
+    if S <= AUTO_E2E_COUNTS and L <= AUTO_E2E_COUNTS and (
+            ntt_kernels.e2e_fits(n, t, S, L)
+            or (t <= ntt_kernels.MAX_CLUSTER and ntt_kernels.e2e_fs_fits(n, t, S, L))):
+        return "cuda_fused_e2e"
+    return "cuda_fused"
+
+
+def resolve_backend(backend: str, device: torch.device, n: int, t: int, v: int) -> str:
+    """A concrete backend for (n, t, v) on ``device``: ``"auto"`` is
+    :func:`auto_backend` at the S and L of (n, t, v)'s primes on a card,
+    the plain ``torch`` on the CPU."""
     if backend == "auto":
         if torch.device(device).type != "cuda":
             return "torch"
-        e2e = ntt_kernels.e2e_fits(n, t) or ntt_kernels.e2e_fs_fits(n, t)
-        return "cuda_fused_e2e" if e2e else "cuda_fused"
+        return auto_backend(n, t, *rns_mod.counts(
+            [p.q for p in primes_mod.default_prime_set(n, t, v)], v))
     return validate_backend(backend)
+
+
+def serving_backends(n: int, t: int, S: int, L: int) -> tuple[str, ...]:
+    """The kernel backends whose kernels one block's shared memory holds
+    at (n, t, S, L): ``cuda`` and ``cuda_fused`` where K5 and K6 hold a row
+    beside their channel tables (K1, K3, K4 and their multi-block forms
+    take any t, and n up to 65536), ``cuda_fused_e2e`` where K2 or K2-fs
+    holds it too."""
+    if n > ntt_kernels.FS_MAX_N or not (crt_kernels.decompose_fits(t, S)
+                                        and crt_kernels.compose_fits(t, L)):
+        return ()
+    if ntt_kernels.e2e_serves(n, t, S, L):
+        return KERNEL_BACKENDS
+    return ("cuda", "cuda_fused")
 
 
 def resolve_schedule(params: ParenttParams, schedule=None) -> schedule_mod.ScheduleSpec:
@@ -207,13 +243,17 @@ def negacyclic_mul(a: torch.Tensor, b: torch.Tensor, params: ParenttParams, *,
     return _inverse_kernel(params.n)(prod, ct).reshape(a.shape)
 
 
-def rns_decompose(z: torch.Tensor, params: ParenttParams, *, backend: str) -> torch.Tensor:
-    """z: (..., S) base-2^v segments -> residues (t, ...) through the Alg-2
-    SAU circuits; every kernel backend runs the decompose kernel (K5)."""
+def rns_decompose(z: torch.Tensor, params: ParenttParams, *, backend: str,
+                  use_sau: bool = True) -> torch.Tensor:
+    """z: (..., S) base-2^v segments -> residues (t, ...): on ``torch``
+    through the Alg-2 SAU circuits, or the generic decompose when
+    ``use_sau`` is False; every kernel backend runs the decompose kernel
+    (K5), whatever ``use_sau``."""
     backend = _stage_backend(backend)
     _check_segments(z, params, "rns_decompose")
     if backend == "torch":
-        return rns_mod.decompose_sau(z, params.plan)
+        fn = rns_mod.decompose_sau if use_sau else rns_mod.decompose
+        return fn(z, params.plan)
     z2 = z.reshape(-1, z.shape[-1]).contiguous()
     return crt_kernels.decompose_cuda(z2, params.plan).reshape((params.t,) + z.shape[:-1])
 
@@ -240,11 +280,12 @@ def rns_compose(residues: torch.Tensor, params: ParenttParams, *, backend: str) 
 
 
 def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams, *,
-                      backend: str, schedule=None) -> torch.Tensor:
+                      backend: str, schedule=None, use_sau: bool = True) -> torch.Tensor:
     """za, zb: (..., n, S) segments -> (..., n, L) product limbs:
     decompose -> per-channel cascade -> compose.  On ``cuda_fused_e2e``
-    all three run in one kernel, K2 where it holds (n, t), else K2-fs;
-    other backends compose the stage dispatchers."""
+    all three run in one kernel, K2 where it holds (n, t, S, L), else
+    K2-fs; other backends compose the stage dispatchers (``use_sau``:
+    :func:`rns_decompose`)."""
     backend = validate_backend(backend)
     for name, z in (("za", za), ("zb", zb)):
         if z.dim() < 2 or z.shape[-2] != params.n:
@@ -258,15 +299,17 @@ def fused_polymul_e2e(za: torch.Tensor, zb: torch.Tensor, params: ParenttParams,
             f"fused_polymul_e2e: operand shapes differ: {tuple(za.shape)} vs {tuple(zb.shape)}"
         )
     if backend != "cuda_fused_e2e":
-        ra = rns_decompose(za, params, backend=backend)
-        rb = rns_decompose(zb, params, backend=backend)
+        ra = rns_decompose(za, params, backend=backend, use_sau=use_sau)
+        rb = rns_decompose(zb, params, backend=backend, use_sau=use_sau)
         prod = negacyclic_mul(ra, rb, params, backend=backend, schedule=schedule)
         return rns_compose(prod, params, backend=backend)
     ct = _require_tables(params, "fused_polymul_e2e")
     lead = za.shape[:-2]
     z3a = za.reshape((-1,) + za.shape[-2:]).contiguous()
     z3b = zb.reshape((-1,) + zb.shape[-2:]).contiguous()
-    e2e = (ntt_kernels.fused_e2e_polymul_cuda if ntt_kernels.e2e_fits(params.n, params.t)
+    rp = params.plan
+    e2e = (ntt_kernels.fused_e2e_polymul_cuda
+           if ntt_kernels.e2e_fits(params.n, params.t, rp.seg_count, rp.L)
            else ntt_kernels.fused_e2e_polymul_fs_cuda)
     out = e2e(z3a, z3b, ct, params.plan)
     return out.reshape(lead + (params.n, params.plan.L))

@@ -370,20 +370,25 @@ def test_plan_from_params_refuses_what_plan_refuses():
     with pytest.raises(repro_torch.UnknownKnobError) as err:
         tparams.make_params(N, T, V, device="cpu").with_backend("bogus")
     assert err.value.knob == "backend"
-    with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"), use_sau=False)
-    assert (err.value.knob, err.value.value, err.value.alternatives) == ("use_sau", False, (True,))
-    # the shared admission: the e2e kernels' reach (K2-fs past one CTA, at
-    # t <= 8) and the kernels' limb arrays
+    # use_sau=False (the generic decompose) serves, as in plan()
+    generic = repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"),
+                                           use_sau=False)
+    assert generic.config.use_sau is False
+    with pytest.raises(repro_torch.UnknownKnobError) as err:
+        repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"), use_sau="no")
+    assert err.value.knob == "use_sau"
+    # the shared admission: the e2e kernels' reach (K2-fs past one CTA, up
+    # to t = 48) and the kernels' decompose constants
     big = tparams.make_params(1 << 15, 1, 30, device="cpu")
     assert repro_torch.plan_from_params(big, backend="cuda_fused_e2e").config.schedule.multi_block
-    big9 = tparams.make_params(1 << 15, 9, 30, device="cpu")
+    big49 = tparams.make_params(1 << 15, 49, 30, device="cpu")
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan_from_params(big9, backend="cuda_fused_e2e")
+        repro_torch.plan_from_params(big49, backend="cuda_fused_e2e")
     assert err.value.knob == "t"
     assert repro_torch.plan_from_params(big, backend="cuda").config.backend == "cuda"
     assert repro_torch.plan_from_params(big, backend="cuda_fused").config.schedule.multi_block
-    wide = tparams.make_params(N, 16, 30, device="cpu")
+    # no in-kernel decompose constants at v = 31 past t = 6 at n = 32768
+    wide = tparams.make_params(1 << 15, 8, 31, device="cpu")
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan_from_params(wide, backend="cuda")
     assert err.value.knob == "t"

@@ -121,14 +121,13 @@ def test_main_path_launches_the_kernels(cuda_device):
         assert prod[c, 0].tolist() == want
 
 
-# the largest (n, t) plan() admits on the e2e backend in each regime
-# (lazy W=4 at v=29, lazy W=2 at v=30, strict at v=31), with one channel a
-# CTA (n = 16384, t <= 8) and two (n = 8192, t > 8): about 170-207 KB of
-# shared memory a CTA, so one CTA an SM and clusters of up to 8 SMs.  At
-# v = 29 the SAU words of t = 8 (n = 16384) and t = 11 .. 15 (n = 8192)
-# need the 32-bit Barrett window (RnsPlan.dec)
+# the largest (n, t) plan() serves on K2 in each regime (lazy W=4 at v=29,
+# lazy W=2 at v=30, strict at v=31), with one channel a CTA (n = 16384,
+# t = 8) and three (n = 8192, t = 24: up to 200 KB of shared memory a CTA,
+# one CTA an SM, clusters of 8 SMs); at v = 31 the in-kernel decompose
+# constants stop at t = 13 for n = 8192
 E2E_CORNERS = [(16384, 8, 29), (16384, 8, 30), (16384, 8, 31),
-               (8192, 15, 29), (8192, 14, 30), (8192, 13, 31)]
+               (8192, 24, 29), (8192, 24, 30), (8192, 13, 31)]
 # K2-fs's (n, t, v) past one CTA at t <= 8 that plan() refuses on every
 # kernel backend: at v = 31 the in-kernel decompose constants stop at t = 6
 # for n = 32768 and t = 3 for 65536 (knob t)
@@ -159,28 +158,31 @@ def test_e2e_and_decompose_kernels_at_one_and_odd_rows(cuda_device, n, t, v):
 
 def test_e2e_corners_are_the_edge_of_admission():
     """Runs without a card: each corner is admitted on K2 (one block a
-    channel), and one step past it in t is refused (knob t), so the
-    corners cover the largest CTAs K2 serves; one step past it in n is the
-    multi-block K2-fs's at t <= 8 (up to n = 65536; 131072 is refused,
-    knob n) and refused past t = 8, where no K2-fs cluster holds the
-    channels, and where the decompose constants stop (E2E_FS_REFUSED;
-    knob t)."""
+    channel's slots), and one step past it in t is K2-fs's (the multi-block
+    kernel takes what K2's CTA cannot) or, where the decompose constants
+    stop, refused (knob t); one step past it in n is K2-fs's too, or
+    refused for the same constants; K2-fs's own edge is t = 48 (six slots
+    of two 4096-element tiles), t = 49 refused (knob t) naming the
+    backends that serve; n = 131072 is refused (knob n)."""
     for n, t, v in E2E_CORNERS:
         pl = repro_torch.plan(n, t, v, backend="cuda_fused_e2e", device="cpu")
         assert not pl.config.schedule.multi_block
-        with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, t + 1, v, backend="cuda_fused_e2e", device="cpu")
-        assert err.value.knob == "t"
-        if t <= kern.MAX_CLUSTER and (2 * n, t, v) not in E2E_FS_REFUSED:
-            pl = repro_torch.plan(2 * n, t, v, backend="cuda_fused_e2e", device="cpu")
-            assert pl.config.schedule.multi_block
-            with pytest.raises(repro_torch.UnservableConfigError) as err:
-                repro_torch.plan(131072, t, v, backend="cuda_fused_e2e", device="cpu")
-            assert err.value.knob == "n"
-        else:
-            with pytest.raises(repro_torch.UnservableConfigError) as err:
-                repro_torch.plan(2 * n, t, v, backend="cuda_fused_e2e", device="cpu")
-            assert err.value.knob == "t"
+        for nn, tt in ((n, t + 1), (2 * n, t)):
+            if make_params(nn, tt, v, device="cpu").plan.dec is None:
+                with pytest.raises(repro_torch.UnservableConfigError) as err:
+                    repro_torch.plan(nn, tt, v, backend="cuda_fused_e2e", device="cpu")
+                assert err.value.knob == "t"
+            else:
+                pl = repro_torch.plan(nn, tt, v, backend="cuda_fused_e2e", device="cpu")
+                assert pl.config.schedule.multi_block
+    pl = repro_torch.plan(8192, 48, 30, backend="cuda_fused_e2e", device="cpu")
+    assert pl.config.schedule.multi_block
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(8192, 49, 30, backend="cuda_fused_e2e", device="cpu")
+    assert err.value.knob == "t" and "backend='cuda_fused'" in err.value.alternatives
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(131072, 8, 30, backend="cuda_fused_e2e", device="cpu")
+    assert err.value.knob == "n"
 
 
 @pytest.mark.parametrize("n,t,v", [(64, 3, 30), (256, 6, 30), (4096, 6, 30), (64, 9, 30)])
@@ -211,7 +213,7 @@ def test_e2e_admits_n8192_and_every_plan_admitted_before():
         n = 1 << log_n
         for t in range(1, 17):
             before = max(8 * n, 8 * t * n) <= kern.MAX_SMEM_BYTES
-            now = max(kern.cascade_smem_bytes(n), kern.e2e_smem_bytes(n, t)) <= kern.MAX_SMEM_BYTES
+            now = kern.e2e_fits(n, t, 16, 16)  # at most 16 segments and limbs then
             assert now or not before, (n, t)
 
 
@@ -255,16 +257,18 @@ def test_register_pass_kernels_match_plain_versions(cuda_device, kernel, backend
     assert torch.equal(got, want)
 
 
-# the largest t whose limbs K6 holds (L = 16) at v = 29, 30, 31, beside
-# the regime presets
-COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31)]
+# K6 at one chunk of 16 limbs in each regime (t = 15, 14, 14 at v = 29,
+# 30, 31), at 17 limbs (a second chunk of one), 32 (two chunks, three
+# groups of channels) and 45, beside the regime presets
+COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31), (64, 15, 30), (64, 29, 30),
+                   (64, 40, 31)]
 
 
 @pytest.mark.parametrize("n,t,v", [(n, t, v) for n, t, v, _ in PRESETS] + COMPOSE_CORNERS)
 def test_compose_kernel_at_odd_rows_and_the_limb_corners(cuda_device, n, t, v):
     """K6 equals its plain version at one row, at 255 and 257 (a partial
-    last tile), with r = 0 and r = q - 1 in every channel, up to 16
-    limbs."""
+    last tile), with r = 0 and r = q - 1 in every channel, in one chunk of
+    limbs and past it."""
     pl = repro_torch.plan(n, t, v, backend="cuda", device=cuda_device)
     _, _, ra, _ = _inputs(pl, 5, seed=n + t + v + 5, device=cuda_device)
     r2 = ra.reshape(t, -1)[:, :257].contiguous()
@@ -274,6 +278,50 @@ def test_compose_kernel_at_odd_rows_and_the_limb_corners(cuda_device, n, t, v):
         got = crt.compose_cuda(r2[:, :rows].contiguous(), pl.params.plan)
         torch.cuda.synchronize()
         assert torch.equal(got, crt.compose_ref(r2[:, :rows], pl.params.plan))
+
+
+# K5, K6, K2 and K2-fs past 16 segments, limbs and channels: chip_smoke.py's
+# CHANNEL_EDGES (t = 9, 15, 16, 20, 30 at n = 64 and 4096, and at 4096 the
+# largest t of K2/K2-fs, 48, and of K5/K6, 169) and the largest t plan()
+# admits at n = 64, 484 (the special primes the search finds there; every
+# kernel backend serves it), one row: (n, t, rows)
+CHANNEL_EDGE_POINTS = _chip_smoke().CHANNEL_EDGES + [(64, 484, 1)]
+
+
+@pytest.mark.parametrize("n,t,rows", CHANNEL_EDGE_POINTS)
+def test_channel_edge_kernels_match_plain_versions(cuda_device, n, t, rows):
+    """K5 and K6 on every point, K2 and K2-fs where plan() serves
+    cuda_fused_e2e, bit for bit against their plain versions (and K2-fs
+    against K2), with a zero and a q - 1 operand coefficient and residues
+    0 and q - 1; the card holds at least one cluster.  At (64, 484) the
+    plain versions take minutes."""
+    pl = repro_torch.plan(n, t, 30, backend="cuda", device=cuda_device)
+    p, cfg = pl.params, pl.config
+    za, zb, ra, _ = _inputs(pl, rows, seed=n + t + 11, device=cuda_device)
+    za[..., -1] = zb[..., -1] = 0  # below q
+    za[0, 0] = zb[0, 1] = 0
+    za[-1, -1] = zb[-1, -1] = repro_torch.to_segments(pl, [pl.q - 1])[0]
+    z2 = za.reshape(-1, cfg.seg_count)
+    r2 = ra.reshape(t, -1).contiguous()
+    r2[:, 0] = 0
+    r2[:, 1] = p.plan.qs_d - 1
+    assert torch.equal(crt.decompose_cuda(z2, p.plan), crt.decompose_ref(z2, p.plan))
+    assert torch.equal(crt.compose_cuda(r2, p.plan), crt.compose_ref(r2, p.plan))
+    S, L = cfg.seg_count, cfg.L
+    if kern.e2e_fits(n, t, S, L):
+        k2 = kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan)
+        assert torch.equal(k2, kern.fused_e2e_polymul_ref(za, zb, p.tables, p.plan))
+        assert kern.e2e_max_active_clusters(p.tables, p.plan) >= 1
+    if kern.e2e_fs_fits(n, t, S, L):
+        fs = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+        assert kern.fused_e2e_polymul_fs_cuda.cluster == min(t, 8)
+        if kern.e2e_fits(n, t, S, L):
+            assert torch.equal(fs, k2)
+        else:
+            assert torch.equal(fs, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan))
+        assert min(kern.e2e_fs_max_active_clusters(p.tables, p.plan)) >= 1
+    serves = kern.e2e_fits(n, t, S, L) or kern.e2e_fs_fits(n, t, S, L)
+    assert serves == (t <= 48 or n == 64)
 
 
 def test_pass_kernel_admission_edges_did_not_move():
@@ -334,10 +382,10 @@ def test_multi_block_kernels_match_plain_versions(cuda_device, n, v):
 def test_multi_block_admission_edges():
     """Runs without a card: plan() admits n = 65536 at t = 6 on cuda,
     cuda_fused and cuda_fused_e2e (multi-block kernels: K2-fs on the
-    last) and refuses 131072 there (knob n), and an explicit
-    cuda_fused_e2e above n = 16384 at t = 9 (knob t); the launch geometry
-    of the multi-block kernels at 32768 and 65536 for t up to 14 comes
-    from their own helpers."""
+    last) and refuses 131072 there (knob n); an explicit cuda_fused_e2e
+    above n = 16384 is K2-fs's at t = 9 and refused at t = 49 (knob t),
+    past its six slots a CTA; the launch geometry of the multi-block
+    kernels at 32768 and 65536 comes from their own helpers."""
     for backend in ("cuda", "cuda_fused", "cuda_fused_e2e"):
         pl = repro_torch.plan(65536, 6, 30, backend=backend, device="cpu")
         assert pl.config.schedule.multi_block and pl.config.schedule.card_split == (256, 256)
@@ -347,15 +395,18 @@ def test_multi_block_admission_edges():
     for n in (32768, 65536):
         pl = repro_torch.plan(n, 6, 30, backend="cuda_fused_e2e", device="cpu")
         assert pl.config.schedule.card_split == kern.fs_split(n)
-        with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, 9, 30, backend="cuda_fused_e2e", device="cpu")
-        assert err.value.knob == "t"
         for t in (1, 6, 14):
             assert kern.fs_blocks(t, 16, n) * kern.fs_tile(n) == t * 16 * n
         assert kern.fs_threads(n) == 256
         assert max(kern.ntt_fs_smem_bytes(n), kern.intt_fs_smem_bytes(n),
                    kern.cascade_fs_smem_bytes(n),
-                   kern.e2e_fs_smem_bytes(n, kern.MAX_CLUSTER)) <= kern.MAX_SMEM_BYTES
+                   kern.e2e_fs_smem_bytes(n, 48, 48, 52)) <= kern.MAX_SMEM_BYTES
+        assert not kern.e2e_fs_fits(n, 49, 49, 53)
+    pl = repro_torch.plan(32768, 9, 30, backend="cuda_fused_e2e", device="cpu")
+    assert pl.config.schedule.multi_block
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(32768, 49, 30, backend="cuda_fused_e2e", device="cpu")
+    assert err.value.knob == "t"
 
 
 def test_front_door_past_one_cta(cuda_device):
@@ -406,7 +457,7 @@ def test_multi_block_e2e_kernel_matches_plain_version_and_k2(cuda_device, n, t):
         torch.cuda.synchronize()
         assert kern.fused_e2e_polymul_fs_cuda.cluster == min(t, 8)
         assert torch.equal(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan))
-        if kern.e2e_fits(n, t):
+        if kern.e2e_fits(n, t, pl.config.seg_count, pl.config.L):
             assert torch.equal(got, kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan))
         assert min(kern.e2e_fs_max_active_clusters(p.tables, p.plan)) >= 1
 

@@ -330,21 +330,27 @@ def test_sau_barrett_32bit_quotient_matches_int64(n, t, v):
 def decompose_emulated(z: np.ndarray, plan, narrow: bool) -> np.ndarray:
     """parentt.cuh ``decompose`` for every channel on (N, S) int64
     segments: the SAU network as one product by beta (mod 2^64), the
-    Barretts with 32-bit quotients, remainders 32-bit when ``narrow``."""
+    Barretts with 32-bit quotients, remainders 32-bit when ``narrow``, and
+    the Alg-2 blocks by Horner from the most significant one down, acc =
+    block_barrett(acc * [beta^t']_q) + blk with one conditional
+    subtraction, canonical after every block."""
     a = {k: x.numpy() for k, x in plan.dec_d.items()}
     S, tp = plan.seg_count, plan.t_prime
-    s1, acc_s2 = plan.dec[0].acc_barrett[1:]
+    s1 = plan.dec[0].acc_barrett[1]
     outs = []
     for c in range(plan.t):
         q = plan.dec[c].qi
         eps, s2 = int(a["sau_eps"][c]), int(a["sau_s2"][c])
         assert int(a["beta"][c]) == sum(s << e for e, s in plan.dec[c].beta_terms) - 1
+        horner = int(a["horner"][c])
+        assert horner == (pow(1 << plan.v, tp, q) if plan.n_blocks > 1 else 0)
+        m = U(int(a["block_m"][c]))
 
         def sau(x):
             return (U(x) * U(int(a["beta"][c]))).astype(np.int64)
 
         acc = np.zeros(z.shape[0], dtype=np.int64)
-        for rho in range(plan.n_blocks):
+        for rho in range(plan.n_blocks - 1, -1, -1):
             base = rho * tp
             blk = z[:, base].copy()
             if tp > 1 and base + 1 < S:
@@ -357,13 +363,13 @@ def decompose_emulated(z: np.ndarray, plan, narrow: bool) -> np.ndarray:
                     x = sau_barrett(sau(x), q, eps, s1, s2, narrow)
                 blk = blk + x
             blk = sau_barrett(blk, q, eps, s1, s2, narrow)
-            if rho == 0:
-                acc = acc + blk
-            else:
-                prod = U(blk) * U(int(a["block_consts"][c, rho]))
-                m = U(int(a["block_m"][c]))
-                acc = acc + block_barrett(prod, U(q), m, s1, narrow).astype(np.int64)
-        outs.append(sau_barrett(acc, q, int(a["acc_eps"][c]), s1, acc_s2, narrow))
+            assert (blk < q).all()
+            if rho < plan.n_blocks - 1:
+                step = block_barrett(U(acc) * U(horner), U(q), m, s1, narrow).astype(np.int64)
+                blk = blk + step
+                blk = np.where(blk >= q, blk - q, blk)
+            acc = blk
+        outs.append(acc)
     return np.stack(outs)
 
 
@@ -373,18 +379,28 @@ def _segments(plan, shape, rng):
     return z
 
 
-@pytest.mark.parametrize("n,t,v", DEC_PRESETS)
+# past six Alg-2 blocks (the most the kernels' circuit table held): 10, 14
+# and, past the accumulator Barrett's old window of 16, 20 and 34 blocks
+DEC_WIDE = [(64, 30, 30), (64, 40, 31), (64, 60, 30), (64, 100, 29)]
+
+
+@pytest.mark.parametrize("n,t,v", DEC_PRESETS + DEC_WIDE)
 def test_decompose_emulation_matches_plain_version(n, t, v):
     """K5's per-coefficient arithmetic (and K2's first step) on seeded
-    segments, the all-zero and the all-ones segment, equals decompose_ref."""
+    segments, the all-zero and the all-ones segment, equals decompose_ref,
+    and both equal the residues of the segments' integers, also past six
+    Alg-2 blocks (Horner in the kernels, the widened accumulator window in
+    the plain version)."""
     plan = make_params(n, t, v).plan
     rng = np.random.default_rng(SEED + 3 * n + v)
-    z = _segments(plan, (200,), rng)
+    z = _segments(plan, (64 if t > 16 else 200,), rng)
     z[0] = 0
     z[1, :-1] = (1 << v) - 1
     want = tcrt.decompose_ref(torch.as_tensor(z), plan).numpy()
     for narrow in (False, True) if tcrt.narrow_moduli(plan) else (False,):
         assert np.array_equal(decompose_emulated(z, plan, narrow), want)
+    values = tbigint.limbs_to_ints(z, v)
+    assert want.T.tolist() == [[x % int(q) for q in plan.qs] for x in values]
 
 
 # --------------------------------------------------------------------------
@@ -392,7 +408,7 @@ def test_decompose_emulation_matches_plain_version(n, t, v):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("t", (3, 4, 6, 9))
+@pytest.mark.parametrize("t", (3, 4, 6, 9, 15, 30, 48))
 def test_cluster_covers_every_coefficient_and_channel_once(t):
     cluster, slots = tkern.e2e_cluster(t)
     assert cluster == min(t, 8) and slots == -(-t // cluster)
@@ -651,13 +667,15 @@ def fs_emulated(a, b, tables, kernel, e2e=None):
 
     K2-fs ("e2e", ``e2e`` = (za, zb, plan), segments (rows, n, S)): K1-fs's
     launches with the decompose fused into the forward column launch and
-    the compose into the inverse one, as the clusters of C = t CTAs per
-    (row, column tile) run them: CTA r decomposes the segments of its
-    slice ``e2e_slice(E, C, r)`` of the tile's virtual elements into every
+    the compose into the inverse one, as the clusters of C = min(t, 8)
+    CTAs per (row, column tile) run them: CTA r owns the channels r,
+    r + C, ... (its slots) and decomposes the segments of its slice
+    ``e2e_slice(E, C, r)`` of the tile's virtual elements into every
     channel, each residue landing in its owner's tile (DSMEM); after the
     inverse column stages each CTA holds y = canonical(p) q~ mod q of its
-    channel, and composes its slice from every channel's y (the quotient
-    tail), its limbs written through ColMap.  Returns (rows, n, L) limbs."""
+    channels, and composes its slice from every channel's y (the chunked
+    quotient tail), its limbs written through ColMap.  Returns (rows, n,
+    L) limbs."""
     r = Regime(tables)
     if kernel == "e2e":
         za, zb, plan = e2e
@@ -755,8 +773,10 @@ def fs_emulated(a, b, tables, kernel, e2e=None):
         return X
 
     def slices():  # the cluster's CTAs: (rank, its slice of a tile's virtual elements)
-        C = tkern.e2e_cluster(t)[0]
-        assert C == t and all(list(tkern.e2e_channels(t, C, c)) == [c] for c in range(t))
+        C, slots = tkern.e2e_cluster(t)
+        owned = [c for rank in range(C) for c in tkern.e2e_channels(t, C, rank)]
+        assert C == min(t, 8) and sorted(owned) == list(range(t))
+        assert all(len(tkern.e2e_channels(t, C, rank)) <= slots for rank in range(C))
         taken = np.zeros(E, dtype=np.int64)
         for rank in range(C):
             sl = np.asarray(tkern.e2e_slice(E, C, rank), dtype=np.int64)
@@ -867,8 +887,11 @@ def test_multi_block_row_twiddles_are_the_reference_row_tables():
 
 # K2-fs at the multi-block geometry of one tile (n = 16, 256) and of a
 # column tile across rows (1024), with clusters of 3 and 6 CTAs (even and
-# uneven slices of a tile), in the three regimes
-E2E_FS_PRESETS = [(n, t, v) for n in (16, 256, 1024) for t in (3, 6) for v in (29, 30, 31)]
+# uneven slices of a tile), in the three regimes; and past t = 8, clusters
+# of 8 CTAs owning two to four channels each over uneven slices (t = 9,
+# 15, 30; L = 10, 16/17, 33/32)
+E2E_FS_PRESETS = [(n, t, v) for n in (16, 256, 1024) for t in (3, 6) for v in (29, 30, 31)] + [
+    (16, 9, 30), (256, 15, 29), (1024, 15, 31), (256, 30, 30)]
 
 
 @pytest.mark.parametrize("n,t,v", E2E_FS_PRESETS)
@@ -939,23 +962,68 @@ def quotient_estimate(y: np.ndarray, plan) -> np.ndarray:
     return out
 
 
+SUM_CHANNELS = 15  # parentt.cuh kSumChannels
+
+
+def limb_sums_emulated(y: np.ndarray, star: np.ndarray, l0: int, maxl: int, w: int):
+    """parentt.cuh ``crt_limb_sums`` on (t, N) y and (t, L) limbs: the sums
+    of limbs l0 .. l0 + maxl - 1 as int64 lanes, every 15 channels
+    carry-normalised (limbs below the top one masked, the top one keeping
+    the rest), checked below 2^63 after every product (beside a float64
+    copy that does not wrap).  Returns (acc (N, maxl), the carries pushed
+    out of the chunk)."""
+    t, N = y.shape
+    L = star.shape[1]
+    mask = (1 << w) - 1
+    acc = np.zeros((N, maxl), dtype=np.int64)
+    shadow = np.zeros((N, maxl))
+    spill = np.zeros(N, dtype=np.int64)
+    width = min(maxl, L - l0)
+    for c0 in range(0, t, SUM_CHANNELS):
+        for c in range(c0, min(t, c0 + SUM_CHANNELS)):
+            prod = y[c][:, None].astype(np.int64) * star[c, l0:l0 + width][None, :]
+            acc[:, :width] += prod
+            shadow[:, :width] += prod.astype(np.float64)
+            assert shadow.max() < 2.0 ** 63 * (1 - 2.0 ** -20)
+        if c0 + SUM_CHANNELS < t:
+            carry = np.zeros(N, dtype=np.int64)
+            for l in range(width):
+                if l0 + l < L - 1:
+                    s = acc[:, l] + carry
+                    acc[:, l], carry = s & mask, s >> w
+                else:
+                    acc[:, l] += carry
+                    carry = np.zeros(N, dtype=np.int64)
+            spill += carry
+            shadow = acc.astype(np.float64)
+    return acc, spill
+
+
 def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray:
-    """parentt.cuh ``compose_finalize_quotient`` on (t, N) canonical y: the
-    limb sums, the quotient floor(sum y_c / q_c) in double (moved by
-    ``shift``, to drive both corrections), the ripple that subtracts k q,
-    and one conditional addition or subtraction of q."""
+    """parentt.cuh ``crt_compose`` on (t, N) canonical y: the limb sums in
+    chunks of MAXL = 8 (L <= 8) or 16 limbs, the quotient floor(sum y_c /
+    q_c) in double (moved by ``shift``, to drive both corrections) from the
+    first chunk's channel pass, each chunk's ripple that subtracts k q with
+    the carries passed to the next, and one conditional addition or
+    subtraction of q (``correct_limbs``)."""
     L, w = plan.L, plan.w
     mask = (1 << w) - 1
+    maxl = 8 if L <= 8 else 16
     star = np.asarray(plan.qi_star_limbs, dtype=np.int64)
     ql = np.asarray(plan.q_limbs, dtype=np.int64)
-    acc = (y[:, :, None] * star[:, None, :]).sum(axis=0)
     k = quotient_estimate(y, plan).astype(np.int64) + shift
-    limb = np.zeros_like(acc)
+    limb = np.zeros((y.shape[1], L), dtype=np.int64)
     carry = np.zeros(y.shape[1], dtype=np.int64)
-    for l in range(L):
-        s = acc[:, l] + carry - k * ql[l]
-        limb[:, l] = s & mask
-        carry = s >> w
+    for l0 in range(0, L, maxl):
+        acc, spill = limb_sums_emulated(y, star, l0, maxl, w)
+        acc[:, 0] += carry
+        carry = np.zeros_like(carry)
+        for l in range(min(maxl, L - l0)):
+            s = acc[:, l] + carry - k * ql[l0 + l]
+            limb[:, l0 + l] = s & mask
+            carry = s >> w
+        carry = carry + spill
+    assert np.isin(carry, (-1, 0)).all()
     low = carry < 0
     c_add = np.zeros_like(carry)
     added = limb.copy()
@@ -963,10 +1031,10 @@ def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray
         d = added[:, l] + ql[l] + c_add
         c_add = d >> w
         added[:, l] = d & mask
-    ge = np.ones(y.shape[1], dtype=bool)
-    for l in range(L):
-        differ = limb[:, l] != ql[l]
-        ge = np.where(differ, limb[:, l] > ql[l], ge)
+    top = np.full(y.shape[1], L - 1)  # the highest limb that differs from q's decides
+    for l in range(L - 1, 0, -1):
+        top = np.where((top == l) & (limb[:, l] == ql[l]), l - 1, top)
+    ge = limb[np.arange(y.shape[1]), top] >= ql[top]
     borrow = np.zeros_like(carry)
     subbed = limb.copy()
     for l in range(L):
@@ -976,27 +1044,70 @@ def compose_quotient_emulated(y: np.ndarray, plan, shift: int = 0) -> np.ndarray
     return np.where(low[:, None], added, np.where(ge[:, None], subbed, limb))
 
 
-# the largest t whose limbs K6 and K2 hold (L = 16 = MAX_LIMBS) at each
-# v: v = 29, 30 and 31 need t = 15, 14 and 14 channels
-COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31)]
+@pytest.mark.parametrize("t,L", [(15, 17), (16, 17), (31, 32), (40, 44), (100, 107)])
+def test_chunked_limb_sums_are_exact_on_worst_case_words(t, L):
+    """crt_limb_sums with every y = 2^31 - 1 and every q^ limb 2^28 - 1 (the
+    largest words v = 31 can give) but the top two (a q^ = q / q_c leaves
+    the sum below t q, which L limbs hold), and on seeded words, in chunks of 8 and
+    16 limbs: no sum reaches 2^63 (checked after every product), and the
+    chunks' limbs and carried-out normalisations add up to the exact
+    sum_c y_c q^_c, which one int64 sum of t >= 17 such products passes."""
+    w = 28
+    rng = np.random.default_rng(SEED + t + L)
+    y = np.full((t, 3), (1 << 31) - 1, dtype=np.int64)
+    y[:, 1] = rng.integers(0, 1 << 31, size=t)
+    y[:, 2] = 0
+    star = np.full((t, L), (1 << w) - 1, dtype=np.int64)
+    star[t // 2:] = rng.integers(0, 1 << w, size=(t - t // 2, L))
+    star[:, L - 2:] = 0  # q^_c < q / 2^31: the sum stays below t q < 2^(wL), as a plan's
+    stars = [sum(int(x) << (w * l) for l, x in enumerate(row)) for row in star]
+    exact = [sum(int(y[c, i]) * stars[c] for c in range(t)) for i in range(3)]
+    assert (t * ((1 << 31) - 1) * ((1 << w) - 1) >= 1 << 63) == (t >= 17)
+    for maxl in (8, 16):
+        got = [0, 0, 0]
+        for l0 in range(0, L, maxl):
+            acc, spill = limb_sums_emulated(y, star, l0, maxl, w)
+            for i in range(3):
+                got[i] += sum(int(acc[i, l]) << (w * (l0 + l)) for l in range(maxl))
+                got[i] += int(spill[i]) << (w * (l0 + maxl))
+        assert got == exact
+
+
+# the edges of the limb chunks: L = 16 (one chunk of 16 limbs at t = 15,
+# 14, 14 for v = 29, 30, 31), 17 and 18 (a second chunk of one or two
+# limbs, t = 15 and 16, the first t that normalises between channel
+# groups), 32 and 34 (two chunks, t = 29 and 31: three groups of
+# channels), and 44 and 45 (t = 40)
+COMPOSE_CORNERS = [(64, 15, 29), (64, 14, 30), (64, 14, 31), (64, 15, 30), (64, 16, 31),
+                   (64, 29, 30), (64, 31, 30), (64, 40, 30), (64, 40, 31)]
 
 
 @pytest.mark.parametrize("n,t,v", DEC_PRESETS + COMPOSE_CORNERS)
 def test_compose_quotient_tail_matches_plain_tail(n, t, v):
-    """K2's and K6's compose tail (quotient estimate, one correction)
-    equals the plain Eq-10 tail on seeded residues, on all-zero and all
-    q - 1 ones, and with the estimate moved one down or up, up to the
-    largest t the kernels hold."""
+    """K2's and K6's compose tail (chunked limb sums, quotient estimate,
+    one correction) equals the plain Eq-10 tail and the exact value mod q
+    on seeded residues, on all-zero and all q - 1 ones, and with the
+    estimate moved one down or up, past 16 limbs and 15 channels; the
+    estimate is within t (t + 1) 2^-53 of the exact sum_c y_c / q_c."""
     plan = make_params(n, t, v).plan
     rng = np.random.default_rng(SEED + 7 * n + v)
     qs = np.asarray(plan.qs, dtype=np.int64)[:, None]
-    y = rng.integers(0, 1 << 62, size=(t, 512), dtype=np.int64) % qs
+    y = rng.integers(0, 1 << 62, size=(t, 128 if t > 16 else 512), dtype=np.int64) % qs
     y[:, 0] = 0
     y[:, 1] = qs[:, 0] - 1
-    acc = torch.as_tensor((y[:, :, None] * np.asarray(plan.qi_star_limbs)[:, None, :]).sum(0))
+    acc = trns.limb_sums(torch.as_tensor(y), torch.as_tensor(plan.qi_star_limbs)[:, None, :],
+                         plan.w)
     want = tcrt.compose_finalize(acc, plan.q_limbs, w=plan.w, t=t).numpy()
     for shift in (-1, 0, 1):
         assert np.array_equal(compose_quotient_emulated(y, plan, shift), want), shift
+    value = [sum(int(y[c, i]) * (plan.q // int(plan.qs[c])) for c in range(t))
+             for i in range(4)]
+    assert tbigint.limbs_to_ints(want[:4], plan.w) == [x % plan.q for x in value]
+    est = quotient_estimate(y[:, :4], plan)
+    for i in range(4):
+        err = abs(Fraction(est[i]) - sum(Fraction(int(y[c, i]), int(plan.qs[c]))
+                                         for c in range(t)))
+        assert err <= Fraction(t * (t + 1), 1 << 53)
 
 
 def compose_emulated(r: np.ndarray, plan, narrow: bool) -> np.ndarray:

@@ -176,9 +176,10 @@ def test_plan_rejects_unservable_and_unknown_knobs():
         repro_torch.plan(64, 4, 45, device="cpu")
     assert err.value.knob == "v"
     # past one CTA (n = 32768 needs over 272 KiB of shared memory for K2)
-    # the e2e backend runs K2-fs, whose clusters hold t <= 8 channels
+    # the e2e backend runs K2-fs, whose clusters of 8 CTAs hold up to 48
+    # channels (six slots of two 4096-element tiles a CTA)
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(1 << 15, 9, 30, backend="cuda_fused_e2e", device="cpu")
+        repro_torch.plan(1 << 15, 49, 30, backend="cuda_fused_e2e", device="cpu")
     assert err.value.knob == "t"
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         repro_torch.plan(1 << 17, 6, 30, backend="cuda_fused_e2e", device="cpu")

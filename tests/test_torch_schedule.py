@@ -263,8 +263,8 @@ def test_plan_records_the_cards_accounting():
     """The spec records the kernel of each backend's main path: one-block
     K3/K4, K1 and K2 while a CTA holds the polynomial, multi-block past it,
     up to n = 65536; n = 131072 is refused (knob n), an explicit e2e
-    backend past t = 8 beyond K2's reach too (knob t), and auto takes
-    cuda_fused there."""
+    backend past K2-fs's reach (t = 49, seven slots of two tiles a CTA)
+    too (knob t), and auto takes cuda_fused past t = 8 beyond K2."""
     for n, t, backend, multi in ((32768, 2, "cuda", False), (65536, 2, "cuda", True),
                                  (16384, 2, "cuda_fused", False), (32768, 2, "cuda_fused", True),
                                  (65536, 2, "cuda_fused", True), (16384, 6, "cuda_fused_e2e", False),
@@ -275,41 +275,46 @@ def test_plan_records_the_cards_accounting():
         assert spec.card_split == (tkern.fs_split(n) if multi else ())
     assert tkern.fs_split(65536) == (256, 256) and tkern.fs_split(32768) == (128, 256)
     for n, t, backend, knob in ((131072, 6, "cuda", "n"), (131072, 6, "cuda_fused", "n"),
-                                (131072, 6, "cuda_fused_e2e", "n"), (32768, 9, "cuda_fused_e2e", "t")):
+                                (131072, 6, "cuda_fused_e2e", "n"), (32768, 49, "cuda_fused_e2e", "t")):
         with pytest.raises(repro_torch.UnservableConfigError) as err:
             repro_torch.plan(n, t, 30, backend=backend, device="cpu")
         assert err.value.knob == knob
     # auto on a card: the e2e kernels where they hold (n, t), the fused cascade past them
-    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6) == "cuda_fused_e2e"
-    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6) == "cuda_fused_e2e"
-    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 9) == "cuda_fused"
-    assert tops.resolve_backend("auto", torch.device("cuda"), 16384, 6) == "cuda_fused_e2e"
-    assert tops.resolve_backend("auto", torch.device("cpu"), 65536, 6) == "torch"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6, 30) == "cuda_fused_e2e"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6, 30) == "cuda_fused_e2e"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 9, 30) == "cuda_fused"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 16384, 6, 30) == "cuda_fused_e2e"
+    assert tops.resolve_backend("auto", torch.device("cpu"), 65536, 6, 30) == "torch"
     assert repro_torch.plan(131072, 1, 30, backend="torch", device="cpu").config.n == 131072
 
 
 def test_e2e_backend_serves_past_one_cta():
     """auto on a card resolves to cuda_fused_e2e at n = 32768 and 65536
     for every t <= 8 (K2-fs, the multi-block e2e kernel) and to cuda_fused
-    at t = 9; an explicit cuda_fused_e2e plan there records the multi-block
-    kernel with the card's split and K2-fs's shared memory, and is refused
-    at t = 9 (knob t)."""
+    at t = 9, as before K2-fs served t > 8; an explicit cuda_fused_e2e plan
+    there records the multi-block kernel with the card's split and K2-fs's
+    shared memory at the plan's S and L, also at t = 9 and 15 (two
+    channels on some CTAs of a cluster of 8), and is refused at t = 49
+    (knob t), where seven slots of two tiles exceed a CTA."""
     cuda = torch.device("cuda")
     for n, split in ((32768, (128, 256)), (65536, (256, 256))):
         for t in range(1, 9):
-            assert tops.resolve_backend("auto", cuda, n, t) == "cuda_fused_e2e"
-            assert tkern.e2e_fs_fits(n, t) and not tkern.e2e_fits(n, t)
-        assert tops.resolve_backend("auto", cuda, n, 9) == "cuda_fused"
-        for t in (1, 6, 8):
+            assert tops.resolve_backend("auto", cuda, n, t, 30) == "cuda_fused_e2e"
+            assert tkern.e2e_fs_fits(n, t, t, t + 1) and not tkern.e2e_fits(n, t, t, t + 1)
+        assert tops.resolve_backend("auto", cuda, n, 9, 30) == "cuda_fused"
+        for t in (1, 6, 8, 9, 15):
             pl = repro_torch.plan(n, t, 30, backend="cuda_fused_e2e", device="cpu")
             spec = pl.config.schedule
             assert pl.config.backend == "cuda_fused_e2e" and spec.multi_block
             assert spec.card_split == split == tkern.fs_split(n)
-            assert spec.smem_bytes == tkern.e2e_fs_smem_bytes(n, t) <= spec.smem_budget
-        with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, 9, 30, backend="cuda_fused_e2e", device="cpu")
-        assert (err.value.knob, err.value.value) == ("t", 9)
-    assert not tkern.e2e_fs_fits(8, 3) and not tkern.e2e_fs_fits(65536, 9)
+            assert spec.smem_bytes == tkern.e2e_fs_smem_bytes(
+                n, t, pl.config.seg_count, pl.config.L) <= spec.smem_budget
+    with pytest.raises(repro_torch.UnservableConfigError) as err:
+        repro_torch.plan(32768, 49, 30, backend="cuda_fused_e2e", device="cpu")
+    assert (err.value.knob, err.value.value) == ("t", 49)
+    assert "backend='cuda_fused'" in err.value.alternatives
+    assert tkern.e2e_fs_fits(65536, 48, 48, 52) and not tkern.e2e_fs_fits(65536, 49, 49, 53)
+    assert not tkern.e2e_fs_fits(8, 3, 3, 4)
 
 
 def test_four_step_h_datapaths_match_reference_jnp():
