@@ -27,8 +27,9 @@ Phases, each raising on failure (so the run exits non-zero):
    n = 4096, t = 48), as clusters of min(t, 8) CTAs of which the card holds
    at least one; K5, K6, K2 and K2-fs past 16 segments, limbs and channels
    (``CHANNEL_EDGES``: t = 9, 15, 16, 20, 30 at n = 64 and 4096, and at
-   4096 t = 48 for K2/K2-fs and t = 169 for K5/K6), each also against the
-   other e2e kernel; K7 in float32,
+   4096 t = 48 for K2/K2-fs and t = 169 for K5/K6; K2-fs and each of its
+   launches wherever it serves past K2, and up to t = 48 where K2 serves
+   too), each also against the other e2e kernel; K7 in float32,
    every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
    of the plain output, at the attention layers
    of gemma2-2b (global and local prefill at 8192 tokens, decode against
@@ -42,12 +43,15 @@ Phases, each raising on failure (so the run exits non-zero):
    K3-fs and K4-fs (``csrc/*_fs.cu``) at ``FS_POINTS`` (n = 16 ... 65536,
    t = 3, 2 rows, all three regimes) equal to their plain versions (the
    four-step plain PyTorch) and, where K1, K3 or K4 also serve n, to
-   them, with the CTAs an SM holds of each launch; K2-fs
+   them, with the CTAs an SM holds of each K3-fs and K4-fs launch and
+   K1-fs's clusters resident by size (the card holds at least one of
+   the size ``fs_cluster`` names, which its launch takes); K2-fs
    (``csrc/fused_e2e_polymul_fs.cu``) at ``FS_POINTS`` x t = 3, 6, 8
    (``E2E_FS_T``), 2 rows, every regime ``plan()`` admits, equal to its
-   plain version (K2's over the four-step cascade) and, where K2 also
-   serves n, to K2, as clusters of min(t, 8) CTAs of which the card holds
-   at least one;
+   plain version (K2's over the four-step cascade), each of its three
+   launches alone equal to its plain counterpart, and, where K2 also
+   serves n, equal to K2; the card holds at least one cluster of its
+   cascade (of ``e2e_fs_cluster`` CTAs);
 4. the paths through the entry points a user calls, each with every
    launch counter zeroed just before it and read just after:
    ``repro_torch.plan(n=4096, t=6, v=30)`` (auto: ``cuda_fused_e2e``) ->
@@ -85,22 +89,22 @@ Phases, each raising on failure (so the run exits non-zero):
    hold;
 4c. the front door past one CTA (``[fs]`` lines): ``plan(n, 6, 30)`` at
    n = 65536 (16 rows) and 32768 (32 rows), ``FS_MAIN``, under ``auto``
-   (which must resolve to ``cuda_fused_e2e`` with a multi-block schedule:
-   its ``polymul`` is one K2-fs call and nothing else),
-   ``backend="cuda_fused"`` and ``backend="cuda"``: ``polymul``,
+   (which must resolve to ``FS_AUTO`` with a multi-block schedule),
+   ``backend="cuda_fused_e2e"`` (its ``polymul`` one K2-fs call and
+   nothing else), ``backend="cuda_fused"`` and ``backend="cuda"``: ``polymul``,
    ``negacyclic_mul``, ``ntt`` and ``intt``, each call with the counters
    zeroed around it and launching what ``FS_LAUNCHES`` says, bit-exact
    against a ``backend="torch"`` plan on the card, and two polymul rows a
    size against the host bigint oracle;
 4d. the slice's points past 16 channels at full width (``[wide]`` lines):
    W1 = ``plan(32768, 15, 30)`` (32 rows) and W2 = ``plan(16384, 30,
-   30)`` (64 rows), ``WIDE_POINTS``, under ``auto`` (which must keep
-   ``cuda_fused``) and on ``cuda_fused_e2e`` (one K2-fs call, two and four
-   channels a CTA), ``cuda_fused``, ``cuda`` and ``torch``: ``polymul``
-   with the counters zeroed around each call (``WIDE_LAUNCHES``), bit-exact
-   against the torch plan on the card and one row against the host
-   oracle; K2-fs, K5 and K6 on the points' operands against their plain
-   versions;
+   30)`` (64 rows), ``WIDE_POINTS``, under ``auto`` (which must resolve
+   to ``WIDE_AUTO``) and on ``cuda_fused_e2e`` (one K2-fs call),
+   ``cuda_fused``, ``cuda`` and ``torch``: ``polymul`` with the counters
+   zeroed around each call (``WIDE_LAUNCHES``), bit-exact against the
+   torch plan on the card and one row against the host oracle; K2-fs (and
+   each of its launches), K5 and K6 on the points' operands against their
+   plain versions;
 5. timings: the median CUDA-event time of each kernel over 20 launches
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
@@ -117,22 +121,32 @@ Phases, each raising on failure (so the run exits non-zero):
    K7 variant's ptxas registers, spills and shared memory, and the
    achieved TFLOP/s (prefill) or TB/s (decode); K1-fs, K3-fs and K4-fs
    at (6, 16, 65536) and K2-fs at (16, 65536, 6), one call and back to
-   back, beside their plain versions and bounds (K2-fs's also with its
-   32-bit scratch) and, for K2-fs, the clusters the card holds and each
-   of its three launches' device time from a ``torch.profiler`` trace,
-   beside cuda_fused's kernels (K5 on each operand, K1-fs's launches, K6)
-   on the same inputs;
+   back, beside their plain versions and bounds (K2-fs's also with the
+   32-bit words between its launches), K1-fs's and K2-fs's cascade's
+   clusters resident and waves at each FS_MAIN n and W point, and each of
+   K2-fs's three launches'
+   device time from a ``torch.profiler`` trace, beside cuda_fused's
+   kernels (K5 on each operand, K1-fs, K6) on the same inputs;
    and at W1 and W2: K2-fs, K5 and K6 one call and back to back, plain,
-   bound, and K2-fs's launches beside cuda_fused's kernels;
+   bound, and K2-fs's launches beside cuda_fused's kernels, with its
+   cascade's clusters resident and waves;
 6. the end-to-end time of one ``polymul`` call at the main path's shape
    on each backend, and of one ``negacyclic_mul`` call on the auto plan
    (host clock, synchronised), at FS_MAIN's n and rows on
-   ``cuda_fused_e2e`` (auto, K2-fs), ``cuda_fused``, ``cuda`` and
-   ``torch``, and at W1 and W2 on the four backends.
+   ``cuda_fused_e2e`` (K2-fs), ``cuda_fused`` (auto), ``cuda`` and
+   ``torch``, and at W1 and W2 on the four backends; the walls of
+   ``cuda_fused_e2e`` (K2-fs) and ``cuda_fused`` at ``AUTO_EDGES``, points
+   on each side of auto's K2-fs rule, each pair of outputs equal bit for
+   bit, beside what auto takes there (``[auto]`` lines); and the host
+   time of one ``polymul`` call at the largest FS_MAIN n on both, with
+   the card kept busy so the host never waits, split into the front door,
+   each wrapper, K2-fs's C call and its allocations, with
+   ``torch.profiler``'s host-side events beside (``[host]`` lines).
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
-..., and ``fused_e2e_polymul_fs``, K2-fs at (16, 65536, 6)) of the
+..., and ``fused_polymul_fs`` and ``fused_e2e_polymul_fs``, K1-fs at
+(6, 16, 65536) and K2-fs at (16, 65536, 6)) of the
 checkout at DIR (for instance the parent commit unpacked with
 ``git archive``) at the main path's shape, one call between two events
 and back to back (K2 also at one row), after checking each against its
@@ -140,7 +154,13 @@ plain version, and prints one ``[time-kernels]`` line per kernel; so
 two commits compare on one card in one chip call.  ``--time-k2 DIR`` is
 ``--time-kernels DIR fused_e2e_polymul``.  ``--compose-variants`` times
 K6 beside copies of its source with one of its two load orders switched
-off (``COMPOSE_VARIANTS``) at ``COMPOSE_SHAPES``.
+off (``COMPOSE_VARIANTS``) at ``COMPOSE_SHAPES``.  ``--cascade-variants``
+times K1-fs at each FS_MAIN shape in clusters of 8 and of 16 CTAs, in
+turns 8, 16, 16, 8, each whole and cut after its first and its second
+DSMEM transpose (``csrc/fused_polymul_fs.cu``
+``parentt_fused_polymul_fs_phases``), back to back, with the clusters
+resident and waves of each size: the phase split and the measurement
+behind ``fs_cluster``.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
@@ -211,8 +231,11 @@ E2E_FS_T = (3, 6, 8)
 # coefficients an operand, as many as the paper point's 256 rows of 4096)
 FS_MAIN = {65536: 16, 32768: 32}
 FS_T, FS_V = 6, 30
-# the multi-block kernels' launches of each call on the auto plan
-# (cuda_fused_e2e: K2-fs for polymul, K1-fs for negacyclic_mul, the cuda
+# the backend auto resolves to at each FS_MAIN n (ops.auto_backend)
+FS_AUTO = {65536: "cuda_fused", 32768: "cuda_fused"}
+# the multi-block kernels' calls of each call on the auto plan (each K1-fs
+# call one cluster launch, each K2-fs call three launches;
+# cuda_fused_e2e: K2-fs for polymul, K1-fs for negacyclic_mul, the cuda
 # stage kernels for ntt and intt) and on backends cuda_fused and cuda, at
 # n = 65536 and at 32768, where K3 and K4 hold a polynomial in one CTA
 FS_LAUNCHES = {
@@ -244,6 +267,15 @@ COMPOSE_ROWS = (1, 255, 257)
 # at n = 4096, which only K5 and K6 (cuda, cuda_fused) serve: (n, t, rows)
 CHANNEL_EDGES = [(64, t, 3) for t in (9, 15, 16, 20, 30)] + [
     (4096, t, 1) for t in (9, 15, 16, 20, 30, 48, 169)]
+# K2-fs's and cuda_fused's walls on each side of auto's K2-fs rule
+# (ops.auto_backend): past K2 at n = 2048 ... 16384, where K2-fs's cascade
+# is K1's one-CTA body (the first t past K2, t around AUTO_E2E_FS_T, and
+# the largest t), and on K1-fs's cluster at 32768 and 65536 past t = 6 and
+# 15 (around AUTO_E2E_FS_T, and the largest t): (n, t); 2^20
+# coefficients an operand up to t = 48, 2^16 past it
+AUTO_EDGES = [(16384, 9), (16384, 16), (16384, 29), (16384, 48), (16384, 110),
+              (8192, 25), (8192, 30), (8192, 139), (4096, 49), (4096, 169), (2048, 109),
+              (2048, 208), (32768, 30), (32768, 85), (65536, 30), (65536, 63)]
 # the slice's points at full width, 2^20 coefficients an operand as at
 # every earlier point: W1 = plan(32768, 15, 30), 32 rows (S = 15, L = 16,
 # a 443-bit q: K2-fs past t = 8, two channels on some CTAs); W2 =
@@ -251,7 +283,11 @@ CHANNEL_EDGES = [(64, t, 3) for t in (9, 15, 16, 20, 30)] + [
 # 888-bit q: four channels a CTA): name -> (n, t, rows)
 WIDE_POINTS = {"W1": (32768, 15, 32), "W2": (16384, 30, 64)}
 WIDE_V = 30
-# the kernels of one polymul call at each W point: backend -> launches
+# the backend auto resolves to at each point (ops.auto_backend)
+WIDE_AUTO = {"W1": "cuda_fused", "W2": "cuda_fused_e2e"}
+# the kernels of one polymul call at each W point (a K2-fs call is three
+# launches, its cascade K1-fs's cluster at W1 and K1's one-CTA body at W2):
+# backend -> launches
 WIDE_LAUNCHES = {
     "cuda_fused_e2e": {"fused_e2e_polymul_fs": 1},
     ("cuda_fused", 32768): {"decompose": 2, "fused_polymul_fs": 1, "compose": 1},
@@ -266,6 +302,9 @@ MAIN_CALLS = 3
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 5
 E2E_RUNS = 10
+# synchronised calls of each kernel backend's wall at FS_MAIN and WIDE_POINTS,
+# the walls auto past one CTA follows (ops.auto_backend)
+AUTO_WALL_RUNS = 30
 ORACLE_ROWS = (0, 255)
 SEED = 20260
 
@@ -700,16 +739,34 @@ def pass_kernel(name: str) -> tuple:
     }[name]
 
 
+def cascade_sizes(n: int) -> tuple[int, ...]:
+    """K1-fs's cluster sizes worth reading the residency of at n: the one
+    its launch takes (``fs_cluster``), and the other of 8 and 16 where n1
+    holds 16."""
+    from repro_torch.kernels import ntt as kern
+
+    n1 = kern.fs_split(n)[0]
+    return tuple(sorted({kern.fs_cluster(n), *((8, 16) if n1 >= 16 else ())}))
+
+
+def k1fs_clusters(tables) -> dict[int, int]:
+    """K1-fs's clusters the card holds at once, by cluster size
+    (``cascade_sizes``)."""
+    from repro_torch.kernels import ntt as kern
+
+    return {c: kern.cascade_fs_clusters_resident(tables, c) for c in cascade_sizes(tables.n)}
+
+
 def fs_kernel(name: str) -> tuple:
     """K1-fs's, K3-fs's or K4-fs's (``name``) wrapper, plain version, the
-    one-block kernel of the same function with its fit test, and the CTAs
-    an SM holds of each launch."""
+    one-block kernel of the same function with its fit test, and its
+    occupancy: the CTAs an SM holds of each launch (K3-fs, K4-fs), the
+    clusters the card holds by cluster size (K1-fs)."""
     from repro_torch.kernels import ntt as kern
 
     return {
         "fused_polymul_fs": (kern.fused_polymul_fs_cuda, kern.fused_polymul_fs_ref,
-                             kern.fused_polymul_cuda, kern.cascade_fits,
-                             kern.cascade_fs_blocks_per_sm),
+                             kern.fused_polymul_cuda, kern.cascade_fits, k1fs_clusters),
         "ntt_channels_fs": (kern.ntt_channels_fs_cuda, kern.ntt_channels_fs_ref,
                             kern.ntt_channels_cuda, kern.stage_fits, kern.ntt_fs_blocks_per_sm),
         "intt_channels_fs": (kern.intt_channels_fs_cuda, kern.intt_channels_fs_ref,
@@ -722,7 +779,9 @@ def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
     """Phase 3 for K1-fs, K3-fs and K4-fs at FS_POINTS in every regime:
     exact equality with their plain versions (the four-step plain PyTorch
     on the card) and, where the one-block kernel also serves n, with it;
-    the CTAs an SM holds of each launch."""
+    the CTAs an SM holds of each launch (K3-fs, K4-fs), and K1-fs's
+    clusters, of which the card holds at least one at the size it
+    launched."""
     import numpy as np
     import torch
 
@@ -746,23 +805,79 @@ def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
                 if fits(n):
                     exact(got, one_block(*operands, tables), f"{name} vs one block n={n} v={v}")
                 max_err[name] = max(max_err.get(name, 0), err)
-                seen.append(f"{name} {blocks_per_sm(tables)}" + (" = one block" if fits(n) else ""))
+                occupancy = blocks_per_sm(tables)
+                if name == "fused_polymul_fs":
+                    expect_cascade_cluster(occupancy, n, f"{name} n={n} v={v}")
+                    occupancy = (f"clusters of {kern.fs_cluster(n)} CTAs, "
+                                 f"{kern.cascade_fs_threads(n)} threads; clusters resident by "
+                                 f"size {occupancy}")
+                seen.append(f"{name} {occupancy}" + (" = one block" if fits(n) else ""))
             log(f"[kernels] multi-block n={n} t=3 v={v} rows=2 (mode, window)="
-                f"{kern.reduction_mode(tables)[:2]} split {kern.fs_split(n)}, "
+                f"{kern.reduction_mode(tables)[:2]} split {kern.fs_split(n)}, K3-fs/K4-fs "
                 f"{kern.fs_threads(n)} threads, {kern.fs_tile(n)}-element tiles: equal to the "
                 "plain versions bit for bit (and to K1/K3/K4 where marked); CTAs an SM holds "
                 "per launch: " + ", ".join(seen))
     log(f"[kernels] multi-block checks took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
+def expect_cascade_cluster(clusters: dict[int, int], n: int, what: str) -> None:
+    """The card holds at least one K1-fs cluster of the size its launch
+    takes at n (``fs_cluster``: 16 past n = 32768)."""
+    from repro_torch.kernels import ntt as kern
+
+    if clusters[kern.fs_cluster(n)] < 1:
+        raise AssertionError(f"{what}: clusters of {kern.fs_cluster(n)} CTAs, clusters resident "
+                             f"by size {clusters}")
+
+
+def check_e2e_fs_call(za, zb, p, what: str, max_err: dict[str, int]):
+    """K2-fs on (za, zb) under the params ``p``, bit for bit against its
+    plain version, and each of its three launches alone on the kernel's
+    inputs against its plain counterpart (decompose_ref, the four-step
+    cascade with the q~ product, the Eq-10 limb sums and tail); the card
+    holds at least one cluster of its cascade.  Returns (K2-fs's output,
+    its cascade's clusters resident by size)."""
+    import torch
+
+    from repro_torch.kernels import ntt as kern
+
+    got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
+    torch.cuda.synchronize()
+    err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan), what)
+    ra, rb = kern.e2e_fs_decompose_cuda(za, zb, p.tables, p.plan)
+    torch.cuda.synchronize()
+    for x, want in zip((ra, rb), kern.e2e_fs_decompose_ref(za, zb, p.plan)):
+        exact(x, want, f"{what} decompose launch")
+    y = kern.e2e_fs_cascade_cuda(ra, rb, p.tables, p.plan)
+    torch.cuda.synchronize()
+    exact(y, kern.e2e_fs_cascade_ref(ra, rb, p.tables, p.plan), f"{what} cascade launch")
+    limbs = kern.e2e_fs_compose_cuda(y, p.plan)
+    torch.cuda.synchronize()
+    exact(limbs, kern.e2e_fs_compose_ref(y, p.plan), f"{what} compose launch")
+    exact(limbs, got, f"{what} launches one at a time vs one call")
+    clusters = e2e_fs_clusters(p)
+    if min(clusters.values()) < 1:
+        raise AssertionError(f"{what}: cascade clusters resident by size {clusters}")
+    max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
+    return got, clusters
+
+
+def e2e_fs_clusters(p) -> dict[int, int]:
+    """{C: clusters of C CTAs of K2-fs's cascade the card holds at once}
+    at the size its launch takes (C = 1: K1's one-CTA body, CTAs
+    resident)."""
+    from repro_torch.kernels import ntt as kern
+
+    return {kern.e2e_fs_cluster(p.plan.n): kern.e2e_fs_clusters_resident(p.tables, p.plan)}
+
+
 def check_e2e_fs(dev, max_err: dict[str, int]) -> None:
     """Phase 3 for K2-fs at FS_POINTS x E2E_FS_T in every regime, where
-    plan() admits (n, t, v) on cuda_fused_e2e: exact equality with its
-    plain version (K2's over the four-step cascade, on the card) and,
-    where K2 also serves n, with K2; its clusters of min(t, 8) CTAs, and
-    the card holds at least one cluster of each cluster launch (the row
-    launch is K1-fs's).  One coefficient of row 0 is 0, one of row 1 is
-    q - 1 in both operands."""
+    plan() admits (n, t, v) on cuda_fused_e2e: K2-fs and each of its
+    launches exactly equal to their plain versions (check_e2e_fs_call)
+    and, where K2 also serves n, to K2; the card holds at least one
+    cluster of its cascade.  One coefficient of row 0 is 0, one of row 1
+    is q - 1 in both operands."""
     import numpy as np
     import torch
 
@@ -784,30 +899,19 @@ def check_e2e_fs(dev, max_err: dict[str, int]) -> None:
                 za, zb, _, _ = seeded_inputs(torch, np, pl, 2, SEED + 5 * n + t + v, dev)
                 za[0, 0] = zb[0, 1] = 0
                 za[1, 0] = zb[1, 0] = repro_torch.to_segments(pl, [pl.q - 1])[0]
-                kern.fused_e2e_polymul_fs_cuda.cluster = 0
-                got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
-                torch.cuda.synchronize()
                 what = f"fused_e2e_polymul_fs n={n} t={t} v={v}"
-                if kern.fused_e2e_polymul_fs_cuda.cluster != min(t, kern.MAX_CLUSTER):
-                    raise AssertionError(f"{what}: clusters of "
-                                         f"{kern.fused_e2e_polymul_fs_cuda.cluster} CTAs")
-                err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan), what)
+                got, clusters = check_e2e_fs_call(za, zb, p, what, max_err)
                 k2 = kern.e2e_fits(n, t, pl.config.seg_count, pl.config.L)
                 if k2:
                     exact(got, kern.fused_e2e_polymul_cuda(za, zb, p.tables, p.plan),
                           f"{what} vs K2")
-                clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
-                if min(clusters) < 1:
-                    raise AssertionError(f"{what}: the card holds no cluster of a launch: "
-                                         f"{clusters}")
-                max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
-                seen.append(f"v={v} {kern.reduction_mode(p.tables)[:2]} {clusters}"
+                seen.append(f"v={v} {kern.reduction_mode(p.tables)[:2]} cascade clusters of "
+                            f"{kern.e2e_fs_cluster(n)}, resident by size {clusters}"
                             + (" = K2" if k2 else ""))
-            log(f"[kernels] fused_e2e_polymul_fs n={n} t={t} rows=2, clusters of "
-                f"{min(t, kern.MAX_CLUSTER)} CTAs, {kern.fs_threads(n)} threads, "
-                f"{kern.fs_tile(n)}-element tiles: equal to its plain version bit for bit (and "
-                "to K2 where marked); (mode, window) (clusters resident of the forward and of "
-                "the inverse column launch): " + ", ".join(seen))
+            log(f"[kernels] fused_e2e_polymul_fs n={n} t={t} rows=2, three launches: equal to "
+                "its plain version bit for bit, each launch to its plain counterpart (and to K2 "
+                "where marked); (mode, window), the cascade's cluster (1: K1's one-CTA body): "
+                + ", ".join(seen))
     log(f"[kernels] fused_e2e_polymul_fs checks took {time.perf_counter() - t0:.1f} s (host "
         f"clock); plan() refuses, so no kernel backend serves: " + ("; ".join(refused) or "none"))
 
@@ -843,8 +947,9 @@ def check_compose_edges(dev, max_err: dict[str, int]) -> None:
 
 def check_channel_edges(dev, max_err: dict[str, int]) -> None:
     """Phase 3 past 16 segments, limbs and channels (CHANNEL_EDGES, v =
-    30): K5 and K6 on the plan's segments and residues, and K2 and K2-fs
-    wherever plan() serves cuda_fused_e2e (each also against the other),
+    30): K5 and K6 on the plan's segments and residues, K2 wherever it
+    holds the plan and K2-fs (each launch too) wherever it serves past K2,
+    and up to t = 48 where K2 serves too (each also against the other),
     exact against their plain versions, with the clusters the card holds;
     one coefficient of row 0 is 0, one of row 1 (or the second
     coefficient) q - 1 in both operands, and one residue 0 and one q - 1
@@ -891,21 +996,14 @@ def check_channel_edges(dev, max_err: dict[str, int]) -> None:
             outs.append(got)
             seen.append(f"fused_e2e_polymul ({kern.e2e_cluster(t)[1]} slots, "
                         f"{kern.e2e_smem_bytes(n, t, S, L)} B, {clusters} clusters resident)")
-        if kern.e2e_fs_fits(n, t, S, L):
-            got = kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
-            torch.cuda.synchronize()
-            expect_e2e_fs_cluster(pl, f"fused_e2e_polymul_fs {what}")
-            err = exact(got, kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
-                        f"fused_e2e_polymul_fs {what}")
-            max_err["fused_e2e_polymul_fs"] = max(max_err.get("fused_e2e_polymul_fs", 0), err)
-            clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
-            if min(clusters) < 1:
-                raise AssertionError(f"fused_e2e_polymul_fs {what}: no cluster resident "
-                                     f"{clusters}")
+        if kern.e2e_fs_fits(n, t, S, L) and (t <= 48 or not outs):
+            got, clusters = check_e2e_fs_call(za, zb, p, f"fused_e2e_polymul_fs {what}",
+                                              max_err)
             for other in outs:
                 exact(got, other, f"fused_e2e_polymul_fs {what} vs K2")
-            seen.append(f"fused_e2e_polymul_fs ({kern.e2e_fs_smem_bytes(n, t, S, L)} B, "
-                        f"clusters resident {clusters})" + (" = K2" if outs else ""))
+            seen.append(f"fused_e2e_polymul_fs and its launches "
+                        f"({kern.e2e_fs_smem_bytes(n, t, S, L)} B, cascade clusters resident "
+                        f"by size {clusters})" + (" = K2" if outs else ""))
         log(f"[kernels] {what}, {rows} rows: " + ", ".join(seen) + " equal their plain "
             "versions bit for bit")
     log(f"[kernels] channel-edge checks took {time.perf_counter() - t0:.1f} s (host clock)")
@@ -919,17 +1017,6 @@ def expect_cluster(pl, what: str) -> None:
     if kern.fused_e2e_polymul_cuda.cluster != want:
         raise AssertionError(f"{what}: cluster of {kern.fused_e2e_polymul_cuda.cluster} CTAs, "
                              f"expected {want}")
-
-
-def expect_e2e_fs_cluster(pl, what: str) -> None:
-    """K2-fs's last call ran its cluster launches as clusters of min(t, 8)
-    CTAs."""
-    from repro_torch.kernels import ntt as kern
-
-    want = min(pl.config.t, kern.MAX_CLUSTER)
-    if kern.fused_e2e_polymul_fs_cuda.cluster != want:
-        raise AssertionError(f"{what}: clusters of {kern.fused_e2e_polymul_fs_cuda.cluster} "
-                             f"CTAs, expected {want}")
 
 
 def check_oracle(pl, za, zb, out, what: str, rows=ORACLE_ROWS) -> None:
@@ -1030,9 +1117,9 @@ def drive_main_path(pl):
 
 
 def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
-    """Phase 4c: ``plan(n, 6, 30)`` at FS_MAIN's n, past one CTA, under
-    ``auto`` (which must resolve to cuda_fused_e2e on multi-block kernels),
-    ``backend="cuda_fused"`` and ``backend="cuda"``: ``polymul`` on
+    """Phase 4c: ``plan(n, 6, 30)`` at FS_MAIN's n, past one CTA (``auto``
+    must resolve to FS_AUTO on multi-block kernels), on
+    ``backend="cuda_fused_e2e"``, ``"cuda_fused"`` and ``"cuda"``: ``polymul`` on
     FS_MAIN rows, ``negacyclic_mul``,
     ``ntt`` and ``intt`` on (6, rows, n) residues, each call with the
     launch counters zeroed just before it and read just after
@@ -1049,8 +1136,9 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
     for n, rows in FS_MAIN.items():
         auto = repro_torch.plan(n, FS_T, FS_V)
         spec = auto.config.schedule
-        if auto.config.backend != "cuda_fused_e2e" or not spec.multi_block:
+        if auto.config.backend != FS_AUTO[n] or not spec.multi_block:
             raise AssertionError(f"plan(n={n}, t={FS_T}, v={FS_V}) resolved to {auto.config}")
+        e2e = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e")
         plain = repro_torch.plan(n, FS_T, FS_V, backend="torch", device=auto.device)
         za, zb, ra, rb = seeded_inputs(torch, np, auto, rows, SEED + n, auto.device)
         inputs[n] = (za, zb, ra, rb)
@@ -1060,7 +1148,7 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
             "ntt": repro_torch.ntt(plain, ra),
             "intt": repro_torch.intt(plain, ra),
         }
-        for backend, pl in (("cuda_fused_e2e", auto),
+        for backend, pl in (("cuda_fused_e2e", e2e),
                             ("cuda_fused", repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused")),
                             ("cuda", repro_torch.plan(n, FS_T, FS_V, backend="cuda"))):
             for fn in ("polymul", "negacyclic_mul", "ntt", "intt"):
@@ -1073,8 +1161,6 @@ def drive_fs_front_door(card: str) -> tuple[dict[str, int], dict]:
                     if name in FS_KERNELS:
                         launches.setdefault(name, {})[f"{fn} n={n} {backend}"] = k
                 exact(out, want[fn], f"{fn} n={n} ({backend}) vs backend='torch'")
-                if (backend, fn) == ("cuda_fused_e2e", "polymul"):
-                    expect_e2e_fs_cluster(auto, f"polymul n={n} (auto)")
             log(f"[fs] plan(n={n}, t={FS_T}, v={FS_V}, backend={backend!r}) {pl.config.schedule}: "
                 f"polymul on {tuple(za.shape)}, negacyclic_mul, ntt, intt on {tuple(ra.shape)} "
                 f"launched as FS_LAUNCHES; equal to the backend='torch' plan on the card; {card}")
@@ -1093,7 +1179,7 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
     shape: one call between two events, back to back, the plain version,
     and the bound for the least traffic (one int64 read of each operand
     and one write a coefficient; K2-fs: 2S segments in and L limbs out,
-    with the bound of its traffic with the 32-bit scratch beside it)
+    with the bound of its traffic with the 32-bit words beside it)
     against the same operation counts as K1/K3/K4/K2."""
     import torch
 
@@ -1113,7 +1199,7 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
     entries = []
     for name in FS_TRANSFORMS:
         source, replaces = FS_KERNELS[name]
-        cuda, ref, _, _, blocks_per_sm = fs_kernel(name)
+        cuda, ref, _, _, occupancy = fs_kernel(name)
         operands = (ra, rb) if name == "fused_polymul_fs" else (ra,)
         fn = lambda: cuda(*operands, tables)
         ms = time_launches(torch, fn, TIMED_LAUNCHES)
@@ -1121,23 +1207,72 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
         plain_ms = time_launches(torch, lambda: ref(*operands, tables), PLAIN_RUNS, warmup=1)
         nbytes, ops = work_of[name]
         bound_ms, bound_by = bound(nbytes, ops)
-        blocks = blocks_per_sm(tables)
+        blocks = occupancy(tables)
+        if name == "fused_polymul_fs":
+            fill = cascade_residency(polys, blocks, kern.fs_cluster(n))
+            resident = fill["str"]
+            extra = {"cluster": kern.fs_cluster(n),
+                     "clusters_resident": {str(c): k for c, k in blocks.items()},
+                     "waves": fill["waves"]}
+        else:
+            resident = f"CTAs an SM holds per launch {blocks}"
+            extra = {"blocks_per_sm": list(blocks)}
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.get(name, {}).values()),
             "launches_by_path": launches.get(name, {}), "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": device_ms, "shape": [FS_T, FS_MAIN[n], n],
-            "blocks_per_sm": list(blocks),
+            **extra,
         })
         log(f"[time] {name} at (t, rows, n) = ({FS_T}, {FS_MAIN[n]}, {n}): {ms:.4f} ms per call "
             f"(median of {TIMED_LAUNCHES}, one call between two events, "
-            f"{'three' if name == 'fused_polymul_fs' else 'two'} launches), {device_ms:.4f} ms "
-            f"back to back (device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-            f"{bound_by} ({nbytes} bytes, {ops} int ops); CTAs an SM holds per launch {blocks}; "
+            f"{'one cluster launch' if name == 'fused_polymul_fs' else 'two launches'}), "
+            f"{device_ms:.4f} ms back to back (device time), plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops} int ops); {resident}; "
             f"no single PyTorch call computes this function, so library_ms is null; {card}")
     entries.append(time_e2e_fs(inputs, launches, max_err, card))
+    fill = log_cluster_fill(card)
+    for entry in entries:
+        key = {"fused_polymul_fs": "K1-fs", "fused_e2e_polymul_fs": "K2-fs"}.get(entry["name"])
+        if key:
+            entry["waves_by_point"] = {pt: f[key] for pt, f in fill.items() if key in f}
     return entries
+
+
+def cascade_residency(pairs: int, clusters: dict[int, int], cluster: int) -> dict:
+    """How a cascade launch of ``pairs`` (channel, row) clusters of
+    ``cluster`` CTAs fills the card, from the clusters resident by size
+    (``clusters``: cudaOccupancyMaxActiveClusters; size 1 counts K1's
+    one-CTA body's CTAs resident): its ``waves`` (pairs over the clusters
+    resident at its size) and a printable ``str``."""
+    waves = pairs / clusters[cluster]
+    return {"waves": waves, "str": f"clusters of {cluster} CTAs, {clusters[cluster]} resident "
+            f"({clusters} by size), {pairs} pairs: {waves:.2f} waves"}
+
+
+def log_cluster_fill(card: str) -> dict[str, dict]:
+    """Phase 5 at each FS_MAIN n (t = 6) and WIDE_POINTS point: the
+    clusters resident and waves of K1-fs's launch (where it runs, n >
+    16384, on cuda_fused and negacyclic_mul) and of K2-fs's cascade on the
+    point's rows.  Returns point -> numbers."""
+    import repro_torch
+    from repro_torch.kernels import ntt as kern
+
+    points = {f"n={n}": (n, FS_T, rows) for n, rows in FS_MAIN.items()}
+    points.update(WIDE_POINTS)
+    out = {}
+    for point, (n, t, rows) in points.items():
+        p = repro_torch.plan(n, t, WIDE_V, backend="cuda_fused_e2e").params
+        fill = {"K2-fs": cascade_residency(t * rows, e2e_fs_clusters(p),
+                                           kern.e2e_fs_cluster(n))}
+        if not kern.cascade_fits(n):
+            fill["K1-fs"] = cascade_residency(t * rows, k1fs_clusters(p.tables),
+                                              kern.fs_cluster(n))
+        out[point] = {k: v["waves"] for k, v in fill.items()}
+        log(f"[time] clusters at {point} (t, rows, n) = ({t}, {rows}, {n}): "
+            + "; ".join(f"{k} {v['str']}" for k, v in fill.items()) + f"; {card}")
+    return out
 
 
 def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, int],
@@ -1146,8 +1281,9 @@ def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, 
     call between two events and back to back, the plain version, the bound
     for the least traffic (2S int64 segments in and L limbs out a
     coefficient) against e2e_ops, the bound of its traffic with the 32-bit
-    scratch (six words a channel-coefficient: two written and read between
-    launches 1 and 2, one between 2 and 3), and the clusters the card holds."""
+    words between its launches (six a channel-coefficient: two residues
+    written and read between launches 1 and 2, one y between 2 and 3), and
+    its cascade's and K1-fs's clusters resident and waves."""
     import torch
 
     import repro_torch
@@ -1170,9 +1306,10 @@ def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, 
                              PLAIN_RUNS, warmup=1)
     bound_ms, bound_by = bound(least * coeffs, ops)
     scratch_ms, scratch_by = bound(with_scratch * coeffs, ops)
-    clusters = kern.e2e_fs_max_active_clusters(p.tables, p.plan)
+    clusters = e2e_fs_clusters(p)
+    fill = cascade_residency(cfg.t * rows, clusters, kern.e2e_fs_cluster(n))
     # device time of each launch, beside cuda_fused's kernels on the same
-    # inputs (K5 on each operand, K1-fs's three launches, K6)
+    # inputs (K5 on each operand, K1-fs, K6)
     from repro_torch.kernels import crt
 
     _, _, ra, rb = inputs[n]
@@ -1197,16 +1334,16 @@ def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, 
         f"back to back (device time), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
         f"{bound_by} ({least} B a coefficient, {least * coeffs} bytes, {ops} int ops); with the "
         f"32-bit scratch {with_scratch} B a coefficient, bound {scratch_ms:.4f} ms by "
-        f"{scratch_by}; clusters of {kern.e2e_cluster(cfg.t)[0]} CTAs, clusters resident of "
-        f"the forward and of the inverse column launch {clusters}; no single PyTorch call "
-        f"computes this function, so library_ms is null; {card}")
+        f"{scratch_by}; its cascade {fill['str']}; no single PyTorch call computes this "
+        f"function, so library_ms is null; {card}")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": sum(launches.get(name, {}).values()),
         "launches_by_path": launches.get(name, {}), "max_abs_err": max_err[name], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "device_ms": device_ms, "bound_ms_with_scratch": scratch_ms, "shape": [rows, n, cfg.t],
-        "cluster": kern.e2e_cluster(cfg.t)[0], "max_active_clusters": list(clusters),
+        "cluster": kern.e2e_fs_cluster(n),
+        "clusters_resident": {str(c): k for c, k in clusters.items()}, "waves": fill["waves"],
         "launch_ms": split, "cuda_fused_launch_ms": staged,
     }
 
@@ -1220,14 +1357,164 @@ def time_fs_walls() -> None:
     import repro_torch
 
     for n, rows in FS_MAIN.items():
+        walls = {}
         for backend in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch"):
             pl = repro_torch.plan(n, FS_T, FS_V, backend=backend, device="cuda")
             za, zb, ra, rb = seeded_inputs(torch, np, pl, rows, SEED + n, pl.device)
-            ms = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb))
-            nms = wall_ms(torch, lambda: repro_torch.negacyclic_mul(pl, ra, rb))
+            runs = E2E_RUNS if backend == "torch" else AUTO_WALL_RUNS
+            ms = walls[backend] = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb), runs)
+            nms = wall_ms(torch, lambda: repro_torch.negacyclic_mul(pl, ra, rb), runs)
             log(f"[e2e] n={n} polymul backend={backend} on {tuple(za.shape)}: {ms:.4f} ms per "
                 f"call, {rows * 1e3 / ms:.0f} products/s; negacyclic_mul on {tuple(ra.shape)}: "
-                f"{nms:.4f} ms per call (median of {E2E_RUNS}, host clock)")
+                f"{nms:.4f} ms per call (median of {runs}, host clock)")
+        log(f"[e2e] n={n}: cuda_fused_e2e / cuda_fused = "
+            f"{walls['cuda_fused_e2e'] / walls['cuda_fused']:.3f}; auto takes {FS_AUTO[n]}")
+
+
+def wall_turns(torch, fns: dict, runs: int = AUTO_WALL_RUNS) -> dict[str, float]:
+    """Median wall milliseconds of one synchronised call of each of
+    ``fns`` (name -> call), ``runs`` samples each taken in two turns, the
+    names in order and then reversed, so a drift of the card's clock
+    falls on both alike (host clock, after a warm-up of each)."""
+    samples = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        fns[name]()
+        torch.cuda.synchronize()
+        for _ in range(runs // 2):
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def time_auto_edges(card: str) -> None:
+    """Phase 6 at AUTO_EDGES: the walls of one synchronised ``polymul`` on
+    cuda_fused_e2e (K2-fs) and cuda_fused (``wall_turns``), whose outputs
+    must be equal bit for bit, beside what auto takes there (``[auto]``
+    lines)."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+
+    t0 = time.perf_counter()
+    for n, t in AUTO_EDGES:
+        rows = max(1, (1 << (20 if t <= 48 else 16)) // n)
+        auto = repro_torch.plan(n, t, WIDE_V)
+        plans = {b: repro_torch.plan(n, t, WIDE_V, backend=b)
+                 for b in ("cuda_fused_e2e", "cuda_fused")}
+        za, zb, _, _ = seeded_inputs(torch, np, auto, rows, SEED + 11 * n + t, auto.device)
+        got = {b: repro_torch.polymul(pl, za, zb) for b, pl in plans.items()}
+        torch.cuda.synchronize()
+        exact(got["cuda_fused_e2e"], got["cuda_fused"], f"polymul n={n} t={t} e2e vs fused")
+        del got
+        walls = wall_turns(torch, {b: (lambda pl=pl: repro_torch.polymul(pl, za, zb))
+                                   for b, pl in plans.items()})
+        ratio = walls["cuda_fused_e2e"] / walls["cuda_fused"]
+        cfg = plans["cuda_fused_e2e"].config
+        log(f"[auto] n={n} t={t} v={WIDE_V} (S={cfg.seg_count}, L={cfg.L}) polymul on "
+            f"{tuple(za.shape)}, walls ms (median of {AUTO_WALL_RUNS}, two turns, host clock): "
+            f"cuda_fused_e2e {walls['cuda_fused_e2e']:.4f}, cuda_fused "
+            f"{walls['cuda_fused']:.4f}, e2e / fused {ratio:.3f} (outputs equal bit for bit); "
+            f"auto takes {auto.config.backend}; {card}")
+        del za, zb
+    log(f"[auto] edge walls took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def issue_ms(torch, fn, calls: int = TIMED_LAUNCHES) -> float:
+    """Host milliseconds a call of ``fn`` takes to return with the card busy
+    behind a spin, so no call waits for it: median of three rounds of
+    ``calls`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(3):
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        rounds.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def time_host_split(card: str) -> None:
+    """Phase 6 at the largest FS_MAIN shape: the host time of one
+    ``polymul`` call on cuda_fused_e2e (K2-fs) and on cuda_fused
+    (``issue_ms``): the whole call, each kernel wrapper it runs alone, and
+    K2-fs's C call alone on buffers allocated beforehand and its three
+    allocations alone; then ``torch.profiler``'s host-side events over
+    TIMED_LAUNCHES calls of each, self time a call by name (``[host]``
+    lines)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.kernels import _build, crt
+    from repro_torch.kernels import ntt as kern
+
+    n = max(FS_MAIN)
+    rows = FS_MAIN[n]
+    e2e = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e")
+    fused = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused")
+    p, fp, cfg = e2e.params, fused.params, e2e.config
+    za, zb, ra, rb = seeded_inputs(torch, np, e2e, rows, SEED + n, e2e.device)
+    pointers, ints = kern._e2e_constants(p.tables, p.plan, "fused_e2e_polymul_fs_cuda",
+                                         kern.e2e_fs_fits)
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_fused_e2e_polymul_fs",
+                         kern._E2E_FS_ARGTYPES)
+    out = torch.empty((rows, n, cfg.L), dtype=torch.int64, device=za.device)
+    res = [torch.empty((cfg.t, rows, n), dtype=torch.int32, device=za.device) for _ in range(2)]
+    extra = (int(kern.narrow_moduli(p.plan)), kern.e2e_fs_cluster(n).bit_length() - 1)
+    ptr = _build.ptr
+
+    def alloc():
+        return (torch.empty((rows, n, cfg.L), dtype=torch.int64, device=za.device),
+                *(torch.empty((cfg.t, rows, n), dtype=torch.int32, device=za.device)
+                  for _ in range(2)))
+
+    z2a, z2b = za.reshape(-1, cfg.seg_count), zb.reshape(-1, cfg.seg_count)
+    parts = {
+        "cuda_fused_e2e": {
+            "polymul": lambda: repro_torch.polymul(e2e, za, zb),
+            "K2-fs wrapper": lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan),
+            "its C call": lambda: launch(ptr(za), ptr(zb), ptr(res[0]), ptr(res[1]), ptr(out),
+                                         *pointers, rows, *ints, *extra, _build.stream_of(za)),
+            "its allocations": alloc,
+        },
+        "cuda_fused": {
+            "polymul": lambda: repro_torch.polymul(fused, za, zb),
+            "K5 wrapper x2": lambda: (crt.decompose_cuda(z2a, fp.plan),
+                                      crt.decompose_cuda(z2b, fp.plan)),
+            "K1-fs wrapper": lambda: kern.fused_polymul_fs_cuda(ra, rb, fp.tables),
+            "K6 wrapper": lambda: crt.compose_cuda(ra.reshape(cfg.t, -1), fp.plan),
+        },
+    }
+    for backend, fns in parts.items():
+        ms = {name: issue_ms(torch, fn) for name, fn in fns.items()}
+        wrappers = sum(v for k, v in ms.items() if "wrapper" in k)
+        log(f"[host] n={n} polymul on {tuple(za.shape)} backend={backend}: host ms a call with "
+            f"the card busy (median of 3 rounds of {TIMED_LAUNCHES}): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + f"; outside the wrappers {ms['polymul'] - wrappers:.4f}; {card}")
+    for backend, fns in parts.items():
+        fn = fns["polymul"]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_LAUNCHES):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted(((e.key, e.self_cpu_time_total / TIMED_LAUNCHES / 1e3)
+                         for e in prof.key_averages()
+                         if e.self_cpu_time_total > 0 and "Synchronize" not in e.key),
+                        key=lambda kv: -kv[1])
+        log(f"[host] n={n} polymul backend={backend}: torch.profiler host self ms a call "
+            f"({TIMED_LAUNCHES} calls, profiled): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in events[:10])
+            + f"; all {sum(v for _, v in events):.4f}")
 
 
 def drive_wide(card: str) -> tuple[dict[str, dict[str, int]], dict]:
@@ -1252,7 +1539,7 @@ def drive_wide(card: str) -> tuple[dict[str, dict[str, int]], dict]:
         auto = repro_torch.plan(n, t, WIDE_V)
         plans = {b: repro_torch.plan(n, t, WIDE_V, backend=b)
                  for b in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch")}
-        if auto.config.backend != "cuda_fused":
+        if auto.config.backend != WIDE_AUTO[point]:
             raise AssertionError(f"{point}: auto resolved to {auto.config}")
         cfg = plans["cuda_fused_e2e"].config
         if not cfg.schedule.multi_block:
@@ -1269,8 +1556,6 @@ def drive_wide(card: str) -> tuple[dict[str, dict[str, int]], dict]:
             for name, k in launched(got).items():
                 launches.setdefault(name, {})[f"polymul {point} {backend}"] = k
             exact(out, want, f"polymul {point} ({backend}) vs backend='torch'")
-            if backend == "cuda_fused_e2e":
-                expect_e2e_fs_cluster(pl, f"polymul {point}")
             log(f"[wide] {point} plan(n={n}, t={t}, v={WIDE_V}, backend={backend!r}) "
                 f"{pl.config.schedule}: polymul on {tuple(za.shape)} launched {launched(got)}; "
                 f"equal to the backend='torch' plan on the card; {card}")
@@ -1288,10 +1573,11 @@ def drive_wide(card: str) -> tuple[dict[str, dict[str, int]], dict]:
             got = fn()
             torch.cuda.synchronize()
             exact(got, ref(), f"{name} {point}")
-        log(f"[wide] {point}: S={cfg.seg_count}, L={cfg.L}, q of {auto.q.bit_length()} bits, "
-            f"{kern.e2e_cluster(t)[1]} channels a CTA of clusters of {kern.e2e_cluster(t)[0]}; "
+        check_e2e_fs_call(za, zb, p, f"fused_e2e_polymul_fs {point}", {})
+        log(f"[wide] {point}: S={cfg.seg_count}, L={cfg.L}, q of {auto.q.bit_length()} bits; "
             f"polymul row {rows - 1} equals the host bigint oracle; K2-fs, K5 and K6 on the "
-            f"point's operands equal their plain versions bit for bit; auto -> cuda_fused")
+            f"point's operands equal their plain versions bit for bit; auto -> "
+            f"{auto.config.backend}")
     log(f"[wide] phase 4d took {time.perf_counter() - t0:.1f} s (host clock)")
     return launches, inputs
 
@@ -1316,11 +1602,11 @@ def time_wide(inputs, card: str) -> dict[str, dict]:
         for backend in ("cuda_fused_e2e", "cuda_fused", "cuda", "torch"):
             pl = repro_torch.plan(n, t, WIDE_V, backend=backend)
             walls[backend] = wall_ms(torch, lambda: repro_torch.polymul(pl, za, zb),
-                                     3 if backend == "torch" else E2E_RUNS)
-        log(f"[wide] {point} polymul walls on {tuple(za.shape)}, ms (median of {E2E_RUNS}, "
+                                     3 if backend == "torch" else AUTO_WALL_RUNS)
+        log(f"[wide] {point} polymul walls on {tuple(za.shape)}, ms (median of {AUTO_WALL_RUNS}, "
             f"torch of 3, host clock): " + ", ".join(f"{b} {ms:.4f}" for b, ms in walls.items())
             + f"; cuda_fused_e2e / cuda_fused = {walls['cuda_fused_e2e'] / walls['cuda_fused']:.3f}"
-            f"; auto takes cuda_fused; {card}")
+            f"; auto takes {WIDE_AUTO[point]}; {card}")
         pl = repro_torch.plan(n, t, WIDE_V, backend="cuda_fused_e2e")
         p, cfg = pl.params, pl.config
         mode, window = kern.reduction_mode(p.tables)[:2]
@@ -1359,17 +1645,17 @@ def time_wide(inputs, card: str) -> dict[str, dict]:
             **launch_split(torch, lambda: cascade(ra, rb, p.tables)),
             "compose": sum(launch_split(torch, calls["compose"][0]).values()),
         }
-        out["fused_e2e_polymul_fs"][point].update(launch_ms=split, cuda_fused_launch_ms=staged,
-                                                  max_active_clusters=list(
-                                                      kern.e2e_fs_max_active_clusters(p.tables,
-                                                                                      p.plan)))
+        clusters = e2e_fs_clusters(p)
+        fill = cascade_residency(t * rows, clusters, kern.e2e_fs_cluster(n))
+        out["fused_e2e_polymul_fs"][point].update(
+            launch_ms=split, cuda_fused_launch_ms=staged,
+            clusters_resident={str(c): k for c, k in clusters.items()}, waves=fill["waves"])
         log(f"[time] fused_e2e_polymul_fs launches at {point}, device ms a call "
             f"(torch.profiler, {TIMED_LAUNCHES} calls): "
             + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
             + f" (sum {sum(split.values()):.4f}); cuda_fused's kernels on the same inputs: "
             + ", ".join(f"{k} {v:.4f}" for k, v in staged.items())
-            + f" (sum {sum(staged.values()):.4f}); clusters resident "
-            f"{out['fused_e2e_polymul_fs'][point]['max_active_clusters']}; {card}")
+            + f" (sum {sum(staged.values()):.4f}); its cascade {fill['str']}; {card}")
     return out
 
 
@@ -1519,15 +1805,16 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     DIR (its ``src/`` imported, its kernels built into its ``build/``) at
     the main path's shape, each first checked against its plain version:
     one call between two events (``ms``) and back to back (``device_ms``),
-    K2 also at one row (``k2_times``), K2-fs (``fused_e2e_polymul_fs``)
-    at the largest FS_MAIN shape, so two commits compare in one call."""
+    K2 also at one row (``k2_times``), K1-fs (``fused_polymul_fs``) and
+    K2-fs (``fused_e2e_polymul_fs``) at the largest FS_MAIN shape, so two
+    commits compare in one call."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    known = [*KERNELS, "fused_e2e_polymul_fs"]
+    known = [*KERNELS, "fused_polymul_fs", "fused_e2e_polymul_fs"]
     unknown = [name for name in names if name not in known]
     if unknown or not names:
         print(f"chip_smoke: --time-kernels takes names of {known}, got {names}", file=sys.stderr)
@@ -1539,11 +1826,14 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
     inputs = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
     calls = kernel_calls(pl, inputs)
-    if "fused_e2e_polymul_fs" in names:  # K2-fs at the largest FS_MAIN shape
+    if {"fused_polymul_fs", "fused_e2e_polymul_fs"} & set(names):
+        # K1-fs and K2-fs at the largest FS_MAIN shape
         n = max(FS_MAIN)
         fs = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e").params
-        za, zb, _, _ = seeded_inputs(torch, np, repro_torch.plan(n, FS_T, FS_V), FS_MAIN[n],
-                                     SEED + n, pl.device)
+        za, zb, ra, rb = seeded_inputs(torch, np, repro_torch.plan(n, FS_T, FS_V), FS_MAIN[n],
+                                       SEED + n, pl.device)
+        calls["fused_polymul_fs"] = (lambda: kern.fused_polymul_fs_cuda(ra, rb, fs.tables),
+                                     lambda: kern.fused_polymul_fs_ref(ra, rb, fs.tables))
         calls["fused_e2e_polymul_fs"] = (
             lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, fs.tables, fs.plan),
             lambda: kern.fused_e2e_polymul_fs_ref(za, zb, fs.tables, fs.plan))
@@ -1561,12 +1851,13 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     return 0
 
 
-# K6's two load orders (csrc/compose.cu), each switched off in a copy of
-# the source that --compose-variants builds beside it
+# K6's two load orders (its kernel, csrc/parentt.cuh compose_kernel), each
+# switched off in a copy of the header that --compose-variants builds
+# csrc/compose.cu against
 COMPOSE_VARIANTS = {
     "no_preload": ("crt_compose<MAXL, !kSingle, kSingle>(", "crt_compose<MAXL, false, kSingle>("),
-    "no_hoist": ("[&](int c) { return kSingle ? first[c] : (res_t)__ldg(r + (size_t)c * args.rows); }",
-                 "[&](int c) { return (res_t)__ldg(r + (size_t)c * args.rows); }"),
+    "no_hoist": ("[&](int c) { return kSingle ? first[c] : word(c); }",
+                 "[&](int c) { return word(c); }"),
 }
 # (n, t, rows) of its timings: L = 4, 7, 8 (the 8-limb instance), 9, 13,
 # 16 (16 limbs, three CTAs an SM; W1) and 32 (two CTAs; W2)
@@ -1575,8 +1866,9 @@ COMPOSE_SHAPES = ((4096, 3, 256), (4096, 6, 256), (4096, 7, 256), (4096, 8, 256)
 
 
 def time_compose_variants() -> int:
-    """``--compose-variants``: K6 built from csrc/compose.cu beside copies
-    with one load order switched off (COMPOSE_VARIANTS: the 16-limb
+    """``--compose-variants``: K6 built from csrc/compose.cu beside builds
+    against copies of csrc/parentt.cuh with one load order of its compose
+    kernel switched off (COMPOSE_VARIANTS: the 16-limb
     instances' PRELOAD, the 8-limb instance's reads before the table
     fills), each build's ptxas lines, and each checked against the plain
     version and timed back to back at COMPOSE_SHAPES, in the order as
@@ -1591,20 +1883,22 @@ def time_compose_variants() -> int:
     import repro_torch
     from repro_torch.kernels import _build, crt
 
-    src = (_build.CSRC / "compose.cu").read_text()
-    sources = {"as_built": src}
+    header = (_build.CSRC / "parentt.cuh").read_text()
+    sources = {"as_built": header}
     for name, (old, new) in COMPOSE_VARIANTS.items():
-        if old not in src:
-            print(f"chip_smoke: csrc/compose.cu no longer holds {old!r}", file=sys.stderr)
+        if old not in header:
+            print(f"chip_smoke: csrc/parentt.cuh no longer holds {old!r}", file=sys.stderr)
             return 1
-        sources[name] = src.replace(old, new)
+        sources[name] = header.replace(old, new)
     out = _build.BUILD_DIR / "compose_variants"
-    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        (out / f"{name}.cu").write_text(text)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(out / f"lib{name}.so"), str(out / f"{name}.cu")]
+        # compose.cu beside its own copy of the header, which its #include finds first
+        (out / name).mkdir(parents=True, exist_ok=True)
+        (out / name / "parentt.cuh").write_text(text)
+        (out / name / "compose.cu").write_text((_build.CSRC / "compose.cu").read_text())
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"),
+               str(out / name / "compose.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     fns = {}
@@ -1645,6 +1939,83 @@ def time_compose_variants() -> int:
             times.append(f"{name} {time_back_to_back(torch, call, TIMED_LAUNCHES):.4f}")
         log(f"[compose-variants] n={n} t={t} L={plan.L} rows={rows}, ms back to back: "
             + ", ".join(times))
+    return 0
+
+
+def time_cascade_variants() -> int:
+    """``--cascade-variants``: K1-fs at each FS_MAIN shape (t = 6, v = 30)
+    launched in clusters of 8 and of 16 CTAs through
+    ``parentt_fused_polymul_fs_phases``, each whole output checked against
+    the plain version, then timed back to back whole and cut after its
+    first and its second DSMEM transpose, in turns 8, 16, 16, 8: the
+    phases' split (the columns with the first transpose, the rows with the
+    product and the second transpose, the inverse columns) and the
+    clusters resident and waves of each size."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ntt as kern
+
+    # the cut instances live only in a build with PARENTT_CASCADE_PHASES
+    # defined, beside the kernels' own build
+    out_dir = _build.BUILD_DIR / "cascade_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / "libfused_polymul_fs_phases.so"
+    proc = subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-DPARENTT_CASCADE_PHASES",
+                             "-o", str(lib), str(_build.CSRC / "fused_polymul_fs.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _build.build(["fused_polymul_fs"])
+    text, _ = proc.communicate()
+    if proc.returncode:
+        print(f"chip_smoke: nvcc failed on the phase build:\n{text}", file=sys.stderr)
+        return 1
+    _build.ptxas_report("cascade_variants/fused_polymul_fs_phases").write_text(text)
+    for line in ptxas_entries("cascade_variants/fused_polymul_fs_phases"):
+        log(f"[ptxas fused_polymul_fs phases] {line}")
+    log(card_line())
+    P, I = ctypes.c_void_p, ctypes.c_int
+    launch = ctypes.CDLL(str(lib)).parentt_fused_polymul_fs_phases
+    launch.argtypes = [P] * 10 + [I] * 10 + [P]
+    launch.restype = ctypes.c_int
+    sizes, turns = (8, 16), (8, 16, 16, 8)
+    for n, rows in FS_MAIN.items():
+        pl = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused")
+        tables = pl.params.tables
+        _, _, ra, rb = seeded_inputs(torch, np, pl, rows, SEED + n, pl.device)
+        want = kern.fused_polymul_fs_ref(ra, rb, tables)
+        pointers, ints = kern._table_constants(tables, "fused_polymul_fs", "--cascade-variants")
+        out = torch.empty_like(ra)
+
+        def call(c, phases):
+            return lambda: _build.check("fused_polymul_fs", launch(
+                _build.ptr(ra), _build.ptr(rb), _build.ptr(out), *pointers, FS_T, rows, *ints,
+                c.bit_length() - 1, phases, _build.stream_of(ra)))
+
+        resident = {c: kern.cascade_fs_clusters_resident(tables, c) for c in sizes}
+        for c in sizes:
+            out.zero_()
+            call(c, 3)()
+            torch.cuda.synchronize()
+            exact(out, want, f"K1-fs n={n} in clusters of {c}")
+        times = {(c, ph): [] for c in sizes for ph in (1, 2, 3)}
+        for c in turns:
+            for ph in (1, 2, 3):
+                times[(c, ph)].append(time_back_to_back(torch, call(c, ph), TIMED_LAUNCHES))
+        for c in sizes:
+            t1, t2, t3 = (statistics.mean(times[(c, ph)]) for ph in (1, 2, 3))
+            log(f"[cascade-variants] K1-fs at (t, rows, n) = ({FS_T}, {rows}, {n}) in clusters "
+                f"of {c} CTAs{' (the launch size, fs_cluster)' if c == kern.fs_cluster(n) else ''}"
+                f", equal to the plain version bit for bit; ms back to back in turns {turns}: "
+                f"whole {' / '.join(f'{x:.4f}' for x in times[(c, 3)])}; the phases (mean of "
+                f"the turns): columns + first transpose {t1:.4f}, rows + product + second "
+                f"transpose {t2 - t1:.4f}, inverse columns {t3 - t2:.4f}; {resident[c]} "
+                f"clusters resident, {FS_T * rows / resident[c]:.2f} waves")
     return 0
 
 
@@ -2299,6 +2670,8 @@ def main() -> int:
         return time_checkout(Path(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:] == ["--compose-variants"]:
         return time_compose_variants()
+    if sys.argv[1:] == ["--cascade-variants"]:
+        return time_cascade_variants()
     # the yardstick's torch.compile caches stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / sub)
@@ -2369,6 +2742,8 @@ def main() -> int:
                 entry["launches"] += sum(paths.values())
     time_backends(pl, inputs, next(e["ms"] for e in entries if e["name"] == "fused_e2e_polymul"))
     time_fs_walls()
+    time_auto_edges(card)
+    time_host_split(card)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -290,9 +290,10 @@ def _admit(backend: str, n: int, t: int, v: int, dev: torch.device,
     :func:`plan_from_params`: refuse n above the multi-block kernels'
     reach (before the prime search), build the params unless given, then
     refuse a backend whose kernels one block's shared memory cannot hold
-    at the plan's (t, S, L), or whose e2e clusters the card cannot hold at
-    once (knob ``t``, naming the backends that serve).  Under ``auto`` an
-    e2e choice the card cannot serve falls back to ``cuda_fused``.
+    at the plan's (t, S, L), or whose clusters (K2's, K2-fs's, K1-fs's)
+    the card cannot hold at once (knob ``t``, naming the backends that
+    serve).  Under ``auto`` an e2e choice the card cannot serve falls back
+    to ``cuda_fused``.
     Returns the backend and the params."""
     if backend in KERNEL_BACKENDS and n > ntt_kernels.FS_MAX_N:
         raise UnservableConfigError(
@@ -311,15 +312,22 @@ def _admit(backend: str, n: int, t: int, v: int, dev: torch.device,
             knob="t", value=t, alternatives=("backend='torch'",),
         )
     serving = ops_mod.serving_backends(n, t, rp.seg_count, rp.L)
-    if backend == "cuda_fused_e2e" and backend in serving and dev.type == "cuda" \
+    # on a card, the cluster launches of a backend's paths must fit it: K2's
+    # or K2-fs's (and K1-fs's) under cuda_fused_e2e, K1-fs's under
+    # cuda_fused past one CTA
+    if dev.type == "cuda" and backend == "cuda_fused_e2e" and backend in serving \
             and ntt_kernels.e2e_clusters_resident(params.tables, rp) < 1:
         serving = tuple(b for b in serving if b != backend)
     if auto and backend not in serving:
         backend = "cuda_fused"
+    if dev.type == "cuda" and backend == "cuda_fused" and backend in serving \
+            and not ntt_kernels.cascade_fits(n) \
+            and ntt_kernels.cascade_fs_clusters_resident(params.tables) < 1:
+        serving = tuple(b for b in serving if b not in ("cuda_fused", "cuda_fused_e2e"))
     if backend not in serving:
         raise UnservableConfigError(
             f"backend={backend!r} cannot hold t={t} (S={rp.seg_count}, L={rp.L}) at n={n}: its "
-            "CTAs' shared memory (or, for cuda_fused_e2e, a cluster on this card) does not "
+            "CTAs' shared memory (or a cluster of them on this card) does not "
             "fit what they keep per channel, segment and limb",
             knob="t", value=t,
             alternatives=tuple(f"backend={b!r}" for b in serving) + ("backend='torch'",),

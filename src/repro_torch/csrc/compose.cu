@@ -48,96 +48,22 @@ using namespace parentt;
 
 namespace {
 
-constexpr int kTile = 256;  // rows of a CTA at most
-// CTAs of kTile an SM that the register budget leaves room for with
-// MAXL = 8: at most 48 registers.  MAXL = 16 holds twice the limb sums:
-// three CTAs (at most 80 registers, a short spill) for L <= 16, where it
-// runs one chunk, and two (at most 128) past it, where the chunk loop's
-// carries and the second pass over the channels spill at 80.
-constexpr int kMinBlocks = 5;
-
-struct ComposeArgs {
-  const i64* res;
-  i64* out;
-  const i64* qs;       // (t,)
-  const i64* tilde;    // (t,): q~_c = (q / q_c)^-1 mod q_c
-  const i64* block_m;  // (t,): floor(2^(b+31) / q_c)
-  const i64* star;     // (t, L): limbs of q^_c = q / q_c
-  const i64* q_limbs;  // (L,)
-  i64 rows;
-  int t;
-  int L;
-  int w;
-  int s1;  // b - 1, b = bit_length(q_c), the same for every channel
-};
-
-// One channel's constants, as a CTA keeps them in shared memory.
-struct __align__(8) ComposeChannel {
-  double inv_q;
-  res_t q;
-  res_t m;
-  res_t tilde;
-};
-static_assert(sizeof(ComposeChannel) == 24, "kernels/crt.py sizes the table at 24 bytes a channel");
-
-// Bytes of the channel table, rounded to 16 for the stage after it, and
-// the rows of a CTA (kernels/crt.py compose_rows mirrors both).
-__host__ __device__ inline long long table_bytes(int t) { return ((long long)t * sizeof(ComposeChannel) + 15) / 16 * 16; }
-int rows_of(int t, int L) { return tile_rows(L, table_bytes(t)); }
-
-template <bool NARROW, int MAXL, int MIN_BLOCKS>
-__global__ void __launch_bounds__(kTile, MIN_BLOCKS) compose_kernel(const ComposeArgs args) {
-  // the 8-limb instance serves t <= kSumChannels, L <= 8 in one pass
-  constexpr bool kSingle = MAXL == 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  ComposeChannel* ch = reinterpret_cast<ComposeChannel*>(smem_raw);
-  i64* stage = reinterpret_cast<i64*>(smem_raw + table_bytes(args.t));  // (R, L) limbs
-  const int t = args.t, L = args.L, R = blockDim.x;
-  const i64 row0 = (i64)blockIdx.x * R;
-  const int cnt = (int)min((i64)R, args.rows - row0);
-  const int j = threadIdx.x;
-  const i64* r = args.res + row0 + j;
-  // kSingle: every channel's word read before the table fills, so the
-  // reads overlap it (the channel index is compile-time in one pass)
-  res_t first[kSingle ? kSumChannels : 1];
-  if (kSingle) {
-#pragma unroll
-    for (int c = 0; c < kSumChannels; ++c) {
-      first[c] = c < t && j < cnt ? (res_t)__ldg(r + (size_t)c * args.rows) : 0u;
-    }
-  }
-  for (int c = threadIdx.x; c < t; c += R) {
-    ch[c].inv_q = 1.0 / (double)args.qs[c];
-    ch[c].q = (res_t)args.qs[c];
-    ch[c].m = (res_t)args.block_m[c];
-    ch[c].tilde = (res_t)args.tilde[c];
-  }
-  __syncthreads();
-  if (j < cnt) {
-    crt_compose<MAXL, !kSingle, kSingle>(
-        [&](int c) { return kSingle ? first[c] : (res_t)__ldg(r + (size_t)c * args.rows); },
-        [&](int c, res_t rc) {
-          const ComposeChannel& k = ch[c];
-          return (res_t)block_barrett<NARROW>((u64)rc * k.tilde, k.q, k.m, args.s1);
-        },
-        [&](int c) { return ch[c].inv_q; }, args.star, args.q_limbs, t, L, args.w,
-        stage + j * L);
-  }
-  __syncthreads();
-  i64* po = args.out + row0 * L;
-  for (int i = threadIdx.x; i < cnt * L; i += R) po[i] = stage[i];
-}
-
+// CTAs of kComposeTile an SM that the register budget leaves room for
+// with MAXL = 8: at most 48 registers (kComposeMinBlocks).  MAXL = 16
+// holds twice the limb sums: three CTAs (at most 80 registers, a short
+// spill) for L <= 16, where it runs one chunk, and two (at most 128) past
+// it, where the chunk loop's carries and the second pass over the
+// channels spill at 80.  The kernel body is parentt.cuh's compose_kernel.
 typedef void (*ComposeKernel)(const ComposeArgs);
 
 ComposeKernel pick_kernel(int narrow, int t, int L) {
   static const ComposeKernel kernels[2][3] = {
-      {compose_kernel<false, 8, kMinBlocks>, compose_kernel<false, 16, 3>,
-       compose_kernel<false, 16, 2>},
-      {compose_kernel<true, 8, kMinBlocks>, compose_kernel<true, 16, 3>,
-       compose_kernel<true, 16, 2>},
+      {compose_kernel<false, 8, kComposeMinBlocks, false>, compose_kernel<false, 16, 3, false>,
+       compose_kernel<false, 16, 2, false>},
+      {compose_kernel<true, 8, kComposeMinBlocks, false>, compose_kernel<true, 16, 3, false>,
+       compose_kernel<true, 16, 2, false>},
   };
-  return kernels[narrow ? 1 : 0][L <= 8 && t <= kSumChannels ? 0 : L <= 16 ? 1 : 2];
+  return kernels[narrow ? 1 : 0][compose_variant(t, L)];
 }
 
 }  // namespace
@@ -152,11 +78,12 @@ int parentt_compose(const long long* residues, long long* out, const long long* 
                     const long long* qi_tilde, const long long* block_m, const long long* star,
                     const long long* q_limbs, long long rows, int t, int L, int w, int s1,
                     int narrow, void* stream) {
-  const ComposeArgs args{residues, out, qs, qi_tilde, block_m, star, q_limbs, rows, t, L, w, s1};
-  const int R = rows_of(t, L);
+  const ComposeArgs args{residues, nullptr, out, qs, qi_tilde, block_m, star, q_limbs,
+                         rows,     t,       L,   w,  s1};
+  const int R = compose_rows_of(t, L);
   if (R < 1) return (int)cudaErrorInvalidValue;
   const long long blocks = (rows + R - 1) / R;
-  const size_t smem = (size_t)(table_bytes(t) + (long long)R * L * sizeof(i64));
+  const size_t smem = (size_t)(compose_table_bytes(t) + (long long)R * L * sizeof(i64));
   const ComposeKernel kernel = pick_kernel(narrow, t, L);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -19,7 +19,7 @@
 //   the coefficient slice
 //   [ceil(r n / C), ceil((r + 1) n / C)), which is uneven when C does not
 //   divide n;
-// * decompose (parentt.cuh cluster_decompose, shared with K2-fs): copies
+// * decompose (parentt.cuh cluster_decompose): copies
 //   its slice's segments of both operands, a chunk at a time (dc
 //   coefficients an operand, fewer than half the threads where the
 //   staging beside the residues cannot hold more), into shared
@@ -34,7 +34,7 @@
 //   and the last forward trip, the product and the first inverse trip are
 //   one (at n = 4096: 6 barriers a channel, against 37 when every stage is
 //   one); cluster.sync();
-// * compose (parentt.cuh cluster_compose, shared with K2-fs): reads y_i
+// * compose (parentt.cuh cluster_compose): reads y_i
 //   of its slice from every peer over DSMEM, runs the
 //   Eq-10 limb sums and the tail (the quotient floor(value / q) =
 //   floor(sum y_i / q_i) estimated in double and corrected by one

@@ -26,67 +26,12 @@
 // intermediate on chip, issues a thread's loads together, and has few
 // barriers; what is left is the latency of the shared-memory trips and
 // the integer work, with 4 CTAs an SM at n = 4096 (registers:
-// kMinBlocks below).
+// kPairMinBlocks).  The kernel and its launch live in parentt.cuh
+// (pair_cascade_kernel, launch_pair_cascade), which K2-fs's cascade also
+// runs on 32-bit words where one CTA holds a pair.
 #include "parentt.cuh"
 
 using namespace parentt;
-
-namespace {
-
-// CTAs of kMaxThreads an SM that the register budget leaves room for
-// (twice as many of the 256 threads at n = 4096): at most 64 registers,
-// which no instance spills at; three would cap them at 40, where the
-// lazy W = 4 and strict instances spill.
-constexpr int kMinBlocks = 2;
-
-struct CascadeArgs {
-  const i64* a;
-  const i64* b;
-  i64* out;
-  const i64* qs;
-  const i64* half;
-  const i64* eps;
-  const i64* fwd;
-  const i64* inv;
-  const i64* fwd_sh;
-  const i64* inv_sh;
-  int rows;
-  int log_n;
-  int group;  // K: stages per register pass
-  int mode;
-  int window;
-  int beta;
-  int s1;
-  int s2;
-};
-
-template <int REG>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-    fused_polymul_kernel(const CascadeArgs args) {
-  extern __shared__ res_t smem[];
-  const int n = 1 << args.log_n;
-  const int c = blockIdx.x / args.rows;
-  const size_t base = (size_t)blockIdx.x * n;
-  const Reduce r = regime_reduce<REG>(args.qs, args.half, args.eps, c, args.mode, args.window,
-                                      args.beta, args.s1, args.s2);
-  const size_t tab = (size_t)c * n;
-  const ChannelTabs tb{args.fwd + tab, args.inv + tab, args.fwd_sh + tab, args.inv_sh + tab};
-  channel_cascade(smem, smem + padded(n), DevicePolys<2>{{args.a + base, args.b + base}},
-                  DeviceOut{args.out + base}, Keep{}, args.log_n, args.group, tb, r);
-}
-
-typedef void (*CascadeKernel)(const CascadeArgs);
-
-CascadeKernel pick_kernel(int mode, int window) {
-  static const CascadeKernel kernels[3] = {
-      fused_polymul_kernel<kLazy2>, fused_polymul_kernel<kLazy4>, fused_polymul_kernel<kStrict>};
-  return kernels[regime_of(mode, window)];
-}
-
-// Both operands' padded residues.
-size_t cascade_smem(int n) { return 2 * (size_t)padded(n) * sizeof(res_t); }
-
-}  // namespace
 
 extern "C" {
 
@@ -97,27 +42,22 @@ int parentt_fused_polymul(const long long* a, const long long* b, long long* out
                           const long long* fwd, const long long* inv, const long long* fwd_shoup,
                           const long long* inv_shoup, int t, int rows, int log_n, int mode,
                           int window, int beta, int s1, int s2, void* stream) {
-  const int n = 1 << log_n;
-  const CascadeKernel kernel = pick_kernel(mode, window);
-  const cudaError_t err = allow_smem(kernel, cascade_smem(n));
-  if (err != cudaSuccess) return (int)err;
-  const CascadeArgs args{a, b, out, qs, half, eps, fwd, inv, fwd_shoup, inv_shoup,
-                         rows, log_n, pass_group(n), mode, window, beta, s1, s2};
-  kernel<<<t * rows, pass_threads(n), cascade_smem(n), (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+  const FsArgs args{{a, b},    {nullptr, nullptr},
+                    out,       qs,
+                    half,      eps,
+                    fwd,       inv,
+                    fwd_shoup, inv_shoup,
+                    rows,      log_n,
+                    mode,      window,
+                    beta,      s1,
+                    s2};
+  return launch_pair_cascade<CanonPair>(args, nullptr, t * rows, (cudaStream_t)stream);
 }
 
 // How many CTAs of the cascade an SM holds at once at this n and regime
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the CUDA error.
 int parentt_fused_polymul_blocks_per_sm(int log_n, int mode, int window) {
-  const int n = 1 << log_n;
-  const CascadeKernel kernel = pick_kernel(mode, window);
-  cudaError_t err = allow_smem(kernel, cascade_smem(n));
-  if (err != cudaSuccess) return -(int)err;
-  int count = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, pass_threads(n),
-                                                      cascade_smem(n));
-  return err == cudaSuccess ? count : -(int)err;
+  return pair_blocks_per_sm<CanonPair>(log_n, mode, window);
 }
 
 const char* parentt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

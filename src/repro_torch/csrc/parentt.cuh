@@ -3,9 +3,10 @@
 // (fused_e2e_polymul.cu), the stage kernels (ntt_channels.cu,
 // intt_channels.cu, decompose.cu, compose.cu) and their multi-block forms
 // (*_fs.cu), among them the register passes of the transforms that K1-K4
-// run, the multi-block column and row stages, the Eq-10 compose tail that
-// K2 and K6 run, and the cluster steps (DSMEM decompose, compose over the
-// peers' y) that K2 and K2-fs run.
+// run, the multi-block column and row stages, the cluster cascade that
+// K1-fs and K2-fs run, the Eq-10 compose tail and K6's compose kernel
+// that K2, K6 and K2-fs run, and the cluster steps (DSMEM decompose,
+// compose over the peers' y) that K2 runs.
 //
 // Every function stores, word for word, what the int64 arithmetic of the
 // plain PyTorch versions (repro_torch/core/modmath.py,
@@ -557,7 +558,8 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 }
 
 // --------------------------------------------------------------------------
-// Multi-block (four-step) transforms (K1-fs, K3-fs, K4-fs, K2-fs)
+// Multi-block (four-step) transforms (K3-fs, K4-fs; the cluster cascade
+// of K1-fs and K2-fs below)
 // --------------------------------------------------------------------------
 //
 // A polynomial too long for one CTA's shared memory is the same radix-2
@@ -582,10 +584,11 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 //   k = s - L1, the reference's four_step_row_indices, read from the
 //   stage table itself.
 //
-// Between launches the values stay lazy (below W q, or q when strict) as
-// 32-bit words in a (t, rows, n) scratch tensor: a butterfly's window
-// does not depend on its stage, so the row stages continue from the
-// column stages' bounds.  Each launch's first pass reads device memory,
+// Between launches (K3-fs, K4-fs) the values stay lazy (below W q, or q
+// when strict) as 32-bit words in a (t, rows, n) scratch tensor: a
+// butterfly's window does not depend on its stage, so the row stages
+// continue from the column stages' bounds.  The cluster cascade keeps the
+// same lazy words in its CTAs' shared memory instead.  Each launch's first pass reads device memory,
 // its last writes it, and the passes between run through the CTA's tile
 // in shared memory (padded one word in 16 against bank conflicts).
 
@@ -630,10 +633,12 @@ struct RowMap {
 };
 
 __device__ __forceinline__ res_t read_word(const i64* p) { return (res_t)__ldg(p); }
-// the scratch is read as plain loads: the cascade's row pass rewrites what it read
+// 32-bit words are read as plain loads: K2-fs's cascade stores y over the
+// residues it read
 __device__ __forceinline__ res_t read_word(const res_t* p) { return *p; }
 
-// NPOLY polynomials in device memory (int64 residues, or 32-bit scratch).
+// NPOLY polynomials in device memory (int64 residues, or 32-bit words
+// that the same CTA may overwrite later in the launch).
 template <typename T, int NPOLY, typename Map>
 struct GlobalIn {
   const T* poly[NPOLY];
@@ -799,38 +804,6 @@ __device__ __forceinline__ void fs_cols_forward(const FsArgs& a, res_t* smem) {
                         fs_tabs(a, g.c), r);
 }
 
-// The row launch of the multi-block cascade (K1-fs, K2-fs): a CTA takes
-// E / n2 whole rows of both operands' 32-bit scratch, runs the forward row
-// stages, the canonical pointwise product and the inverse row stages in
-// its shared memory (two padded tiles), and stores the product's lazy
-// values over the first operand's scratch.
-template <int REG>
-__device__ __forceinline__ void fs_rows_cascade(const FsArgs& a, res_t* smem) {
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const ChannelTabs tb = fs_tabs(a, g.c);
-  const int E = 1 << g.log_e;
-  const int x0 = g.blk << g.log_e;
-  const int K = pass_group(E);
-  const GlobalIn<res_t, 2, RowMap> in{{a.scratch[0] + g.poly, a.scratch[1] + g.poly}, RowMap{}};
-  const ScratchOut<1, RowMap> out{{a.scratch[0] + g.poly}, RowMap{}};
-  if (g.log_n2 <= K) {  // one pass: the row stages around the product, in registers
-#define ONE(G) middle_span<G>(in, out, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
-    PARENTT_DISPATCH_G(g.log_n2, ONE)
-#undef ONE
-    return;
-  }
-  const TilePolys<2> ab{{smem, smem + padded(E)}, x0};
-  const TilePolys<1> prod{{smem}, x0};
-  forward_stages<2>(in, ab, ab, g.log_n1, g.log_n - K, g.log_n, x0, g.log_e, K, tb, r);
-  __syncthreads();
-#define MIDDLE(G) middle_span<G>(ab, prod, g.log_n, x0 >> G, (x0 + E) >> G, tb, r)
-  PARENTT_DISPATCH_G(K, MIDDLE)
-#undef MIDDLE
-  __syncthreads();
-  inverse_stages(prod, prod, out, K, g.log_n2, g.log_n, x0, g.log_e, K, tb, r);
-}
-
 // Inverse column stages: 32-bit scratch -> canonical int64 output.
 template <int REG>
 __device__ __forceinline__ void fs_cols_inverse(const FsArgs& a, res_t* smem) {
@@ -845,6 +818,18 @@ __device__ __forceinline__ void fs_cols_inverse(const FsArgs& a, res_t* smem) {
                  fs_tabs(a, g.c), r);
 }
 
+// One 32-bit polynomial in device memory, each value stored as y =
+// canonical(p) * q~ mod q for the compose (K2-fs's cascade).
+template <typename Map>
+struct TildeOut {
+  res_t* poly;
+  Map map;
+  res_t tilde;
+  __device__ __forceinline__ void store(int, int i, res_t x, const Reduce& r) const {
+    poly[map(i)] = mul_mod(canonicalize(x, r), tilde, r);
+  }
+};
+
 // Kernel launch geometry shared by the host entry points: CTAs of one
 // multi-block launch over t x rows polynomials, and its threads.
 inline int fs_blocks(int t, int rows, int log_n) {
@@ -857,6 +842,237 @@ inline int fs_threads(int log_n) {
 // Shared memory of a launch that holds NPOLY tiles.
 inline size_t fs_smem(int log_n, int npoly) {
   return (size_t)npoly * padded(1 << (log_n < kLogFsTile ? log_n : kLogFsTile)) * sizeof(res_t);
+}
+
+// --------------------------------------------------------------------------
+// The multi-block cascade as one cluster launch (K1-fs; K2-fs's cascade)
+// --------------------------------------------------------------------------
+//
+// A thread-block cluster of C = 2^lc CTAs (C <= n1) per (channel, row)
+// holds the row's two polynomials whole in shared memory as 32-bit words,
+// on the (n1, n2) split above: E = n / C elements of each a CTA.  CTA k
+// owns column block k (n1 rows x n2 / C adjacent columns: the virtual
+// length-E polynomial v = r (n2 / C) + cc of ColMap, on which the column
+// stages run as in K3-fs) and row block k (n1 / C whole rows, the span
+// [k E, (k + 1) E), on which the row stages run).  Three padded E-word
+// buffers a CTA:
+//   buf0: a's column block, then b's row block;
+//   buf1: b's column block, then the product's column block;
+//   buf2: a's row block, then the product's.
+// The transposes between the two views are the last pass of each phase:
+// it stores every value straight into the buffer of the peer that owns it
+// next (DSMEM), so nothing reaches device memory between the phases:
+//   1. both operands' forward column stages but the last, together (the
+//      first pass reads device memory), then a's last pass into the
+//      peers' buf2;
+//   2. cluster.sync (every peer has read its buf0); b's last column pass
+//      into the peers' buf0;
+//   3. cluster.sync; the forward row stages of both, the canonical
+//      pointwise product and the inverse row stages (middle_span, as in
+//      K1), the last inverse row pass into the peers' buf1;
+//   4. cluster.sync; the inverse column stages, the last pass to `last`.
+// A cluster barrier before any DSMEM store (its arrival at the start, its
+// wait before the first store) makes four a call.  Device memory sees each operand word read once and each output
+// word written once.
+
+// log2 of the largest portable cluster; a launch past it (16 CTAs past
+// n = 32768: kernels/ntt.py fs_cluster, which names each launch's size)
+// opts in to a non-portable size.
+constexpr int kLogCascadeCluster = 3;
+
+// Threads and dynamic shared memory (three padded buffers) of a CTA of a
+// cluster of 2^lc CTAs over n = 2^log_n (kernels/ntt.py mirrors both).
+__host__ __device__ inline int cascade_fs_threads(int log_n, int lc) {
+  return pass_threads(1 << (log_n - lc));
+}
+__host__ __device__ inline long long cascade_fs_smem(int log_n, int lc) {
+  return 3LL * padded(1 << (log_n - lc)) * sizeof(res_t);
+}
+
+// CTA `rank`'s column block as a ColMap.
+__device__ __forceinline__ ColMap cascade_colmap(int log_n, int lc, int rank) {
+  const int log_n2 = (log_n + 1) / 2;
+  return ColMap{log_n2 - lc, log_n2, rank << (log_n2 - lc)};
+}
+
+// The last column pass's store: virtual element v of this CTA's column
+// block -> its element x -> the row block of CTA x / E, in its `buf`.
+template <typename Cluster>
+struct PeerRows {
+  Cluster* cluster;
+  res_t* buf;
+  ColMap map;
+  int log_e;
+  __device__ __forceinline__ void store(int, int v, res_t x, const Reduce&) const {
+    const int e = map(v);
+    cluster->map_shared_rank(buf, e >> log_e)[pad(e & ((1 << log_e) - 1))] = x;
+  }
+};
+
+// The last inverse row pass's store: element x -> the column block of the
+// CTA that owns its column, in its `buf`.
+template <typename Cluster>
+struct PeerCols {
+  Cluster* cluster;
+  res_t* buf;
+  int log_n2, log_cc;  // log n2, log2 of the columns of a block
+  __device__ __forceinline__ void store(int, int x, res_t v, const Reduce&) const {
+    const int col = x & ((1 << log_n2) - 1);
+    const int at = ((x >> log_n2) << log_cc) + (col & ((1 << log_cc) - 1));
+    cluster->map_shared_rank(buf, col >> log_cc)[pad(at)] = v;
+  }
+};
+
+// The two halves of a cluster barrier (barrier.cluster): the arrival
+// without memory ordering, and the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The cascade of one (channel, row) pair over a cluster of 2^lc CTAs (see
+// above): the operands' (channel, row) polynomials `a` and `b` (int64
+// residues or 32-bit words) are read through this CTA's ColMap, `last`
+// stores the product's column block.  `smem`: cascade_fs_smem.  PHASES < 3
+// stops after the first transpose (1) or the second (2), at a cluster
+// barrier, so that a timing can split the launch; the kernels run all 3.
+template <int PHASES = 3, typename T, typename Cluster, typename Last>
+__device__ __forceinline__ void cluster_cascade(Cluster& cluster, const T* a, const T* b,
+                                                const Last& last, res_t* smem, int log_n, int lc,
+                                                const ChannelTabs& tb, const Reduce& r) {
+  const int log_n2 = (log_n + 1) / 2;
+  const int log_n1 = log_n - log_n2;
+  const int log_e = log_n - lc;
+  const int log_cc = log_n2 - lc;
+  const int E = 1 << log_e;
+  const int K = pass_group(E);
+  const int rank = (int)cluster.block_rank();
+  res_t* const buf0 = smem;
+  res_t* const buf1 = smem + padded(E);
+  res_t* const buf2 = smem + 2 * padded(E);
+  const ColMap map = cascade_colmap(log_n, lc, rank);
+  const TilePolys<1> col0{{buf0}, 0};
+  const TilePolys<1> col1{{buf1}, 0};
+  const PeerRows<Cluster> rows_a{&cluster, buf2, map, log_e};
+  const PeerRows<Cluster> rows_b{&cluster, buf0, map, log_e};
+
+  // every CTA of the cluster runs before any DSMEM store: the arrival here,
+  // the wait before the first store, so the column loads go on meanwhile
+  cluster_arrive_relaxed();
+  // 1. both operands' column stages but the last, together (their first
+  // pass's loads in flight at once); a's last pass into the row blocks
+  // (peers' buf2)
+  if (log_n1 > K) {
+    const TilePolys<2> cols{{buf0, buf1}, 0};
+    forward_stages<2>(GlobalIn<T, 2, ColMap>{{a, b}, map}, cols, cols, 0, log_n1 - K, log_e, 0,
+                      log_e, K, tb, r);
+    __syncthreads();  // the relaxed arrival orders none of these stores
+    cluster_wait();
+    forward_stages<1>(col0, col0, rows_a, log_n1 - K, log_n1, log_e, 0, log_e, K, tb, r);
+  } else {
+    cluster_wait();
+    forward_stages<1>(GlobalIn<T, 1, ColMap>{{a}, map}, col0, rows_a, 0, log_n1, log_e, 0, log_e,
+                      K, tb, r);
+  }
+  // 2. b's last column pass, once every peer has read its buf0 (a's last
+  // pass), into the row blocks' buf0
+  cluster.sync();
+  if (log_n1 > K) {
+    forward_stages<1>(col1, col1, rows_b, log_n1 - K, log_n1, log_e, 0, log_e, K, tb, r);
+  } else {
+    forward_stages<1>(GlobalIn<T, 1, ColMap>{{b}, map}, col1, rows_b, 0, log_n1, log_e, 0, log_e,
+                      K, tb, r);
+  }
+  cluster.sync();  // both operands' row blocks landed
+  if constexpr (PHASES == 1) return;
+  // 3. the row stages around the product, the last pass into the column
+  // blocks (peers' buf1, which b's last column pass has read)
+  const int x0 = rank << log_e;
+  const TilePolys<2> ab{{buf2, buf0}, x0};
+  const TilePolys<1> prod{{buf2}, x0};
+  const PeerCols<Cluster> cols{&cluster, buf1, log_n2, log_cc};
+  if (log_n2 <= K) {  // one pass: the row stages around the product, in registers
+#define ONE(G) middle_span<G>(ab, cols, log_n, x0 >> G, (x0 + E) >> G, tb, r)
+    PARENTT_DISPATCH_G(log_n2, ONE)
+#undef ONE
+  } else {
+    forward_stages<2>(ab, ab, ab, log_n1, log_n - K, log_n, x0, log_e, K, tb, r);
+    __syncthreads();
+#define MIDDLE(G) middle_span<G>(ab, prod, log_n, x0 >> G, (x0 + E) >> G, tb, r)
+    PARENTT_DISPATCH_G(K, MIDDLE)
+#undef MIDDLE
+    __syncthreads();
+    inverse_stages(prod, prod, cols, K, log_n2, log_n, x0, log_e, K, tb, r);
+  }
+  cluster.sync();  // the product's column blocks landed; no DSMEM access follows
+  if constexpr (PHASES == 2) return;
+  // 4. the inverse column stages, the last pass to `last`
+  inverse_stages(col1, col1, last, log_cc, log_e, log_e, 0, log_e, K, tb, r);
+}
+
+// The launch of a cluster cascade over `polys` (channel, row) pairs at
+// 2^lc CTAs a cluster; `attr` must outlive the configuration.
+inline cudaLaunchConfig_t cascade_config(int polys, int log_n, int lc, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)polys << lc, 1, 1);
+  cfg.blockDim = dim3((unsigned)cascade_fs_threads(log_n, lc), 1, 1);
+  cfg.dynamicSmemBytes = (size_t)cascade_fs_smem(log_n, lc);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1u << lc;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Opt a cluster cascade kernel in to its shared memory and, for 16 CTAs,
+// to a non-portable cluster size.
+inline cudaError_t allow_cascade(const void* kernel, int log_n, int lc) {
+  const long long bytes = cascade_fs_smem(log_n, lc);
+  cudaError_t err = cudaSuccess;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  if (err == cudaSuccess && lc > kLogCascadeCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return err;
+}
+
+// Launches the cluster cascade `kernel` with `params` over `polys` pairs at
+// 2^lc CTAs a cluster on `stream`; returns cudaErrorInvalidValue for a
+// cluster past n1 or 16 CTAs, else the CUDA error of an attribute call or
+// the launch (a cluster the card cannot schedule comes back as the launch
+// error).
+inline int launch_cluster_cascade(const void* kernel, void** params, int polys, int log_n,
+                                  int lc, cudaStream_t stream) {
+  if (lc < 0 || lc > log_n - (log_n + 1) / 2 || lc > kLogCascadeCluster + 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_cascade(kernel, log_n, lc);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cascade_config(polys, log_n, lc, stream, &attr);
+  err = cudaLaunchKernelExC(&cfg, kernel, params);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Clusters of 2^lc CTAs of `kernel` the card holds at once at n = 2^log_n
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+inline int cascade_clusters(const void* kernel, int log_n, int lc) {
+  cudaError_t err = allow_cascade(kernel, log_n, lc);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cascade_config(1, log_n, lc, nullptr, &attr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  return err == cudaSuccess ? count : -(int)err;
 }
 
 // --------------------------------------------------------------------------
@@ -1098,7 +1314,7 @@ __device__ __forceinline__ void correct_limbs(i64* limb, i64 carry, const int* _
   }
 }
 
-// The Eq-10 compose of one coefficient (K2, K2-fs, K6) into its L
+// The Eq-10 compose of one coefficient (K2, K6, K2-fs) into its L
 // canonical base-2^w limbs at `out` (the caller's stage in shared memory):
 // y_c = finish(c, load(c)) as crt_limb_sums takes it (each called once for
 // each channel a chunk of MAXL limbs), inv_q(c) = 1 / q_c.  k = floor(sum_c y_c / q_c) in double
@@ -1144,17 +1360,113 @@ __device__ __forceinline__ void crt_compose(const Load& load, const Finish& fini
   correct_limbs(out, carry, ql, L, w);  // carry: -1 or 0 past the top limb
 }
 
+// K6's compose kernel (compose.cu), also K2-fs's last launch: one thread a
+// coefficient, a CTA of up to kComposeTile coefficients (compose_rows_of),
+// the channels' constants in shared memory, crt_compose, the limbs staged
+// in shared memory and written out as cnt * L contiguous int64 words.  Y:
+// the input is K2-fs's 32-bit y = p q~ mod q (the cascade applied q~), so
+// the products by q~ are not taken; else canonical int64 residues r and
+// y = r q~ by the block Barrett.  compose.cu notes the design.
+constexpr int kComposeTile = 256;  // coefficients of a CTA at most
+
+struct ComposeArgs {
+  const i64* res;      // (t, rows) canonical residues (not Y)
+  const res_t* y;      // (t, rows) y words (Y)
+  i64* out;
+  const i64* qs;       // (t,)
+  const i64* tilde;    // (t,): q~_c = (q / q_c)^-1 mod q_c (not Y)
+  const i64* block_m;  // (t,): floor(2^(b+31) / q_c) (not Y)
+  const i64* star;     // (t, L): limbs of q^_c = q / q_c
+  const i64* q_limbs;  // (L,)
+  i64 rows;
+  int t;
+  int L;
+  int w;
+  int s1;  // b - 1, b = bit_length(q_c), the same for every channel
+};
+
+// One channel's constants, as a CTA keeps them in shared memory.
+struct __align__(8) ComposeChannel {
+  double inv_q;
+  res_t q;
+  res_t m;
+  res_t tilde;
+};
+static_assert(sizeof(ComposeChannel) == 24, "kernels/crt.py sizes the table at 24 bytes a channel");
+
+// Bytes of the channel table, rounded to 16 for the stage after it, and
+// the coefficients of a CTA (kernels/crt.py compose_rows mirrors both).
+__host__ __device__ inline long long compose_table_bytes(int t) {
+  return ((long long)t * sizeof(ComposeChannel) + 15) / 16 * 16;
+}
+__host__ __device__ inline int compose_rows_of(int t, int L) {
+  return tile_rows(L, compose_table_bytes(t));
+}
+
+template <bool NARROW, int MAXL, int MIN_BLOCKS, bool Y>
+__global__ void __launch_bounds__(kComposeTile, MIN_BLOCKS) compose_kernel(const ComposeArgs args) {
+  // the 8-limb instance serves t <= kSumChannels, L <= 8 in one pass
+  constexpr bool kSingle = MAXL == 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ComposeChannel* ch = reinterpret_cast<ComposeChannel*>(smem_raw);
+  i64* stage = reinterpret_cast<i64*>(smem_raw + compose_table_bytes(args.t));  // (R, L) limbs
+  const int t = args.t, L = args.L, R = blockDim.x;
+  const i64 row0 = (i64)blockIdx.x * R;
+  const int cnt = (int)min((i64)R, args.rows - row0);
+  const int j = threadIdx.x;
+  const auto word = [&](int c) {
+    return Y ? __ldg(args.y + (size_t)c * args.rows + row0 + j)
+             : (res_t)__ldg(args.res + (size_t)c * args.rows + row0 + j);
+  };
+  // kSingle: every channel's word read before the table fills, so the
+  // reads overlap it (the channel index is compile-time in one pass)
+  res_t first[kSingle ? kSumChannels : 1];
+  if (kSingle) {
+#pragma unroll
+    for (int c = 0; c < kSumChannels; ++c) first[c] = c < t && j < cnt ? word(c) : 0u;
+  }
+  for (int c = threadIdx.x; c < t; c += R) {
+    ch[c].inv_q = 1.0 / (double)args.qs[c];
+    ch[c].q = (res_t)args.qs[c];
+    if (!Y) {
+      ch[c].m = (res_t)args.block_m[c];
+      ch[c].tilde = (res_t)args.tilde[c];
+    }
+  }
+  __syncthreads();
+  if (j < cnt) {
+    crt_compose<MAXL, !kSingle, kSingle>(
+        [&](int c) { return kSingle ? first[c] : word(c); },
+        [&](int c, res_t rc) {
+          if (Y) return rc;
+          const ComposeChannel& k = ch[c];
+          return (res_t)block_barrett<NARROW>((u64)rc * k.tilde, k.q, k.m, args.s1);
+        },
+        [&](int c) { return ch[c].inv_q; }, args.star, args.q_limbs, t, L, args.w,
+        stage + j * L);
+  }
+  __syncthreads();
+  i64* po = args.out + row0 * L;
+  for (int i = threadIdx.x; i < cnt * L; i += R) po[i] = stage[i];
+}
+
+// The limb chunk and CTAs an SM of a compose instance: 8 limbs (one
+// straight-line pass) for t <= 15 and L <= 8, five CTAs; else 16-limb
+// chunks, three CTAs for L <= 16 and two past it (compose.cu).
+constexpr int kComposeMinBlocks = 5;
+inline int compose_variant(int t, int L) { return L <= 8 && t <= kSumChannels ? 0 : L <= 16 ? 1 : 2; }
+
 // --------------------------------------------------------------------------
-// Cluster steps of the fused e2e kernels (K2, K2-fs)
+// Cluster steps of the fused e2e kernel (K2)
 // --------------------------------------------------------------------------
 //
-// A thread-block cluster of C CTAs shares a run of coefficients j (a row
-// for K2, a column tile for K2-fs), and CTA `rank` takes the slice
+// A thread-block cluster of C CTAs shares a run of coefficients j (a
+// row), and CTA `rank` takes the slice
 // [ceil(rank m / C), ceil((rank + 1) m / C)) of the run's m coefficients.
 // Channel c lives on CTA c % C as slot c / C: its two residue
 // polynomials at res + slot * 2 * PS (a, then b at + PS), element j at
 // pad(j); after the cascade y(c) sits at res + slot * slot_stride + pad(j)
-// (K2: where a was; K2-fs: its own tile a slot).  `Cluster` is
+// (where a was).  `Cluster` is
 // cooperative_groups' cluster_group.
 
 // y = canonical(p) * q~ mod q: what the cascade's last inverse pass
@@ -1238,12 +1550,13 @@ __device__ __forceinline__ void cluster_compose(Cluster& cluster, res_t* res, in
 // launch helpers
 // --------------------------------------------------------------------------
 
-// Copy `words` int64 from device memory to shared memory with the whole
-// block, through cp.async: 16-byte copies where source and destination
-// share 16-byte alignment, 8-byte copies otherwise.  Consecutive threads
-// take consecutive words, so every request coalesces.  Returns when this
-// thread's copies have landed; the caller synchronises the block.
-__device__ __forceinline__ void stage_words(i64* dst, const i64* src, int words) {
+// Issue the copy of `words` int64 from device memory to shared memory with
+// the whole block, through cp.async: 16-byte copies where source and
+// destination share 16-byte alignment, 8-byte copies otherwise.
+// Consecutive threads take consecutive words, so every request coalesces.
+// The copies are committed as one group of this thread's: wait_staged(k)
+// returns once all but the k most recent groups have landed.
+__device__ __forceinline__ void stage_words_async(i64* dst, const i64* src, int words) {
   const unsigned sdst = (unsigned)__cvta_generic_to_shared(dst);
   if (((reinterpret_cast<uintptr_t>(src) | sdst) & 15) == 0) {
     for (int i = threadIdx.x; i < words >> 1; i += blockDim.x) {
@@ -1263,7 +1576,19 @@ __device__ __forceinline__ void stage_words(i64* dst, const i64* src, int words)
                    : "memory");
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// stage_words_async and wait until this thread's copies have landed; the
+// caller synchronises the block.
+__device__ __forceinline__ void stage_words(i64* dst, const i64* src, int words) {
+  stage_words_async(dst, src, words);
+  wait_staged<0>();
 }
 
 // Arguments of the single-transform stage kernels (ntt_channels.cu, K3,
@@ -1292,6 +1617,96 @@ template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// --------------------------------------------------------------------------
+// The one-CTA cascade launch (K1, and K2-fs's cascade where one CTA holds a
+// channel's pair)
+// --------------------------------------------------------------------------
+
+// Where the one-CTA cascade reads a (channel, row) pair and stores its
+// product: int64 residues in and canonical int64 out (K1), or 32-bit words
+// in and y = canonical(p) * q~ mod q over the first operand's words
+// (K2-fs, FsArgs.scratch).
+struct CanonPair {
+  __device__ __forceinline__ static DevicePolys<2> in(const FsArgs& a, size_t base) {
+    return DevicePolys<2>{{a.in[0] + base, a.in[1] + base}};
+  }
+  __device__ __forceinline__ static DeviceOut out(const FsArgs& a, size_t base, const i64*, int) {
+    return DeviceOut{a.out + base};
+  }
+};
+struct TildePair {
+  __device__ __forceinline__ static GlobalIn<res_t, 2, RowMap> in(const FsArgs& a, size_t base) {
+    return GlobalIn<res_t, 2, RowMap>{{a.scratch[0] + base, a.scratch[1] + base}, {}};
+  }
+  __device__ __forceinline__ static TildeOut<RowMap> out(const FsArgs& a, size_t base,
+                                                         const i64* tilde, int c) {
+    return TildeOut<RowMap>{a.scratch[0] + base, RowMap{}, (res_t)tilde[c]};
+  }
+};
+
+// CTAs of kMaxThreads an SM that the register budget leaves room for
+// (twice as many of the 256 threads at n = 4096): at most 64 registers,
+// which no instance spills at; three would cap them at 40, where the lazy
+// W = 4 and strict instances spill.
+constexpr int kPairMinBlocks = 2;
+
+// One CTA per (channel, row) pair of `Pair`'s words (fused_polymul.cu has
+// the design); `tilde`: the channels' q~ (TildePair).
+template <int REG, typename Pair>
+__global__ void __launch_bounds__(kMaxThreads, kPairMinBlocks)
+    pair_cascade_kernel(const FsArgs a, const i64* tilde) {
+  extern __shared__ res_t smem[];
+  const int n = 1 << a.log_n;
+  const int c = blockIdx.x / a.rows;
+  const size_t base = (size_t)blockIdx.x * n;
+  channel_cascade(smem, smem + padded(n), Pair::in(a, base), Pair::out(a, base, tilde, c),
+                  Keep{}, a.log_n, pass_group(n), fs_tabs(a, c), fs_reduce<REG>(a, c));
+}
+
+typedef void (*PairKernel)(const FsArgs, const i64*);
+
+template <typename Pair>
+inline PairKernel pair_kernel(int mode, int window) {
+  static const PairKernel kernels[3] = {pair_cascade_kernel<kLazy2, Pair>,
+                                        pair_cascade_kernel<kLazy4, Pair>,
+                                        pair_cascade_kernel<kStrict, Pair>};
+  return kernels[regime_of(mode, window)];
+}
+
+// A one-CTA cascade's shared memory, both operands' padded residues, and
+// whether one block holds it (kernels/ntt.py cascade_smem_bytes,
+// cascade_fits).
+inline size_t pair_smem(int log_n) { return 2 * (size_t)padded(1 << log_n) * sizeof(res_t); }
+inline bool pair_fits(int log_n) { return (long long)pair_smem(log_n) <= kMaxSmem; }
+
+// Launches the one-CTA cascade of `Pair` over `polys` pairs on `stream`;
+// returns the CUDA error of the attribute call or the launch.
+template <typename Pair>
+inline int launch_pair_cascade(const FsArgs& a, const i64* tilde, int polys,
+                               cudaStream_t stream) {
+  const PairKernel kernel = pair_kernel<Pair>(a.mode, a.window);
+  const size_t smem = pair_smem(a.log_n);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<polys, pass_threads(1 << a.log_n), smem, stream>>>(a, tilde);
+  return (int)cudaGetLastError();
+}
+
+// How many CTAs of `Pair`'s one-CTA cascade an SM holds at once at
+// n = 2^log_n and this regime (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the CUDA error.
+template <typename Pair>
+inline int pair_blocks_per_sm(int log_n, int mode, int window) {
+  const PairKernel kernel = pair_kernel<Pair>(mode, window);
+  const size_t smem = pair_smem(log_n);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, pass_threads(1 << log_n),
+                                                      smem);
+  return err == cudaSuccess ? count : -(int)err;
 }
 
 }  // namespace parentt

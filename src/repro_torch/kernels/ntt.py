@@ -28,32 +28,40 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   with the Eq-24 halving, bit-reversed in, natural and canonical out, on
   the inverse register passes with one operand.
 
-* :func:`fused_polymul_fs_cuda` (``csrc/fused_polymul_fs.cu``, K1-fs),
-  :func:`ntt_channels_fs_cuda` (``csrc/ntt_channels_fs.cu``, K3-fs) and
+* :func:`ntt_channels_fs_cuda` (``csrc/ntt_channels_fs.cu``, K3-fs) and
   :func:`intt_channels_fs_cuda` (``csrc/intt_channels_fs.cu``, K4-fs)
-  replace the four-step bodies of those three TPU kernels
-  (``repro/kernels/ntt.py:312-371``, ``:158-204``, ``:266``, ``:282``): the
-  same transforms as multi-block kernels for polynomials that do not fit
-  one CTA, on the card's own split n = n1 n2 (:func:`fs_split`).  A
-  column launch and a row launch (three launches for the cascade: forward
-  columns, one row pass around the product, inverse columns) of
-  :func:`fs_threads` threads a CTA over :data:`FS_TILE`-element tiles
-  keep lazy 32-bit values in a scratch tensor between launches.  Their
-  plain versions are the four-step plain PyTorch of
-  :mod:`repro_torch.core.ntt` in the reference's grouping: the outputs
-  are canonical, so they agree whatever the split.  ``.launches`` counts
-  calls, each of two (K3-fs, K4-fs) or three (K1-fs) CUDA launches.
+  replace the four-step bodies of the TPU kernels ``ntt_channels_pallas``
+  and ``intt_channels_pallas`` (``repro/kernels/ntt.py:158-204``, ``:266``,
+  ``:282``): the transforms as multi-block kernels for polynomials that do
+  not fit one CTA, on the card's own split n = n1 n2 (:func:`fs_split`): a
+  column launch and a row launch of :func:`fs_threads` threads a CTA over
+  :data:`FS_TILE`-element tiles keep lazy 32-bit values in a scratch
+  tensor between them.  ``.launches`` counts calls, each of two CUDA
+  launches.
+* :func:`fused_polymul_fs_cuda` (``csrc/fused_polymul_fs.cu``, K1-fs)
+  replaces the four-step body of ``fused_polymul_pallas``
+  (``repro/kernels/ntt.py:312-371``): the cascade past one CTA as ONE
+  launch, a thread-block cluster of :func:`fs_cluster` CTAs per (channel,
+  row), a function of n alone, that holds the row's two polynomials in
+  shared memory
+  (:func:`cascade_fs_smem_bytes`); the transposes between its column and
+  row stages go through distributed shared memory, so no scratch is
+  allocated.
 * :func:`fused_e2e_polymul_fs_cuda` (``csrc/fused_e2e_polymul_fs.cu``,
   K2-fs) replaces the four-step body of ``fused_e2e_polymul_pallas``: K2's
   function past one CTA (where K2's CTA does not hold (n, t)), three
-  launches over the same tiles: the forward columns with the decompose
-  fused in, as a cluster of min(t, 8) CTAs per (row, column tile), each
-  owning K2's slots of channels, whose residues move through distributed
-  shared memory; K1-fs's row launch; the inverse columns with the compose
-  fused in, as the same clusters (:func:`e2e_fs_geom`).  Only 32-bit
-  lazy words reach device memory between the launches.  Its plain version
-  is K2's over the four-step cascade; ``.launches`` counts calls and
-  ``.cluster`` is the cluster size of the last.
+  streaming launches with only 32-bit words between them
+  (:func:`e2e_fs_geom`): the decompose of both operands, double-buffered
+  (:func:`e2e_fs_decompose_cuda`); the cascade on the 32-bit residues with
+  y = p q~ mod q stored over the first operand's (K1-fs's cluster, or K1's
+  one-CTA body where it holds a pair: :func:`e2e_fs_cascade_cuda`); K6's
+  compose on the y words (:func:`e2e_fs_compose_cuda`).  Each launch has
+  its own wrapper and plain version, so the card can hold them one at a
+  time; :func:`e2e_fs_cluster` is the cascade's cluster size (1 for K1's
+  body).
+  The plain versions of the multi-block kernels are the four-step plain
+  PyTorch of :mod:`repro_torch.core.ntt` in the reference's grouping: the
+  outputs are canonical, so they agree whatever the split.
 
 Each wrapper runs its plain version (the ``*_ref`` functions) only for
 tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -82,9 +90,12 @@ from repro_torch.kernels.crt import (
     MAX_SMEM_BYTES,
     check_dec_limits,
     compose_finalize,
+    compose_rows,
+    compose_smem_bytes,
     decompose_ref,
     decompose_table_bytes,
     fit_chunk,
+    narrow_moduli,
     require_dec,
 )
 RESIDUE_BYTES = 4  # residues are stored as 32-bit words in shared memory
@@ -165,10 +176,39 @@ def intt_fs_smem_bytes(n: int) -> int:
     return padded_words(fs_tile(n)) * RESIDUE_BYTES
 
 
-def cascade_fs_smem_bytes(n: int) -> int:
-    """Shared memory of a K1-fs CTA at most: two padded tiles (its forward
-    column and row launches; the inverse column launch holds one)."""
-    return 2 * padded_words(fs_tile(n)) * RESIDUE_BYTES
+# the cascade cluster (csrc/parentt.cuh kLogCascadeCluster): the portable
+# cluster size of CTAs per (channel, row), or the non-portable
+# WIDE_CASCADE_CLUSTER where a CTA of 8 would hold more than FS_TILE
+# elements of each operand
+CASCADE_CLUSTER = 8
+WIDE_CASCADE_CLUSTER = 16
+
+
+def fs_cluster(n: int) -> int:
+    """C, the CTAs of K1-fs's cluster per (channel, row), which every
+    cluster launch of the cascade takes (the C entry points are given it):
+    min(8, n1), and 16 (a non-portable size) past n = 32768, so a CTA
+    takes FS_TILE elements of each operand.  A card that holds no such
+    cluster is refused at plan time (:func:`cascade_fs_clusters_resident`),
+    not served by another size."""
+    n1 = fs_split(n)[0]
+    if n // CASCADE_CLUSTER > FS_TILE and n1 >= WIDE_CASCADE_CLUSTER:
+        return WIDE_CASCADE_CLUSTER
+    return min(CASCADE_CLUSTER, n1)
+
+
+def cascade_fs_threads(n: int, cluster: int | None = None) -> int:
+    """Threads of a CTA of K1-fs's cluster: pass_threads of its n / C
+    elements an operand."""
+    return pass_threads(n // (cluster or fs_cluster(n)))
+
+
+def cascade_fs_smem_bytes(n: int, cluster: int | None = None) -> int:
+    """Shared memory of a CTA of K1-fs's cluster of C (default
+    :func:`fs_cluster`) CTAs: three padded buffers of n / C words (the two
+    operands' column blocks and a row block; csrc/parentt.cuh
+    ``cascade_fs_smem``), 104,448 bytes at n = 65536, C = 8."""
+    return 3 * padded_words(n // (cluster or fs_cluster(n))) * RESIDUE_BYTES
 
 
 def e2e_geom(n: int, t: int, S: int, L: int) -> tuple[int, int, int]:
@@ -200,26 +240,35 @@ def e2e_fits(n: int, t: int, S: int, L: int) -> bool:
     return cascade_fits(n) and dc >= 1 and cc >= 1 and smem <= MAX_SMEM_BYTES
 
 
-# the smallest n K2-fs takes (a column tile of 16 elements, 8 threads a CTA)
+# the smallest n K2-fs takes (the smallest n the multi-block kernels are
+# held at on the card)
 E2E_FS_MIN_N = 16
+# K2-fs's decompose launch (csrc/fused_e2e_polymul_fs.cu): threads of a
+# CTA at most
+E2E_FS_DEC_THREADS = 256
+
+
+def dec_groups(t: int) -> int:
+    """G, the channel groups of a K2-fs decompose CTA: min(8, ceil(t / 3)),
+    so a thread decomposes about three channels of its coefficient
+    (csrc/fused_e2e_polymul_fs.cu ``dec_groups``): 2 at t = 6, 5 at 15,
+    8 at 30."""
+    return min(8, -(-t // 3))
 
 
 def e2e_fs_geom(n: int, t: int, S: int, L: int) -> tuple[tuple[int, int, int], int, int]:
-    """((shared memory of its forward column, row and inverse column
-    launches' CTAs), dc, cc) of K2-fs (csrc/fused_e2e_polymul_fs.cu
-    ``e2e_fs_geom``): the forward column CTA holds both operands' padded
-    tiles of each of its slots, the circuits and dc coefficients'
-    segments an operand; the row CTA is K1-fs's (two tiles); the inverse
-    column CTA one y tile a slot, the circuits and cc coefficients'
-    limbs."""
-    words, threads = padded_words(fs_tile(n)), fs_threads(n)
-    _, slots = e2e_cluster(t)
-    tiles = lambda k: -(-k * words * RESIDUE_BYTES // 16) * 16
-    cols = tiles(2 * slots) + decompose_table_bytes(t)
-    dc = fit_chunk(threads // 2, MAX_SMEM_BYTES - cols, 2 * S * 8)
-    inv_cols = tiles(slots) + decompose_table_bytes(t)
-    cc = fit_chunk(threads, MAX_SMEM_BYTES - inv_cols, L * 8)
-    return (cols + 2 * dc * S * 8, cascade_fs_smem_bytes(n), inv_cols + cc * L * 8), dc, cc
+    """((shared memory of its decompose, cascade and compose CTAs), TR, R)
+    of K2-fs (csrc/fused_e2e_polymul_fs.cu ``dec_geom`` and the launches):
+    a decompose CTA holds the circuits and two tiles of TR coefficients'
+    segments (up to E2E_FS_DEC_THREADS / dec_groups(t)); the cascade is
+    K1's CTA where one holds a channel's pair, else a CTA of K1-fs's
+    cluster; a compose CTA is K6's, R coefficients' limbs beside the
+    channels' constants.  None grows with t but for the tables."""
+    table = decompose_table_bytes(t)
+    tr = fit_chunk(E2E_FS_DEC_THREADS // dec_groups(t), (MAX_SMEM_BYTES - table) // 2, S * 8)
+    cascade = cascade_smem_bytes(n) if cascade_fits(n) else cascade_fs_smem_bytes(n)
+    rows = compose_rows(t, L)
+    return (table + 2 * tr * S * 8, cascade, compose_smem_bytes(t, L)), tr, rows
 
 
 def e2e_fs_smem_bytes(n: int, t: int, S: int, L: int) -> int:
@@ -229,10 +278,10 @@ def e2e_fs_smem_bytes(n: int, t: int, S: int, L: int) -> int:
 
 def e2e_fs_fits(n: int, t: int, S: int, L: int) -> bool:
     """Whether the multi-block e2e kernel K2-fs holds (n, t, S, L): n >= 16,
-    and each of its CTAs within one block's shared memory with a staging
-    of at least one coefficient."""
-    smem, dc, cc = e2e_fs_geom(n, t, S, L)
-    return n >= E2E_FS_MIN_N and dc >= 1 and cc >= 1 and max(smem) <= MAX_SMEM_BYTES
+    and each of its CTAs within one block's shared memory with at least
+    one coefficient a decompose tile and a compose CTA."""
+    smem, tr, rows = e2e_fs_geom(n, t, S, L)
+    return n >= E2E_FS_MIN_N and tr >= 1 and rows >= 1 and max(smem) <= MAX_SMEM_BYTES
 
 
 def e2e_serves(n: int, t: int, S: int, L: int) -> bool:
@@ -258,16 +307,15 @@ def main_path_kernel_smem(backend: str, n: int, t: int, S: int, L: int) -> tuple
     raise ValueError(f"main_path_kernel_smem: {backend!r} is not a kernel backend")
 
 
-# the fused e2e kernel's cluster (csrc/fused_e2e_polymul.cu): at most the
-# portable cluster size of CTAs per row
+# K2's cluster (csrc/fused_e2e_polymul.cu): at most the portable cluster
+# size of CTAs per row
 MAX_CLUSTER = 8
 
 
 def e2e_cluster(t: int) -> tuple[int, int]:
-    """(C, slots) of the e2e kernels: C = min(t, 8) CTAs per row (K2) or
-    per (row, column tile) (K2-fs), each owning at most ``slots`` =
-    ceil(t / C) channels.  The kernels' launch derives them itself; this
-    copy serves plan admission and the tests."""
+    """(C, slots) of K2: C = min(t, 8) CTAs per row, each owning at most
+    ``slots`` = ceil(t / C) channels.  The kernel's launch derives them
+    itself; this copy serves plan admission and the tests."""
     c = min(t, MAX_CLUSTER)
     return c, -(-t // c)
 
@@ -428,10 +476,14 @@ def fused_e2e_polymul_fs_ref(za: torch.Tensor, zb: torch.Tensor, tables: Channel
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STAGE_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _CASCADE_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+_CASCADE_FS_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 _E2E_ARGTYPES = [_P] * 18 + [_I] * 12 + [_P]
-_E2E_FS_ARGTYPES = [_P] * 20 + [_I] * 12 + [_P]
+_LL = ctypes.c_longlong
+_E2E_FS_ARGTYPES = [_P] * 20 + [_I] * 14 + [_P]
+_E2E_FS_DECOMPOSE_ARGTYPES = [_P] * 10 + [_LL] + [_I] * 4 + [_P]
+_E2E_FS_CASCADE_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
+_E2E_FS_COMPOSE_ARGTYPES = [_P] * 5 + [_LL] + [_I] * 3 + [_P]
 _FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
-_FS_CASCADE_ARGTYPES = [_P] * 12 + [_I] * 8 + [_P]
 # each K1/K3/K4 source's shared memory a CTA, one-block and multi-block
 _SMEM = {
     "fused_polymul": cascade_smem_bytes, "ntt_channels": stage_smem_bytes,
@@ -574,30 +626,24 @@ def _blocks_per_sm(tables: ChannelTables, source: str) -> int:
     return count
 
 
-def _launch_fs(operands: tuple, tables: ChannelTables, source: str, fn_name: str
+def _launch_fs(a: torch.Tensor, tables: ChannelTables, source: str, fn_name: str
                ) -> torch.Tensor:
-    """One call of a multi-block kernel (K1-fs on two operands, K3-fs or
-    K4-fs on one) on (t, rows, n): its 32-bit scratch (one tensor an
-    operand) and its output allocated here, its two or three launches in
+    """One call of a multi-block transform (K3-fs or K4-fs) on (t, rows, n):
+    its 32-bit scratch and its output allocated here, its two launches in
     the C entry point."""
     t, n = tables.t, tables.n
-    a = operands[0]
     rows = a.shape[1] if a.dim() == 3 else -1
-    for name, x in zip("ab", operands):
-        check_operand(x, (t, rows, n), name, fn_name)
-        if x.device != a.device:
-            raise ValueError(f"{fn_name}: operands on {a.device} and {x.device}")
+    check_operand(a, (t, rows, n), "a", fn_name)
     pointers, ints = _table_constants(tables, source, fn_name)
-    argtypes = _FS_CASCADE_ARGTYPES if len(operands) == 2 else _FS_STAGE_ARGTYPES
-    launch = _build.load(source, f"parentt_{source}", argtypes)
+    launch = _build.load(source, f"parentt_{source}", _FS_STAGE_ARGTYPES)
     _check_tables_device(tables, a.device, fn_name)
     out = torch.empty_like(a)
     if rows == 0:
         return out
-    scratch = [torch.empty((t, rows, n), dtype=torch.int32, device=a.device) for _ in operands]
+    scratch = torch.empty((t, rows, n), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
-        code = launch(*(ptr(x) for x in operands), *(ptr(x) for x in scratch), ptr(out),
-                      *pointers, t, rows, *ints, _build.stream_of(a))
+        code = launch(ptr(a), ptr(scratch), ptr(out), *pointers, t, rows, *ints,
+                      _build.stream_of(a))
     _build.check(source, code)
     return out
 
@@ -609,7 +655,7 @@ def ntt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor
     (two launches) on the current stream."""
     if a.device.type == "cpu":
         return ntt_channels_fs_ref(a, tables)
-    out = _launch_fs((a,), tables, "ntt_channels_fs", "ntt_channels_fs_cuda")
+    out = _launch_fs(a, tables, "ntt_channels_fs", "ntt_channels_fs_cuda")
     ntt_channels_fs_cuda.launches += 1
     return out
 
@@ -624,7 +670,7 @@ def intt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tenso
     ``csrc/intt_channels_fs.cu`` (two launches)."""
     if a.device.type == "cpu":
         return intt_channels_fs_ref(a, tables)
-    out = _launch_fs((a,), tables, "intt_channels_fs", "intt_channels_fs_cuda")
+    out = _launch_fs(a, tables, "intt_channels_fs", "intt_channels_fs_cuda")
     intt_channels_fs_cuda.launches += 1
     return out
 
@@ -635,13 +681,28 @@ intt_channels_fs_cuda.launches = 0
 def fused_polymul_fs_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTables
                           ) -> torch.Tensor:
     """K1-fs: (t, rows, n) x (t, rows, n) canonical residues -> (t, rows, n)
-    negacyclic products per channel, as a multi-block cascade whose
-    NTT-domain product never reaches device memory.  CPU tensors run the
-    plain version; CUDA tensors launch ``csrc/fused_polymul_fs.cu`` (three
-    launches)."""
+    negacyclic products per channel, as one cluster launch of
+    ``csrc/fused_polymul_fs.cu`` whose NTT-domain product never reaches
+    device memory (no scratch).  CPU tensors run the plain version."""
     if a.device.type == "cpu":
         return fused_polymul_fs_ref(a, b, tables)
-    out = _launch_fs((a, b), tables, "fused_polymul_fs", "fused_polymul_fs_cuda")
+    fn_name = "fused_polymul_fs_cuda"
+    t, n = tables.t, tables.n
+    rows = a.shape[1] if a.dim() == 3 else -1
+    check_operand(a, (t, rows, n), "a", fn_name)
+    check_operand(b, (t, rows, n), "b", fn_name)
+    if b.device != a.device:
+        raise ValueError(f"{fn_name}: operands on {a.device} and {b.device}")
+    pointers, ints = _table_constants(tables, "fused_polymul_fs", fn_name)
+    launch = _build.load("fused_polymul_fs", "parentt_fused_polymul_fs", _CASCADE_FS_ARGTYPES)
+    _check_tables_device(tables, a.device, fn_name)
+    out = torch.empty_like(a)
+    if rows == 0:
+        return out
+    with torch.cuda.device(a.device):
+        code = launch(ptr(a), ptr(b), ptr(out), *pointers, t, rows, *ints,
+                      fs_cluster(n).bit_length() - 1, _build.stream_of(a))
+    _build.check("fused_polymul_fs", code)
     fused_polymul_fs_cuda.launches += 1
     return out
 
@@ -649,13 +710,35 @@ def fused_polymul_fs_cuda(a: torch.Tensor, b: torch.Tensor, tables: ChannelTable
 fused_polymul_fs_cuda.launches = 0
 
 
-def _fs_blocks_per_sm(tables: ChannelTables, source: str, passes: int) -> tuple[int, ...]:
+def _clusters_resident(source: str, tables: ChannelTables, cluster: int) -> int:
+    """Clusters of ``cluster`` CTAs of ``csrc/<source>.cu``'s cascade
+    launch the current card holds at once at these tables' n and regime
+    (``cudaOccupancyMaxActiveClusters``; ``cluster`` 1, K2-fs's one-CTA
+    body: its CTAs an SM holds, times the SMs)."""
+    launch = _build.load(source, f"parentt_{source}_max_clusters", [_I] * 4)
+    mode, window = reduction_mode(tables)[:2]
+    count = launch(tables.n.bit_length() - 1, mode, window, cluster.bit_length() - 1)
+    if count < 0:
+        _build.check(source, -count)
+    return count
+
+
+def cascade_fs_clusters_resident(tables: ChannelTables, cluster: int | None = None) -> int:
+    """K1-fs's clusters of ``cluster`` CTAs (default :func:`fs_cluster`,
+    the size its launch takes) the current card holds at once.
+    :func:`repro_torch.plan` refuses the backends whose paths run K1-fs
+    where it is 0."""
+    return _clusters_resident("fused_polymul_fs", tables, cluster or fs_cluster(tables.n))
+
+
+def _fs_blocks_per_sm(tables: ChannelTables, source: str) -> tuple[int, int]:
     """CTAs an SM of the current card holds at once of each launch of the
-    multi-block kernel ``csrc/<source>.cu`` at these tables' n and regime."""
+    multi-block transform ``csrc/<source>.cu`` at these tables' n and
+    regime."""
     launch = _build.load(source, f"parentt_{source}_blocks_per_sm", [_I] * 4)
     mode, window = reduction_mode(tables)[:2]
     counts = []
-    for p in range(passes):
+    for p in range(2):
         count = launch(p, tables.n.bit_length() - 1, mode, window)
         if count < 0:
             _build.check(source, -count)
@@ -663,19 +746,14 @@ def _fs_blocks_per_sm(tables: ChannelTables, source: str, passes: int) -> tuple[
     return tuple(counts)
 
 
-def cascade_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int, int]:
-    """K1-fs's CTAs an SM holds: (forward columns, rows, inverse columns)."""
-    return _fs_blocks_per_sm(tables, "fused_polymul_fs", 3)
-
-
 def ntt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
     """K3-fs's CTAs an SM holds: (columns, rows)."""
-    return _fs_blocks_per_sm(tables, "ntt_channels_fs", 2)
+    return _fs_blocks_per_sm(tables, "ntt_channels_fs")
 
 
 def intt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
     """K4-fs's CTAs an SM holds: (rows, columns)."""
-    return _fs_blocks_per_sm(tables, "intt_channels_fs", 2)
+    return _fs_blocks_per_sm(tables, "intt_channels_fs")
 
 
 def cascade_blocks_per_sm(tables: ChannelTables) -> int:
@@ -783,13 +861,129 @@ def e2e_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> int:
     return count
 
 
+def e2e_fs_decompose_ref(za: torch.Tensor, zb: torch.Tensor, plan: RnsPlan
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2-fs's first launch: segments (rows, n, S) x 2 ->
+    canonical residues (t, rows, n) x 2 as 32-bit words."""
+    return tuple(decompose_ref(z, plan).to(torch.int32) for z in (za, zb))
+
+
+def e2e_fs_cascade_ref(ra: torch.Tensor, rb: torch.Tensor, tables: ChannelTables,
+                       plan: RnsPlan) -> torch.Tensor:
+    """Plain version of K2-fs's cascade launch: 32-bit residues (t, rows, n)
+    x 2 -> y = p q~ mod q (t, rows, n) as 32-bit words, p the four-step
+    cascade's product (K1-fs's plain version)."""
+    p = fused_polymul_fs_ref(ra.to(torch.int64), rb.to(torch.int64), tables)
+    q, _, eps = channel_scalars(tables, 3)
+    return mul_mod(p, plan.qi_tilde_d.view(plan.t, 1, 1), q, eps,
+                   tables.mul_shifts).to(torch.int32)
+
+
+def e2e_fs_compose_ref(y: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """Plain version of K2-fs's compose launch: y (t, rows, n) 32-bit words
+    -> limbs (rows, n, L), the Eq-10 limb sums and tail."""
+    acc = limb_sums(y.to(torch.int64), plan.qi_star_limbs_d.view(plan.t, 1, 1, plan.L), plan.w)
+    return compose_finalize(acc, plan.q_limbs, w=plan.w, t=plan.t)
+
+
+def e2e_fs_decompose_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
+                          plan: RnsPlan) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2-fs's first launch alone: segments (rows, n, S) x 2 -> canonical
+    residues (t, rows, n) x 2 as 32-bit words.  CPU tensors run the plain
+    version."""
+    if za.device.type == "cpu":
+        return e2e_fs_decompose_ref(za, zb, plan)
+    fn_name = "e2e_fs_decompose_cuda"
+    rows = _check_segments(za, zb, plan, fn_name)
+    pointers, ints = _e2e_constants(tables, plan, "fused_e2e_polymul_fs_cuda", e2e_fs_fits)
+    _, t, S, _, dec_s1 = ints[:5]
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_e2e_fs_decompose",
+                         _E2E_FS_DECOMPOSE_ARGTYPES)
+    _check_plan_device(plan, za.device, fn_name)
+    ra, rb = (torch.empty((t, rows, plan.n), dtype=torch.int32, device=za.device)
+              for _ in range(2))
+    if rows == 0:
+        return ra, rb
+    d = pointers[8:13]  # the SAU circuits: beta, eps, s2, horner, block_m
+    with torch.cuda.device(za.device):
+        code = launch(ptr(za), ptr(zb), ptr(ra), ptr(rb), pointers[0], *d, rows * plan.n, t, S,
+                      dec_s1, int(narrow_moduli(plan)), _build.stream_of(za))
+    _build.check("fused_e2e_polymul_fs", code)
+    e2e_fs_decompose_cuda.launches += 1
+    return ra, rb
+
+
+e2e_fs_decompose_cuda.launches = 0
+
+
+def e2e_fs_cascade_cuda(ra: torch.Tensor, rb: torch.Tensor, tables: ChannelTables,
+                        plan: RnsPlan) -> torch.Tensor:
+    """K2-fs's cascade launch alone: 32-bit residues (t, rows, n) x 2 -> y =
+    p q~ mod q (t, rows, n), 32-bit, written over a copy of ``ra``.  CPU
+    tensors run the plain version."""
+    if ra.device.type == "cpu":
+        return e2e_fs_cascade_ref(ra, rb, tables, plan)
+    fn_name = "e2e_fs_cascade_cuda"
+    rows = ra.shape[1] if ra.dim() == 3 else -1
+    for name, x in (("ra", ra), ("rb", rb)):
+        check_operand(x, (plan.t, rows, plan.n), name, fn_name, dtypes=(torch.int32,))
+    if rb.device != ra.device:
+        raise ValueError(f"{fn_name}: operands on {ra.device} and {rb.device}")
+    pointers, ints = _e2e_constants(tables, plan, "fused_e2e_polymul_fs_cuda", e2e_fs_fits)
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_e2e_fs_cascade",
+                         _E2E_FS_CASCADE_ARGTYPES)
+    _check_plan_device(plan, ra.device, fn_name)
+    y = ra.clone()
+    if rows == 0:
+        return y
+    with torch.cuda.device(ra.device):
+        code = launch(ptr(y), ptr(rb), *pointers[:8], plan.t, rows, ints[0], *ints[6:],
+                      e2e_fs_cluster(plan.n).bit_length() - 1, _build.stream_of(ra))
+    _build.check("fused_e2e_polymul_fs", code)
+    e2e_fs_cascade_cuda.launches += 1
+    return y
+
+
+e2e_fs_cascade_cuda.launches = 0
+
+
+def e2e_fs_compose_cuda(y: torch.Tensor, plan: RnsPlan) -> torch.Tensor:
+    """K2-fs's compose launch alone: y (t, rows, n) 32-bit words -> limbs
+    (rows, n, L).  CPU tensors run the plain version."""
+    if y.device.type == "cpu":
+        return e2e_fs_compose_ref(y, plan)
+    fn_name = "e2e_fs_compose_cuda"
+    rows = y.shape[1] if y.dim() == 3 else -1
+    check_operand(y, (plan.t, rows, plan.n), "y", fn_name, dtypes=(torch.int32,))
+    if not e2e_fs_fits(plan.n, plan.t, plan.seg_count, plan.L):
+        raise ValueError(f"{fn_name}: t={plan.t}, L={plan.L}: one CTA cannot hold a "
+                         "coefficient's limbs beside the channels' constants")
+    launch = _build.load("fused_e2e_polymul_fs", "parentt_e2e_fs_compose",
+                         _E2E_FS_COMPOSE_ARGTYPES)
+    _check_plan_device(plan, y.device, fn_name)
+    out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=y.device)
+    if rows == 0:
+        return out
+    with torch.cuda.device(y.device):
+        code = launch(ptr(y), ptr(out), ptr(plan.qs_d), ptr(plan.qi_star_limbs_d),
+                      ptr(plan.q_limbs_d), rows * plan.n, plan.t, plan.L, plan.w,
+                      _build.stream_of(y))
+    _build.check("fused_e2e_polymul_fs", code)
+    e2e_fs_compose_cuda.launches += 1
+    return out
+
+
+e2e_fs_compose_cuda.launches = 0
+
+
 def fused_e2e_polymul_fs_cuda(za: torch.Tensor, zb: torch.Tensor, tables: ChannelTables,
                               plan: RnsPlan) -> torch.Tensor:
     """K2-fs: segments (rows, n, S) x 2 -> product limbs (rows, n, L) as the
-    multi-block e2e kernel, three launches of ``csrc/fused_e2e_polymul_fs.cu``
-    (two of them clusters of min(t, 8) CTAs) with 32-bit scratch between
-    them, allocated here.  Takes what :func:`e2e_fs_fits` holds.  CPU
-    tensors run the plain version."""
+    multi-block e2e kernel, the three launches of
+    ``csrc/fused_e2e_polymul_fs.cu`` in one C call, with the 32-bit
+    residues between them allocated here (y goes over the first operand's).
+    Takes what :func:`e2e_fs_fits` holds.  CPU tensors run the plain
+    version."""
     if za.device.type == "cpu":
         return fused_e2e_polymul_fs_ref(za, zb, tables, plan)
     fn_name = "fused_e2e_polymul_fs_cuda"
@@ -800,43 +994,43 @@ def fused_e2e_polymul_fs_cuda(za: torch.Tensor, zb: torch.Tensor, tables: Channe
     out = torch.empty((rows, plan.n, plan.L), dtype=torch.int64, device=za.device)
     if rows == 0:
         return out
-    scratch = [torch.empty((plan.t, rows, plan.n), dtype=torch.int32, device=za.device)
-               for _ in range(2)]
+    ra, rb = (torch.empty((plan.t, rows, plan.n), dtype=torch.int32, device=za.device)
+              for _ in range(2))
     with torch.cuda.device(za.device):
-        code = launch(ptr(za), ptr(zb), *(ptr(x) for x in scratch), ptr(out), *pointers, rows,
-                      *ints, _build.stream_of(za))
+        code = launch(ptr(za), ptr(zb), ptr(ra), ptr(rb), ptr(out), *pointers, rows, *ints,
+                      int(narrow_moduli(plan)), e2e_fs_cluster(plan.n).bit_length() - 1,
+                      _build.stream_of(za))
     _build.check("fused_e2e_polymul_fs", code)
     fused_e2e_polymul_fs_cuda.launches += 1
-    fused_e2e_polymul_fs_cuda.cluster = e2e_cluster(plan.t)[0]
     return out
 
 
 fused_e2e_polymul_fs_cuda.launches = 0
-fused_e2e_polymul_fs_cuda.cluster = 0  # CTAs per (row, column tile) of the last call
 
 
-def e2e_fs_max_active_clusters(tables: ChannelTables, plan: RnsPlan) -> tuple[int, int]:
-    """How many clusters of K2-fs's two cluster launches (forward columns,
-    inverse columns) the current card holds at once at this configuration
-    (``cudaOccupancyMaxActiveClusters``); its row launch is K1-fs's
-    (:func:`cascade_fs_blocks_per_sm`)."""
-    launch = _build.load("fused_e2e_polymul_fs", "parentt_fused_e2e_polymul_fs_max_clusters",
-                         [_I] * 7)
-    mode, window = reduction_mode(tables)[:2]
-    counts = []
-    for p in (0, 2):
-        count = launch(p, plan.n.bit_length() - 1, plan.t, plan.seg_count, plan.L, mode, window)
-        if count < 0:
-            _build.check("fused_e2e_polymul_fs", -count)
-        counts.append(count)
-    return tuple(counts)
+def e2e_fs_cluster(n: int) -> int:
+    """The CTAs a cluster of K2-fs's cascade launch takes at n: 1 where
+    K1's one-CTA body holds a pair (n <= 16384), else :func:`fs_cluster`."""
+    return 1 if cascade_fits(n) else fs_cluster(n)
+
+
+def e2e_fs_clusters_resident(tables: ChannelTables, plan: RnsPlan) -> int:
+    """K2-fs's cascade launch's clusters of :func:`e2e_fs_cluster` CTAs the
+    current card holds at once (CTAs resident where K1's one-CTA body runs
+    it)."""
+    return _clusters_resident("fused_e2e_polymul_fs", tables, e2e_fs_cluster(plan.n))
 
 
 def e2e_clusters_resident(tables: ChannelTables, plan: RnsPlan) -> int:
-    """Clusters of the e2e kernel that serves the plan's (n, t, S, L) the
-    current card holds at once: K2's, or the fewer of K2-fs's two cluster
-    launches'.  :func:`repro_torch.plan` refuses ``cuda_fused_e2e`` where
-    it is 0, so no launch fails for want of a place to run."""
+    """Clusters the current card holds at once of the cluster launches that
+    backend ``cuda_fused_e2e`` runs at the plan's (n, t, S, L): K2's where
+    it holds the plan; else K2-fs's cascade's, and past one CTA also
+    K1-fs's (its ``negacyclic_mul``), the fewer of the two.
+    :func:`repro_torch.plan` refuses ``cuda_fused_e2e`` where it is 0, so
+    no launch fails for want of a place to run."""
     if e2e_fits(plan.n, plan.t, plan.seg_count, plan.L):
         return e2e_max_active_clusters(tables, plan)
-    return min(e2e_fs_max_active_clusters(tables, plan))
+    resident = e2e_fs_clusters_resident(tables, plan)
+    if not cascade_fits(plan.n):
+        resident = min(resident, cascade_fs_clusters_resident(tables))
+    return resident

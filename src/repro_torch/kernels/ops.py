@@ -16,16 +16,16 @@ Backends
   where a CTA holds its channels' polynomials (n <= 16384, up to a t that
   falls as n grows), in the multi-block K2-fs past it
   (:func:`repro_torch.kernels.ntt.fused_e2e_polymul_fs_cuda`: one call of
-  three launches, only 32-bit lazy words between them); int64 residues
-  never reach device memory.  Mirrors ``pallas_fused_e2e``.  The stage
+  three streaming launches, decompose, K1-fs's cascade and K6's compose,
+  only 32-bit words between them); int64 residues never reach device
+  memory.  Mirrors ``pallas_fused_e2e``.  The stage
   entry points have no single-kernel form under it and take the closest
   kernel datapath (:func:`_stage_backend`): the residue-domain product
   runs K1 (K1-fs), every other stage its ``cuda`` kernel.
 
 ``backend="auto"`` resolves at plan time: to ``cuda_fused_e2e`` on a CUDA
-device where K2 holds the plan, or K2-fs at t <= 8, with S and L <= 16
-(:func:`auto_backend`), to ``cuda_fused`` past it, and to ``torch`` on
-the CPU.  The kernel backends accept CPU tensors
+device where K2 holds the plan with S and L <= 16, or K2-fs serves past
+K2 from t = 29 (:func:`auto_backend`), to ``cuda_fused`` elsewhere, and to ``torch`` on the CPU.  The kernel backends accept CPU tensors
 too: their wrappers then run the kernels' plain versions.  ``use_sau``
 picks the Alg-2 SAU circuits or the generic decompose on the ``torch``
 backend; the kernel backends always run the SAU circuits, as the
@@ -75,22 +75,35 @@ def validate_backend(backend: str) -> str:
     return backend
 
 
-# the largest S and L at which backend="auto" took the e2e kernels
-# before they served more (AUTO_E2E_T, tests/test_torch_channels.py)
+# the largest S and L at which backend="auto" takes K2 (as before the e2e
+# kernels served more: AUTO_E2E_T, tests/test_torch_channels.py)
 AUTO_E2E_COUNTS = 16
+# the least t at which backend="auto" takes K2-fs past K2 (chip_smoke's
+# [auto] walls, PERF.md)
+AUTO_E2E_FS_T = 29
 
 
 def auto_backend(n: int, t: int, S: int, L: int) -> str:
     """``backend="auto"`` on a card at a plan's (n, t, S, L):
-    ``cuda_fused_e2e`` where K2 holds it, or K2-fs at t <= 8, with S and L
-    <= 16 (where auto took it before the e2e kernels served more);
-    ``cuda_fused`` everywhere else, where no wall shows the e2e kernels no
-    slower (at W1 and W2 chip_smoke's walls show them slower, PERF.md)."""
-    if S <= AUTO_E2E_COUNTS and L <= AUTO_E2E_COUNTS and (
-            ntt_kernels.e2e_fits(n, t, S, L)
-            or (t <= ntt_kernels.MAX_CLUSTER and ntt_kernels.e2e_fs_fits(n, t, S, L))):
-        return "cuda_fused_e2e"
-    return "cuda_fused"
+    ``cuda_fused_e2e`` where K2 holds it with S and L <= 16 (K2's rule,
+    which the multi-block kernels' walls do not touch), and where K2-fs
+    serves past K2 from t = 29, its cascade K1's one-CTA body (n <= 16384)
+    or K1-fs's cluster (n >= 32768); ``cuda_fused`` everywhere else.  The
+    K2-fs part follows chip_smoke's ``polymul`` walls of the two backends
+    in my chip runs 9 and D of PR 22 (NVIDIA H100 80GB HBM3, 700 W;
+    PERF.md §6), e2e / fused: 1.113 / 1.067 at (16384, 9), 1.038 / 1.010
+    at (8192, 25), 1.072 / 1.060 at W1 = (32768, 15) and 1.019 / 0.990 at
+    (16384, 16); 0.971 / 0.961 at (16384, 29), 0.986 / 0.978 at (8192,
+    30), 0.946 / 0.950 at W2 = (16384, 30), 0.992 / 0.982 at (32768, 30),
+    1.015 / 0.975 at (65536, 30), and 0.51-0.79 at the largest t at each n
+    (to t = 208 at 2048).  At t = 6 (n = 32768, 65536) the walls are
+    host-bound and spread across 1.0 (0.88-1.27 over five runs) while the
+    device times are equal: ``cuda_fused`` kept there."""
+    if ntt_kernels.e2e_fits(n, t, S, L):
+        e2e = S <= AUTO_E2E_COUNTS and L <= AUTO_E2E_COUNTS
+    else:
+        e2e = t >= AUTO_E2E_FS_T and ntt_kernels.e2e_fs_fits(n, t, S, L)
+    return "cuda_fused_e2e" if e2e else "cuda_fused"
 
 
 def resolve_backend(backend: str, device: torch.device, n: int, t: int, v: int) -> str:

@@ -377,14 +377,14 @@ def test_plan_from_params_refuses_what_plan_refuses():
     with pytest.raises(repro_torch.UnknownKnobError) as err:
         repro_torch.plan_from_params(tparams.make_params(N, T, V, device="cpu"), use_sau="no")
     assert err.value.knob == "use_sau"
-    # the shared admission: the e2e kernels' reach (K2-fs past one CTA, up
-    # to t = 48) and the kernels' decompose constants
+    # the shared admission: the e2e kernels' reach (K2-fs past one CTA, at
+    # any t whose decompose and compose CTAs fit: t = 49 too) and the
+    # kernels' decompose constants
     big = tparams.make_params(1 << 15, 1, 30, device="cpu")
     assert repro_torch.plan_from_params(big, backend="cuda_fused_e2e").config.schedule.multi_block
     big49 = tparams.make_params(1 << 15, 49, 30, device="cpu")
-    with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan_from_params(big49, backend="cuda_fused_e2e")
-    assert err.value.knob == "t"
+    assert repro_torch.plan_from_params(big49,
+                                        backend="cuda_fused_e2e").config.schedule.multi_block
     assert repro_torch.plan_from_params(big, backend="cuda").config.backend == "cuda"
     assert repro_torch.plan_from_params(big, backend="cuda_fused").config.schedule.multi_block
     # no in-kernel decompose constants at v = 31 past t = 6 at n = 32768

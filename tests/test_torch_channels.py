@@ -136,9 +136,10 @@ def test_port_admits_every_t_the_reference_pallas_backends_admit(n):
 
 def test_wide_points_build_multi_block_e2e_plans():
     """The slice's chip points on the CPU: W1 = (32768, 15, 30) and
-    W2 = (16384, 30, 30) build K2-fs plans on cuda_fused_e2e (clusters of
-    8 CTAs, two and four channels a CTA), and beside them cuda_fused and
-    cuda; auto on a card keeps cuda_fused there."""
+    W2 = (16384, 30, 30) build K2-fs plans on cuda_fused_e2e (past K2's two
+    and four channels a CTA), and beside them cuda_fused and cuda; auto on
+    a card takes cuda_fused at W1 and cuda_fused_e2e at W2, as the walls
+    decided (PERF.md §5)."""
     cuda = torch.device("cuda")
     for n, t, slots in ((32768, 15, 2), (16384, 30, 4)):
         params = make_params(n, t, V, device="cpu")
@@ -150,15 +151,19 @@ def test_wide_points_build_multi_block_e2e_plans():
         assert pl.config.schedule.smem_bytes == tkern.e2e_fs_smem_bytes(n, t, S, L)
         for backend in ("cuda", "cuda_fused"):
             assert repro_torch.plan_from_params(params, backend=backend).config.backend == backend
-        assert tops.resolve_backend("auto", cuda, n, t, V) == "cuda_fused"
+        want = "cuda_fused_e2e" if n == 16384 else "cuda_fused"
+        assert tops.resolve_backend("auto", cuda, n, t, V) == want
 
 
 # auto's reach at v = 30 on a card: cuda_fused_e2e at t <= this (14 up to
-# n = 8192), cuda_fused past it.  That is where K2, or K2-fs at t <= 8,
-# served auto with S and L <= 16 before the e2e kernels took more (t = 15
-# has L = 17 there); where auto then refused the plan (S or L past 16) it
-# now takes cuda_fused, which chip_smoke's walls show faster at W1 and W2.
-AUTO_E2E_T = {16384: 8, 32768: 8, 65536: 8}
+# n = 8192), cuda_fused past it.  That is where K2 served auto with S and L
+# <= 16 before the e2e kernels took more (t = 15 has L = 17 there); past
+# one CTA (n >= 32768) auto takes cuda_fused at every t, since the walls
+# showed K2-fs on K1-fs's cluster slower there (at t = 6 and 15).
+AUTO_E2E_T = {16384: 8, 32768: 0, 65536: 0}
+# and K2-fs where K2 does not hold the plan (n >= 8192 at these t), from
+# t = 29: chip_smoke's [auto] walls showed it faster there
+AUTO_E2E_FS_T = 29
 
 
 def test_auto_resolves_as_before():
@@ -166,14 +171,18 @@ def test_auto_resolves_as_before():
     for log_n in range(2, 17):
         n = 1 << log_n
         edge = AUTO_E2E_T.get(n, 14)
-        for t in (1, 8, 9, 14, 15, 30):
-            want = "cuda_fused_e2e" if t <= edge else "cuda_fused"
+        for t in (1, 8, 9, 14, 15, 28, 29, 30, 31):
+            k2fs = t >= AUTO_E2E_FS_T and n >= 8192  # past K2 (K2 holds t <= 31 below 8192)
+            want = "cuda_fused_e2e" if t <= edge or k2fs else "cuda_fused"
             assert tops.resolve_backend("auto", cuda, n, t, V) == want, (n, t)
     assert tops.auto_backend(4096, 14, 16, 16) == "cuda_fused_e2e"
     for n, t, S, L in ((4096, 14, 14, 17), (4096, 14, 17, 16), (16384, 9, 9, 10),
-                       (32768, 15, 15, 16)):
+                       (32768, 15, 15, 16), (65536, 6, 6, 7), (16384, 28, 28, 30),
+                       (65536, 28, 28, 30)):
         assert tops.auto_backend(n, t, S, L) == "cuda_fused", (n, t, S, L)
         assert tkern.e2e_serves(n, t, S, L)
+    for n, t, S, L in ((16384, 29, 29, 31), (16384, 30, 30, 32), (65536, 29, 29, 31)):
+        assert tops.auto_backend(n, t, S, L) == "cuda_fused_e2e", (n, t, S, L)
 
 
 def test_auto_steps_back_where_the_card_holds_no_e2e_cluster(monkeypatch):
@@ -193,16 +202,22 @@ def test_auto_steps_back_where_the_card_holds_no_e2e_cluster(monkeypatch):
     assert err.value.alternatives == ("backend='cuda'", "backend='cuda_fused'", "backend='torch'")
 
 
-def test_e2e_refusal_names_the_backends_that_serve():
-    """Past K2's and K2-fs's reach (n = 4096, t = 49: seven slots of two
-    4096-element tiles a CTA) cuda_fused_e2e is refused at plan time, knob
-    t, naming cuda, cuda_fused and torch, which serve it."""
+def test_e2e_refusal_names_the_backends_that_serve(monkeypatch):
+    """Past K2's reach (n = 4096, t = 49: seven slots a CTA) cuda_fused_e2e
+    runs K2-fs, whose CTAs' shared memory does not grow with t past the
+    channels' tables; where the card holds none of its clusters it is
+    refused at plan time, knob t, naming cuda, cuda_fused and torch, which
+    serve it."""
+    params = make_params(4096, 49, V, device="cpu")
+    pl = repro_torch.plan_from_params(params, backend="cuda_fused_e2e")
+    assert pl.config.schedule.multi_block
+    monkeypatch.setattr(tkern, "e2e_clusters_resident", lambda tables, plan: 0)
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(4096, 49, V, backend="cuda_fused_e2e", device="cpu")
+        tapi._admit("cuda_fused_e2e", 4096, 49, V, torch.device("cuda"), params=params)
     assert err.value.knob == "t" and err.value.value == 49
     assert err.value.alternatives == ("backend='cuda'", "backend='cuda_fused'", "backend='torch'")
     for backend in ("cuda", "cuda_fused"):
-        assert repro_torch.plan(4096, 49, V, backend=backend, device="cpu").config.backend == backend
+        assert repro_torch.plan_from_params(params, backend=backend).config.backend == backend
 
 
 def test_plan_takes_the_references_four_keywords():

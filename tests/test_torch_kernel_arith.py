@@ -628,16 +628,27 @@ def test_inverse_register_passes_match_plain_version(n, t, v):
 # --------------------------------------------------------------------------
 
 
-def fs_geometry(n):
-    """(log n1, log n2, E, log C, tiles a polynomial, K) as the kernels
-    derive them (parentt.cuh fs_geom), checked against the host helpers."""
+def fs_geometry(n, cluster=None):
+    """(log n1, log n2, E, log C, blocks a polynomial, K) as the kernels
+    derive them (parentt.cuh fs_geom, and cluster_cascade with a cluster of
+    ``cluster`` CTAs, E = n / cluster), checked against the host helpers:
+    a column CTA takes n1 rows x E / n1 = 2^(log C) adjacent columns, a row
+    CTA (or the same CTA of the cluster, in the row phase) E / n2 whole
+    rows."""
     L = n.bit_length() - 1
     log_n2 = (L + 1) // 2
     log_n1 = L - log_n2
-    log_e = min(L, 12)
+    assert tkern.fs_split(n) == (1 << log_n1, 1 << log_n2)
+    if cluster is None:  # K3-fs, K4-fs: 4096-element tiles
+        log_e = min(L, 12)
+        assert tkern.fs_tile(n) == 1 << log_e
+        assert tkern.fs_threads(n) == tkern.pass_threads(1 << log_e) <= 256
+    else:  # the cluster cascade (K1-fs, K2-fs past one CTA): n / C elements a CTA
+        assert cluster & (cluster - 1) == 0 and 2 <= cluster <= 1 << log_n1
+        log_e = L - (cluster.bit_length() - 1)
+        assert tkern.cascade_fs_threads(n, cluster) == tkern.pass_threads(1 << log_e)
+        assert tkern.cascade_fs_smem_bytes(n, cluster) == 3 * tkern.padded_words(1 << log_e) * 4
     E = 1 << log_e
-    assert tkern.fs_split(n) == (1 << log_n1, 1 << log_n2) and tkern.fs_tile(n) == E
-    assert tkern.fs_threads(n) == tkern.pass_threads(E) <= 256
     return log_n1, log_n2, E, log_e - log_n1, n // E, tkern.pass_group(E)
 
 
@@ -655,37 +666,49 @@ def fs_passes(begin, end, K, inverse):
     return out
 
 
-def fs_emulated(a, b, tables, kernel, e2e=None):
+def fs_emulated(a, b, tables, kernel, e2e=None, cluster=None):
     """K3-fs ("forward"), K4-fs ("inverse") or K1-fs ("cascade") on (t,
-    rows, n) canonical residues, launch by launch as the kernels run them:
-    the column CTAs' virtual length-E tiles (v = r C + cc, gathered through
-    the kernels' ColMap), the row CTAs' spans of E/n2 whole rows, passes of
+    rows, n) canonical residues, as the kernels run them: the column CTAs'
+    virtual length-E polynomials (v = r C + cc, gathered through the
+    kernels' ColMap), the row CTAs' spans of E / n2 whole rows, passes of
     G <= 3 stages over their groups p0 .. p1 - 1 with the kernels' twiddle
-    indices, and 32-bit values below W q (q when strict) in the scratch
-    between launches.  Every pass's groups of a CTA's span hold each of its
-    elements once.
+    indices, and 32-bit values below W q (q when strict) between the
+    column and the row stages.  Every pass's groups of a CTA's span hold
+    each of its elements once.  K3-fs and K4-fs run 4096-element tiles,
+    two launches with the values in a scratch tensor between them; K1-fs
+    is one cluster of ``cluster`` CTAs a (channel, row) (default
+    fs_cluster(n)), E = n / C elements of each operand a CTA: its column
+    blocks are the virtual polynomials, its row blocks the spans, and the
+    two DSMEM transposes between them are the moves from one to the other
+    (tests/test_torch_fs_cluster.py checks their index maps).
 
-    K2-fs ("e2e", ``e2e`` = (za, zb, plan), segments (rows, n, S)): K1-fs's
-    launches with the decompose fused into the forward column launch and
-    the compose into the inverse one, as the clusters of C = min(t, 8)
-    CTAs per (row, column tile) run them: CTA r owns the channels r,
-    r + C, ... (its slots) and decomposes the segments of its slice
-    ``e2e_slice(E, C, r)`` of the tile's virtual elements into every
-    channel, each residue landing in its owner's tile (DSMEM); after the
-    inverse column stages each CTA holds y = canonical(p) q~ mod q of its
-    channels, and composes its slice from every channel's y (the chunked
-    quotient tail), its limbs written through ColMap.  Returns (rows, n,
-    L) limbs."""
+    K2-fs ("e2e", ``e2e`` = (za, zb, plan), segments (rows, n, S)): its
+    three launches, the decompose of both operands (parentt.cuh
+    ``decompose`` per coefficient and channel) to 32-bit words, the
+    cascade with y = canonical(p) q~ mod q stored (K1's register passes
+    where one CTA holds a pair, else K1-fs's cluster), and the quotient
+    compose on the y words.  Returns (rows, n, L) limbs."""
     r = Regime(tables)
     if kernel == "e2e":
         za, zb, plan = e2e
         t, (rows, n) = tables.t, za.shape[:2]
-    else:
-        t, rows, n = a.shape
+        narrow = tcrt.narrow_moduli(plan)
+        ra, rb = (decompose_emulated(z.reshape(-1, plan.seg_count), plan, narrow)
+                  .reshape(t, rows, n) for z in (za, zb))
+        assert (ra < U(plan.qs).reshape(-1, 1, 1)).all()  # canonical 32-bit words
+        if tkern.cascade_fits(n):
+            y = passes_emulated(ra, rb, tables, "e2e", plan.qi_tilde)
+        else:
+            y = fs_emulated(ra, rb, tables, "cascade", cluster=cluster, e2e=plan)
+        return compose_quotient_emulated(y.reshape(t, -1), plan).reshape(rows, n, plan.L)
+    t, rows, n = a.shape
+    cascade = kernel == "cascade"
+    if cascade:
+        cluster = cluster or tkern.fs_cluster(n)
     L = n.bit_length() - 1
-    log_n1, log_n2, E, log_c, tiles, K = fs_geometry(n)
+    log_n1, log_n2, E, log_c, tiles, K = fs_geometry(n, cluster if cascade else None)
     log_e = E.bit_length() - 1
-    # ColMap: column CTA blk's virtual element v -> x = r n2 + c0 + cc
+    # ColMap: column block blk's virtual element v -> x = r n2 + c0 + cc
     v = np.arange(E)
     colmap = (((v >> log_c) << log_n2)[None, :] + (np.arange(tiles) << log_c)[:, None]
               + (v & ((1 << log_c) - 1)))
@@ -760,7 +783,7 @@ def fs_emulated(a, b, tables, kernel, e2e=None):
         for m in range(1 << G):
             A[..., (p << G) + m] = x[m]
 
-    def tiles_of(X):  # the column CTAs' virtual tiles, (t, rows * tiles, E)
+    def tiles_of(X):  # the column blocks' virtual polynomials, (t, rows * tiles, E)
         return X[..., colmap].reshape(t, rows * tiles, E)
 
     def untile(V):
@@ -768,52 +791,21 @@ def fs_emulated(a, b, tables, kernel, e2e=None):
         X[..., colmap] = V.reshape(t, rows, tiles, E)
         return X
 
-    def scratch(X):  # 32-bit words under the lazy window
+    def lazy(X):  # 32-bit words under the lazy window between the phases
         assert (X < bound).all() and (X <= M32).all()
         return X
 
-    def slices():  # the cluster's CTAs: (rank, its slice of a tile's virtual elements)
-        C, slots = tkern.e2e_cluster(t)
-        owned = [c for rank in range(C) for c in tkern.e2e_channels(t, C, rank)]
-        assert C == min(t, 8) and sorted(owned) == list(range(t))
-        assert all(len(tkern.e2e_channels(t, C, rank)) <= slots for rank in range(C))
-        taken = np.zeros(E, dtype=np.int64)
-        for rank in range(C):
-            sl = np.asarray(tkern.e2e_slice(E, C, rank), dtype=np.int64)
-            taken[sl] += 1
-            yield rank, sl
-        assert (taken == 1).all()
-
-    def cluster_decompose(z):  # launch 1's first step -> the residues' tiles
-        V = np.zeros((t, rows * tiles, E), dtype=np.uint64)
-        for _, sl in slices():
-            seg = z[:, colmap[:, sl], :].reshape(-1, z.shape[-1])  # (rows, tiles, |sl|, S)
-            res = decompose_emulated(seg, plan, tables.lazy is not None)
-            V[:, :, sl] = U(res).reshape(t, rows * tiles, len(sl))
-        return untile(V)
-
-    def cluster_compose(V):  # launch 3's y and compose -> (rows, n, L) limbs
-        y = mul_mod(canonicalize(V, r), U(plan.qi_tilde).reshape(-1, 1, 1), r)
-        out = np.zeros((rows, n, plan.L), dtype=np.int64)
-        for _, sl in slices():
-            limbs = compose_quotient_emulated(_int64(y[:, :, sl].reshape(t, -1)), plan)
-            out[:, colmap[:, sl]] = limbs.reshape(rows, tiles, len(sl), plan.L)
-        return out
-
-    if kernel == "e2e":
-        polys = [cluster_decompose(za), cluster_decompose(zb)]
-    else:
-        A = U(a).copy()
-        if kernel == "inverse":
-            inverse(A, 0, log_n2, L, E)  # rows
-            V = tiles_of(scratch(A))
-            inverse(V, log_c, log_e, log_e, E)  # columns, virtual stages log C ..
-            return _int64(canonicalize(untile(V), r))
-        polys = [A] if kernel == "forward" else [A, U(b).copy()]
+    A = U(a).copy()
+    if kernel == "inverse":
+        inverse(A, 0, log_n2, L, E)  # rows
+        V = tiles_of(lazy(A))
+        inverse(V, log_c, log_e, log_e, E)  # columns, virtual stages log C ..
+        return _int64(canonicalize(untile(V), r))
+    polys = [A] if kernel == "forward" else [A, U(b).copy()]
     for i, P in enumerate(polys):  # forward columns, virtual stages 0 .. log n1 - 1
         V = tiles_of(P)
         forward(V, 0, log_n1, log_e, E)
-        polys[i] = scratch(untile(V))
+        polys[i] = lazy(untile(V))  # K1-fs: the first transpose
     A = polys[0]
     if kernel == "forward":
         forward(A, log_n1, L, L, E)  # rows
@@ -826,10 +818,10 @@ def fs_emulated(a, b, tables, kernel, e2e=None):
         forward(B, log_n1, L - K, L, E)
         middle(A, B, K, E)
         inverse(A, K, log_n2, L, E)
-    V = tiles_of(scratch(A))
+    V = tiles_of(lazy(A))  # the second transpose
     inverse(V, log_c, log_e, log_e, E)
-    if kernel == "e2e":
-        return cluster_compose(V)
+    if e2e is not None:  # K2-fs's cascade: y = canonical(p) q~ mod q
+        return _int64(untile(mul_mod(canonicalize(V, r), U(e2e.qi_tilde).reshape(-1, 1, 1), r)))
     return _int64(canonicalize(untile(V), r))
 
 
@@ -842,10 +834,11 @@ FS_PRESETS = [(n, v) for n in (4, 8, 16, 256, 1024, 4096) for v in (29, 30, 31)]
 
 @pytest.mark.parametrize("n,v", FS_PRESETS)
 def test_multi_block_passes_match_plain_versions(n, v):
-    """K3-fs, K4-fs and K1-fs, launch by launch and pass by pass with
-    32-bit values in the scratch between launches, equal their plain
-    versions (the four-step plain PyTorch) and the radix-2 ones, in the
-    regime of each point, with 0 and q - 1 among the inputs."""
+    """K3-fs and K4-fs launch by launch, and K1-fs's cluster phase by phase,
+    pass by pass with 32-bit values between the column and the row stages,
+    equal their plain versions (the four-step plain PyTorch) and the
+    radix-2 ones, in the regime of each point, with 0 and q - 1 among the
+    inputs."""
     p = make_params(n, 2, v)
     rows = 1 if n >= 16384 else 2
     rng = np.random.default_rng(SEED + 17 * n + v)
@@ -885,21 +878,21 @@ def test_multi_block_row_twiddles_are_the_reference_row_tables():
         assert tkern.fs_blocks(6, 16, n) * tkern.fs_tile(n) == 6 * 16 * n
 
 
-# K2-fs at the multi-block geometry of one tile (n = 16, 256) and of a
-# column tile across rows (1024), with clusters of 3 and 6 CTAs (even and
-# uneven slices of a tile), in the three regimes; and past t = 8, clusters
-# of 8 CTAs owning two to four channels each over uneven slices (t = 9,
-# 15, 30; L = 10, 16/17, 33/32)
+# K2-fs where K1's one-CTA body runs its cascade (n = 16, 256, 1024; the
+# cluster's, past one CTA, is in tests/test_torch_fs_cluster.py) at t = 3
+# and 6 (one and two channel groups a decompose CTA) in the three
+# regimes; and past t = 8: t = 9, 15, 30 (three, five and eight groups;
+# L = 10, 16/17, 33/32)
 E2E_FS_PRESETS = [(n, t, v) for n in (16, 256, 1024) for t in (3, 6) for v in (29, 30, 31)] + [
     (16, 9, 30), (256, 15, 29), (1024, 15, 31), (256, 30, 30)]
 
 
 @pytest.mark.parametrize("n,t,v", E2E_FS_PRESETS)
 def test_multi_block_e2e_matches_plain_versions(n, t, v):
-    """K2-fs launch by launch (the clusters' DSMEM slices of the
-    decompose, 32-bit scratch between launches, K1-fs's row pass, y = p q~
-    and the quotient compose over uneven slices) equals its plain version
-    and K2's, with the zero coefficient and q - 1 among the inputs."""
+    """K2-fs launch by launch (the decompose of both operands to 32-bit
+    words, the cascade storing y = p q~, the quotient compose on the y
+    words) equals its plain version and K2's, with the zero coefficient and
+    q - 1 among the inputs."""
     p = make_params(n, t, v)
     rng = np.random.default_rng(SEED + 11 * n + t + v)
     za, zb = _segments(p.plan, (2, n), rng), _segments(p.plan, (2, n), rng)

@@ -263,8 +263,9 @@ def test_plan_records_the_cards_accounting():
     """The spec records the kernel of each backend's main path: one-block
     K3/K4, K1 and K2 while a CTA holds the polynomial, multi-block past it,
     up to n = 65536; n = 131072 is refused (knob n), an explicit e2e
-    backend past K2-fs's reach (t = 49, seven slots of two tiles a CTA)
-    too (knob t), and auto takes cuda_fused past t = 8 beyond K2."""
+    backend where the in-kernel decompose constants stop (t = 8 at v = 31
+    for n = 32768) too (knob t), and auto takes cuda_fused past t = 8
+    beyond K2."""
     for n, t, backend, multi in ((32768, 2, "cuda", False), (65536, 2, "cuda", True),
                                  (16384, 2, "cuda_fused", False), (32768, 2, "cuda_fused", True),
                                  (65536, 2, "cuda_fused", True), (16384, 6, "cuda_fused_e2e", False),
@@ -275,13 +276,14 @@ def test_plan_records_the_cards_accounting():
         assert spec.card_split == (tkern.fs_split(n) if multi else ())
     assert tkern.fs_split(65536) == (256, 256) and tkern.fs_split(32768) == (128, 256)
     for n, t, backend, knob in ((131072, 6, "cuda", "n"), (131072, 6, "cuda_fused", "n"),
-                                (131072, 6, "cuda_fused_e2e", "n"), (32768, 49, "cuda_fused_e2e", "t")):
+                                (131072, 6, "cuda_fused_e2e", "n"), (32768, 8, "cuda_fused_e2e", "t")):
         with pytest.raises(repro_torch.UnservableConfigError) as err:
-            repro_torch.plan(n, t, 30, backend=backend, device="cpu")
+            repro_torch.plan(n, t, 30 if knob == "n" else 31, backend=backend, device="cpu")
         assert err.value.knob == knob
-    # auto on a card: the e2e kernels where they hold (n, t), the fused cascade past them
-    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6, 30) == "cuda_fused_e2e"
-    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6, 30) == "cuda_fused_e2e"
+    # auto on a card: K2 where it holds (n, t), the fused cascade past one
+    # CTA at t = 6, where K2-fs's walls were the slower (PERF.md §5)
+    assert tops.resolve_backend("auto", torch.device("cuda"), 65536, 6, 30) == "cuda_fused"
+    assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 6, 30) == "cuda_fused"
     assert tops.resolve_backend("auto", torch.device("cuda"), 32768, 9, 30) == "cuda_fused"
     assert tops.resolve_backend("auto", torch.device("cuda"), 16384, 6, 30) == "cuda_fused_e2e"
     assert tops.resolve_backend("auto", torch.device("cpu"), 65536, 6, 30) == "torch"
@@ -289,17 +291,17 @@ def test_plan_records_the_cards_accounting():
 
 
 def test_e2e_backend_serves_past_one_cta():
-    """auto on a card resolves to cuda_fused_e2e at n = 32768 and 65536
-    for every t <= 8 (K2-fs, the multi-block e2e kernel) and to cuda_fused
-    at t = 9, as before K2-fs served t > 8; an explicit cuda_fused_e2e plan
+    """auto on a card resolves to cuda_fused at n = 32768 and 65536 for
+    every t <= 9, where K2-fs's cascade is K1-fs's cluster and its walls
+    were the slower (PERF.md §5); an explicit cuda_fused_e2e plan
     there records the multi-block kernel with the card's split and K2-fs's
-    shared memory at the plan's S and L, also at t = 9 and 15 (two
-    channels on some CTAs of a cluster of 8), and is refused at t = 49
-    (knob t), where seven slots of two tiles exceed a CTA."""
+    shared memory at the plan's S and L, also at t = 9 and 15; its CTAs'
+    shared memory does not grow with t past the channels' tables, so it
+    holds t = 49, where six slots of two tiles a CTA stopped at 48."""
     cuda = torch.device("cuda")
     for n, split in ((32768, (128, 256)), (65536, (256, 256))):
         for t in range(1, 9):
-            assert tops.resolve_backend("auto", cuda, n, t, 30) == "cuda_fused_e2e"
+            assert tops.resolve_backend("auto", cuda, n, t, 30) == "cuda_fused"
             assert tkern.e2e_fs_fits(n, t, t, t + 1) and not tkern.e2e_fits(n, t, t, t + 1)
         assert tops.resolve_backend("auto", cuda, n, 9, 30) == "cuda_fused"
         for t in (1, 6, 8, 9, 15):
@@ -309,11 +311,7 @@ def test_e2e_backend_serves_past_one_cta():
             assert spec.card_split == split == tkern.fs_split(n)
             assert spec.smem_bytes == tkern.e2e_fs_smem_bytes(
                 n, t, pl.config.seg_count, pl.config.L) <= spec.smem_budget
-    with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(32768, 49, 30, backend="cuda_fused_e2e", device="cpu")
-    assert (err.value.knob, err.value.value) == ("t", 49)
-    assert "backend='cuda_fused'" in err.value.alternatives
-    assert tkern.e2e_fs_fits(65536, 48, 48, 52) and not tkern.e2e_fs_fits(65536, 49, 49, 53)
+    assert tkern.e2e_fs_fits(65536, 48, 48, 52) and tkern.e2e_fs_fits(65536, 49, 49, 53)
     assert not tkern.e2e_fs_fits(8, 3, 3, 4)
 
 
