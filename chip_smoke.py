@@ -41,9 +41,10 @@ Phases, each raising on failure (so the run exits non-zero):
    ``simt`` for float32); at each model shape a control that rounds the
    probabilities to bfloat16 must fall outside that tolerance; K1-fs,
    K3-fs and K4-fs (``csrc/*_fs.cu``) at ``FS_POINTS`` (n = 16 ... 65536,
-   t = 3, 2 rows, all three regimes) equal to their plain versions (the
-   four-step plain PyTorch) and, where K1, K3 or K4 also serve n, to
-   them, with the CTAs an SM holds of each K3-fs and K4-fs launch and
+   t = 3, 2 rows, all three regimes; K3-fs and K4-fs also at n = 4 and 8,
+   ``FS_SMALL_POINTS``) equal to their plain versions (the four-step
+   plain PyTorch) and, where K1, K3 or K4 also serve n, to them, with the
+   CTAs an SM holds of K3-fs's and K4-fs's tile streams and
    K1-fs's clusters resident by size (the card holds at least one of
    the size ``fs_cluster`` names, which its launch takes); K2-fs
    (``csrc/fused_e2e_polymul_fs.cu``) at ``FS_POINTS`` x t = 3, 6, 8
@@ -122,7 +123,8 @@ Phases, each raising on failure (so the run exits non-zero):
    achieved TFLOP/s (prefill) or TB/s (decode); K1-fs, K3-fs and K4-fs
    at (6, 16, 65536) and K2-fs at (16, 65536, 6), one call and back to
    back, beside their plain versions and bounds (K2-fs's also with the
-   32-bit words between its launches), K1-fs's and K2-fs's cascade's
+   32-bit words between its launches; K3-fs and K4-fs with their CTAs
+   an SM and persistent grid), K1-fs's and K2-fs's cascade's
    clusters resident and waves at each FS_MAIN n and W point, and each of
    K2-fs's three launches'
    device time from a ``torch.profiler`` trace, beside cuda_fused's
@@ -140,13 +142,17 @@ Phases, each raising on failure (so the run exits non-zero):
    bit, beside what auto takes there (``[auto]`` lines); and the host
    time of one ``polymul`` call at the largest FS_MAIN n on both, with
    the card kept busy so the host never waits, split into the front door,
-   each wrapper, K2-fs's C call and its allocations, with
-   ``torch.profiler``'s host-side events beside (``[host]`` lines).
+   each wrapper, K2-fs's C call and its allocations, on ``cuda`` K3-fs's
+   C call (its counters' memset, its TMA maps' encoding and its launch)
+   and its allocations, with ``torch.profiler``'s host-side events beside
+   (``[host]`` lines).
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
-..., and ``fused_polymul_fs`` and ``fused_e2e_polymul_fs``, K1-fs at
-(6, 16, 65536) and K2-fs at (16, 65536, 6)) of the
+..., and ``fused_polymul_fs``, ``ntt_channels_fs``,
+``intt_channels_fs`` and ``fused_e2e_polymul_fs``, K1-fs, K3-fs and
+K4-fs at (6, 16, 65536) and K2-fs at (16, 65536, 6), and
+``attention``, K7 at the four ``ATTN_MODEL`` shapes) of the
 checkout at DIR (for instance the parent commit unpacked with
 ``git archive``) at the main path's shape, one call between two events
 and back to back (K2 also at one row), after checking each against its
@@ -160,7 +166,14 @@ turns 8, 16, 16, 8, each whole and cut after its first and its second
 DSMEM transpose (``csrc/fused_polymul_fs.cu``
 ``parentt_fused_polymul_fs_phases``), back to back, with the clusters
 resident and waves of each size: the phase split and the measurement
-behind ``fs_cluster``.
+behind ``fs_cluster``.  ``--transform-variants`` times K3-fs and K4-fs
+at ``TRANSFORM_SHAPES`` in turns: the earlier design's two launches of
+one CTA a tile (``csrc/fs_variants.cu``, a measurement-only source)
+whole, as copies
+and as their passes alone, against the shipped tile stream as one
+launch, as two launches of one phase each, each alone, as a copy and as
+its passes, and the one-block K3/K4 at 32768: whether whole time is the
+sum of the memory and the integer time or their maximum.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
 numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
@@ -223,6 +236,10 @@ PASS_POINTS = {
 # 4096 and 16384, where K1, K3 and K4 also serve and must give the same
 # outputs, and past them, 32768 and 65536
 FS_POINTS = (16, 256, 1024, 4096, 16384, 32768, 65536)
+# and K3-fs and K4-fs below it, where a column tile's 32-bit words are
+# narrower than TMA's 16-byte box: a polynomial of them is one contiguous
+# tile, moved by a 1-D bulk copy like every row tile
+FS_SMALL_POINTS = (4, 8)
 # K2-fs at FS_POINTS in the three regimes at these t (one channel a CTA of
 # clusters of t CTAs), 2 rows, where plan() admits (n, t, v) on a kernel
 # backend; against K2 where K2 also serves (n <= 16384)
@@ -817,6 +834,20 @@ def check_fs_kernels(dev, max_err: dict[str, int]) -> None:
                 f"{kern.fs_threads(n)} threads, {kern.fs_tile(n)}-element tiles: equal to the "
                 "plain versions bit for bit (and to K1/K3/K4 where marked); CTAs an SM holds "
                 "per launch: " + ", ".join(seen))
+    for n in FS_SMALL_POINTS:
+        for v in (29, 30, 31):
+            pl = repro_torch.plan(n, 3, v, backend="cuda", device=dev)
+            tables = pl.params.tables
+            _, _, ra, _ = seeded_inputs(torch, np, pl, 3, SEED + 3 * n + v, dev)
+            for name in FS_TRANSFORMS[1:]:
+                cuda, ref, one_block, _, _ = fs_kernel(name)
+                got = cuda(ra, tables)
+                torch.cuda.synchronize()
+                exact(got, ref(ra, tables), f"{name} n={n} t=3 v={v}")
+                exact(got, one_block(ra, tables), f"{name} vs one block n={n} v={v}")
+        log(f"[kernels] K3-fs and K4-fs at n={n}, t=3, 3 rows, v = 29, 30, 31: one tile a "
+            f"polynomial ({kern.fs_col_box(n, 4)}), equal to the plain versions and K3/K4 bit "
+            "for bit")
     log(f"[kernels] multi-block checks took {time.perf_counter() - t0:.1f} s (host clock)")
 
 
@@ -1215,8 +1246,12 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
                      "clusters_resident": {str(c): k for c, k in blocks.items()},
                      "waves": fill["waves"]}
         else:
-            resident = f"CTAs an SM holds per launch {blocks}"
-            extra = {"blocks_per_sm": list(blocks)}
+            grid = kern.fs_stream_grid(tables, name)
+            resident = (f"{blocks} CTAs an SM ({kern.fs_threads(n)} consumer threads and a "
+                        f"producer warp, {kern.fs_stream_smem_bytes(n)} B of shared memory), "
+                        f"{grid} persistent CTAs over {2 * kern.fs_blocks(FS_T, FS_MAIN[n], n)} "
+                        "tiles")
+            extra = {"blocks_per_sm": blocks, "grid": grid}
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.get(name, {}).values()),
@@ -1227,7 +1262,7 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
         })
         log(f"[time] {name} at (t, rows, n) = ({FS_T}, {FS_MAIN[n]}, {n}): {ms:.4f} ms per call "
             f"(median of {TIMED_LAUNCHES}, one call between two events, "
-            f"{'one cluster launch' if name == 'fused_polymul_fs' else 'two launches'}), "
+            f"{'one cluster launch' if name == 'fused_polymul_fs' else 'one persistent launch'}), "
             f"{device_ms:.4f} ms back to back (device time), plain {plain_ms:.3f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops} int ops); {resident}; "
             f"no single PyTorch call computes this function, so library_ms is null; {card}")
@@ -1441,12 +1476,13 @@ def issue_ms(torch, fn, calls: int = TIMED_LAUNCHES) -> float:
 
 def time_host_split(card: str) -> None:
     """Phase 6 at the largest FS_MAIN shape: the host time of one
-    ``polymul`` call on cuda_fused_e2e (K2-fs) and on cuda_fused
+    ``polymul`` call on cuda_fused_e2e (K2-fs), on cuda_fused and on cuda
     (``issue_ms``): the whole call, each kernel wrapper it runs alone, and
-    K2-fs's C call alone on buffers allocated beforehand and its three
-    allocations alone; then ``torch.profiler``'s host-side events over
-    TIMED_LAUNCHES calls of each, self time a call by name (``[host]``
-    lines)."""
+    K2-fs's and K3-fs's C calls alone on buffers allocated beforehand
+    (K3-fs's: the counters' memset, the TMA maps' encoding, the launch)
+    and their allocations alone; then ``torch.profiler``'s host-side
+    events over TIMED_LAUNCHES calls of each, self time a call by name
+    (``[host]`` lines)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1459,6 +1495,7 @@ def time_host_split(card: str) -> None:
     rows = FS_MAIN[n]
     e2e = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e")
     fused = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused")
+    staged = repro_torch.plan(n, FS_T, FS_V, backend="cuda")
     p, fp, cfg = e2e.params, fused.params, e2e.config
     za, zb, ra, rb = seeded_inputs(torch, np, e2e, rows, SEED + n, e2e.device)
     pointers, ints = kern._e2e_constants(p.tables, p.plan, "fused_e2e_polymul_fs_cuda",
@@ -1476,6 +1513,16 @@ def time_host_split(card: str) -> None:
                   for _ in range(2)))
 
     z2a, z2b = za.reshape(-1, cfg.seg_count), zb.reshape(-1, cfg.seg_count)
+    tables = staged.params.tables
+    ntt_pointers, ntt_ints = kern._table_constants(tables, "ntt_channels_fs", "[host]")
+    ntt_launch = _build.load("ntt_channels_fs", "parentt_ntt_channels_fs", kern._FS_STAGE_ARGTYPES)
+    grid = kern.fs_stream_grid(tables, "ntt_channels_fs")
+
+    def fs_alloc():
+        return (torch.empty_like(ra),
+                torch.empty(cfg.t * rows * (n + 1) + 1, dtype=torch.int32, device=ra.device))
+
+    fs_out, fs_scratch = fs_alloc()
     parts = {
         "cuda_fused_e2e": {
             "polymul": lambda: repro_torch.polymul(e2e, za, zb),
@@ -1490,6 +1537,19 @@ def time_host_split(card: str) -> None:
                                       crt.decompose_cuda(z2b, fp.plan)),
             "K1-fs wrapper": lambda: kern.fused_polymul_fs_cuda(ra, rb, fp.tables),
             "K6 wrapper": lambda: crt.compose_cuda(ra.reshape(cfg.t, -1), fp.plan),
+        },
+        "cuda": {
+            "polymul": lambda: repro_torch.polymul(staged, za, zb),
+            "K5 wrapper x2": lambda: (crt.decompose_cuda(z2a, fp.plan),
+                                      crt.decompose_cuda(z2b, fp.plan)),
+            "K3-fs wrapper x2": lambda: (kern.ntt_channels_fs_cuda(ra, tables),
+                                         kern.ntt_channels_fs_cuda(rb, tables)),
+            "K4-fs wrapper": lambda: kern.intt_channels_fs_cuda(ra, tables),
+            "K6 wrapper": lambda: crt.compose_cuda(ra.reshape(cfg.t, -1), fp.plan),
+            "K3-fs C call": lambda: ntt_launch(ptr(ra), ptr(fs_scratch), ptr(fs_out),
+                                               *ntt_pointers, cfg.t, rows, *ntt_ints, grid,
+                                               _build.stream_of(ra)),
+            "its allocations": fs_alloc,
         },
     }
     for backend, fns in parts.items():
@@ -1805,16 +1865,20 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     DIR (its ``src/`` imported, its kernels built into its ``build/``) at
     the main path's shape, each first checked against its plain version:
     one call between two events (``ms``) and back to back (``device_ms``),
-    K2 also at one row (``k2_times``), K1-fs (``fused_polymul_fs``) and
-    K2-fs (``fused_e2e_polymul_fs``) at the largest FS_MAIN shape, so two
-    commits compare in one call."""
+    K2 also at one row (``k2_times``), K1-fs, K3-fs, K4-fs and K2-fs
+    (``fused_polymul_fs``, ``ntt_channels_fs``, ``intt_channels_fs``,
+    ``fused_e2e_polymul_fs``) at the largest FS_MAIN shape, and K7
+    (``attention``) at the four ATTN_MODEL shapes, first held within its
+    tolerance, so two commits compare in one call."""
     import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
-    known = [*KERNELS, "fused_polymul_fs", "fused_e2e_polymul_fs"]
+    multi_block = ["fused_polymul_fs", "ntt_channels_fs", "intt_channels_fs",
+                   "fused_e2e_polymul_fs"]
+    known = [*KERNELS, *multi_block, "attention"]
     unknown = [name for name in names if name not in known]
     if unknown or not names:
         print(f"chip_smoke: --time-kernels takes names of {known}, got {names}", file=sys.stderr)
@@ -1826,18 +1890,34 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     pl = repro_torch.plan(n=MAIN["n"], t=MAIN["t"], v=MAIN["v"])
     inputs = seeded_inputs(torch, np, pl, MAIN["rows"], SEED, pl.device)
     calls = kernel_calls(pl, inputs)
-    if {"fused_polymul_fs", "fused_e2e_polymul_fs"} & set(names):
-        # K1-fs and K2-fs at the largest FS_MAIN shape
+    if set(multi_block) & set(names):
+        # K1-fs, K3-fs, K4-fs and K2-fs at the largest FS_MAIN shape
         n = max(FS_MAIN)
         fs = repro_torch.plan(n, FS_T, FS_V, backend="cuda_fused_e2e").params
         za, zb, ra, rb = seeded_inputs(torch, np, repro_torch.plan(n, FS_T, FS_V), FS_MAIN[n],
                                        SEED + n, pl.device)
         calls["fused_polymul_fs"] = (lambda: kern.fused_polymul_fs_cuda(ra, rb, fs.tables),
                                      lambda: kern.fused_polymul_fs_ref(ra, rb, fs.tables))
+        calls["ntt_channels_fs"] = (lambda: kern.ntt_channels_fs_cuda(ra, fs.tables),
+                                    lambda: kern.ntt_channels_fs_ref(ra, fs.tables))
+        calls["intt_channels_fs"] = (lambda: kern.intt_channels_fs_cuda(ra, fs.tables),
+                                     lambda: kern.intt_channels_fs_ref(ra, fs.tables))
         calls["fused_e2e_polymul_fs"] = (
             lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, fs.tables, fs.plan),
             lambda: kern.fused_e2e_polymul_fs_ref(za, zb, fs.tables, fs.plan))
     log(card_line())
+    if "attention" in names:  # K7 at the four model shapes, within its tolerance
+        from repro_torch.kernels import attention
+
+        names = [name for name in names if name != "attention"]
+        for shape_name, (shape, kw) in ATTN_MODEL.items():
+            q, k, v = attention_inputs(torch, shape, "bfloat16", SEED, pl.device)
+            fn = lambda q=q, k=k, v=v, kw=kw: attention.flash_attention_cuda(q, k, v, **kw)
+            attention_error(torch, fn(), attention.flash_attention_ref(q, k, v, **kw),
+                            f"attention {shape_name} of {checkout}")
+            log(f"[time-kernels] attention {shape_name} {checkout} ({repro_torch.__file__}): "
+                f"ms {time_launches(torch, fn, TIMED_LAUNCHES):.4f}, device_ms "
+                f"{time_back_to_back(torch, fn, TIMED_LAUNCHES):.4f}")
     for name in names:
         fn, ref = calls[name]
         exact(fn(), ref(), f"{name} of {checkout}")
@@ -2017,6 +2097,185 @@ def time_cascade_variants() -> int:
                 f"transpose {t2 - t1:.4f}, inverse columns {t3 - t2:.4f}; {resident[c]} "
                 f"clusters resident, {FS_T * rows / resident[c]:.2f} waves")
     return 0
+
+
+# --transform-variants: the shapes (t, rows, n), and the launches of the
+# earlier design (one CTA a tile, two launches a call) in
+# csrc/fs_variants.cu: transform -> (index, its launches in order)
+TRANSFORM_SHAPES = ((6, 16, 65536), (6, 32, 32768))
+OLD_LAUNCHES = {"ntt_channels_fs": (0, ("columns", "rows")),
+                "intt_channels_fs": (1, ("rows", "columns"))}
+# the shipped kernel's builds beside its own (PARENTT_FS_STREAM_FORM): as
+# built, copying its tiles with no butterfly, its passes with no TMA traffic
+STREAM_FORMS = {"stream": 0, "stream_copy": 1, "stream_passes": 2}
+
+
+def build_variant_libs(specs: dict[str, tuple[str, tuple[str, ...]]]) -> dict:
+    """Each ``name: (source, flags)`` of ``specs``: ``csrc/<source>.cu``
+    built with ``flags`` into ``build/transform_variants/lib<name>.so``,
+    one nvcc process each, all started together; their ptxas lines
+    printed; name -> the library, loaded with ctypes."""
+    from repro_torch.kernels import _build
+
+    out_dir = _build.BUILD_DIR / "transform_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(out_dir / f"lib{name}.so"),
+         str(_build.CSRC / f"{source}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, (source, flags) in specs.items()}
+    libs = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {specs[name]}:\n{text}")
+        _build.ptxas_report(f"transform_variants/{name}").write_text(text)
+        for line in ptxas_entries(f"transform_variants/{name}"):
+            log(f"[ptxas {name}] {line}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    return libs
+
+
+def old_transform_forms(torch, lib, name: str, a, tables) -> dict[str, object]:
+    """The earlier design's launches of K3-fs or K4-fs (``name``) on ``a`` from
+    csrc/fs_variants.cu, each whole, as a copy and as its passes, and both
+    whole launches in turn, after checking the two whole launches' output
+    against the plain version: form -> a call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ntt as kern
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    launch = lib.parentt_fs_variant
+    launch.argtypes = [I] * 3 + [P] * 8 + [I] * 8 + [P]
+    launch.restype = ctypes.c_int
+    index, order = OLD_LAUNCHES[name]
+    t, rows, _ = a.shape
+    pointers, ints = kern._table_constants(tables, name, "--transform-variants")
+    scratch = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    out = torch.empty_like(a)
+
+    def call(step, variant):
+        return lambda: _build.check("fs_variants", launch(
+            index, step, variant, _build.ptr(a), _build.ptr(scratch), _build.ptr(out), *pointers,
+            t, rows, *ints, _build.stream_of(a)))
+
+    both = lambda: (call(0, 0)(), call(1, 0)())
+    both()
+    torch.cuda.synchronize()
+    ref = kern.ntt_channels_fs_ref if index == 0 else kern.intt_channels_fs_ref
+    exact(out, ref(a, tables), f"per-CTA {name} at {tuple(a.shape)}")
+    forms = {"per-CTA both launches": both}
+    for step, part in enumerate(order):
+        for variant, form in enumerate(("whole", "copy", "passes")):
+            forms[f"per-CTA {part} {form}"] = call(step, variant)
+    return forms
+
+
+def time_transform_variants() -> int:
+    """``--transform-variants``: K3-fs and K4-fs at TRANSFORM_SHAPES (v =
+    30), back to back, each form in turns (the list, then reversed): the
+    earlier design's column and row launches of one CTA a tile
+    (csrc/fs_variants.cu, the forms labelled "per-CTA") each whole, as a
+    copy with their tile maps and word types and no butterfly (memory
+    time) and as their passes on a tile in shared memory (integer time);
+    the shipped kernel as one persistent launch against the same tile loop
+    as two launches, each a queue of one phase, each of those alone, and
+    its one launch as a copy and as its passes (PARENTT_FS_STREAM_FORM),
+    and the one-block K3 or K4 where it serves n (32768), every output of
+    a whole form checked against the plain version; then, for both
+    designs, whole / (copy + passes) and whole / max(copy, passes), the
+    mean of the turns."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ntt as kern
+
+    _build.build(["ntt_channels_fs", "intt_channels_fs", "ntt_channels", "intt_channels"])
+    specs = {"fs_variants": ("fs_variants", ())}
+    for name in OLD_LAUNCHES:
+        for form, flag in STREAM_FORMS.items():
+            specs[f"{name}_{form}"] = (name, ("-DPARENTT_FS_PHASES",
+                                              f"-DPARENTT_FS_STREAM_FORM={flag}"))
+    libs = build_variant_libs(specs)
+    log(card_line())
+    for t, rows, n in TRANSFORM_SHAPES:
+        pl = repro_torch.plan(n, t, FS_V, backend="cuda")
+        tables = pl.params.tables
+        _, _, ra, _ = seeded_inputs(torch, np, pl, rows, SEED + n, pl.device)
+        for name in OLD_LAUNCHES:
+            forms = old_transform_forms(torch, libs["fs_variants"], name, ra, tables)
+            forms.update(stream_transform_forms(torch, libs, name, ra, tables))
+            if kern.stage_fits(n):  # the one-block kernel (K3 or K4) serves n too
+                one_block = fs_kernel(name)[2]
+                exact(one_block(ra, tables), kern.ntt_channels_fs_ref(ra, tables)
+                      if name == "ntt_channels_fs" else kern.intt_channels_fs_ref(ra, tables),
+                      f"one-block {name} at {(t, rows, n)}")
+                forms["one-block kernel"] = lambda f=one_block: f(ra, tables)
+            times = {form: [] for form in forms}
+            for form in [*forms, *reversed(forms)]:
+                times[form].append(time_back_to_back(torch, forms[form], TIMED_LAUNCHES))
+            log(f"[transform-variants] {name} at (t, rows, n) = ({t}, {rows}, {n}), ms back to "
+                "back in turns (the list, then reversed): " + "; ".join(
+                    f"{form} {' / '.join(f'{x:.4f}' for x in ts)}" for form, ts in times.items()))
+            mean = {form: statistics.mean(ts) for form, ts in times.items()}
+            first, second = OLD_LAUNCHES[name][1]
+            old_copy = mean[f"per-CTA {first} copy"] + mean[f"per-CTA {second} copy"]
+            old_passes = mean[f"per-CTA {first} passes"] + mean[f"per-CTA {second} passes"]
+            for design, whole, copy, passes in (
+                    ("per-CTA (two launches)", mean["per-CTA both launches"], old_copy, old_passes),
+                    ("stream (one launch)", mean["one launch"], mean["one launch copy"],
+                     mean["one launch passes"])):
+                log(f"[transform-variants] {name} at ({t}, {rows}, {n}), {design}: whole "
+                    f"{whole:.4f}, copy {copy:.4f}, passes {passes:.4f}; whole / (copy + passes) "
+                    f"{whole / (copy + passes):.3f}, whole / max(copy, passes) "
+                    f"{whole / max(copy, passes):.3f}; {card_line()}")
+    return 0
+
+
+def stream_transform_forms(torch, libs: dict, name: str, a, tables) -> dict[str, object]:
+    """The shipped K3-fs or K4-fs (``name``) on ``a``: its one launch
+    through the wrapper; the same kernel (``libs[name + " stream"]``,
+    built with PARENTT_FS_PHASES) as two launches of a queue of one phase
+    each (``parentt_<name>_phases``) and each of those alone, after
+    checking the two-launch form against the plain version; and its one
+    launch built as a copy with no butterfly and as its passes with no
+    TMA traffic (STREAM_FORMS): form -> a call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ntt as kern
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    t, rows, n = a.shape
+    pointers, ints = kern._table_constants(tables, name, "--transform-variants")
+    grid = kern.fs_stream_grid(tables, name)
+    scratch = torch.empty(t * rows * (n + 1) + 1, dtype=torch.int32, device=a.device)
+    out = torch.empty_like(a)
+
+    def call(form, phases):
+        launch = getattr(libs[f"{name}_{form}"], f"parentt_{name}_phases")
+        launch.argtypes = [P] * 8 + [I] * 10 + [P]
+        launch.restype = ctypes.c_int
+        return lambda: _build.check(name, launch(
+            _build.ptr(a), _build.ptr(scratch), _build.ptr(out), *pointers, t, rows, *ints,
+            phases, grid, _build.stream_of(a)))
+
+    two = lambda: (call("stream", 1)(), call("stream", 2)())
+    two()
+    torch.cuda.synchronize()
+    fwd = name == "ntt_channels_fs"
+    ref = kern.ntt_channels_fs_ref if fwd else kern.intt_channels_fs_ref
+    exact(out, ref(a, tables), f"{name} as two launches at {tuple(a.shape)}")
+    cuda = kern.ntt_channels_fs_cuda if fwd else kern.intt_channels_fs_cuda
+    first, second = ("columns", "rows") if fwd else ("rows", "columns")
+    return {"one launch": lambda: cuda(a, tables), "two launches": two,
+            f"{first} launch alone": call("stream", 1),
+            f"{second} launch alone": call("stream", 2),
+            "one launch copy": call("stream_copy", 3),
+            "one launch passes": call("stream_passes", 3)}
 
 
 def ptxas_entries(name: str) -> list[str]:
@@ -2672,6 +2931,8 @@ def main() -> int:
         return time_compose_variants()
     if sys.argv[1:] == ["--cascade-variants"]:
         return time_cascade_variants()
+    if sys.argv[1:] == ["--transform-variants"]:
+        return time_transform_variants()
     # the yardstick's torch.compile caches stay inside the checkout
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
         os.environ[var] = str(ROOT / "build" / sub)

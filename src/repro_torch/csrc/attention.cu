@@ -63,12 +63,21 @@
 // Decode: the K and V bytes at 3.35 TB/s, which the design reads once
 // (whole GQA group per block) with enough splits to fill the 132 SMs.
 // Float32: the two products on the CUDA cores (67 TFLOP/s).
-#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 
 #include "parentt.cuh"
 
 namespace {
+
+// the Hopper primitives of csrc/parentt.cuh that the rings use
+using parentt::encoder;
+using parentt::EncodeTiled;
+using parentt::mbar_arrive;
+using parentt::mbar_expect_tx;
+using parentt::mbar_init;
+using parentt::mbar_wait;
+using parentt::smem_addr;
+using parentt::tma_load;
 
 typedef __nv_bfloat16 bf16;
 
@@ -376,63 +385,8 @@ cudaError_t launch_d(const AttnArgs& a, int D, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// Hopper primitives: mbarrier, TMA, wgmma (sm_90a)
+// wgmma (sm_90a; the mbarrier and TMA primitives are csrc/parentt.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Arrive once and expect `bytes` more of TMA traffic in the current phase.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A wait that
-// outlasts some seconds is a fault of the ring's bookkeeping: trap, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done, spins = 0;
-  uint64_t start = 0;
-  do {
-    if ((++spins & 0xfff) == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (start == 0) start = now;
-      else if (now - start > 4000000000ull) __trap();  // 4 s
-    }
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map (coordinates innermost first) into shared
-// memory; the copy counts its bytes on `bar`.  Elements past the tensor's
-// edge arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // wgmma descriptor of a tile of rows of kRowBytes (64 or 128) bytes,
 // swizzled by the same span, 8-row groups 8 * kRowBytes apart.  K-major
@@ -1129,31 +1083,6 @@ __global__ void __launch_bounds__(kDcThreads)
 // ---------------------------------------------------------------------------
 // tensor maps and launches
 // ---------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled is a driver-API call: it is looked up through the
-// runtime, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A 4-D map of one bf16 (B, S, heads, D) tensor, innermost first, read in
 // boxes of `box_rows` rows of one head and `box_cols` columns.

@@ -9,22 +9,26 @@
 // _fs_cols_inv / _fs_cols_inv_hier, :190-204 and :282), on the card's own
 // two-level split (parentt.cuh, "Multi-block transforms").
 //
-// Design: the mirror of ntt_channels_fs.cu (K3-fs), two launches over
-// E = min(n, 4096)-element tiles, pass_threads(E) threads a CTA (256):
-//   1. the row stages first (GS, stride 1 .. n2/2): a CTA takes E/n2 whole
-//      rows, reads the int64 spectra straight into registers, runs the
-//      log2(n2) inverse row stages on the register passes with the
-//      stage table's twiddles, and stores its lazy values as 32-bit words
-//      to a scratch tensor;
-//   2. the column stages (stride n2 .. n/2): a CTA takes n1 rows x E/n1
-//      adjacent columns as a virtual length-E transform, runs the
-//      log2(n1) inverse column stages, and its last pass canonicalizes and
-//      stores int64 (consecutive threads on consecutive columns).
+// Design: the mirror of ntt_channels_fs.cu (K3-fs), one persistent launch
+// a call, a tile stream (parentt.cuh fs_stream) over E = min(n,
+// 4096)-element tiles, the row tiles of every polynomial first, its column
+// tiles a lag later, each loaded once its polynomial's row tiles are in
+// the scratch:
+//   1. a row tile (E/n2 whole rows of int64 spectra, contiguous) is copied
+//      into the padded tile, runs the log2(n2) inverse row stages (GS,
+//      stride 1 .. n2/2) with the stage table's twiddles, and leaves its
+//      lazy values as 32-bit words in the scratch;
+//   2. a column tile (n1 rows x E/n1 adjacent columns, a TMA box of
+//      32-bit words) runs the log2(n1) inverse column stages (stride n2 ..
+//      n/2) as a virtual length-E transform, and its last pass
+//      canonicalizes and leaves int64 for the TMA store.
 // The regime is a template parameter.
 //
-// What bounds it on an H100: device memory, as K3-fs: 16 bytes a
-// coefficient at the least, 24 with the 32-bit scratch; the butterflies
-// with their two halvings are 32-bit integer work of a smaller bound.
+// What bounds it on an H100: the integer passes, as K3-fs's, the more so
+// for the two halvings in every butterfly; three stages a pass (K3-fs
+// takes four), the faster here (chip_smoke.py --transform-variants).  16
+// bytes a coefficient of device memory at the least, the 32-bit words
+// between the phases read back from L2.
 #include "parentt.cuh"
 
 using namespace parentt;
@@ -32,77 +36,66 @@ using namespace parentt;
 namespace {
 
 template <int REG>
-__global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 4 : 6)
-    intt_fs_rows_kernel(const FsArgs a) {
-  extern __shared__ res_t smem[];
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const int x0 = g.blk << g.log_e;
-  const GlobalIn<i64, 1, RowMap> in{{a.in[0] + g.poly}, RowMap{}};
-  const ScratchOut<1, RowMap> out{{a.scratch[0] + g.poly}, RowMap{}};
-  const TilePolys<1> tile{{smem}, x0};
-  inverse_stages(in, tile, out, 0, g.log_n2, g.log_n, x0, g.log_e, pass_group(1 << g.log_e),
-                 fs_tabs(a, g.c), r);
+__global__ void __launch_bounds__(kFsStreamBlock, kFsStreamMinBlocks)
+    intt_fs_kernel(const __grid_constant__ CUtensorMap col_in,
+                   const __grid_constant__ CUtensorMap col_out, const FsStreamArgs a) {
+  extern __shared__ unsigned char smem[];
+  fs_stream<REG, false>(a, col_in, col_out, smem);
 }
 
-template <int REG>
-__global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 4 : 6)
-    intt_fs_cols_kernel(const FsArgs a) {
-  extern __shared__ res_t smem[];
-  fs_cols_inverse<REG>(a, smem);
+decltype(&intt_fs_kernel<kLazy2>) pick_kernel(int mode, int window) {
+  static const decltype(&intt_fs_kernel<kLazy2>) kernels[3] = {
+      intt_fs_kernel<kLazy2>, intt_fs_kernel<kLazy4>, intt_fs_kernel<kStrict>};
+  return kernels[regime_of(mode, window)];
 }
 
-typedef void (*FsKernel)(const FsArgs);
-
-FsKernel pick_kernel(int pass, int mode, int window) {
-  static const FsKernel kernels[2][3] = {
-      {intt_fs_rows_kernel<kLazy2>, intt_fs_rows_kernel<kLazy4>, intt_fs_rows_kernel<kStrict>},
-      {intt_fs_cols_kernel<kLazy2>, intt_fs_cols_kernel<kLazy4>, intt_fs_cols_kernel<kStrict>}};
-  return kernels[pass][regime_of(mode, window)];
+int launch(const long long* a, int* scratch, long long* out, const long long* qs,
+           const long long* half, const long long* eps, const long long* inv,
+           const long long* inv_shoup, int t, int rows, int log_n, int mode, int window, int beta,
+           int s1, int s2, int phases, int grid, void* stream) {
+  const FsStreamArgs args{a,   (res_t*)scratch, out,   scratch + ((size_t)t * rows << log_n),
+                          qs,  half,            eps,   inv,
+                          inv_shoup, rows,      t * rows, log_n,
+                          mode, window,         beta,  s1,
+                          s2,  phases,          0};
+  return fs_stream_launch(pick_kernel(mode, window), false, args, grid, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the two passes on `stream` (scratch: (t, rows, n) 32-bit
-// words); returns the CUDA error of an attribute call or a launch.
+// One call on `stream`: `scratch` holds the (t, rows, n) 32-bit words
+// between the phases and, after them, 1 + t * rows int32 counters; `grid`
+// is the CTAs the card holds at once.  Returns the CUDA error of the
+// memset, the map encoding, the attribute call or the launch.
 int parentt_intt_channels_fs(const long long* a, int* scratch, long long* out,
                              const long long* qs, const long long* half, const long long* eps,
                              const long long* inv, const long long* inv_shoup, int t, int rows,
-                             int log_n, int mode, int window, int beta, int s1, int s2,
+                             int log_n, int mode, int window, int beta, int s1, int s2, int grid,
                              void* stream) {
-  const FsArgs args{{a, a},    {(res_t*)scratch, (res_t*)scratch},
-                    out,       qs,
-                    half,      eps,
-                    inv,       inv,
-                    inv_shoup, inv_shoup,
-                    rows,      log_n,
-                    mode,      window,
-                    beta,      s1,
-                    s2};
-  for (int pass = 0; pass < 2; ++pass) {
-    const FsKernel kernel = pick_kernel(pass, mode, window);
-    const cudaError_t err = allow_smem(kernel, fs_smem(log_n, 1));
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<fs_blocks(t, rows, log_n), fs_threads(log_n), fs_smem(log_n, 1),
-             (cudaStream_t)stream>>>(args);
-    const cudaError_t launched = cudaGetLastError();
-    if (launched != cudaSuccess) return (int)launched;
-  }
-  return 0;
+  return launch(a, scratch, out, qs, half, eps, inv, inv_shoup, t, rows, log_n, mode, window,
+                beta, s1, s2, 3, grid, stream);
 }
 
-// How many CTAs of pass `pass` (0: rows, 1: columns) an SM holds at once
-// at this n and regime, or minus the CUDA error.
-int parentt_intt_channels_fs_blocks_per_sm(int pass, int log_n, int mode, int window) {
-  const FsKernel kernel = pick_kernel(pass, mode, window);
-  cudaError_t err = allow_smem(kernel, fs_smem(log_n, 1));
-  if (err != cudaSuccess) return -(int)err;
-  int count = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, fs_threads(log_n),
-                                                      fs_smem(log_n, 1));
-  return err == cudaSuccess ? count : -(int)err;
+#ifdef PARENTT_FS_PHASES
+// The same tile loop over one phase's tiles (`phases` 1: the rows, 2: the
+// columns) or both (3), for chip_smoke.py --transform-variants alone.
+int parentt_intt_channels_fs_phases(const long long* a, int* scratch, long long* out,
+                                    const long long* qs, const long long* half,
+                                    const long long* eps, const long long* inv,
+                                    const long long* inv_shoup, int t, int rows, int log_n,
+                                    int mode, int window, int beta, int s1, int s2, int phases,
+                                    int grid, void* stream) {
+  return launch(a, scratch, out, qs, half, eps, inv, inv_shoup, t, rows, log_n, mode, window,
+                beta, s1, s2, phases, grid, stream);
+}
+#endif
+
+// How many CTAs an SM holds at once at this n and regime, or minus the
+// CUDA error.
+int parentt_intt_channels_fs_blocks_per_sm(int log_n, int mode, int window) {
+  return fs_stream_blocks_per_sm(pick_kernel(mode, window), log_n);
 }
 
 const char* parentt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

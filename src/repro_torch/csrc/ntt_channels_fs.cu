@@ -9,25 +9,31 @@
 // that body computes, on the card's own two-level split (parentt.cuh,
 // "Multi-block transforms"), not the TPU's 128-lane / 8-sublane chain.
 //
-// Design: two launches over E = min(n, 4096)-element tiles,
-// pass_threads(E) threads a CTA (256):
-//   1. the column stages: a CTA takes n1 rows x E/n1 adjacent columns of
-//      the (n1, n2) view (every row segment a coalesced load of int64
-//      residues), runs the log2(n1) column stages on the register passes
-//      as a virtual length-E transform, and stores its lazy values as
-//      32-bit words to a scratch tensor;
-//   2. the row stages: a CTA takes E/n2 whole rows (contiguous), runs the
+// Design: one persistent launch a call, a tile stream (parentt.cuh
+// fs_stream): every CTA takes E = min(n, 4096)-element tiles from one
+// queue, the column tiles of every polynomial first, its row tiles a lag
+// later, each row tile loaded once its polynomial's column tiles are in
+// the scratch:
+//   1. a column tile (n1 rows x E/n1 adjacent columns of the (n1, n2)
+//      view, a TMA box of int64 residues) runs the log2(n1) column stages
+//      on the register passes as a virtual length-E transform and leaves
+//      its lazy values as 32-bit words in the scratch;
+//   2. a row tile (E/n2 whole rows, contiguous 32-bit words) runs the
 //      log2(n2) row stages with the twist-merged twiddles read from the
-//      stage table itself, canonicalizes, and copies out int64 through
-//      shared memory with consecutive threads on consecutive words.
-// The regime (lazy W = 2, lazy W = 4, strict with block-Barrett products)
-// is a template parameter.
+//      stage table itself, canonicalizes, and leaves int64 in the output.
+// A producer warp keeps the next tile's load in flight while the consumer
+// threads run the current tile's passes, and drains each finished tile
+// with a TMA store.  The regime (lazy W = 2, lazy W = 4, strict with
+// block-Barrett products) is a template parameter.
 //
-// What bounds it on an H100: device memory.  The least traffic is one
-// int64 word in and one out a coefficient (16 bytes); the split adds a
-// 32-bit scratch write and read (8 bytes more, 24 in all).  The n/2
-// log2(n) butterflies are 32-bit integer work of a smaller bound.  The
-// tiles are small (17 KB), so an SM holds many CTAs.
+// What bounds it on an H100: the integer passes.  The least traffic is
+// one int64 word in and one out a coefficient (16 bytes), and the 32-bit
+// words between the phases are read back from L2; but the n/2 log2(n)
+// butterflies in ceil(log2(n1)/4) + ceil(log2(n2)/4) trips through shared
+// memory (four stages a pass) take longer alone than the tile copies
+// alone, and the stream, which overlaps one tile's loads and stores with
+// another's passes, comes out a little above them (chip_smoke.py
+// --transform-variants, PERF.md).
 #include "parentt.cuh"
 
 using namespace parentt;
@@ -35,80 +41,66 @@ using namespace parentt;
 namespace {
 
 template <int REG>
-__global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 4 : 6)
-    ntt_fs_cols_kernel(const FsArgs a) {
-  extern __shared__ res_t smem[];
-  fs_cols_forward<REG, 1>(a, smem);
+__global__ void __launch_bounds__(kFsStreamBlock, kFsStreamMinBlocks)
+    ntt_fs_kernel(const __grid_constant__ CUtensorMap col_in,
+                  const __grid_constant__ CUtensorMap col_out, const FsStreamArgs a) {
+  extern __shared__ unsigned char smem[];
+  fs_stream<REG, true>(a, col_in, col_out, smem);
 }
 
-template <int REG>
-__global__ void __launch_bounds__(kFsThreads, REG == kStrict ? 4 : 6)
-    ntt_fs_rows_kernel(const FsArgs a) {
-  extern __shared__ res_t smem[];
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const int E = 1 << g.log_e;
-  const int x0 = g.blk << g.log_e;
-  const GlobalIn<res_t, 1, RowMap> in{{a.scratch[0] + g.poly}, RowMap{}};
-  const TilePolys<1> tile{{smem}, x0};
-  forward_stages<1>(in, tile, tile, g.log_n1, g.log_n, g.log_n, x0, g.log_e, pass_group(E),
-                    fs_tabs(a, g.c), r);
-  __syncthreads();
-  i64* out = a.out + g.poly + x0;
-  for (int j = threadIdx.x; j < E; j += blockDim.x) out[j] = canonicalize(smem[pad(j)], r);
+decltype(&ntt_fs_kernel<kLazy2>) pick_kernel(int mode, int window) {
+  static const decltype(&ntt_fs_kernel<kLazy2>) kernels[3] = {
+      ntt_fs_kernel<kLazy2>, ntt_fs_kernel<kLazy4>, ntt_fs_kernel<kStrict>};
+  return kernels[regime_of(mode, window)];
 }
 
-typedef void (*FsKernel)(const FsArgs);
-
-FsKernel pick_kernel(int pass, int mode, int window) {
-  static const FsKernel kernels[2][3] = {
-      {ntt_fs_cols_kernel<kLazy2>, ntt_fs_cols_kernel<kLazy4>, ntt_fs_cols_kernel<kStrict>},
-      {ntt_fs_rows_kernel<kLazy2>, ntt_fs_rows_kernel<kLazy4>, ntt_fs_rows_kernel<kStrict>}};
-  return kernels[pass][regime_of(mode, window)];
+int launch(const long long* a, int* scratch, long long* out, const long long* qs,
+           const long long* half, const long long* eps, const long long* fwd,
+           const long long* fwd_shoup, int t, int rows, int log_n, int mode, int window, int beta,
+           int s1, int s2, int phases, int grid, void* stream) {
+  const FsStreamArgs args{a,   (res_t*)scratch, out,   scratch + ((size_t)t * rows << log_n),
+                          qs,  half,            eps,   fwd,
+                          fwd_shoup, rows,      t * rows, log_n,
+                          mode, window,         beta,  s1,
+                          s2,  phases,          0};
+  return fs_stream_launch(pick_kernel(mode, window), true, args, grid, (cudaStream_t)stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the two passes on `stream` (scratch: (t, rows, n) 32-bit
-// words); returns the CUDA error of an attribute call or a launch.
+// One call on `stream`: `scratch` holds the (t, rows, n) 32-bit words
+// between the phases and, after them, 1 + t * rows int32 counters; `grid`
+// is the CTAs the card holds at once.  Returns the CUDA error of the
+// memset, the map encoding, the attribute call or the launch.
 int parentt_ntt_channels_fs(const long long* a, int* scratch, long long* out,
                             const long long* qs, const long long* half, const long long* eps,
                             const long long* fwd, const long long* fwd_shoup, int t, int rows,
-                            int log_n, int mode, int window, int beta, int s1, int s2,
+                            int log_n, int mode, int window, int beta, int s1, int s2, int grid,
                             void* stream) {
-  const FsArgs args{{a, a},    {(res_t*)scratch, (res_t*)scratch},
-                    out,       qs,
-                    half,      eps,
-                    fwd,       fwd,
-                    fwd_shoup, fwd_shoup,
-                    rows,      log_n,
-                    mode,      window,
-                    beta,      s1,
-                    s2};
-  for (int pass = 0; pass < 2; ++pass) {
-    const FsKernel kernel = pick_kernel(pass, mode, window);
-    const cudaError_t err = allow_smem(kernel, fs_smem(log_n, 1));
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<fs_blocks(t, rows, log_n), fs_threads(log_n), fs_smem(log_n, 1),
-             (cudaStream_t)stream>>>(args);
-    const cudaError_t launched = cudaGetLastError();
-    if (launched != cudaSuccess) return (int)launched;
-  }
-  return 0;
+  return launch(a, scratch, out, qs, half, eps, fwd, fwd_shoup, t, rows, log_n, mode, window,
+                beta, s1, s2, 3, grid, stream);
 }
 
-// How many CTAs of pass `pass` (0: columns, 1: rows) an SM holds at once
-// at this n and regime, or minus the CUDA error.
-int parentt_ntt_channels_fs_blocks_per_sm(int pass, int log_n, int mode, int window) {
-  const FsKernel kernel = pick_kernel(pass, mode, window);
-  cudaError_t err = allow_smem(kernel, fs_smem(log_n, 1));
-  if (err != cudaSuccess) return -(int)err;
-  int count = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, fs_threads(log_n),
-                                                      fs_smem(log_n, 1));
-  return err == cudaSuccess ? count : -(int)err;
+#ifdef PARENTT_FS_PHASES
+// The same tile loop over one phase's tiles (`phases` 1: the columns, 2:
+// the rows) or both (3), for chip_smoke.py --transform-variants alone.
+int parentt_ntt_channels_fs_phases(const long long* a, int* scratch, long long* out,
+                                   const long long* qs, const long long* half,
+                                   const long long* eps, const long long* fwd,
+                                   const long long* fwd_shoup, int t, int rows, int log_n,
+                                   int mode, int window, int beta, int s1, int s2, int phases,
+                                   int grid, void* stream) {
+  return launch(a, scratch, out, qs, half, eps, fwd, fwd_shoup, t, rows, log_n, mode, window,
+                beta, s1, s2, phases, grid, stream);
+}
+#endif
+
+// How many CTAs an SM holds at once at this n and regime, or minus the
+// CUDA error.
+int parentt_ntt_channels_fs_blocks_per_sm(int log_n, int mode, int window) {
+  return fs_stream_blocks_per_sm(pick_kernel(mode, window), log_n);
 }
 
 const char* parentt_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

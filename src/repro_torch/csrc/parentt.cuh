@@ -51,8 +51,10 @@
 // memory cannot hold (kernels/ntt.py and kernels/crt.py mirror the sizes).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace parentt {
 
@@ -87,6 +89,13 @@ __host__ __device__ inline int tile_rows(int words, long long fixed) {
   long long budget = 64 * 1024 > 32 * per ? 64 * 1024 : 32 * per;
   if (budget > kMaxSmem - fixed) budget = kMaxSmem - fixed;
   return fit_chunk(256, budget, per);
+}
+
+// Opt a kernel in to dynamic shared memory above the 48 KB default.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // Reduction regime of a table set (repro_torch.kernels.ntt.reduction_mode).
@@ -398,6 +407,25 @@ __device__ __forceinline__ void gs_group(res_t (&x)[1 << G], int hi, int s0, int
   }
 }
 
+// The threads that run a pass, and the barrier after it: the whole block
+// (every kernel but the tile streams), or a block's first N threads beside
+// a producer warp that never joins them (K3-fs, K4-fs: named barrier 1).
+struct WholeBlock {
+  static constexpr int kMaxG = kMaxGroup;  // stages a pass may take (stage loops)
+  __device__ __forceinline__ int id() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return blockDim.x; }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+};
+template <int N, int MAXG>
+struct FirstThreads {
+  static constexpr int kMaxG = MAXG;
+  __device__ __forceinline__ int id() const { return threadIdx.x; }
+  __device__ __forceinline__ int size() const { return N; }
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+  }
+};
+
 // Tables of one channel.
 struct ChannelTabs {
   const i64* fwd;
@@ -410,12 +438,12 @@ struct ChannelTabs {
 // of a length-2^log_n transform, read from `in` and left in `out`.  Group
 // p holds elements base + m 2^log_st (forward_pass); a multi-block kernel
 // runs the groups of its span of the polynomial.
-template <int G, int NPOLY, typename In, typename Out>
+template <int G, int NPOLY, typename In, typename Out, typename Crew = WholeBlock>
 __device__ __forceinline__ void forward_span(const In& in, const Out& out, int s0, int log_n,
                                              int p0, int p1, const ChannelTabs& tb,
-                                             const Reduce& r) {
+                                             const Reduce& r, const Crew& crew = Crew{}) {
   const int log_st = log_n - s0 - G;
-  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+  for (int p = p0 + crew.id(); p < p1; p += crew.size()) {
     const int hi = p >> log_st;
     const int base = (hi << (log_st + G)) + (p & ((1 << log_st) - 1));
     res_t x[1 << G], y[1 << G];
@@ -482,11 +510,12 @@ struct Keep {
 // G inverse stages from s0 for the groups p0 .. p1 - 1 of a length-2^log_n
 // transform, read from `in` and left in `out`, each value through
 // `finish` first.  Group p holds elements base + m 2^s0.
-template <int G, typename In, typename Out, typename Finish>
+template <int G, typename In, typename Out, typename Finish, typename Crew = WholeBlock>
 __device__ __forceinline__ void inverse_span(const In& in, const Out& out, int s0, int log_n,
                                              int p0, int p1, const Finish& finish,
-                                             const ChannelTabs& tb, const Reduce& r) {
-  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
+                                             const ChannelTabs& tb, const Reduce& r,
+                                             const Crew& crew = Crew{}) {
+  for (int p = p0 + crew.id(); p < p1; p += crew.size()) {
     const int hi = p >> s0;
     const int base = (hi << (s0 + G)) + (p & ((1 << s0) - 1));
     res_t x[1 << G];
@@ -514,6 +543,19 @@ __device__ __forceinline__ void inverse_pass(const In& in, const Out& out, int s
     case 1: CALL(1); break;         \
     case 2: CALL(2); break;         \
     default: CALL(3); break;        \
+  }
+
+// g in 1 .. Crew::kMaxG (3, or 4 for a crew whose threads hold 16 values
+// of a pass: the tile streams')
+#define PARENTT_DISPATCH_CREW_G(g, CALL)  \
+  if constexpr (Crew::kMaxG == 4) {       \
+    if (g == 4) {                         \
+      CALL(4);                            \
+    } else {                              \
+      PARENTT_DISPATCH_G(g, CALL)         \
+    }                                     \
+  } else {                                \
+    PARENTT_DISPATCH_G(g, CALL)           \
   }
 
 // The cascade NTT(a) (.) NTT(b) -> iNTT of one channel over the shared
@@ -558,6 +600,193 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 }
 
 // --------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA and bulk copies, proxy fences, L2
+// cache policies, release/acquire counters (sm_90a; K7's rings and the
+// multi-block transforms' tile streams)
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Arrive once and expect `bytes` more of TMA traffic in the current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Whether the phase of parity `parity` has completed, after waiting for
+// it a while (the hardware's time limit of try_wait) if it has not.
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A spin that outlasts some seconds is a fault of a ring's or a queue's
+// bookkeeping: trap, so the launch fails instead of hanging the card.
+struct Watchdog {
+  uint64_t start = 0;
+  uint32_t spins = 0;
+  __device__ __forceinline__ void tick() {
+    if ((++spins & 0xfff) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (start == 0) start = now;
+      else if (now - start > 4000000000ull) __trap();  // 4 s
+    }
+  }
+};
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  Watchdog dog;
+  do {
+    dog.tick();
+  } while (!mbar_try(bar, parity));
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; the copy counts its bytes on `bar`.  Elements past the tensor's
+// edge arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory, its bytes counted on
+// `bar`, under the L2 cache policy `policy`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) of device memory
+// into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// A box of shared memory out to a 2-D tensor map, in this thread's bulk
+// group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%1, %2}], [%3], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_addr(src)), "l"(policy)
+      : "memory");
+}
+
+// `bytes` of shared memory out to device memory, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes,
+                                           uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(
+          dst),
+      "r"(smem_addr(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Until this thread's bulk stores are written.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic accesses of shared memory (or of device
+// memory) with the async proxy's (TMA's) on either side.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// L2 policies for a bulk copy: lines streamed once go first, lines read
+// again soon are kept as any other.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_normal() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+// A counter read with acquire and added to with release, across the card.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// cuTensorMapEncodeTiled is a driver-API call: it is looked up through the
+// runtime, so the libraries need no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// --------------------------------------------------------------------------
 // Multi-block (four-step) transforms (K3-fs, K4-fs; the cluster cascade
 // of K1-fs and K2-fs below)
 // --------------------------------------------------------------------------
@@ -565,7 +794,7 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 // A polynomial too long for one CTA's shared memory is the same radix-2
 // flow graph viewed as an (n1, n2) tile, element x = r n2 + c, with
 // n2 = 2^ceil(L/2), n1 = n / n2 (L = log2 n; kernels/ntt.py fs_split).
-// Each launch's CTAs take kFsTile = 4096 elements (E = min(n, 4096)):
+// K3-fs's and K4-fs's tiles hold E = min(n, 4096) elements (kLogFsTile):
 //
 // * Column stages s = 0 .. L1 - 1 (L1 = log2 n1) pair x with x + n/2^(s+1),
 //   rows apart in one column.  A column CTA takes C = E / n1 adjacent
@@ -584,41 +813,16 @@ __device__ __forceinline__ void channel_cascade(res_t* A, res_t* B, const In& in
 //   k = s - L1, the reference's four_step_row_indices, read from the
 //   stage table itself.
 //
-// Between launches (K3-fs, K4-fs) the values stay lazy (below W q, or q
-// when strict) as 32-bit words in a (t, rows, n) scratch tensor: a
-// butterfly's window does not depend on its stage, so the row stages
-// continue from the column stages' bounds.  The cluster cascade keeps the
-// same lazy words in its CTAs' shared memory instead.  Each launch's first pass reads device memory,
-// its last writes it, and the passes between run through the CTA's tile
-// in shared memory (padded one word in 16 against bank conflicts).
+// Between the column and the row stages the values stay lazy (below W q,
+// or q when strict) as 32-bit words: a butterfly's window does not depend
+// on its stage, so the row stages continue from the column stages'
+// bounds.  K3-fs and K4-fs keep them in a (t, rows, n) scratch tensor
+// between the two phases of their tile stream (below); the cluster cascade
+// keeps them in its CTAs' shared memory.  The passes between a tile's
+// first and last run through the CTA's tile in shared memory (padded one
+// word in 16 against bank conflicts).
 
 constexpr int kLogFsTile = 12;
-constexpr int kFsThreads = 256;  // pass_threads(kFsTile)
-static_assert(kLogFsTile <= 12, "kFsThreads holds pass_threads of a tile");
-
-// Where a CTA of a multi-block launch sits: its polynomial, channel and
-// tile, and the split.
-struct FsGeom {
-  int log_n, log_n1, log_n2, log_e, log_c;  // log E, log C (columns a column CTA)
-  int c;                                    // channel
-  size_t poly;                              // offset of the (channel, row) polynomial
-  int blk;                                  // tile of the polynomial
-};
-
-__device__ __forceinline__ FsGeom fs_geom(int log_n, int rows) {
-  FsGeom g;
-  g.log_n = log_n;
-  g.log_n2 = (log_n + 1) / 2;
-  g.log_n1 = log_n - g.log_n2;
-  g.log_e = log_n < kLogFsTile ? log_n : kLogFsTile;
-  g.log_c = g.log_e - g.log_n1;
-  const int tiles_log = log_n - g.log_e;
-  const int poly = blockIdx.x >> tiles_log;
-  g.blk = blockIdx.x & ((1 << tiles_log) - 1);
-  g.c = poly / rows;
-  g.poly = (size_t)poly << log_n;
-  return g;
-}
 
 // A column CTA's virtual element v -> its place x in the polynomial.
 struct ColMap {
@@ -644,16 +848,6 @@ struct GlobalIn {
   const T* poly[NPOLY];
   Map map;
   __device__ __forceinline__ res_t load(int k, int i) const { return read_word(poly[k] + map(i)); }
-};
-
-// NPOLY 32-bit scratch polynomials: lazy values stored as they are.
-template <int NPOLY, typename Map>
-struct ScratchOut {
-  res_t* poly[NPOLY];
-  Map map;
-  __device__ __forceinline__ void store(int k, int i, res_t x, const Reduce&) const {
-    poly[k][map(i)] = x;
-  }
 };
 
 // One int64 polynomial in device memory, stored canonical.
@@ -682,12 +876,12 @@ struct TilePolys {
 // groups of the span [x0, x0 + 2^log_span), in passes of K stages after a
 // first of g0: the first pass reads `in`, the last writes `out`, the passes
 // between go through `tile` with a barrier after each pass that writes it.
-// No barrier follows the last pass.
-template <int NPOLY, typename In, typename Tile, typename Out>
+// No barrier follows the last pass.  `crew` runs the passes.
+template <int NPOLY, typename In, typename Tile, typename Out, typename Crew = WholeBlock>
 __device__ __forceinline__ void forward_stages(const In& in, const Tile& tile, const Out& out,
                                                int s_begin, int s_end, int log_n, int x0,
                                                int log_span, int K, const ChannelTabs& tb,
-                                               const Reduce& r) {
+                                               const Reduce& r, const Crew& crew = Crew{}) {
   const int passes = (s_end - s_begin + K - 1) / K;
   const int g0 = s_end - s_begin - K * (passes - 1);
   int s0 = s_begin;
@@ -695,34 +889,34 @@ __device__ __forceinline__ void forward_stages(const In& in, const Tile& tile, c
     const int G = q == 0 ? g0 : K;
     const int p0 = x0 >> G, p1 = (x0 + (1 << log_span)) >> G;
     if (passes == 1) {
-#define ONE(G) forward_span<G, NPOLY>(in, out, s0, log_n, p0, p1, tb, r)
-      PARENTT_DISPATCH_G(G, ONE)
+#define ONE(G) forward_span<G, NPOLY>(in, out, s0, log_n, p0, p1, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, ONE)
 #undef ONE
     } else if (q == 0) {
-#define FIRST(G) forward_span<G, NPOLY>(in, tile, s0, log_n, p0, p1, tb, r)
-      PARENTT_DISPATCH_G(G, FIRST)
+#define FIRST(G) forward_span<G, NPOLY>(in, tile, s0, log_n, p0, p1, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, FIRST)
 #undef FIRST
     } else if (q + 1 < passes) {
-#define MID(G) forward_span<G, NPOLY>(tile, tile, s0, log_n, p0, p1, tb, r)
-      PARENTT_DISPATCH_G(G, MID)
+#define MID(G) forward_span<G, NPOLY>(tile, tile, s0, log_n, p0, p1, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, MID)
 #undef MID
     } else {
-#define LAST(G) forward_span<G, NPOLY>(tile, out, s0, log_n, p0, p1, tb, r)
-      PARENTT_DISPATCH_G(G, LAST)
+#define LAST(G) forward_span<G, NPOLY>(tile, out, s0, log_n, p0, p1, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, LAST)
 #undef LAST
     }
-    if (q + 1 < passes) __syncthreads();
+    if (q + 1 < passes) crew.sync();
     s0 += G;
   }
 }
 
 // Inverse stages u_begin .. u_end - 1 (stride 2^u) likewise, in passes of K
 // stages and a last of g0; the last pass stores each value through `finish`.
-template <typename In, typename Tile, typename Out>
+template <typename In, typename Tile, typename Out, typename Crew = WholeBlock>
 __device__ __forceinline__ void inverse_stages(const In& in, const Tile& tile, const Out& out,
                                                int u_begin, int u_end, int log_n, int x0,
                                                int log_span, int K, const ChannelTabs& tb,
-                                               const Reduce& r) {
+                                               const Reduce& r, const Crew& crew = Crew{}) {
   const int passes = (u_end - u_begin + K - 1) / K;
   const int g0 = u_end - u_begin - K * (passes - 1);
   int s0 = u_begin;
@@ -730,23 +924,23 @@ __device__ __forceinline__ void inverse_stages(const In& in, const Tile& tile, c
     const int G = q + 1 < passes ? K : g0;
     const int p0 = x0 >> G, p1 = (x0 + (1 << log_span)) >> G;
     if (passes == 1) {
-#define ONE(G) inverse_span<G>(in, out, s0, log_n, p0, p1, Keep{}, tb, r)
-      PARENTT_DISPATCH_G(G, ONE)
+#define ONE(G) inverse_span<G>(in, out, s0, log_n, p0, p1, Keep{}, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, ONE)
 #undef ONE
     } else if (q == 0) {
-#define FIRST(G) inverse_span<G>(in, tile, s0, log_n, p0, p1, Keep{}, tb, r)
-      PARENTT_DISPATCH_G(G, FIRST)
+#define FIRST(G) inverse_span<G>(in, tile, s0, log_n, p0, p1, Keep{}, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, FIRST)
 #undef FIRST
     } else if (q + 1 < passes) {
-#define MID(G) inverse_span<G>(tile, tile, s0, log_n, p0, p1, Keep{}, tb, r)
-      PARENTT_DISPATCH_G(G, MID)
+#define MID(G) inverse_span<G>(tile, tile, s0, log_n, p0, p1, Keep{}, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, MID)
 #undef MID
     } else {
-#define LAST(G) inverse_span<G>(tile, out, s0, log_n, p0, p1, Keep{}, tb, r)
-      PARENTT_DISPATCH_G(G, LAST)
+#define LAST(G) inverse_span<G>(tile, out, s0, log_n, p0, p1, Keep{}, tb, r, crew)
+      PARENTT_DISPATCH_CREW_G(G, LAST)
 #undef LAST
     }
-    if (q + 1 < passes) __syncthreads();
+    if (q + 1 < passes) crew.sync();
     s0 += G;
   }
 }
@@ -785,39 +979,6 @@ __device__ __forceinline__ ChannelTabs fs_tabs(const FsArgs& a, int c) {
   return ChannelTabs{a.fwd + off, a.inv + off, a.fwd_sh + off, a.inv_sh + off};
 }
 
-// Forward column stages: NPOLY int64 operands -> 32-bit scratch.
-template <int REG, int NPOLY>
-__device__ __forceinline__ void fs_cols_forward(const FsArgs& a, res_t* smem) {
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const ColMap map{g.log_c, g.log_n2, g.blk << g.log_c};
-  const int E = 1 << g.log_e;
-  GlobalIn<i64, NPOLY, ColMap> in{{}, map};
-  ScratchOut<NPOLY, ColMap> out{{}, map};
-  TilePolys<NPOLY> tile{{}, 0};
-  for (int k = 0; k < NPOLY; ++k) {
-    in.poly[k] = a.in[k] + g.poly;
-    out.poly[k] = a.scratch[k] + g.poly;
-    tile.poly[k] = smem + k * padded(E);
-  }
-  forward_stages<NPOLY>(in, tile, out, 0, g.log_n1, g.log_e, 0, g.log_e, pass_group(E),
-                        fs_tabs(a, g.c), r);
-}
-
-// Inverse column stages: 32-bit scratch -> canonical int64 output.
-template <int REG>
-__device__ __forceinline__ void fs_cols_inverse(const FsArgs& a, res_t* smem) {
-  const FsGeom g = fs_geom(a.log_n, a.rows);
-  const Reduce r = fs_reduce<REG>(a, g.c);
-  const ColMap map{g.log_c, g.log_n2, g.blk << g.log_c};
-  const int E = 1 << g.log_e;
-  const GlobalIn<res_t, 1, ColMap> in{{a.scratch[0] + g.poly}, map};
-  const CanonOut<ColMap> out{a.out + g.poly, map};
-  const TilePolys<1> tile{{smem}, 0};
-  inverse_stages(in, tile, out, g.log_c, g.log_e, g.log_e, 0, g.log_e, pass_group(E),
-                 fs_tabs(a, g.c), r);
-}
-
 // One 32-bit polynomial in device memory, each value stored as y =
 // canonical(p) * q~ mod q for the compose (K2-fs's cascade).
 template <typename Map>
@@ -830,18 +991,449 @@ struct TildeOut {
   }
 };
 
-// Kernel launch geometry shared by the host entry points: CTAs of one
-// multi-block launch over t x rows polynomials, and its threads.
-inline int fs_blocks(int t, int rows, int log_n) {
-  const int log_e = log_n < kLogFsTile ? log_n : kLogFsTile;
-  return t * rows << (log_n - log_e);
+// --------------------------------------------------------------------------
+// K3-fs and K4-fs: one persistent launch a call, streaming tiles
+// --------------------------------------------------------------------------
+//
+// The grid is the CTAs the card holds at once (kernels/ntt.py
+// fs_stream_grid).  A CTA is kFsStreamThreads consumer threads, which run
+// the passes, and one producer warp whose first lane moves every tile in
+// and out with TMA.  Every CTA takes tickets of one ordered queue from a
+// device counter (atomicAdd): the first phase's tiles (K3-fs: columns;
+// K4-fs: rows) and the second phase's of every (channel, row) polynomial,
+// each polynomial's tiles in order, the second phase's handed out `lag`
+// first-phase tiles behind (fs_ticket; lag = tiles a polynomial + grid).
+// A first-phase tile's store, once written, adds one to its polynomial's
+// arrival counter (release); a second-phase tile is loaded once that
+// counter holds all the polynomial's first-phase tiles (acquire, then a
+// proxy fence before the TMA load).  Those were handed out earlier, so the
+// CTAs that hold them never wait on the tile that waits: the producer
+// polls, and keeps storing its own CTA's finished tiles while it does.
+// The 32-bit words between the phases are read back about two tiles'
+// time after they are written, from L2 where they still sit; the input
+// and output stream past with L2's evict-first policy.  Device memory
+// sees each input word read once, each output word written once, and
+// the scratch written back from L2 at most once (16 to 20 bytes a
+// coefficient, against 24 for two launches).
+//
+// What bounds it on an H100: the passes' integer work, not the bytes.
+// Alone, with no TMA traffic, the passes take longer than the copies
+// alone, and the stream comes out a little above the larger of the two
+// (chip_smoke.py --transform-variants; PERF.md).  Two CTAs an SM
+// (shared memory) of 256 consumer threads: 512 or a third CTA of 128 were
+// slower.
+//
+// The producer keeps the next tile's input in flight in a ring of two
+// dense staging slots (E int64 words each) while the consumers run the
+// current tile's passes, and drains each finished tile from its slot with
+// a TMA store:
+//   * a column tile is a 2-D box of C words x n1 rows of the (polys n1,
+//     n2) view (fs_col_map) past n = 4096; at n <= 4096 it is the whole
+//     polynomial, like a row tile a contiguous span, a 1-D bulk copy;
+//   * the first pass reads the slot, the passes between go through the
+//     padded tile, the last writes the slot back, dense, in the output's
+//     word type (lazy 32-bit words or canonical int64) for the store.
+// Where a thread's 2^G elements would sit side by side in int64 words
+// (K3-fs's last row pass, K4-fs's first) the tile is copied between the
+// slot and the padded tile in its own step instead, so the slot's int64
+// words are read and written by consecutive threads.
+// Full and done mbarriers per slot hand a tile between the producer and
+// the consumers; the consumers' barrier is named barrier 1.  The arrival
+// counters and the queue's counter are zeroed on the stream before each
+// launch (cudaMemsetAsync).  A launch of one phase (phases 1 or 2) runs
+// the same tile loop over that phase's tiles alone.
+
+constexpr int kFsStreamThreads = 256;                 // consumer threads a CTA
+constexpr int kFsStreamBlock = kFsStreamThreads + 32;  // and the producer warp
+constexpr int kFsStreamMinBlocks = 2;                  // CTAs an SM (shared memory holds two)
+// Stages a pass takes (the first of the forward stages, the last of the
+// inverse, fewer): K3-fs runs its eight column or row stages at n = 65536
+// in two passes of 16 values a thread, K4-fs, whose butterflies halve, in
+// three of 8, each the faster (chip_smoke.py --transform-variants, PERF.md).
+template <bool FWD>
+constexpr int kFsStreamGroup = FWD ? 4 : 3;
+template <bool FWD>
+using FsCrew = FirstThreads<kFsStreamThreads, kFsStreamGroup<FWD>>;
+
+// PARENTT_FS_STREAM_FORM, for chip_smoke.py --transform-variants alone: 1
+// copies each tile through the padded tile with no butterfly (the stream's
+// memory time), 2 runs the passes with no TMA traffic (its integer time).
+#ifndef PARENTT_FS_STREAM_FORM
+#define PARENTT_FS_STREAM_FORM 0
+#endif
+
+// A multi-block transform's split: log2 of n, n1, n2, the tile E, the
+// columns a column tile takes (C = E / n1) and the tiles a phase takes of
+// each polynomial (n / E).
+struct FsStreamGeom {
+  int log_n, log_n1, log_n2, log_e, log_c, log_t;
+};
+
+__host__ __device__ inline FsStreamGeom fs_stream_geom(int log_n) {
+  FsStreamGeom g;
+  g.log_n = log_n;
+  g.log_n2 = (log_n + 1) / 2;
+  g.log_n1 = log_n - g.log_n2;
+  g.log_e = log_n < kLogFsTile ? log_n : kLogFsTile;
+  g.log_c = g.log_e - g.log_n1;
+  g.log_t = log_n - g.log_e;
+  return g;
 }
-inline int fs_threads(int log_n) {
-  return pass_threads(1 << (log_n < kLogFsTile ? log_n : kLogFsTile));
+
+// The queue's ticket k -> (second: the tile's phase, 0 or 1; its index
+// among the phase's `tiles`, polynomial-major).  Both phases (phases = 3):
+// the first `lag` first-phase tiles, then first- and second-phase tiles
+// in turn, then the rest of the second phase; one phase alone (1 or 2): its
+// tiles in order (kernels/ntt.py fs_ticket).
+__host__ __device__ inline void fs_ticket(int k, int tiles, int lag, int phases, int& second,
+                                          int& tile) {
+  if (phases != 3) {
+    second = phases == 2;
+    tile = k;
+    return;
+  }
+  const int d = lag < tiles ? lag : tiles;
+  if (k < d) {
+    second = 0;
+    tile = k;
+  } else if (k < 2 * tiles - d) {
+    second = (k - d) & 1;
+    tile = second ? (k - d) >> 1 : d + ((k - d) >> 1);
+  } else {
+    second = 1;
+    tile = k - tiles;
+  }
 }
-// Shared memory of a launch that holds NPOLY tiles.
-inline size_t fs_smem(int log_n, int npoly) {
-  return (size_t)npoly * padded(1 << (log_n < kLogFsTile ? log_n : kLogFsTile)) * sizeof(res_t);
+
+// First-phase tiles the queue hands out before the first second-phase
+// tile: a polynomial's tiles and one a CTA, so a second-phase tile comes
+// about two tiles' time after the last of its polynomial's first-phase
+// tiles was handed out (kernels/ntt.py fs_lag).
+__host__ __device__ inline int fs_stream_lag(int log_n, int grid) {
+  return (1 << fs_stream_geom(log_n).log_t) + grid;
+}
+
+// Dynamic shared memory of a CTA: 128 bytes of alignment slack, the two
+// staging slots, the padded tile, and the full and done mbarriers and
+// the tickets of the two slots (kernels/ntt.py fs_stream_smem_bytes).
+__host__ __device__ inline int fs_tile_words_bytes(int log_e) {
+  return (padded(1 << log_e) * (int)sizeof(res_t) + 7) & ~7;
+}
+__host__ __device__ inline int fs_stream_smem(int log_n) {
+  const int log_e = fs_stream_geom(log_n).log_e;
+  return 128 + 2 * (8 << log_e) + fs_tile_words_bytes(log_e) + 4 * 8 + 2 * 4;
+}
+
+struct FsStreamArgs {
+  const i64* in;   // (t, rows, n) int64 input
+  res_t* scratch;  // (t, rows, n) 32-bit words between the phases
+  i64* out;        // (t, rows, n) int64 output
+  int* counters;   // [0] the queue's next ticket, [1 + p] polynomial p's first-phase tiles stored
+  const i64* qs;
+  const i64* half;
+  const i64* eps;
+  const i64* tab;  // the forward (K3-fs) or inverse (K4-fs) tables, (t, n)
+  const i64* tab_sh;
+  int rows, polys, log_n, mode, window, beta, s1, s2;
+  int phases;  // the queue's phases: 3 both (every call), 1 or 2 one
+  int lag;
+};
+
+// A tile staged dense in a slot: element i at word i - off (a column
+// tile's virtual element v at v, a row tile's element x at x - x0), read
+// as a residue, or stored lazy (32-bit words) or canonical (int64).
+template <typename T>
+struct StagedIn {
+  const T* buf;
+  int off;
+  __device__ __forceinline__ res_t load(int, int i) const { return (res_t)buf[i - off]; }
+};
+template <typename T>
+struct StagedOut {
+  T* buf;
+  int off;
+  __device__ __forceinline__ void store(int, int i, res_t x, const Reduce& r) const {
+    if constexpr (sizeof(T) == 8) buf[i - off] = (T)canonicalize(x, r);
+    else buf[i - off] = (T)x;
+  }
+};
+
+// Every element of the span [x0, x0 + E) from `in` to `out`.
+template <typename In, typename Out, typename Crew>
+__device__ __forceinline__ void copy_span(const In& in, const Out& out, int x0, int E,
+                                          const Reduce& r, const Crew& crew) {
+  for (int j = crew.id(); j < E; j += crew.size()) out.store(0, x0 + j, in.load(0, x0 + j), r);
+}
+
+// One tile's stages, read from and written back to its slot.  A phase whose
+// stages take one pass runs it into the tile and copies it out after a
+// barrier: its slot is both its input and its output.
+template <bool FWD, typename Crew>
+__device__ __forceinline__ void fs_stream_tile(int second, int blk, unsigned char* slot,
+                                               res_t* words, const FsStreamGeom& g,
+                                               const ChannelTabs& tb, const Reduce& r,
+                                               const Crew& crew) {
+  const int E = 1 << g.log_e;
+  constexpr int K = kFsStreamGroup<FWD>;
+  const bool one_pass = g.log_n1 <= K;  // the column stages (L1 of them) in one pass
+#if PARENTT_FS_STREAM_FORM == 1
+  {
+    const int x0 = (FWD != (second != 0)) ? 0 : blk << g.log_e;
+    const TilePolys<1> tile{{words}, x0};
+    if (second) copy_span(StagedIn<res_t>{(const res_t*)slot, x0}, tile, x0, E, r, crew);
+    else copy_span(StagedIn<i64>{(const i64*)slot, x0}, tile, x0, E, r, crew);
+    crew.sync();
+    if (second) copy_span(tile, StagedOut<i64>{(i64*)slot, x0}, x0, E, r, crew);
+    else copy_span(tile, StagedOut<res_t>{(res_t*)slot, x0}, x0, E, r, crew);
+    return;
+  }
+#endif
+  if (FWD && !second) {  // column stages: int64 residues -> lazy 32-bit words
+    const TilePolys<1> tile{{words}, 0};
+    const StagedIn<i64> in{(const i64*)slot, 0};
+    const StagedOut<res_t> out{(res_t*)slot, 0};
+    if (!one_pass) {
+      forward_stages<1>(in, tile, out, 0, g.log_n1, g.log_e, 0, g.log_e, K, tb, r, crew);
+      return;
+    }
+    forward_stages<1>(in, tile, tile, 0, g.log_n1, g.log_e, 0, g.log_e, K, tb, r, crew);
+    crew.sync();
+    copy_span(tile, out, 0, E, r, crew);
+  } else if (FWD) {  // row stages: 32-bit words -> canonical int64, through the tile
+    const int x0 = blk << g.log_e;
+    const TilePolys<1> tile{{words}, x0};
+    forward_stages<1>(StagedIn<res_t>{(const res_t*)slot, x0}, tile, tile, g.log_n1, g.log_n,
+                      g.log_n, x0, g.log_e, K, tb, r, crew);
+    crew.sync();
+    copy_span(tile, StagedOut<i64>{(i64*)slot, x0}, x0, E, r, crew);
+  } else if (!second) {  // inverse row stages: int64 spectra, copied into the tile -> 32-bit words
+    const int x0 = blk << g.log_e;
+    const TilePolys<1> tile{{words}, x0};
+    copy_span(StagedIn<i64>{(const i64*)slot, x0}, tile, x0, E, r, crew);
+    crew.sync();
+    inverse_stages(tile, tile, StagedOut<res_t>{(res_t*)slot, x0}, 0, g.log_n2, g.log_n, x0,
+                   g.log_e, K, tb, r, crew);
+  } else {  // inverse column stages: 32-bit words -> canonical int64
+    const TilePolys<1> tile{{words}, 0};
+    const StagedIn<res_t> in{(const res_t*)slot, 0};
+    const StagedOut<i64> out{(i64*)slot, 0};
+    if (!one_pass) {
+      inverse_stages(in, tile, out, g.log_c, g.log_e, g.log_e, 0, g.log_e, K, tb, r, crew);
+      return;
+    }
+    inverse_stages(in, tile, tile, g.log_c, g.log_e, g.log_e, 0, g.log_e, K, tb, r, crew);
+    crew.sync();
+    copy_span(tile, out, 0, E, r, crew);
+  }
+}
+
+// The producer (one thread): hands tiles to the consumers through the
+// ring and drains them, until the queue is empty; then marks the next
+// slot with ticket -1.  `col_in` / `col_out`: the 2-D maps a column tile
+// is loaded from and stored to past n = 4096.
+template <bool FWD>
+__device__ __forceinline__ void fs_stream_produce(const FsStreamArgs& a, const CUtensorMap& col_in,
+                                                  const CUtensorMap& col_out,
+                                                  unsigned char* slots, uint64_t* full,
+                                                  uint64_t* done, int* info,
+                                                  const FsStreamGeom& g) {
+  const int E = 1 << g.log_e;
+  const int T = 1 << g.log_t;
+  const int tiles = a.polys << g.log_t;
+  const int total = (a.phases == 3 ? 2 : 1) * tiles;
+  const uint64_t streamed = l2_evict_first(), kept = l2_evict_normal();
+  int loaded = 0, stored = 0, pending = -1;
+  bool exhausted = false;
+  // the tile in slot s: where it sits, and its byte offset in its tensors
+  auto place = [&](int code, int& second, int& poly, int& blk, size_t& off) {
+    int tile;
+    fs_ticket(code, tiles, a.lag, a.phases, second, tile);
+    poly = tile >> g.log_t;
+    blk = tile & (T - 1);
+    off = ((size_t)poly << g.log_n) + ((size_t)blk << g.log_e);
+  };
+  auto try_load = [&]() -> bool {
+    if (exhausted || loaded - stored >= 2) return false;
+    if (pending < 0) {
+      pending = atomicAdd(a.counters, 1);
+      if (pending >= total) {
+        exhausted = true;
+        return false;
+      }
+    }
+    int second, poly, blk;
+    size_t off;
+    place(pending, second, poly, blk, off);
+    if (second && a.phases == 3 && PARENTT_FS_STREAM_FORM != 2) {
+      if (ld_acquire(a.counters + 1 + poly) < T) return false;
+      fence_async_global();
+    }
+    const int s = loaded & 1;
+    info[s] = pending;
+    unsigned char* dst = slots + (size_t)s * (8 << g.log_e);
+    const uint32_t bytes = (uint32_t)E * (second ? 4 : 8);
+#if PARENTT_FS_STREAM_FORM == 2
+    mbar_arrive(&full[s]);
+    ++loaded;
+    pending = -1;
+    return true;
+#endif
+    mbar_expect_tx(&full[s], bytes);
+    if (FWD != (second != 0) && g.log_t > 0)
+      tma_load_2d(dst, &col_in, &full[s], blk << g.log_c, poly << g.log_n1, streamed);
+    else if (second)
+      bulk_load(dst, a.scratch + off, bytes, &full[s], streamed);
+    else
+      bulk_load(dst, a.in + off, bytes, &full[s], streamed);
+    ++loaded;
+    pending = -1;
+    return true;
+  };
+  Watchdog dog;
+  for (;;) {
+    if (stored < loaded && mbar_try(&done[stored & 1], (stored >> 1) & 1)) {
+      const int s = stored & 1;
+      int second, poly, blk;
+      size_t off;
+      place(info[s], second, poly, blk, off);
+      const unsigned char* src = slots + (size_t)s * (8 << g.log_e);
+#if PARENTT_FS_STREAM_FORM == 2
+      ++stored;
+      try_load();
+      continue;
+#endif
+      if (FWD != (second != 0) && g.log_t > 0)
+        tma_store_2d(&col_out, src, blk << g.log_c, poly << g.log_n1, second ? streamed : kept);
+      else if (second)
+        bulk_store(a.out + off, src, (uint32_t)E * 8, streamed);
+      else
+        bulk_store(a.scratch + off, src, (uint32_t)E * 4, kept);
+      bulk_commit();
+      bulk_wait_read();
+      ++stored;
+      try_load();  // the slot is free: refill it before the store is written
+      if (!second) {  // a first-phase tile: once written, its polynomial's count
+        bulk_wait();
+        fence_async_global();
+        red_release_add(a.counters + 1 + poly, 1);
+      }
+      dog = Watchdog{};
+    } else if (try_load()) {
+      dog = Watchdog{};
+    } else if (exhausted && stored == loaded) {
+      info[loaded & 1] = -1;
+      mbar_arrive(&full[loaded & 1]);
+      bulk_wait();
+      return;
+    } else {  // a second-phase tile waits, or the queue is empty and tiles are out
+      dog.tick();
+      if (stored == loaded) __nanosleep(256);
+    }
+  }
+}
+
+// One CTA of K3-fs (FWD) or K4-fs's tile stream in regime REG; `raw`: its
+// fs_stream_smem bytes of dynamic shared memory.
+template <int REG, bool FWD>
+__device__ __forceinline__ void fs_stream(const FsStreamArgs& a, const CUtensorMap& col_in,
+                                          const CUtensorMap& col_out, unsigned char* raw) {
+  const FsStreamGeom g = fs_stream_geom(a.log_n);
+  unsigned char* slots = raw + ((128 - (smem_addr(raw) & 127)) & 127);
+  res_t* words = (res_t*)(slots + 2 * (8 << g.log_e));
+  uint64_t* full = (uint64_t*)((unsigned char*)words + fs_tile_words_bytes(g.log_e));
+  uint64_t* done = full + 2;
+  int* info = (int*)(done + 2);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&done[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kFsStreamThreads) {
+    if (threadIdx.x == kFsStreamThreads)
+      fs_stream_produce<FWD>(a, col_in, col_out, slots, full, done, info, g);
+    return;
+  }
+  const FsCrew<FWD> crew{};
+  const int tiles = a.polys << g.log_t;
+  for (int i = 0;; ++i) {
+    const int s = i & 1;
+    mbar_wait(&full[s], (i >> 1) & 1);
+    const int code = ((volatile int*)info)[s];
+    if (code < 0) return;
+    int second, tile;
+    fs_ticket(code, tiles, a.lag, a.phases, second, tile);
+    const int poly = tile >> g.log_t;
+    const int c = poly / a.rows;
+    unsigned char* slot = slots + (size_t)s * (8 << g.log_e);
+    const size_t toff = (size_t)c << a.log_n;
+    fs_stream_tile<FWD>(second, tile & ((1 << g.log_t) - 1), slot, words, g,
+                        ChannelTabs{a.tab + toff, a.tab + toff, a.tab_sh + toff, a.tab_sh + toff},
+                        regime_reduce<REG>(a.qs, a.half, a.eps, c, a.mode, a.window, a.beta,
+                                           a.s1, a.s2),
+                        crew);
+    fence_async_shared();  // the slot's words, out to the producer's TMA store
+    crew.sync();
+    if (threadIdx.x == 0) mbar_arrive(&done[s]);
+  }
+}
+
+// The 2-D map of the column view of a (t, rows, n) tensor of `word` (4 or
+// 8) byte words at `base`: polys n1 rows of n2 words, in boxes of C words x
+// n1 rows, one a column tile.  False where the driver's encoder is missing
+// or refuses (kernels/ntt.py fs_col_box mirrors the geometry and TMA's
+// limits on it).
+inline bool fs_col_map(CUtensorMap* map, const void* base, int word, int log_n, int polys) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const FsStreamGeom g = fs_stream_geom(log_n);
+  const cuuint64_t dims[2] = {(cuuint64_t)1 << g.log_n2, (cuuint64_t)polys << g.log_n1};
+  const cuuint64_t strides[1] = {(cuuint64_t)word << g.log_n2};
+  const cuuint32_t box[2] = {1u << g.log_c, 1u << g.log_n1};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, word == 8 ? CU_TENSOR_MAP_DATA_TYPE_INT64 : CU_TENSOR_MAP_DATA_TYPE_UINT32, 2,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches a tile stream of `kernel` (FWD: K3-fs, else K4-fs) on `stream`
+// with `grid` CTAs at most: zeroes the counters, encodes the column maps
+// past n = 4096.  Returns the CUDA error.
+template <typename Kernel>
+inline int fs_stream_launch(Kernel kernel, bool fwd, FsStreamArgs a, int grid,
+                            cudaStream_t stream) {
+  const FsStreamGeom g = fs_stream_geom(a.log_n);
+  cudaError_t err = cudaMemsetAsync(a.counters, 0, (1 + (size_t)a.polys) * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap col_in, col_out;
+  memset(&col_in, 0, sizeof col_in);
+  memset(&col_out, 0, sizeof col_out);
+  if (g.log_t > 0 &&
+      (!fs_col_map(&col_in, fwd ? (const void*)a.in : a.scratch, fwd ? 8 : 4, a.log_n, a.polys) ||
+       !fs_col_map(&col_out, fwd ? (const void*)a.scratch : a.out, fwd ? 4 : 8, a.log_n,
+                   a.polys)))
+    return (int)cudaErrorInvalidValue;
+  a.lag = fs_stream_lag(a.log_n, grid);
+  const int tickets = (a.phases == 3 ? 2 : 1) * (a.polys << g.log_t);
+  const int smem = fs_stream_smem(a.log_n);
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid < tickets ? grid : tickets, kFsStreamBlock, smem, stream>>>(col_in, col_out, a);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of `kernel` an SM holds at once at n = 2^log_n, or minus the CUDA error.
+template <typename Kernel>
+inline int fs_stream_blocks_per_sm(Kernel kernel, int log_n) {
+  const int smem = fs_stream_smem(log_n);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int count = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, kFsStreamBlock, smem);
+  return err == cudaSuccess ? count : -(int)err;
 }
 
 // --------------------------------------------------------------------------
@@ -1611,13 +2203,6 @@ struct StageArgs {
   int s1;
   int s2;
 };
-
-// Opt a kernel in to dynamic shared memory above the 48 KB default.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
 
 // --------------------------------------------------------------------------
 // The one-CTA cascade launch (K1, and K2-fs's cascade where one CTA holds a

@@ -33,11 +33,14 @@ counters and plain PyTorch versions (port of ``repro.kernels.ntt``).
   replace the four-step bodies of the TPU kernels ``ntt_channels_pallas``
   and ``intt_channels_pallas`` (``repro/kernels/ntt.py:158-204``, ``:266``,
   ``:282``): the transforms as multi-block kernels for polynomials that do
-  not fit one CTA, on the card's own split n = n1 n2 (:func:`fs_split`): a
-  column launch and a row launch of :func:`fs_threads` threads a CTA over
-  :data:`FS_TILE`-element tiles keep lazy 32-bit values in a scratch
-  tensor between them.  ``.launches`` counts calls, each of two CUDA
-  launches.
+  not fit one CTA, on the card's own split n = n1 n2 (:func:`fs_split`):
+  one persistent launch a call, :func:`fs_stream_grid` CTAs that take the
+  column and the row tiles (:data:`FS_TILE` elements) of every polynomial
+  from one ordered queue (:func:`fs_queue`), a producer warp loading each
+  tile with TMA while :func:`fs_threads` consumer threads run the
+  previous one's passes; lazy 32-bit values sit in a scratch tensor (in
+  L2) between a polynomial's two phases.  ``.launches`` counts calls, each
+  one CUDA launch.
 * :func:`fused_polymul_fs_cuda` (``csrc/fused_polymul_fs.cu``, K1-fs)
   replaces the four-step body of ``fused_polymul_pallas``
   (``repro/kernels/ntt.py:312-371``): the cascade past one CTA as ONE
@@ -134,7 +137,7 @@ def cascade_fits(n: int) -> bool:
 
 
 # the multi-block kernels (csrc/parentt.cuh, "Multi-block transforms")
-FS_TILE = 4096  # elements a CTA of a multi-block launch takes (kLogFsTile)
+FS_TILE = 4096  # elements a tile of a multi-block kernel holds (kLogFsTile)
 # the largest n a kernel backend admits: the reference's largest servable
 # n at t = 6, and the largest the multi-block kernels are held at on the card
 FS_MAX_N = 65536
@@ -150,30 +153,93 @@ def fs_split(n: int) -> tuple[int, int]:
 
 
 def fs_tile(n: int) -> int:
-    """Elements one CTA of a multi-block launch takes: min(n, FS_TILE); a
-    column CTA takes n1 rows x fs_tile / n1 columns, a row CTA
-    fs_tile / n2 whole rows."""
+    """Elements a tile of K3-fs or K4-fs holds: min(n, FS_TILE); a column
+    tile is n1 rows x fs_tile / n1 columns, a row tile fs_tile / n2 whole
+    rows."""
     return min(n, FS_TILE)
 
 
+# the tile streams' consumer threads a CTA (csrc/parentt.cuh
+# kFsStreamThreads; a producer warp sits beside them), and the stages a
+# pass takes in each (kFsStreamGroup: K3-fs four, K4-fs three, whatever n)
+FS_STREAM_THREADS = 256
+FS_STREAM_GROUP = {"ntt_channels_fs": 4, "intt_channels_fs": 3}
+
+
 def fs_threads(n: int) -> int:
-    """Threads of a multi-block CTA: pass_threads of its tile."""
-    return pass_threads(fs_tile(n))
+    """Threads of a K3-fs or K4-fs CTA that run a tile's passes (a
+    producer warp sits beside them); a pass's groups are spread over them,
+    whatever n."""
+    return FS_STREAM_THREADS
 
 
 def fs_blocks(t: int, rows: int, n: int) -> int:
-    """CTAs of one multi-block launch over t x rows polynomials."""
+    """Tiles of one phase of K3-fs or K4-fs over t x rows polynomials."""
     return t * rows * (n // fs_tile(n))
 
 
-def ntt_fs_smem_bytes(n: int) -> int:
-    """Shared memory of a K3-fs CTA (either launch): one padded tile."""
-    return padded_words(fs_tile(n)) * RESIDUE_BYTES
+def fs_stream_smem_bytes(n: int) -> int:
+    """Shared memory of a K3-fs or K4-fs CTA (csrc/parentt.cuh
+    ``fs_stream_smem``): 128 bytes of alignment slack, two staging slots
+    of fs_tile int64 words, the padded tile (rounded to 8 bytes), two full
+    and two done mbarriers and the slots' two tickets; 83,112 bytes at
+    n >= 4096."""
+    E = fs_tile(n)
+    return 128 + 2 * 8 * E + (padded_words(E) * RESIDUE_BYTES + 7) // 8 * 8 + 4 * 8 + 2 * 4
 
 
-def intt_fs_smem_bytes(n: int) -> int:
-    """Shared memory of a K4-fs CTA (either launch): one padded tile."""
-    return padded_words(fs_tile(n)) * RESIDUE_BYTES
+def fs_lag(n: int, grid: int) -> int:
+    """First-phase tiles the queue of K3-fs or K4-fs hands out before its
+    first second-phase tile (csrc/parentt.cuh ``fs_stream_lag``): a
+    polynomial's tiles and one a CTA of the ``grid``."""
+    return n // fs_tile(n) + grid
+
+
+def fs_ticket(k: int, tiles: int, lag: int, phases: int = 3) -> tuple[int, int]:
+    """Ticket ``k`` of a queue over ``tiles`` tiles a phase ->
+    (phase: 0 first, 1 second; the tile's index among its phase's,
+    polynomial-major) (csrc/parentt.cuh ``fs_ticket``).  Both phases: the
+    first ``lag`` first-phase tiles, then one of each in turn, then the
+    rest of the second phase; ``phases`` 1 or 2: that phase's tiles in
+    order."""
+    if phases != 3:
+        return int(phases == 2), k
+    d = min(lag, tiles)
+    if k < d:
+        return 0, k
+    if k < 2 * tiles - d:
+        second = (k - d) & 1
+        return second, ((k - d) >> 1) if second else d + ((k - d) >> 1)
+    return 1, k - tiles
+
+
+def fs_queue(t: int, rows: int, n: int, grid: int, phases: int = 3) -> list[tuple[int, int, int]]:
+    """The queue of one K3-fs or K4-fs call with ``grid`` CTAs: (phase,
+    polynomial, tile of the polynomial) of each ticket in the order the
+    CTAs take them."""
+    per = n // fs_tile(n)
+    tiles = fs_blocks(t, rows, n)
+    lag = fs_lag(n, grid)
+    out = []
+    for k in range((2 if phases == 3 else 1) * tiles):
+        second, tile = fs_ticket(k, tiles, lag, phases)
+        out.append((second, tile // per, tile % per))
+    return out
+
+
+def fs_col_box(n: int, word: int) -> dict:
+    """How K3-fs and K4-fs move a column tile of ``word``-byte (4 or 8)
+    words: past n = 4096 a TMA box (``kind`` "tensor") of ``box`` = (C
+    columns, n1 rows) of the 2-D view ``dims`` = (n2 words, polys n1 rows)
+    with row stride ``stride`` bytes (csrc/parentt.cuh ``fs_col_map``);
+    at n <= 4096 the whole polynomial, a contiguous span of ``bytes``
+    (``kind`` "bulk") like every row tile."""
+    n1, n2 = fs_split(n)
+    E = fs_tile(n)
+    if E == n:
+        return {"kind": "bulk", "bytes": E * word}
+    return {"kind": "tensor", "box": (E // n1, n1), "dims": (n2, n1), "stride": n2 * word,
+            "bytes": E * word}
 
 
 # the cascade cluster (csrc/parentt.cuh kLogCascadeCluster): the portable
@@ -296,7 +362,7 @@ def main_path_kernel_smem(backend: str, n: int, t: int, S: int, L: int) -> tuple
     (``"cuda"``), K1 or K1-fs (``"cuda_fused"``), K2 or K2-fs
     (``"cuda_fused_e2e"``; admission refuses what neither holds)."""
     if backend == "cuda":
-        return (False, stage_smem_bytes(n)) if stage_fits(n) else (True, ntt_fs_smem_bytes(n))
+        return (False, stage_smem_bytes(n)) if stage_fits(n) else (True, fs_stream_smem_bytes(n))
     if backend == "cuda_fused":
         return ((False, cascade_smem_bytes(n)) if cascade_fits(n)
                 else (True, cascade_fs_smem_bytes(n)))
@@ -483,12 +549,12 @@ _E2E_FS_ARGTYPES = [_P] * 20 + [_I] * 14 + [_P]
 _E2E_FS_DECOMPOSE_ARGTYPES = [_P] * 10 + [_LL] + [_I] * 4 + [_P]
 _E2E_FS_CASCADE_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]
 _E2E_FS_COMPOSE_ARGTYPES = [_P] * 5 + [_LL] + [_I] * 3 + [_P]
-_FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+_FS_STAGE_ARGTYPES = [_P] * 8 + [_I] * 9 + [_P]
 # each K1/K3/K4 source's shared memory a CTA, one-block and multi-block
 _SMEM = {
     "fused_polymul": cascade_smem_bytes, "ntt_channels": stage_smem_bytes,
     "intt_channels": stage_smem_bytes, "fused_polymul_fs": cascade_fs_smem_bytes,
-    "ntt_channels_fs": ntt_fs_smem_bytes, "intt_channels_fs": intt_fs_smem_bytes,
+    "ntt_channels_fs": fs_stream_smem_bytes, "intt_channels_fs": fs_stream_smem_bytes,
 }
 
 
@@ -626,11 +692,29 @@ def _blocks_per_sm(tables: ChannelTables, source: str) -> int:
     return count
 
 
+def fs_stream_grid(tables: ChannelTables, source: str) -> int:
+    """CTAs of a K3-fs or K4-fs launch (``source``): as many as the current
+    card holds at once at these tables' n and regime, its CTAs an SM
+    (:func:`ntt_fs_blocks_per_sm`) times its SMs; kept on the tables."""
+    kept = tables.__dict__.get("_launch")
+    if kept is None:
+        kept = {}
+        object.__setattr__(tables, "_launch", kept)
+    key = (source, "grid")
+    if key not in kept:
+        sms = torch.cuda.get_device_properties(tables.qs_d.device).multi_processor_count
+        kept[key] = _fs_blocks_per_sm(tables, source) * sms
+    return kept[key]
+
+
 def _launch_fs(a: torch.Tensor, tables: ChannelTables, source: str, fn_name: str
                ) -> torch.Tensor:
     """One call of a multi-block transform (K3-fs or K4-fs) on (t, rows, n):
-    its 32-bit scratch and its output allocated here, its two launches in
-    the C entry point."""
+    its output and one int32 tensor allocated here, the 32-bit words
+    between its phases and after them the queue's counters (zeroed by the
+    C entry point), its one launch in the C entry point.  TMA reads ``a``
+    in 16-byte units, so an operand that starts off a 16-byte boundary is
+    copied first."""
     t, n = tables.t, tables.n
     rows = a.shape[1] if a.dim() == 3 else -1
     check_operand(a, (t, rows, n), "a", fn_name)
@@ -640,9 +724,12 @@ def _launch_fs(a: torch.Tensor, tables: ChannelTables, source: str, fn_name: str
     out = torch.empty_like(a)
     if rows == 0:
         return out
-    scratch = torch.empty((t, rows, n), dtype=torch.int32, device=a.device)
+    if a.data_ptr() % 16:
+        a = a.clone()
+    scratch = torch.empty(t * rows * (n + 1) + 1, dtype=torch.int32, device=a.device)
+    grid = fs_stream_grid(tables, source)
     with torch.cuda.device(a.device):
-        code = launch(ptr(a), ptr(scratch), ptr(out), *pointers, t, rows, *ints,
+        code = launch(ptr(a), ptr(scratch), ptr(out), *pointers, t, rows, *ints, grid,
                       _build.stream_of(a))
     _build.check(source, code)
     return out
@@ -652,7 +739,7 @@ def ntt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tensor
     """K3-fs: (t, rows, n) canonical residues -> (t, rows, n) canonical
     spectra in bit-reversed order, as a multi-block transform.  CPU tensors
     run the plain version; CUDA tensors launch ``csrc/ntt_channels_fs.cu``
-    (two launches) on the current stream."""
+    (one launch) on the current stream."""
     if a.device.type == "cpu":
         return ntt_channels_fs_ref(a, tables)
     out = _launch_fs(a, tables, "ntt_channels_fs", "ntt_channels_fs_cuda")
@@ -667,7 +754,7 @@ def intt_channels_fs_cuda(a: torch.Tensor, tables: ChannelTables) -> torch.Tenso
     """K4-fs: (t, rows, n) canonical bit-reversed spectra -> (t, rows, n)
     canonical residues in natural order, as a multi-block transform.  CPU
     tensors run the plain version; CUDA tensors launch
-    ``csrc/intt_channels_fs.cu`` (two launches)."""
+    ``csrc/intt_channels_fs.cu`` (one launch)."""
     if a.device.type == "cpu":
         return intt_channels_fs_ref(a, tables)
     out = _launch_fs(a, tables, "intt_channels_fs", "intt_channels_fs_cuda")
@@ -731,28 +818,25 @@ def cascade_fs_clusters_resident(tables: ChannelTables, cluster: int | None = No
     return _clusters_resident("fused_polymul_fs", tables, cluster or fs_cluster(tables.n))
 
 
-def _fs_blocks_per_sm(tables: ChannelTables, source: str) -> tuple[int, int]:
-    """CTAs an SM of the current card holds at once of each launch of the
-    multi-block transform ``csrc/<source>.cu`` at these tables' n and
+def _fs_blocks_per_sm(tables: ChannelTables, source: str) -> int:
+    """CTAs an SM of the current card holds at once of the multi-block
+    transform ``csrc/<source>.cu`` (K3-fs or K4-fs) at these tables' n and
     regime."""
-    launch = _build.load(source, f"parentt_{source}_blocks_per_sm", [_I] * 4)
+    launch = _build.load(source, f"parentt_{source}_blocks_per_sm", [_I] * 3)
     mode, window = reduction_mode(tables)[:2]
-    counts = []
-    for p in range(2):
-        count = launch(p, tables.n.bit_length() - 1, mode, window)
-        if count < 0:
-            _build.check(source, -count)
-        counts.append(count)
-    return tuple(counts)
+    count = launch(tables.n.bit_length() - 1, mode, window)
+    if count < 0:
+        _build.check(source, -count)
+    return count
 
 
-def ntt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
-    """K3-fs's CTAs an SM holds: (columns, rows)."""
+def ntt_fs_blocks_per_sm(tables: ChannelTables) -> int:
+    """K3-fs's CTAs an SM holds."""
     return _fs_blocks_per_sm(tables, "ntt_channels_fs")
 
 
-def intt_fs_blocks_per_sm(tables: ChannelTables) -> tuple[int, int]:
-    """K4-fs's CTAs an SM holds: (rows, columns)."""
+def intt_fs_blocks_per_sm(tables: ChannelTables) -> int:
+    """K4-fs's CTAs an SM holds."""
     return _fs_blocks_per_sm(tables, "intt_channels_fs")
 
 

@@ -395,9 +395,12 @@ def test_multi_block_kernels_match_plain_versions(cuda_device, n, v):
     """K1-fs, K3-fs and K4-fs equal their plain versions (the four-step
     plain PyTorch) bit for bit in every regime at one row and an odd row
     count, equal K1, K3 and K4 where those serve n too, an SM holds at
-    least one CTA of each K3-fs and K4-fs launch, and K1-fs's one launch
-    ran as clusters of fs_cluster(n) CTAs, of which the card holds at
-    least one."""
+    least one CTA of K3-fs's and K4-fs's tile streams, and K1-fs's one
+    launch ran as clusters of fs_cluster(n) CTAs, of which the card holds
+    at least one.  At the largest n, K3-fs and K4-fs also at t = 6, 16
+    rows, over three calls back to back on fresh seeded inputs, each equal
+    to its plain version: a queue counter left unreset or a race between
+    a polynomial's two phases shows there."""
     pl = repro_torch.plan(n, 3, v, backend="cuda", device=cuda_device)
     tables = pl.params.tables
     _, _, ra, rb = _inputs(pl, 3, seed=n + v + 11, device=cuda_device)
@@ -417,8 +420,19 @@ def test_multi_block_kernels_match_plain_versions(cuda_device, n, v):
             assert torch.equal(got, ref(*operands, tables))
             if fits(n):
                 assert torch.equal(got, one_block(*operands, tables))
-    assert min(kern.ntt_fs_blocks_per_sm(tables) + kern.intt_fs_blocks_per_sm(tables)) >= 1
+    assert min(kern.ntt_fs_blocks_per_sm(tables), kern.intt_fs_blocks_per_sm(tables)) >= 1
     assert kern.cascade_fs_clusters_resident(tables) >= 1
+    if n == max(SMOKE_FS_POINTS):
+        # backend torch: the kernels' decompose has no constants at v = 31, t = 6
+        pl6 = repro_torch.plan(n, 6, v, backend="torch", device=cuda_device)
+        wide = pl6.params.tables
+        xs = [_inputs(pl6, 16, seed=n + v + 100 + k, device=cuda_device)[2] for k in range(3)]
+        got = [(kern.ntt_channels_fs_cuda(x, wide), kern.intt_channels_fs_cuda(x, wide))
+               for x in xs]
+        torch.cuda.synchronize()
+        for k, x in enumerate(xs):
+            assert torch.equal(got[k][0], kern.ntt_channels_fs_ref(x, wide)), k
+            assert torch.equal(got[k][1], kern.intt_channels_fs_ref(x, wide)), k
 
 
 def test_multi_block_admission_edges():
@@ -439,8 +453,8 @@ def test_multi_block_admission_edges():
         assert pl.config.schedule.card_split == kern.fs_split(n)
         for t in (1, 6, 14):
             assert kern.fs_blocks(t, 16, n) * kern.fs_tile(n) == t * 16 * n
-        assert kern.fs_threads(n) == 256
-        assert max(kern.ntt_fs_smem_bytes(n), kern.intt_fs_smem_bytes(n),
+        assert kern.fs_threads(n) == kern.FS_STREAM_THREADS
+        assert max(kern.fs_stream_smem_bytes(n),
                    kern.cascade_fs_smem_bytes(n),
                    kern.e2e_fs_smem_bytes(n, 48, 48, 52)) <= kern.MAX_SMEM_BYTES
         assert kern.e2e_fs_fits(n, 49, 49, 53)

@@ -630,7 +630,7 @@ def test_inverse_register_passes_match_plain_version(n, t, v):
 
 def fs_geometry(n, cluster=None):
     """(log n1, log n2, E, log C, blocks a polynomial, K) as the kernels
-    derive them (parentt.cuh fs_geom, and cluster_cascade with a cluster of
+    derive them (parentt.cuh fs_stream_geom, and cluster_cascade with a cluster of
     ``cluster`` CTAs, E = n / cluster), checked against the host helpers:
     a column CTA takes n1 rows x E / n1 = 2^(log C) adjacent columns, a row
     CTA (or the same CTA of the cluster, in the row phase) E / n2 whole
@@ -642,7 +642,8 @@ def fs_geometry(n, cluster=None):
     if cluster is None:  # K3-fs, K4-fs: 4096-element tiles
         log_e = min(L, 12)
         assert tkern.fs_tile(n) == 1 << log_e
-        assert tkern.fs_threads(n) == tkern.pass_threads(1 << log_e) <= 256
+        # the stream's consumers; a pass's groups spread over them, whatever n
+        assert tkern.fs_threads(n) == tkern.FS_STREAM_THREADS >= tkern.pass_threads(1 << log_e)
     else:  # the cluster cascade (K1-fs, K2-fs past one CTA): n / C elements a CTA
         assert cluster & (cluster - 1) == 0 and 2 <= cluster <= 1 << log_n1
         log_e = L - (cluster.bit_length() - 1)
@@ -671,11 +672,13 @@ def fs_emulated(a, b, tables, kernel, e2e=None, cluster=None):
     rows, n) canonical residues, as the kernels run them: the column CTAs'
     virtual length-E polynomials (v = r C + cc, gathered through the
     kernels' ColMap), the row CTAs' spans of E / n2 whole rows, passes of
-    G <= 3 stages over their groups p0 .. p1 - 1 with the kernels' twiddle
-    indices, and 32-bit values below W q (q when strict) between the
-    column and the row stages.  Every pass's groups of a CTA's span hold
-    each of its elements once.  K3-fs and K4-fs run 4096-element tiles,
-    two launches with the values in a scratch tensor between them; K1-fs
+    G stages (at most 3; K3-fs's tiles 4) over their groups p0 .. p1 - 1
+    with the kernels' twiddle indices, and 32-bit values below W q (q when
+    strict) between the column and the row stages.  Every pass's groups of
+    a CTA's span hold each of its elements once.  K3-fs and K4-fs run
+    4096-element tiles, the values in a scratch tensor between a
+    polynomial's column and row tiles (the order of the tiles of different
+    polynomials, tests/test_torch_fs_stream.py, changes none); K1-fs
     is one cluster of ``cluster`` CTAs a (channel, row) (default
     fs_cluster(n)), E = n / C elements of each operand a CTA: its column
     blocks are the virtual polynomials, its row blocks the spans, and the
@@ -707,6 +710,8 @@ def fs_emulated(a, b, tables, kernel, e2e=None, cluster=None):
         cluster = cluster or tkern.fs_cluster(n)
     L = n.bit_length() - 1
     log_n1, log_n2, E, log_c, tiles, K = fs_geometry(n, cluster if cascade else None)
+    if not cascade:  # the tile streams' passes: K3-fs four stages, K4-fs three
+        K = tkern.FS_STREAM_GROUP["ntt_channels_fs" if kernel == "forward" else "intt_channels_fs"]
     log_e = E.bit_length() - 1
     # ColMap: column block blk's virtual element v -> x = r n2 + c0 + cc
     v = np.arange(E)
