@@ -145,7 +145,39 @@ Phases, each raising on failure (so the run exits non-zero):
    each wrapper, K2-fs's C call and its allocations, on ``cuda`` K3-fs's
    C call (its counters' memset, its TMA maps' encoding and its launch)
    and its allocations, with ``torch.profiler``'s host-side events beside
-   (``[host]`` lines).
+   (``[host]`` lines);
+7. the wide and oracle widths (``[widths]`` lines): ``polymul`` on
+   ``plan(4096, 4, 45)`` (the wide width, plain PyTorch on the card: no
+   kernel of the port launches) at 16 rows equal bit for bit to the same
+   call on CPU tensors and on two rows to the host oracle, and
+   ``plan(1024, 2, 50)`` (the oracle width: operands and result on the
+   card, arithmetic on the host) equal to the host schoolbook on its 2
+   rows; each call's median wall of 10 synchronised calls and the CUDA
+   launches of one wide call (``torch.profiler``);
+8. the batching engine at full width, the slice's main path (``[serve]``
+   lines): ``repro_torch.launch.serve_crypto`` at ``SERVE_PRESETS``
+   (4096:6:30, 4096:4:45 and 65536:6:30 in turn, plus two requests at
+   1024:2:50) with 16 slots, a closed-loop run stepped inline and one on
+   the background dispatcher with a deadline that sheds nothing, 101
+   requests each, every launch counter zeroed just before each run and
+   read just after: every result equal to ``polymul`` of its request
+   alone on its plan, three (the inline run's first of each full-width
+   preset) equal to the host oracle; served == submitted and no dispatch
+   failure, breaker opening, shed or failure; K2's launches exactly the
+   (4096, 6, 30) bucket's dispatches, K5's, K1-fs's and K6's exactly what
+   the (65536, 6, 30) bucket's dispatches make (two, one and one a
+   dispatch; warm-up included), nothing else launched; no int64-width
+   plan of the engine on ``torch``; per bucket its requests/s, products/s
+   over its dispatches' time, p50/p99 latency, dispatches and padded
+   slots;
+9. the fault-injected soak (``[soak]`` line): ``serve_soak.run_soak`` on
+   the card at its ``CONFIGS`` ((4096, 6, 30) on ``cuda_fused_e2e`` and
+   the wide (4096, 4, 45)), 520 requests, a span log in a temporary
+   directory, the launch counters zeroed around it: its ``failures`` list
+   empty (exactly-once resolution, the breaker's round trip
+   ``cuda_fused_e2e -> cuda_fused -> cuda_fused_e2e``, injected corruption
+   detected, clean results bit-exact, span conservation) and
+   ``obs_report --check`` passing on the log; K2, K5, K1 and K6 launched.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -181,7 +213,9 @@ numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
 phase 4b's paths; K1-fs's, K3-fs's, K4-fs's and K2-fs's ``launches``
 sum phase 4c's and 4d's calls, each one a path of ``launches_by_path``;
 the other kernels on phase 4d's paths list them in ``launches_by_path``
-too; K2-fs's, K5's and K6's a ``wide`` object with their W1/W2 numbers)
+too, and K2, K1, K1-fs, K5 and K6 their launches in phases 8 and 9
+(paths ``serve inline``, ``serve async``, ``soak``); K2-fs's, K5's and
+K6's a ``wide`` object with their W1/W2 numbers)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
@@ -2922,6 +2956,260 @@ def time_backends(pl, inputs, kernel_ms: float) -> dict[str, float]:
     return walls
 
 
+# phases 7-9: the wide and oracle widths, the batching engine at full
+# width (the slice's main path) and the fault-injected soak
+WIDTH_WIDE = dict(n=4096, t=4, v=45, rows=16)  # the paper's wide-word point
+WIDTH_ORACLE = dict(n=1024, t=2, v=50, rows=2)  # past the wide fold window
+WIDTH_ORACLE_ROWS = (0, 15)  # wide rows also held against the host oracle
+SERVE_PRESETS = "4096:6:30,4096:4:45,65536:6:30,1024:2:50@2"
+SERVE_REQUESTS = 99  # a run: 33 of each full-width preset, plus the two oracle requests
+SERVE_SLOTS = 16  # 16 rows of 65536: 2^20 coefficients an operand, as phase 4c's
+SERVE_DEADLINE_MS = 120_000.0  # the async run's deadline: loose enough to shed nothing
+SERVE_ORACLE_SAMPLES = 3
+SOAK_REQUESTS = 520
+
+
+def drive_widths(card: str) -> None:
+    """Phase 7 (``[widths]``): ``polymul`` on ``plan(4096, 4, 45)`` at 16
+    rows on the card equal bit for bit to the same call on CPU tensors,
+    and on two rows to the host oracle; ``plan(1024, 2, 50)`` (oracle
+    width) exact against the host schoolbook on its 2 rows; each call's
+    median wall of 10 synchronised calls and the CUDA launches of one
+    wide call (``torch.profiler``)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.core import bigint
+    from repro_torch.core import polymul as host
+
+    t0 = time.perf_counter()
+    w, o = WIDTH_WIDE, WIDTH_ORACLE
+    wide = repro_torch.plan(w["n"], w["t"], w["v"])
+    cpu = repro_torch.plan(w["n"], w["t"], w["v"], device="cpu")
+    if (wide.config.width, wide.config.backend, wide.device.type) != ("wide", "torch", "cuda"):
+        raise AssertionError(f"plan(4096, 4, 45) resolved to {wide.config}")
+    za, zb, _, _ = seeded_inputs(torch, np, wide, w["rows"], SEED + 45, wide.device)
+    out, got = counted(torch, lambda: repro_torch.polymul(wide, za, zb))
+    expect_launches(got, {}, "polymul plan(4096, 4, 45)")  # no kernel of the port's
+    exact(out.cpu(), repro_torch.polymul(cpu, za.cpu(), zb.cpu()), "wide polymul card vs CPU")
+    check_oracle(wide, za, zb, out, "wide polymul", WIDTH_ORACLE_ROWS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        repro_torch.polymul(wide, za, zb)
+        torch.cuda.synchronize()
+    cuda_launches = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    if not cuda_launches:
+        raise AssertionError("torch.profiler saw no CUDA kernel of a wide polymul call")
+    wide_ms = wall_ms(torch, lambda: repro_torch.polymul(wide, za, zb))
+    log(f"[widths] plan(n=4096, t=4, v=45): width={wide.config.width}, "
+        f"backend={wide.config.backend!r} (plain PyTorch on the card), q of "
+        f"{wide.q.bit_length()} bits, S={wide.config.seg_count}, L={wide.config.L}; polymul on "
+        f"{tuple(za.shape)} equal to the CPU run bit for bit, rows {WIDTH_ORACLE_ROWS} to the "
+        f"host oracle; {wide_ms:.4f} ms per call (median of {E2E_RUNS}, host clock), "
+        f"{w['rows'] * 1e3 / wide_ms:.0f} products/s; {cuda_launches} CUDA kernel launches a "
+        f"call (torch.profiler); {card}")
+
+    orc = repro_torch.plan(o["n"], o["t"], o["v"])
+    if (orc.config.width, orc.config.backend) != ("oracle", "oracle"):
+        raise AssertionError(f"plan(1024, 2, 50) resolved to {orc.config}")
+    ya, yb, _, _ = seeded_inputs(torch, np, orc, o["rows"], SEED + 50, orc.device)
+    out = repro_torch.polymul(orc, ya, yb)
+    if out.device != orc.device:
+        raise AssertionError(f"oracle polymul returned on {out.device}, plan on {orc.device}")
+    for r in range(o["rows"]):
+        a = bigint.limbs_to_ints(ya[r].cpu().numpy(), o["v"])
+        b = bigint.limbs_to_ints(yb[r].cpu().numpy(), o["v"])
+        if repro_torch.from_limbs(orc, out[r]) != host.schoolbook_negacyclic(a, b, orc.q):
+            raise AssertionError(f"oracle polymul row {r} differs from the host schoolbook")
+    orc_ms = wall_ms(torch, lambda: repro_torch.polymul(orc, ya, yb))
+    log(f"[widths] plan(n=1024, t=2, v=50): width={orc.config.width}, q of "
+        f"{orc.q.bit_length()} bits; polymul on {tuple(ya.shape)} (operands and result on "
+        f"{orc.device}, arithmetic on the host) equal to the host schoolbook on every row; "
+        f"{orc_ms:.4f} ms per call (median of {E2E_RUNS}, host clock); {card}")
+    log(f"[widths] phase 7 took {time.perf_counter() - t0:.1f} s (host clock)")
+
+
+def serve_launches(rec: dict) -> dict[str, int]:
+    """The launches a serve_crypto run must make: per dispatch (warm-up
+    included) of the (4096, 6, 30) bucket one K2, of the (65536, 6, 30)
+    bucket two K5 (one an operand), one K1-fs and one K6; the wide and
+    oracle buckets launch no kernel."""
+    from repro_torch.serve.crypto_engine import _bucket_key_str
+
+    want: dict[str, int] = {}
+    for pl in rec["plans"]:
+        cfg = pl.config
+        key = _bucket_key_str(cfg)
+        d = rec["buckets"].get(key, {}).get("dispatches", 0) + rec["warm_dispatches"].get(key, 0)
+        per = {("cuda_fused_e2e", 4096): {"fused_e2e_polymul": 1},
+               ("cuda_fused", 65536): {"decompose": 2, "fused_polymul_fs": 1, "compose": 1},
+               }.get((cfg.backend, cfg.n), {})
+        if cfg.width == "int64" and not per:
+            raise AssertionError(f"serve: unexpected int64 bucket {cfg}")
+        for name, k in per.items():
+            want[name] = want.get(name, 0) + k * d
+    return want
+
+
+def serve_split(pl, slots: int, runs: int = 5) -> dict[str, float]:
+    """Where one full dispatch of ``pl``'s bucket spends its time, each
+    step as ``PolymulEngine.step`` and ``_execute_batch`` take it: filling
+    the zero-padded host buffer from the requests' rows, its one
+    host-to-device copy, ``execute``, and the device-to-host copy of the
+    limbs; host-clock milliseconds, synchronised, median of ``runs``."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+
+    cfg = pl.config
+    rng = np.random.default_rng(SEED)
+    rows = [torch.as_tensor(rng.integers(0, 1 << cfg.v, size=(cfg.n, cfg.seg_count)))
+            for _ in range(2 * slots)]
+    steps: dict[str, list[float]] = {"fill": [], "to device": [], "execute": [], "to host": []}
+
+    def clock(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def fill():
+        host = torch.zeros((2, slots, cfg.n, cfg.seg_count), dtype=torch.int64)
+        for i in range(slots):
+            host[0, i], host[1, i] = rows[2 * i], rows[2 * i + 1]
+        return host
+
+    for _ in range(runs + 1):  # the first run warms up
+        host = clock("fill", fill)
+        both = clock("to device", lambda: host.to(pl.device))
+        out = clock("execute", lambda: repro_torch.execute(pl, both[0], both[1]))
+        clock("to host", lambda: out.cpu())
+    return {k: statistics.median(v[1:]) for k, v in steps.items()}
+
+
+def drive_serve(card: str) -> dict[str, dict[str, int]]:
+    """Phase 8 (``[serve]``, the slice's main path): ``serve_crypto`` on
+    the card at SERVE_PRESETS with SERVE_SLOTS slots, a closed-loop run
+    stepped inline and one on the background dispatcher with a loose
+    deadline, each with every launch counter zeroed just before it and read
+    just after.  Gates: every result equals ``polymul`` of its request
+    alone on its plan, SERVE_ORACLE_SAMPLES sampled results equal the host
+    oracle; served == submitted, no dispatch failure, breaker opening,
+    shed or failure; K2's launches are the (4096, 6, 30) bucket's
+    dispatches, K5's, K1-fs's and K6's what the (65536, 6, 30) bucket's
+    dispatches make, nothing else launched; no int64 plan of the engine's
+    cache on ``torch``.  Returns kernel -> path -> launches."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import bigint
+    from repro_torch.core import polymul as host
+    from repro_torch.launch import serve_crypto
+
+    t0 = time.perf_counter()
+    launches: dict[str, dict[str, int]] = {}
+    rng = np.random.default_rng(SEED + 8)
+    for path, kw in (("serve inline", {}),
+                     ("serve async", {"async_dispatch": True, "deadline_ms": SERVE_DEADLINE_MS})):
+        rec, got = counted(torch, lambda: serve_crypto.run(
+            presets=SERVE_PRESETS, requests=SERVE_REQUESTS, slots=SERVE_SLOTS, seed=SEED, **kw))
+        expect_launches(got, serve_launches(rec), path)
+        for name, k in launched(got).items():
+            launches.setdefault(name, {})[path] = k
+        eng, futs = rec["engine"], rec["futures"]
+        snap = eng.snapshot()
+        bad = {k: snap[k] for k in ("dispatch_failures", "breaker_opened", "shed", "failed")
+               if snap[k]}
+        if snap["served"] != snap["submitted"] or snap["served"] != len(futs) or bad:
+            raise AssertionError(f"{path}: served {snap['served']} of {snap['submitted']} "
+                                 f"submitted ({len(futs)} requests), {bad}")
+        torch_plans = [c for c in eng._plans if c.width == "int64" and c.backend == "torch"]
+        if torch_plans:
+            raise AssertionError(f"{path}: int64 plans on the plain datapath: {torch_plans}")
+        for (_, pl, za, zb), f in zip(rec["traffic"], futs):
+            alone = repro_torch.polymul(pl, torch.as_tensor(za, device=pl.device)[None],
+                                        torch.as_tensor(zb, device=pl.device)[None])[0]
+            exact(f.result(timeout=60.0), alone.cpu(), f"{path}: {pl.config} request")
+        # the inline run's first request of each full-width preset
+        sampled = [] if kw else [
+            next(i for i, (_, pl, _, _) in enumerate(rec["traffic"]) if pl is want)
+            for want in rec["plans"][:SERVE_ORACLE_SAMPLES]]
+        for i in sampled:
+            _, pl, za, zb = rec["traffic"][i]
+            a, b = (bigint.limbs_to_ints(z, pl.config.v) for z in (za, zb))
+            if repro_torch.from_limbs(pl, futs[i].result()) != host.oracle_multiply(a, b,
+                                                                                    pl.params):
+                raise AssertionError(f"{path}: request {i} ({pl.config}) differs from the "
+                                     "host oracle")
+        log(f"[serve] {path}: {len(futs)} requests at {SERVE_PRESETS}, {SERVE_SLOTS} slots, "
+            f"served {snap['served']} in {rec['wall_s'] * 1e3:.1f} ms "
+            f"({snap['served'] / rec['wall_s']:.1f} requests/s), p50 "
+            f"{snap['latency_p50_ms']:.3f} ms, p99 {snap['latency_p99_ms']:.3f} ms; every result "
+            f"equal to polymul alone, requests {sampled or 'none'} to the host oracle; launched "
+            f"{launched(got)}; {card}")
+        for key, b in rec["buckets"].items():
+            log(f"[serve] {path} bucket {key}: {b['requests']} requests, "
+                f"{b['requests_per_s']:.1f} requests/s, {b['products_per_s']:.1f} products/s "
+                f"over its dispatches' {b['requests'] / b['products_per_s'] * 1e3:.1f} ms, p50 "
+                f"{b['latency_p50_ms']:.3f} ms, p99 {b['latency_p99_ms']:.3f} ms, "
+                f"{b['dispatches']} dispatches, {b['padded_slots']} padded slots; {card}")
+    for pl in rec["plans"][:SERVE_ORACLE_SAMPLES]:
+        split = serve_split(pl, SERVE_SLOTS)
+        log(f"[serve] split of one dispatch of {pl.config.n}:{pl.config.t}:{pl.config.v} "
+            f"({pl.config.backend}, {SERVE_SLOTS} rows): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f" (host clock, synchronised, median of 5); {card}")
+    log(f"[serve] phase 8 took {time.perf_counter() - t0:.1f} s (host clock)")
+    return launches
+
+
+def drive_soak(card: str) -> dict[str, dict[str, int]]:
+    """Phase 9 (``[soak]``): ``serve_soak.run_soak`` on the card at its
+    CONFIGS, SOAK_REQUESTS requests, with a span log in a temporary
+    directory and the launch counters zeroed just before and read just
+    after; its ``failures`` must be empty (exactly-once resolution, the
+    breaker's round trip through cuda_fused, injected corruption
+    detected, clean results bit-exact, span conservation) and
+    ``obs_report --check`` must pass on the log.  Returns kernel -> path
+    -> launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import obs_report, serve_soak
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = str(Path(tmp) / "soak.jsonl")
+        rec, got = counted(torch, lambda: serve_soak.run_soak(
+            requests=SOAK_REQUESTS, seed=SEED, span_log_path=log_path))
+        if rec["failures"]:
+            raise AssertionError(f"soak failures: {rec['failures']}")
+        if obs_report.main([log_path, "--check"]) != 0:
+            raise AssertionError("obs_report --check failed on the soak's span log")
+    # the e2e bucket's dispatches and spot checks (K2), its degraded
+    # dispatches (K5, K1, K6); the wide bucket launches no kernel
+    missing = [n for n in ("fused_e2e_polymul", "decompose", "fused_polymul", "compose")
+               if not got[n]]
+    stray = [n for n in ("attention", "fused_e2e_polymul_fs", "fused_polymul_fs",
+                         "ntt_channels_fs", "intt_channels_fs") if got[n]]
+    if missing or stray:
+        raise AssertionError(f"soak launched {launched(got)}: none of {missing}, some of {stray}")
+    log(f"[soak] {rec['requests']} requests at {rec['plans']}: served {rec['served']}, shed "
+        f"{rec['shed']}, failed {rec['failed']}, retried {rec['retried']}, breaker opened "
+        f"{rec['breaker_opened']} / recovered {rec['breaker_recovered']} (probes "
+        f"{rec['probes']}), faults {rec['faults']}, p50 {rec['latency_p50_ms']:.3f} ms, p99 "
+        f"{rec['latency_p99_ms']:.3f} ms, {rec['goodput_rps']} requests/s over "
+        f"{rec['wall_s']} s; spans {rec['span_conservation']['by_status']}, obs_report --check "
+        f"passed; launched {launched(got)}; {card}")
+    log(f"[soak] phase 9 took {time.perf_counter() - t0:.1f} s (host clock)")
+    return {name: {"soak": k} for name, k in launched(got).items()}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
         return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
@@ -3005,6 +3293,14 @@ def main() -> int:
     time_fs_walls()
     time_auto_edges(card)
     time_host_split(card)
+    drive_widths(card)
+    serve_paths = drive_serve(card)
+    for name, paths in drive_soak(card).items():
+        serve_paths.setdefault(name, {}).update(paths)
+    for entry in entries:  # phases 8 and 9's paths beside each kernel's
+        paths = serve_paths.get(entry["name"], {})
+        if paths:
+            entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)

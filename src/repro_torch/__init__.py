@@ -1,5 +1,6 @@
 """PaReNTT on PyTorch + CUDA: the port of the JAX package ``repro`` to an
-NVIDIA H100 (the int64-width multiplier and its stage entry points).
+NVIDIA H100 (the multiplier at every width, its stage entry points, and
+the batching engine that serves it).
 
     import repro_torch
 
@@ -16,7 +17,17 @@ multi-block form ``csrc/fused_e2e_polymul_fs.cu``); the residue-domain product
 ``compose.cu``), as does every stage of ``backend="cuda"``.
 ``plan(..., device="cpu")`` runs the plain-PyTorch versions.
 :func:`execute` is :func:`polymul` under the serving signature, and
-:func:`plan_from_params` wraps an existing ``ParenttParams``.
+:func:`plan_from_params` wraps an existing ``ParenttParams``.  Past
+v = 31 a plan takes the wide width (v <= 46: the digit-split datapath of
+:mod:`repro_torch.core.wide`, plain PyTorch on the plan's device) or the
+oracle width (exact host Python ints); :func:`width_for` names it.
+
+:mod:`repro_torch.serve` batches many small products into one dispatch
+per plan (``PolymulEngine``: deadlines, backpressure, retries, a circuit
+breaker down ``cuda_fused_e2e -> cuda_fused -> cuda``), with metrics and
+request spans in :mod:`repro_torch.obs` and the launchers
+``python -m repro_torch.launch.serve_crypto``, ``serve_soak`` and
+``obs_report``.
 
 The BFV layer of the paper's HE applications sits on these entry points:
 :mod:`repro_torch.core.bfv` (``make_context``, ``keygen``, ``encrypt``,
@@ -30,6 +41,9 @@ imports neither JAX nor ``repro``.
 """
 from repro_torch.api import (
     BACKENDS,
+    ORACLE_BACKEND,
+    WIDE_BACKEND,
+    WIDTHS,
     Plan,
     PlanConfig,
     ScheduleSpec,
@@ -46,17 +60,33 @@ from repro_torch.api import (
     polymul,
     polymul_ints,
     to_segments,
+    width_for,
 )
-from repro_torch.errors import PlanError, UnknownKnobError, UnservableConfigError
+from repro_torch.errors import (
+    BackendFailedError,
+    DeadlineExceededError,
+    EngineError,
+    PlanError,
+    QueueFullError,
+    UnknownKnobError,
+    UnservableConfigError,
+)
 
 __all__ = [
     "BACKENDS",
+    "BackendFailedError",
+    "DeadlineExceededError",
+    "EngineError",
+    "ORACLE_BACKEND",
     "Plan",
     "PlanConfig",
     "PlanError",
+    "QueueFullError",
     "ScheduleSpec",
     "UnknownKnobError",
     "UnservableConfigError",
+    "WIDE_BACKEND",
+    "WIDTHS",
     "compose",
     "decompose",
     "execute",
@@ -70,4 +100,5 @@ __all__ = [
     "polymul",
     "polymul_ints",
     "to_segments",
+    "width_for",
 ]

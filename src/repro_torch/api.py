@@ -1,5 +1,5 @@
 """The plan/execute front door of the PyTorch port (counterpart of
-``repro.api`` at the int64 width, v <= 31).
+``repro.api``).
 
 Usage::
 
@@ -8,6 +8,29 @@ Usage::
     pl = repro_torch.plan(n=4096, t=6, v=30)     # paper's preferred point
     limbs = repro_torch.polymul(pl, za, zb)      # (..., n, S) -> (..., n, L)
     limbs = repro_torch.execute(pl, za, zb)      # the serving layer's hook
+
+    pl45 = repro_torch.plan(n=4096, t=4, v=45)   # wide-word alternative:
+    limbs = repro_torch.polymul(pl45, za, zb)    # same signature and limbs
+
+Width dispatch (resolved once, inside :func:`plan`, into
+``PlanConfig.width``, as the reference resolves it):
+
+* ``v <= 31`` — ``"int64"``: the kernel backends below (and ``torch``);
+* ``31 < v <= 46`` — ``"wide"``: the digit-split datapath of
+  :mod:`repro_torch.core.wide` in plain PyTorch on the plan's device (the
+  card unless ``device="cpu"``).  Its one backend is named ``"torch"``:
+  the reference's wide width is pure jnp, with no Pallas kernel to port,
+  so there is no CUDA kernel behind it either;
+* ``v > 46`` — ``"oracle"``: the exact host Python-int pipeline
+  (``backend="oracle"``); operands and results lie on the plan's device,
+  the arithmetic runs on the host.
+
+All three share one contract: segments in (``(..., n, S)`` base-2^v),
+product limbs out (``(..., n, L)`` base-2^w, w = 28), bit-exact against
+the bigint oracle.  Each width refuses the reference's knobs: a kernel
+backend or a four-step schedule or a ``tiling`` on the wide width, any
+backend but ``oracle`` on the oracle width, and t, v past the wide
+inverse CRT's int64 envelope (knob ``t``).
 
 :func:`plan` resolves every knob once into a frozen :class:`PlanConfig`
 and uploads the tables to the plan's device; :func:`plan_from_params`
@@ -45,18 +68,22 @@ serving signature.  Besides the multiplier, the stage entry points
 :func:`negacyclic_mul` run one stage each on the plan's backend; the BFV
 layer (:mod:`repro_torch.core.bfv`) runs every homomorphic product
 through :func:`negacyclic_mul` and every decrypt through :func:`compose`.
-The reference's integer ``tiling`` and its wide and oracle widths
-(v > 31) are not ported yet.
+The reference's integer ``tiling`` is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import bigint
+from repro_torch.core import ntt as ntt_mod
+from repro_torch.core import polymul as polymul_mod
 from repro_torch.core import schedule as schedule_mod
+from repro_torch.core import wide as wide_mod
 from repro_torch.core.params import ParenttParams, make_params
 from repro_torch.core.schedule import ScheduleSpec
 from repro_torch.errors import UnknownKnobError, UnservableConfigError
@@ -66,6 +93,9 @@ from repro_torch.kernels.ops import BACKENDS, KERNEL_BACKENDS
 
 __all__ = [
     "BACKENDS",
+    "ORACLE_BACKEND",
+    "WIDE_BACKEND",
+    "WIDTHS",
     "Plan",
     "PlanConfig",
     "ScheduleSpec",
@@ -82,10 +112,29 @@ __all__ = [
     "polymul",
     "polymul_ints",
     "to_segments",
+    "width_for",
 ]
 
 _V_MIN, _V_MAX = 8, 60
-_V_INT64_MAX = 31
+
+# Width paths, in increasing modulus width (see the module notes).
+WIDTHS = ("int64", "wide", "oracle")
+
+# The one backend of each width past int64: the wide width's plain
+# PyTorch datapath, and the oracle width's host sentinel.
+WIDE_BACKEND = "torch"
+ORACLE_BACKEND = "oracle"
+
+
+def width_for(v: int) -> str:
+    """The datapath a modulus width rides: the int64 kernels need
+    q_i < 2^31, the digit-split wide path serves the 46-bit fold window,
+    wider moduli fall back to the exact host oracle."""
+    if v <= 31:
+        return "int64"
+    if v <= 46:
+        return "wide"
+    return "oracle"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,14 +151,19 @@ class PlanConfig:
     w: int  # output limb width (base 2^w)
     L: int  # output limb count
     use_sau: bool = True  # Alg-2 SAU decompose (False: generic, backend "torch" only)
+    width: str = "int64"  # WIDTHS entry: the datapath v rides
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Plan:
-    """An executable multiplier plan; build with :func:`plan`."""
+    """An executable multiplier plan; build with :func:`plan`.  ``consts``
+    holds the wide width's device tensors (the reference's ``wide_*``
+    leaves) and is empty at the other widths, whose tables live on
+    ``params``."""
 
     config: PlanConfig
     params: ParenttParams
+    consts: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n(self) -> int:
@@ -179,12 +233,15 @@ def plan(
     n = 8192); a tuple ``tiling`` asserts the canonical chain.
     ``row_blk``, ``channel_grid``, ``use_sau`` and ``tuning`` are the
     reference's knobs, checked as it checks them (see the module notes for
-    what the port serves of each).
+    what the port serves of each).  v picks the width (:func:`width_for`):
+    past v = 31 the plan is a wide or oracle plan on the same device.
 
     Raises :class:`repro_torch.UnknownKnobError` for a knob outside its
     vocabulary and :class:`repro_torch.UnservableConfigError` for a valid
-    combination the port cannot serve (v > 31, no card, n above 65536 on a
-    kernel backend, a t, S or L whose CTAs one block's shared memory
+    combination the port cannot serve (no card, n above 65536 on a
+    kernel backend, a kernel backend, a four-step schedule or a ``tiling``
+    on the wide width, a backend but ``oracle`` past v = 46, t and v past
+    the wide inverse CRT's envelope, a t, S or L whose CTAs one block's shared memory
     cannot hold on the backend asked for, ``"four_step:h"`` below
     n = 8192, a mismatched ``tiling``, a ``row_blk``, ``channel_grid`` off
     the e2e backend or False, a tuning table), each with the same ``knob``
@@ -204,8 +261,15 @@ def plan(
         )
     _check_tpu_knobs(row_blk, channel_grid, tuning)
     _check_use_sau(use_sau)
-    _check_width(v)
     dev = _resolve_device(device)
+    width = width_for(v)
+    if width != "int64":
+        resolved = _resolve_wide_backend(width, backend)
+        _check_channel_grid(channel_grid, resolved)
+        spec = _wide_spec(width, schedule, tiling)
+        _check_wide_envelope(width, t, v)
+        return _wide_plan_of(make_params(n=n, t=t, v=v, device=dev), width, resolved, spec,
+                             dev, use_sau)
     resolved = ops_mod.resolve_backend(backend, dev, n, t, v)
     schedule_mod.resolve_spec(n, schedule, tiling=tiling)  # the schedule's knobs, before the search
     resolved, params = _admit(resolved, n, t, v, dev, auto=backend == "auto")
@@ -213,13 +277,85 @@ def plan(
     return _plan_of(params, resolved, schedule, tiling, dev, use_sau)
 
 
-def _check_width(v: int) -> None:
-    if v > _V_INT64_MAX:
+def _resolve_wide_backend(width: str, backend: str) -> str:
+    """The one backend of the wide or oracle width: ``"auto"`` resolves
+    to it, any other name is refused with knob ``backend``."""
+    one = WIDE_BACKEND if width == "wide" else ORACLE_BACKEND
+    if backend not in ("auto", one):
+        what = ("the wide (v in (31, 46]) datapath is plain PyTorch" if width == "wide"
+                else "v > 46 is served by the host bigint oracle only")
         raise UnservableConfigError(
-            f"the port serves the int64 width (v <= {_V_INT64_MAX}); v={v} needs the "
-            "wide or oracle datapath, which is not ported yet",
-            knob="v", value=v, alternatives=(30,),
+            f"{what}: backend={backend!r} is not available (use 'auto' or {one!r})",
+            knob="backend", value=backend, alternatives=("auto", one),
         )
+    return one
+
+
+def _wide_spec(width: str, schedule, tiling) -> ScheduleSpec:
+    """The wide and oracle widths have no kernel schedule: they serve
+    radix2 and take no ``tiling``."""
+    kind = getattr(schedule, "kind", schedule)
+    if kind not in ("auto", "radix2"):
+        raise UnservableConfigError(
+            f"the {width} datapath serves schedule='radix2' only, got {schedule!r}",
+            knob="schedule", value=schedule, alternatives=("auto", "radix2"),
+        )
+    if tiling is not None:
+        raise UnservableConfigError(
+            f"tiling= is a kernel-schedule hint; the {width} datapath has no tile schedule",
+            knob="tiling", value=tiling, alternatives=(),
+        )
+    return ScheduleSpec(kind="radix2")
+
+
+def _check_wide_envelope(width: str, t: int, v: int) -> None:
+    """The wide inverse CRT's t-fold sum of y (< 2^v) x limb (< 2^POST_W)
+    products must stay inside int64: refused at plan time, never wrapped
+    at execution time."""
+    if width == "wide" and t * (1 << (v + wide_mod.POST_W)) > (1 << 63):
+        raise UnservableConfigError(
+            f"t={t} channels of v={v}-bit moduli overflow the wide datapath's int64 "
+            f"inverse-CRT accumulator (need t * 2^(v+{wide_mod.POST_W}) <= 2^63); use "
+            "fewer or narrower channels",
+            knob="t", value=t, alternatives=(),
+        )
+
+
+def _wide_plan_of(params: ParenttParams, width: str, backend: str, spec: ScheduleSpec,
+                  dev: torch.device, use_sau: bool) -> Plan:
+    rp = params.plan
+    cfg = PlanConfig(
+        n=params.n, t=params.t, v=params.v, backend=backend, schedule=spec, device=str(dev),
+        seg_count=rp.seg_count, w=rp.w, L=rp.L, use_sau=use_sau, width=width,
+    )
+    consts = _wide_consts(params) if width == "wide" else {}
+    return Plan(config=cfg, params=params, consts=consts)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_consts(params: ParenttParams) -> dict[str, torch.Tensor]:
+    """The wide datapath's tensors on the params' device, uploaded once per
+    params object: stacked per-channel twiddle tables (plain int64, built
+    with host bigints for q >= 2^31) and the POST_W-limb CRT constants."""
+    rp, dev = params.plan, params.device
+    tabs = [ntt_mod.make_tables(int(q), params.n) for q in rp.qs]
+    W = wide_mod.POST_W
+    L14 = -(-(rp.q.bit_length() + rp.t.bit_length()) // W)
+    host = {
+        "wide_fwd": np.stack([tb.fwd for tb in tabs]),
+        "wide_inv": np.stack([tb.inv for tb in tabs]),
+        "wide_qi_star_limbs": bigint.ints_to_limbs([rp.q // int(qi) for qi in rp.qs], W, L14),
+        "wide_q_limbs": bigint.int_to_limbs(rp.q, W, L14),
+        "wide_betas": np.array([p.beta for p in params.primes], dtype=np.int64),
+    }
+    consts = {k: torch.as_tensor(x, dtype=torch.int64, device=dev) for k, x in host.items()}
+    consts.update(wide_beta_pows=rp.beta_pows_d, wide_qi_tilde=rp.qi_tilde_d, wide_qs=rp.qs_d)
+    return consts
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_specs(params: ParenttParams) -> tuple[wide_mod.WideSpec, ...]:
+    return tuple(wide_mod.from_special(p) for p in params.primes)
 
 
 def _check_tpu_knobs(row_blk, channel_grid, tuning) -> None:
@@ -367,9 +503,14 @@ def plan_from_params(
     through the same admission as :func:`plan`; ``use_sau`` as in
     :func:`plan`."""
     _check_use_sau(use_sau)
-    _check_width(params.v)
     dev = _resolve_device(params.device)
     asked = params.backend if backend is None else backend
+    width = width_for(params.v)
+    if width != "int64":
+        spec = _wide_spec(width, params.schedule, None)
+        _check_wide_envelope(width, params.t, params.v)
+        return _wide_plan_of(params, width, _resolve_wide_backend(width, asked), spec, dev,
+                             use_sau)
     resolved = ops_mod.resolve_backend(asked, dev, params.n, params.t, params.v)
     resolved, _ = _admit(resolved, params.n, params.t, params.v, dev, params=params,
                          auto=asked == "auto")
@@ -385,13 +526,49 @@ def _require_plan(pl: Plan, fn: str) -> PlanConfig:
     return pl.config
 
 
+def _check_residues(x: torch.Tensor, cfg: PlanConfig, fn: str) -> None:
+    if x.dim() < 2 or x.shape[0] != cfg.t or x.shape[-1] != cfg.n:
+        raise ValueError(
+            f"{fn}: expected residues (t={cfg.t}, ..., n={cfg.n}), got shape {tuple(x.shape)}"
+        )
+
+
+def _check_poly_segments(z: torch.Tensor, cfg: PlanConfig, fn: str, name: str) -> None:
+    if z.dim() < 2 or z.shape[-2] != cfg.n or z.shape[-1] != cfg.seg_count:
+        raise ValueError(
+            f"{fn}: expected {name} segments (..., n={cfg.n}, S={cfg.seg_count}), got shape "
+            f"{tuple(z.shape)}"
+        )
+
+
+def _no_device_transform(fn: str) -> ValueError:
+    return ValueError(
+        f"{fn}: the oracle width has no device transform; v > 46 plans serve "
+        "polymul/decompose/compose on the host only"
+    )
+
+
 def polymul(pl: Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
     """za, zb: ``(..., n, S)`` base-2^v segments -> ``(..., n, L)`` base-2^w
     limbs of ``a * b mod (x^n + 1, q)``: the whole Fig-10 pipeline on the
-    plan's backend.  Operands must lie on the plan's device."""
+    plan's datapath.  Operands must lie on the plan's device; an oracle
+    plan copies them to the host and its result back."""
     cfg = _require_plan(pl, "polymul")
-    return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend,
-                                     schedule=cfg.schedule, use_sau=cfg.use_sau)
+    if cfg.width == "int64":
+        return ops_mod.fused_polymul_e2e(za, zb, pl.params, backend=cfg.backend,
+                                         schedule=cfg.schedule, use_sau=cfg.use_sau)
+    _check_poly_segments(za, cfg, "polymul", "za")
+    _check_poly_segments(zb, cfg, "polymul", "zb")
+    if za.shape != zb.shape:
+        raise ValueError(
+            f"polymul: operand shapes differ: {tuple(za.shape)} vs {tuple(zb.shape)}"
+        )
+    if cfg.width == "wide":
+        c = pl.consts
+        rp = wide_mod.negacyclic_mul_channels(_wide_decompose(pl, za), _wide_decompose(pl, zb),
+                                              c["wide_fwd"], c["wide_inv"], _wide_specs(pl.params))
+        return _wide_compose(pl, rp)
+    return _oracle_polymul(pl, za, zb)
 
 
 def execute(pl: Plan, za: torch.Tensor, zb: torch.Tensor, *,
@@ -409,35 +586,122 @@ def ntt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
     """a: ``(t, ..., n)`` canonical residues -> forward NTT per RNS channel
     (natural-order in, bit-reversed out: the no-shuffle convention)."""
     cfg = _require_plan(pl, "ntt")
-    return ops_mod.ntt_forward(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
+    if cfg.width == "int64":
+        return ops_mod.ntt_forward(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
+    if cfg.width == "wide":
+        _check_residues(a, cfg, "ntt")
+        return wide_mod.ntt_channels(a, pl.consts["wide_fwd"], _wide_specs(pl.params))
+    raise _no_device_transform("ntt")
 
 
 def intt(pl: Plan, a: torch.Tensor) -> torch.Tensor:
     """a: ``(t, ..., n)`` canonical bit-reversed spectra -> natural-order
     residues (n^-1 folded into the per-stage halving)."""
     cfg = _require_plan(pl, "intt")
-    return ops_mod.ntt_inverse(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
+    if cfg.width == "int64":
+        return ops_mod.ntt_inverse(a, pl.params, backend=cfg.backend, schedule=cfg.schedule)
+    if cfg.width == "wide":
+        _check_residues(a, cfg, "intt")
+        return wide_mod.intt_channels(a, pl.consts["wide_inv"], _wide_specs(pl.params))
+    raise _no_device_transform("intt")
 
 
 def negacyclic_mul(pl: Plan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(t, ..., n) x (t, ..., n)`` canonical residues -> per-channel
     negacyclic products (the residue-domain cascade)."""
     cfg = _require_plan(pl, "negacyclic_mul")
-    return ops_mod.negacyclic_mul(a, b, pl.params, backend=cfg.backend,
-                                  schedule=cfg.schedule)
+    if cfg.width == "int64":
+        return ops_mod.negacyclic_mul(a, b, pl.params, backend=cfg.backend,
+                                      schedule=cfg.schedule)
+    if cfg.width == "wide":
+        _check_residues(a, cfg, "negacyclic_mul")
+        _check_residues(b, cfg, "negacyclic_mul")
+        if a.shape != b.shape:
+            raise ValueError(
+                f"negacyclic_mul: operand shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}"
+            )
+        c = pl.consts
+        return wide_mod.negacyclic_mul_channels(a, b, c["wide_fwd"], c["wide_inv"],
+                                                _wide_specs(pl.params))
+    raise _no_device_transform("negacyclic_mul")
 
 
 def decompose(pl: Plan, z: torch.Tensor) -> torch.Tensor:
     """z: ``(..., S)`` base-2^v segments -> residues ``(t, ...)``."""
     cfg = _require_plan(pl, "decompose")
-    return ops_mod.rns_decompose(z, pl.params, backend=cfg.backend, use_sau=cfg.use_sau)
+    if cfg.width == "int64":
+        return ops_mod.rns_decompose(z, pl.params, backend=cfg.backend, use_sau=cfg.use_sau)
+    if z.dim() < 1 or z.shape[-1] != cfg.seg_count:
+        raise ValueError(
+            f"decompose: expected base-2^{cfg.v} segments (..., S={cfg.seg_count}), got shape "
+            f"{tuple(z.shape)}"
+        )
+    if cfg.width == "wide":
+        return _wide_decompose(pl, z)
+    rp = pl.params.plan
+    flat = z.reshape(-1, z.shape[-1]).cpu().numpy()
+    out = np.empty((cfg.t, flat.shape[0]), dtype=np.int64)
+    for r in range(flat.shape[0]):
+        x = bigint.limbs_to_int(flat[r], cfg.v)
+        for i in range(cfg.t):
+            out[i, r] = x % int(rp.qs[i])
+    return torch.as_tensor(out.reshape((cfg.t,) + tuple(z.shape[:-1])), device=z.device)
 
 
 def compose(pl: Plan, residues: torch.Tensor) -> torch.Tensor:
     """residues: canonical ``(t, ...)`` -> ``(..., L)`` base-2^w limbs of
     the CRT-composed value (canonical, < q)."""
     cfg = _require_plan(pl, "compose")
-    return ops_mod.rns_compose(residues, pl.params, backend=cfg.backend)
+    if cfg.width == "int64":
+        return ops_mod.rns_compose(residues, pl.params, backend=cfg.backend)
+    if residues.dim() < 1 or residues.shape[0] != cfg.t:
+        raise ValueError(
+            f"compose: expected residues (t={cfg.t}, ...), got shape {tuple(residues.shape)}"
+        )
+    if cfg.width == "wide":
+        return _wide_compose(pl, residues)
+    rp = pl.params.plan
+    flat = residues.reshape(cfg.t, -1).cpu().numpy()
+    out = np.empty((flat.shape[1], cfg.L), dtype=np.int64)
+    for r in range(flat.shape[1]):
+        acc = 0
+        for i in range(cfg.t):
+            qi = int(rp.qs[i])
+            y = (int(flat[i, r]) * int(rp.qi_tilde[i])) % qi
+            acc = (acc + y * (rp.q // qi)) % rp.q
+        out[r] = bigint.int_to_limbs(acc, cfg.w, cfg.L)
+    return torch.as_tensor(out.reshape(tuple(residues.shape[1:]) + (cfg.L,)),
+                           device=residues.device)
+
+
+def _wide_decompose(pl: Plan, z: torch.Tensor) -> torch.Tensor:
+    return wide_mod.decompose_channels(z, _wide_specs(pl.params), pl.consts["wide_beta_pows"])
+
+
+def _wide_compose(pl: Plan, residues: torch.Tensor) -> torch.Tensor:
+    c = pl.consts
+    limbs14 = wide_mod.compose_channels(residues, _wide_specs(pl.params), c["wide_qi_tilde"],
+                                        c["wide_qi_star_limbs"], c["wide_q_limbs"])
+    out = wide_mod.repack_limbs(limbs14, wide_mod.POST_W, pl.config.w)
+    assert out.shape[-1] == pl.config.L, (out.shape, pl.config.L)
+    return out
+
+
+def _oracle_polymul(pl: Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
+    """The exact host pipeline, one row at a time: segments to Python
+    ints, :func:`repro_torch.core.polymul.oracle_multiply`, limbs back to
+    the operands' device."""
+    cfg = pl.config
+    lead = tuple(za.shape[:-2])
+    a3 = za.reshape((-1,) + tuple(za.shape[-2:])).cpu().numpy()
+    b3 = zb.reshape((-1,) + tuple(zb.shape[-2:])).cpu().numpy()
+    out = np.empty((a3.shape[0], cfg.n, cfg.L), dtype=np.int64)
+    for r in range(a3.shape[0]):
+        a_ints = bigint.limbs_to_ints(a3[r], cfg.v)
+        b_ints = bigint.limbs_to_ints(b3[r], cfg.v)
+        p_ints = polymul_mod.oracle_multiply(a_ints, b_ints, pl.params)
+        out[r] = bigint.ints_to_limbs(p_ints, cfg.w, cfg.L)
+    return torch.as_tensor(out.reshape(lead + (cfg.n, cfg.L)), device=za.device)
 
 
 def to_segments(pl: Plan, xs: Any) -> torch.Tensor:

@@ -22,12 +22,25 @@ Keys of ``arrays`` (int64 numpy arrays, reference names):
   ``sau_eps``, ``sau_s2``, ``acc_eps`` (t,), ``beta_e``/``beta_s``
   (t, terms), ``block_consts`` (t, n_blocks);
 * compose: ``qi_tilde`` (t,), ``qi_star_limbs`` (t, L), ``q_limbs`` (L,).
+
+A wide plan (31 < v <= 46) has none of these: its constants are the
+reference's ``Plan.consts`` leaves, which :func:`tables_from_reference`
+takes when ``arrays`` holds ``wide_fwd`` and returns as a wide plan's
+``consts`` (:func:`wide_consts_from_reference`):
+
+* ``wide_fwd``/``wide_inv`` (t, n): plain int64 twiddle tables;
+* ``wide_beta_pows`` (t, S): B^k mod q_i; ``wide_qi_tilde`` (t,);
+* ``wide_qi_star_limbs`` (t, L14) and ``wide_q_limbs`` (L14,): q / q_i and
+  q in base-2^14 (``repro_torch.core.wide.POST_W``) limbs;
+* ``wide_qs`` and ``wide_betas`` (t,): q_i = 2^v - beta_i.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core import bigint, modmath
+import torch
+
+from repro_torch.core import bigint, modmath, wide
 from repro_torch.core.ntt import ChannelTables, four_step_tables
 from repro_torch.core.rns import ChannelDecompose, RnsPlan
 
@@ -40,10 +53,47 @@ def _get(arrays: dict, key: str) -> np.ndarray | None:
     return None if x is None else np.asarray(x, dtype=np.int64)
 
 
-def tables_from_reference(arrays: dict[str, np.ndarray],
-                          device="cpu") -> tuple[ChannelTables, RnsPlan]:
+WIDE_KEYS = ("wide_fwd", "wide_inv", "wide_beta_pows", "wide_qi_tilde", "wide_qi_star_limbs",
+             "wide_q_limbs", "wide_qs", "wide_betas")
+
+
+def wide_consts_from_reference(arrays: dict[str, np.ndarray],
+                               device="cpu") -> dict[str, torch.Tensor]:
+    """A wide plan's ``consts`` on ``device`` from the reference's wide
+    leaves (every key of :data:`WIDE_KEYS`), checked for consistency: the
+    limbs spell prod(q_i) and q / q_i, q_i = 2^v - beta_i, and the twiddle
+    tables are (t, n) residues below each q_i."""
+    c = {k: _get(arrays, k) for k in WIDE_KEYS}
+    missing = [k for k, x in c.items() if x is None]
+    if missing:
+        raise ValueError(f"wide constants missing: {missing}")
+    qs, betas = c["wide_qs"], c["wide_betas"]
+    t = qs.shape[0]
+    v = max(int(q).bit_length() for q in qs)
+    if any(int(q) != (1 << v) - int(b) for q, b in zip(qs, betas)):
+        raise ValueError("wide_qs are not 2^v - wide_betas")
+    if c["wide_fwd"].shape != c["wide_inv"].shape or c["wide_fwd"].shape[0] != t:
+        raise ValueError(f"wide twiddles of shape {c['wide_fwd'].shape} for t={t}")
+    if not (c["wide_fwd"] < qs[:, None]).all() or not (c["wide_inv"] < qs[:, None]).all():
+        raise ValueError("wide twiddles are not residues of their channels")
+    q = 1
+    for qi in qs:
+        q *= int(qi)
+    if bigint.limbs_to_int(c["wide_q_limbs"], wide.POST_W) != q:
+        raise ValueError("wide_q_limbs do not spell prod(qs) in base 2^14")
+    stars = [bigint.limbs_to_int(row, wide.POST_W) for row in c["wide_qi_star_limbs"]]
+    if stars != [q // int(qi) for qi in qs]:
+        raise ValueError("wide_qi_star_limbs do not spell q / q_i in base 2^14")
+    return {k: torch.tensor(x, device=device) for k, x in c.items()}
+
+
+def tables_from_reference(arrays: dict[str, np.ndarray], device="cpu"):
     """(ChannelTables, RnsPlan) on ``device`` from exported reference
-    constants (see the module docstring for the keys)."""
+    constants (see the module docstring for the keys); for a wide plan's
+    leaves (``wide_fwd`` present) its ``consts`` dict
+    (:func:`wide_consts_from_reference`)."""
+    if "wide_fwd" in arrays:
+        return wide_consts_from_reference(arrays, device)
     qs = _get(arrays, "qs")
     fwd, inv = _get(arrays, "fwd"), _get(arrays, "inv")
     t, n = fwd.shape

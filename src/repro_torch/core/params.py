@@ -1,8 +1,12 @@
 """Parameter sets tying together prime search, NTT tables and RNS plans
 (PyTorch port of ``repro.core.params``).
 
-The paper's preferred hardware config is t=6, v=30, n=4096 (a 180-bit q).
-The port serves the int64 width (v <= 31); ``tables`` is None above it.
+The paper's preferred hardware configs are t=6, v=30, n=4096 (a 180-bit
+q) and the wide-word t=4, v=45.  Params carry v up to 60, as the
+reference's do: the RNS plan's int64 constants (q_i, B^k mod q_i, q~_i,
+the base-2^28 limbs) are exact at every such v, while ``tables`` (the
+int64 kernels' NTT tables) is None above v = 31, where the wide and
+oracle widths of :mod:`repro_torch.api` build their own.
 ``backend`` is the datapath :func:`repro_torch.api.plan_from_params`
 takes when its caller names none (a :data:`repro_torch.BACKENDS` entry
 or ``"auto"``), and ``schedule`` the NTT stage schedule it resolves
@@ -28,7 +32,7 @@ class ParenttParams:
     t: int
     primes: tuple[primes_mod.SpecialPrime, ...]
     plan: rns_mod.RnsPlan
-    tables: ntt_mod.ChannelTables | None  # None for v > 31
+    tables: ntt_mod.ChannelTables | None  # None for v > 31 (the wide and oracle widths)
     backend: str = "auto"  # default datapath of plan_from_params
     schedule: str = "auto"  # NTT stage schedule of plan_from_params
 

@@ -105,6 +105,26 @@ def build(names=SOURCES) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
 
 
+def _library_locked(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build((name,))
+        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        lib.parentt_error_string.argtypes = [ctypes.c_int]
+        lib.parentt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_libraries(names) -> None:
+    """Build (all stale sources at once) and load ``lib<name>.so`` of each
+    name, so that a later launch finds them ready; raises if one fails."""
+    names = tuple(names)
+    with _lock:
+        build(tuple(n for n in names if n not in _libs))
+        for name in names:
+            _library_locked(name)
+
+
 def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of ``lib<name>.so`` with its argument
     types declared, building the library first if it is missing or older
@@ -114,13 +134,7 @@ def load(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn = _fns.get(key)
         if fn is not None:
             return fn
-        lib = _libs.get(name)
-        if lib is None:
-            build((name,))
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
-            lib.parentt_error_string.argtypes = [ctypes.c_int]
-            lib.parentt_error_string.restype = ctypes.c_char_p
-        fn = getattr(lib, symbol)
+        fn = getattr(_library_locked(name), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _fns[key] = fn

@@ -59,6 +59,7 @@ from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.modmath import mul_mod
 from repro_torch.core.params import ParenttParams
 from repro_torch.errors import UnknownKnobError
+from repro_torch.kernels import _build
 from repro_torch.kernels import crt as crt_kernels
 from repro_torch.kernels import ntt as ntt_kernels
 
@@ -130,6 +131,35 @@ def serving_backends(n: int, t: int, S: int, L: int) -> tuple[str, ...]:
     if ntt_kernels.e2e_serves(n, t, S, L):
         return KERNEL_BACKENDS
     return ("cuda", "cuda_fused")
+
+
+def path_sources(backend: str, n: int, t: int, S: int, L: int) -> tuple[str, ...]:
+    """The CUDA sources (``kernels._build.SOURCES`` names) whose kernels
+    :func:`fused_polymul_e2e` launches on ``backend`` at (n, t, S, L): K2
+    or K2-fs on ``cuda_fused_e2e``; K5, K1 or K1-fs, K6 on ``cuda_fused``;
+    K5, K3 and K4 (or K3-fs and K4-fs), K6 on ``cuda``; none on
+    ``torch``."""
+    if backend == "cuda_fused_e2e":
+        return (("fused_e2e_polymul",) if ntt_kernels.e2e_fits(n, t, S, L)
+                else ("fused_e2e_polymul_fs",))
+    if backend == "cuda_fused":
+        return ("decompose", "fused_polymul" if ntt_kernels.cascade_fits(n)
+                else "fused_polymul_fs", "compose")
+    if backend == "cuda":
+        one = ntt_kernels.stage_fits(n)
+        return ("decompose", "ntt_channels" if one else "ntt_channels_fs",
+                "intt_channels" if one else "intt_channels_fs", "compose")
+    validate_backend(backend)
+    return ()
+
+
+def load_path_kernels(backend: str, n: int, t: int, S: int, L: int) -> tuple[str, ...]:
+    """Build and load the kernels of ``backend``'s path at (n, t, S, L)
+    now (:func:`path_sources`), so that a failure to build or load them
+    raises here and not at a launch; returns the sources."""
+    names = path_sources(backend, n, t, S, L)
+    _build.load_libraries(names)
+    return names
 
 
 def resolve_schedule(params: ParenttParams, schedule=None) -> schedule_mod.ScheduleSpec:

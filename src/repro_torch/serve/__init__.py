@@ -1,0 +1,17 @@
+"""Serving: the crypto polymul batching engine (shape-bucketed continuous
+batching over the plan/execute API, with deadlines, backpressure,
+retries and a circuit breaker) and the deterministic fault-injection
+harness that soaks its failure semantics.  The reference's LM
+slot-batching engine (``repro.serve.engine``) comes with the LM stack."""
+from repro_torch.serve.crypto_engine import FALLBACK_NEXT, PolymulEngine, PolymulFuture
+from repro_torch.serve.faults import FaultInjector, FaultRule, InjectedFault, spot_check
+
+__all__ = [
+    "FALLBACK_NEXT",
+    "FaultInjector",
+    "FaultRule",
+    "InjectedFault",
+    "PolymulEngine",
+    "PolymulFuture",
+    "spot_check",
+]

@@ -759,3 +759,43 @@ def _negacyclic_mod(m: np.ndarray, w: np.ndarray, pt: int) -> np.ndarray:
         p[:n - 1] -= c[n:]
         out.append(p % pt)
     return np.stack(out).reshape(m.shape)
+
+
+def test_engine_on_the_card_equals_polymul_one_k2_launch_a_dispatch(cuda_device):
+    """The batching engine at (4096, 6, 30) on cuda_fused_e2e: every
+    future equals polymul of its request alone, and each dispatch is one
+    K2 launch."""
+    from repro_torch.serve import PolymulEngine
+
+    eng = PolymulEngine(batch_slots=4)
+    pl = eng.plan(4096, 6, 30, backend="cuda_fused_e2e", device=cuda_device)
+    rng = np.random.default_rng(24)
+    shape = (4096, pl.config.seg_count)
+    reqs = [(rng.integers(0, 1 << 30, size=shape), rng.integers(0, 1 << 30, size=shape))
+            for _ in range(6)]
+    kern.fused_e2e_polymul_cuda.launches = 0
+    try:
+        eng.start()
+        futs = [eng.submit(pl, za, zb, timeout=30.0) for za, zb in reqs]
+        outs = [f.result(timeout=120.0) for f in futs]
+    finally:
+        eng.stop(timeout=120.0)
+    assert kern.fused_e2e_polymul_cuda.launches == eng.stats["dispatches"] >= 2
+    for (za, zb), out in zip(reqs, outs):
+        alone = repro_torch.polymul(pl, torch.as_tensor(za, device=cuda_device)[None],
+                                    torch.as_tensor(zb, device=cuda_device)[None])[0]
+        assert out.device.type == "cpu" and torch.equal(out, alone.cpu())
+
+
+def test_wide_plan_on_the_card_equals_its_cpu_run(cuda_device):
+    """plan(4096, 4, 45) on the card (plain PyTorch on CUDA tensors) gives
+    the same bits as the same plan on the CPU."""
+    card = repro_torch.plan(4096, 4, 45, device=cuda_device)
+    cpu = repro_torch.plan(4096, 4, 45, device="cpu")
+    assert card.config.width == "wide" and card.consts["wide_fwd"].is_cuda
+    rng = np.random.default_rng(45)
+    shape = (3, 4096, card.config.seg_count)
+    za = torch.as_tensor(rng.integers(0, 1 << 45, size=shape))
+    zb = torch.as_tensor(rng.integers(0, 1 << 45, size=shape))
+    got = repro_torch.polymul(card, za.to(cuda_device), zb.to(cuda_device))
+    assert torch.equal(got.cpu(), repro_torch.polymul(cpu, za, zb))

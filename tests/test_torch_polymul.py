@@ -172,9 +172,11 @@ def test_plan_without_card_or_device_raises(monkeypatch):
 
 
 def test_plan_rejects_unservable_and_unknown_knobs():
+    # the wide width (v = 45) has one datapath, plain PyTorch: a kernel
+    # backend is refused there, as the reference refuses Pallas (knob backend)
     with pytest.raises(repro_torch.UnservableConfigError) as err:
-        repro_torch.plan(64, 4, 45, device="cpu")
-    assert err.value.knob == "v"
+        repro_torch.plan(64, 4, 45, backend="cuda_fused", device="cpu")
+    assert err.value.knob == "backend"
     # past one CTA (n = 32768 needs over 272 KiB of shared memory for K2)
     # the e2e backend runs K2-fs, whose CTAs' shared memory does not grow
     # with t past the channels' tables; at v = 31 the in-kernel decompose
