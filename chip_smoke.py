@@ -110,8 +110,9 @@ Phases, each raising on failure (so the run exits non-zero):
    after warm-up (one call between two events, so a short kernel's time
    counts the host's issue time), K1-K6 also back to back behind a spin
    of the card (``device_ms``: device time), its plain version's time,
-   and its bound (beside it, as ``bound_ms_earlier_count``, the bound from
-   the earlier operation counts);
+   and its bound (the bytes, operation counts and card peaks of
+   ``repro_torch.kernels.cost``; beside it, as ``bound_ms_earlier_count``,
+   the bound from the earlier operation counts);
    K1, K3 and K4 with the CTAs an SM holds; K2
    also at one row (the latency case) with the clusters the card holds
    at once (``cudaOccupancyMaxActiveClusters``); K7 at each of
@@ -177,7 +178,24 @@ Phases, each raising on failure (so the run exits non-zero):
    empty (exactly-once resolution, the breaker's round trip
    ``cuda_fused_e2e -> cuda_fused -> cuda_fused_e2e``, injected corruption
    detected, clean results bit-exact, span conservation) and
-   ``obs_report --check`` passing on the log; K2, K5, K1 and K6 launched.
+   ``obs_report --check`` passing on the log; K2, K5, K1 and K6 launched;
+10. the autotuner and the stage profiler (``[tune]``, ``[stages]`` lines):
+   ``repro_torch.tune.sweep`` on the card at ``TUNE_WORKLOADS``
+   (n4096_t6_v30_b256, the paper's point at phase 6's batch, and
+   n65536_t6_v30_b16) over every backend (``schedule`` varied on
+   ``torch``), the median of 20 synchronised calls each after the path's
+   kernels are built and loaded, the counters zeroed around each
+   workload: no candidate failed, every measured candidate's product
+   equal to the default candidate's bit for bit, the launches exactly
+   the traffic model's (``kernels.cost.path_launches`` times each
+   candidate's calls); each candidate's us/poly beside the model's time,
+   the winner, the rank correlation; the two entries into a table in a
+   temporary directory on which ``autotune check`` must return 0; then
+   ``obs.stage_timings`` at (4096, 6, 30) on ``cuda``, ``cuda_fused`` and
+   ``cuda_fused_e2e`` (256 rows) and at (65536, 6, 30) on ``cuda_fused``
+   (16 rows): each stage's median wall, its share beside the byte
+   model's and the drift, ``execute``'s wall, launches exactly the
+   model's.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -214,8 +232,10 @@ phase 4b's paths; K1-fs's, K3-fs's, K4-fs's and K2-fs's ``launches``
 sum phase 4c's and 4d's calls, each one a path of ``launches_by_path``;
 the other kernels on phase 4d's paths list them in ``launches_by_path``
 too, and K2, K1, K1-fs, K5 and K6 their launches in phases 8 and 9
-(paths ``serve inline``, ``serve async``, ``soak``); K2-fs's, K5's and
-K6's a ``wide`` object with their W1/W2 numbers)
+(paths ``serve inline``, ``serve async``, ``soak``), and every kernel
+phase 10 launched its launches there (paths ``tune <workload>``,
+``stages n=<n> <backend>``); K2-fs's, K5's and K6's a ``wide`` object
+with their W1/W2 numbers)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
@@ -233,15 +253,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# NVIDIA H100 SXM published peaks.
-HBM_BYTES_PER_S = 3.35e12
-# No integer-64 rate is published; the scalar (non-tensor-core) peak of
-# 67 TOP/s is used, so the operation bound is optimistic.
-SCALAR_OPS_PER_S = 67e12
-# Dense bf16 tensor-core rate: the bound of K7's two products, whatever
-# units the kernel uses.
-BF16_FLOPS_PER_S = 989e12
 
 MAIN = dict(n=4096, t=6, v=30, rows=256)
 SMALL = [dict(n=64, t=3, v=v, rows=3) for v in (29, 30, 31)]
@@ -528,117 +539,6 @@ def time_launches(torch, fn, launches: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-# --------------------------------------------------------------------------
-# work counts for the bound: integer operations the function needs on these
-# inputs, one unit per add, sub, mul, shift, mask, compare, select or
-# remainder, 32- or 64-bit (a conditional subtraction is compare + sub +
-# select = 3)
-# --------------------------------------------------------------------------
-
-COND_SUB = 3
-BARRETT = 5 + 3 * COND_SUB  # two shifts, two muls, one sub, three cond subs
-BLOCK_BARRETT = 4 + 2 * COND_SUB  # shift, high product, product, sub, two cond subs
-SHOUP = 5
-
-
-def _mul_mod(mode: int) -> int:
-    return 1 + (BLOCK_BARRETT if mode == 2 else BARRETT)  # product + reduction
-
-
-def _canon(mode: int, window: int) -> int:
-    return 0 if mode != 0 else COND_SUB * (2 if window == 4 else 1)
-
-
-def _butterfly_ops(mode: int, window: int) -> tuple[int, int]:
-    """(CT, GS) butterfly operation counts in a regime."""
-    if mode == 0:
-        ct = SHOUP + (COND_SUB + 3 if window == 4 else 1 + COND_SUB + 2 + COND_SUB)
-        gs = 3 + 2 * COND_SUB + SHOUP + 2 * 4
-    else:
-        ct = _mul_mod(mode) + 2 * (1 + COND_SUB)
-        gs = 2 * (1 + COND_SUB) + _mul_mod(mode) + 2 * 4
-    return ct, gs
-
-
-def transform_ops(n: int, mode: int, window: int, inverse: bool) -> int:
-    """One (channel, row) forward or inverse transform with its exit
-    canonicalize (K3, K4)."""
-    ct, gs = _butterfly_ops(mode, window)
-    return (n // 2) * (n.bit_length() - 1) * (gs if inverse else ct) + n * _canon(mode, window)
-
-
-def cascade_ops(n: int, mode: int, window: int) -> int:
-    """One (channel, row) cascade: two forward transforms, the canonical
-    pointwise product, one inverse transform and the exit canonicalize."""
-    ct, gs = _butterfly_ops(mode, window)
-    butterflies = (n // 2) * (n.bit_length() - 1)
-    point = 2 * _canon(mode, window) + _mul_mod(mode)
-    return 2 * butterflies * ct + butterflies * gs + n * (point + _canon(mode, window))
-
-
-def decompose_ops(S: int, t_prime: int, sau: int = 1) -> int:
-    """One residue of one coefficient through the Alg-2 SAU circuit, its
-    SAU network (Eq 5) ``sau`` operations: one product by beta."""
-    ops = 0
-    for rho in range(-(-S // t_prime)):
-        base = rho * t_prime
-        if t_prime > 1 and base + 1 < S:
-            ops += sau + 1
-        for k in range(2, t_prime):
-            if base + k >= S:
-                break
-            ops += k * (sau + BARRETT) + 1
-        ops += BARRETT + (1 if rho == 0 else 3)
-    return ops + BARRETT
-
-
-def compose_tail_ops(t: int, L: int, quotient: bool = True) -> int:
-    """The Eq-10 limb sums and tail of one coefficient: the quotient
-    floor(value / q) from t multiply-adds, a carry ripple that subtracts
-    it times q, and one conditional correction (``quotient``); else a
-    plain carry ripple and t - 1 conditional subtractions."""
-    if quotient:
-        return 2 * t * L + (t + 1) + 5 * L + 2 * COND_SUB * L
-    return 2 * t * L + 3 * L + (t - 1) * 2 * COND_SUB * L
-
-
-def compose_ops(t: int, L: int, earlier: bool = False) -> int:
-    """One coefficient through K6: y_c = r_c q~_c mod q_c as a product and
-    a block Barrett per channel, then the Eq-10 limb sums and quotient
-    tail.  ``earlier``: PR 11-14's count (a product and a remainder per
-    channel, the tail's t - 1 subtractions)."""
-    if earlier:
-        return 2 * t + compose_tail_ops(t, L, quotient=False)
-    return t * (1 + BLOCK_BARRETT) + compose_tail_ops(t, L)
-
-
-def channel_decompose_ops(pl, earlier: bool = False) -> int:
-    """One coefficient's residues in all t channels (K5).  ``earlier``:
-    PR 11-14's count, the SAU network as 1 + 3 n_terms shifts and adds
-    (with the compose tail's t - 1 subtractions, more than the function
-    needs; printed beside the bound only so earlier bounds compare)."""
-    rp = pl.params.plan
-    sau = 1 + 3 * max(len(c.beta_terms) for c in rp.dec) if earlier else 1
-    return rp.t * decompose_ops(rp.seg_count, rp.t_prime, sau)
-
-
-def e2e_ops(pl, mode: int, window: int, rows: int, earlier: bool = False) -> int:
-    rp = pl.params.plan
-    n, t, L = rp.n, rp.t, rp.L
-    per_coeff = (
-        2 * channel_decompose_ops(pl, earlier)
-        + t * (_canon(mode, window) + _mul_mod(mode))
-        + compose_tail_ops(t, L, quotient=not earlier)
-    )
-    return rows * (t * cascade_ops(n, mode, window) + n * per_coeff)
-
-
-def bound(bytes_moved: int, ops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
-    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / ops_per_s * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 def kernel_calls(pl, inputs):
     """Each kernel's (wrapper call, plain-version call) on the main path's
     shapes of ``inputs``: the stage kernels take the operands flattened to
@@ -667,23 +567,12 @@ def kernel_calls(pl, inputs):
 
 
 def wrappers():
-    """Kernel name -> its wrapper, whose ``launches`` counts its launches."""
-    from repro_torch.kernels import attention, crt
-    from repro_torch.kernels import ntt as kern
+    """Kernel name -> its wrapper, whose ``launches`` counts its launches:
+    the multiplier's (``kernels.cost.WRAPPERS``) and K7's."""
+    from repro_torch.kernels import attention, cost
 
-    return {
-        "fused_polymul": kern.fused_polymul_cuda,
-        "fused_e2e_polymul": kern.fused_e2e_polymul_cuda,
-        "ntt_channels": kern.ntt_channels_cuda,
-        "intt_channels": kern.intt_channels_cuda,
-        "decompose": crt.decompose_cuda,
-        "compose": crt.compose_cuda,
-        "attention": attention.flash_attention_cuda,
-        "fused_polymul_fs": kern.fused_polymul_fs_cuda,
-        "ntt_channels_fs": kern.ntt_channels_fs_cuda,
-        "intt_channels_fs": kern.intt_channels_fs_cuda,
-        "fused_e2e_polymul_fs": kern.fused_e2e_polymul_fs_cuda,
-    }
+    return {**{name: getattr(mod, attr) for name, (mod, attr) in cost.WRAPPERS.items()},
+            "attention": attention.flash_attention_cuda}
 
 
 def counted(torch, fn):
@@ -1249,18 +1138,16 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
     import torch
 
     import repro_torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ntt as kern
 
     n = max(FS_MAIN)
     _, _, ra, rb = inputs[n]
-    tables = repro_torch.plan(n, FS_T, FS_V).params.tables
-    mode, window = kern.reduction_mode(tables)[:2]
+    params = repro_torch.plan(n, FS_T, FS_V).params
+    tables = params.tables
     polys = FS_T * FS_MAIN[n]
-    work_of = {
-        "fused_polymul_fs": (3 * polys * n * 8, polys * cascade_ops(n, mode, window)),
-        "ntt_channels_fs": (2 * polys * n * 8, polys * transform_ops(n, mode, window, False)),
-        "intt_channels_fs": (2 * polys * n * 8, polys * transform_ops(n, mode, window, True)),
-    }
+    # the multi-block forms move and compute what the one-block ones do
+    work_of = {f"{name}_fs": w for name, w in cost.work(params, FS_MAIN[n]).items()}
     entries = []
     for name in FS_TRANSFORMS:
         source, replaces = FS_KERNELS[name]
@@ -1271,7 +1158,7 @@ def time_fs_kernels(inputs, launches: dict[str, dict[str, int]], max_err: dict[s
         device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
         plain_ms = time_launches(torch, lambda: ref(*operands, tables), PLAIN_RUNS, warmup=1)
         nbytes, ops = work_of[name]
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = cost.bound(nbytes, ops)
         blocks = occupancy(tables)
         if name == "fused_polymul_fs":
             fill = cascade_residency(polys, blocks, kern.fs_cluster(n))
@@ -1356,6 +1243,7 @@ def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, 
     import torch
 
     import repro_torch
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ntt as kern
 
     n = max(FS_MAIN)
@@ -1363,18 +1251,18 @@ def time_e2e_fs(inputs, launches: dict[str, dict[str, int]], max_err: dict[str, 
     za, zb, _, _ = inputs[n]
     pl = repro_torch.plan(n, FS_T, FS_V)
     p, cfg = pl.params, pl.config
-    mode, window = kern.reduction_mode(p.tables)[:2]
     coeffs = rows * n
-    least = (2 * cfg.seg_count + cfg.L) * 8
-    with_scratch = least + 6 * cfg.t * 4
-    ops = e2e_ops(pl, mode, window, rows)
+    least, ops = cost.work(p, rows)["fused_e2e_polymul"]
+    least //= coeffs
+    # the model's K2-fs traffic: the 32-bit words between its launches too
+    with_scratch = cost.hbm_traffic_model(p, rows, "cuda_fused_e2e")["hbm_bytes"] // coeffs
     fn = lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan)
     ms = time_launches(torch, fn, TIMED_LAUNCHES)
     device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
     plain_ms = time_launches(torch, lambda: kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
                              PLAIN_RUNS, warmup=1)
-    bound_ms, bound_by = bound(least * coeffs, ops)
-    scratch_ms, scratch_by = bound(with_scratch * coeffs, ops)
+    bound_ms, bound_by = cost.bound(least * coeffs, ops)
+    scratch_ms, scratch_by = cost.bound(with_scratch * coeffs, ops)
     clusters = e2e_fs_clusters(p)
     fill = cascade_residency(cfg.t * rows, clusters, kern.e2e_fs_cluster(n))
     # device time of each launch, beside cuda_fused's kernels on the same
@@ -1686,7 +1574,7 @@ def time_wide(inputs, card: str) -> dict[str, dict]:
     import torch
 
     import repro_torch
-    from repro_torch.kernels import crt
+    from repro_torch.kernels import cost, crt
     from repro_torch.kernels import ntt as kern
 
     out = {"fused_e2e_polymul_fs": {}, "decompose": {}, "compose": {}}
@@ -1703,26 +1591,24 @@ def time_wide(inputs, card: str) -> dict[str, dict]:
             f"; auto takes {WIDE_AUTO[point]}; {card}")
         pl = repro_torch.plan(n, t, WIDE_V, backend="cuda_fused_e2e")
         p, cfg = pl.params, pl.config
-        mode, window = kern.reduction_mode(p.tables)[:2]
-        coeffs = rows * n
         z2 = za.reshape(-1, cfg.seg_count)
         r2 = ra.reshape(t, -1)
+        counts = cost.work(p, rows)
         calls = {
             "fused_e2e_polymul_fs": (
                 lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, p.tables, p.plan),
                 lambda: kern.fused_e2e_polymul_fs_ref(za, zb, p.tables, p.plan),
-                (2 * cfg.seg_count + cfg.L) * coeffs * 8, e2e_ops(pl, mode, window, rows)),
+                *counts["fused_e2e_polymul"]),
             "decompose": (lambda: crt.decompose_cuda(z2, p.plan),
-                          lambda: crt.decompose_ref(z2, p.plan),
-                          (cfg.seg_count + t) * coeffs * 8, coeffs * channel_decompose_ops(pl)),
+                          lambda: crt.decompose_ref(z2, p.plan), *counts["decompose"]),
             "compose": (lambda: crt.compose_cuda(r2, p.plan), lambda: crt.compose_ref(r2, p.plan),
-                        (t + cfg.L) * coeffs * 8, coeffs * compose_ops(t, cfg.L)),
+                        *counts["compose"]),
         }
         for name, (fn, ref, nbytes, ops) in calls.items():
             ms = time_launches(torch, fn, TIMED_LAUNCHES)
             device_ms = time_back_to_back(torch, fn, TIMED_LAUNCHES)
             plain_ms = time_launches(torch, ref, 1, warmup=0)
-            bound_ms, bound_by = bound(nbytes, ops)
+            bound_ms, bound_by = cost.bound(nbytes, ops)
             out[name][point] = {"shape": [rows, n, t], "ms": ms, "device_ms": device_ms,
                                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                                 "wall_ms": walls}
@@ -1780,47 +1666,24 @@ ATTN_SOURCE = "src/repro_torch/csrc/attention.cu"
 ATTN_REPLACES = "src/repro/kernels/attention.py:82"
 
 
-def work(pl, rows: int, earlier: bool = False) -> dict[str, tuple[int, int]]:
-    """Kernel -> (bytes it must move, integer operations it needs) at the
-    main path's shapes with ``rows`` rows: each input read once, each
-    output written once, as int64 words (``earlier``: PR 11-14's operation
-    counts)."""
-    from repro_torch.kernels import ntt as kern
-
-    cfg = pl.config
-    mode, window = kern.reduction_mode(pl.params.tables)[:2]
-    polys = cfg.t * rows  # (channel, row) polynomials
-    coeffs = rows * cfg.n
-    return {
-        "fused_polymul": (3 * polys * cfg.n * 8, polys * cascade_ops(cfg.n, mode, window)),
-        "fused_e2e_polymul": ((2 * cfg.seg_count + cfg.L) * coeffs * 8,
-                              e2e_ops(pl, mode, window, rows, earlier)),
-        "ntt_channels": (2 * polys * cfg.n * 8,
-                         polys * transform_ops(cfg.n, mode, window, inverse=False)),
-        "intt_channels": (2 * polys * cfg.n * 8,
-                          polys * transform_ops(cfg.n, mode, window, inverse=True)),
-        "decompose": ((cfg.seg_count + cfg.t) * coeffs * 8,
-                      coeffs * channel_decompose_ops(pl, earlier)),
-        "compose": ((cfg.t + cfg.L) * coeffs * 8, coeffs * compose_ops(cfg.t, cfg.L, earlier)),
-    }
-
-
 def time_kernels(pl, inputs, launches, max_err) -> list[dict]:
     """Phase 5: kernel and plain-version times at the main path's shapes,
     beside the bound computed from these inputs."""
     import torch
 
+    from repro_torch.kernels import cost
+
     calls = kernel_calls(pl, inputs)
-    counts = work(pl, inputs[0].shape[0])
-    earlier = work(pl, inputs[0].shape[0], earlier=True)
+    counts = cost.work(pl.params, inputs[0].shape[0])
+    earlier = cost.work(pl.params, inputs[0].shape[0], earlier=True)
     entries = []
     for name, (source, replaces) in KERNELS.items():
         fn, ref = calls[name]
         nbytes, ops = counts[name]
         ms = time_launches(torch, fn, TIMED_LAUNCHES)
         plain_ms = time_launches(torch, ref, PLAIN_RUNS, warmup=1)
-        bound_ms, bound_by = bound(nbytes, ops)
-        earlier_ms, earlier_by = bound(*earlier[name])
+        bound_ms, bound_by = cost.bound(nbytes, ops)
+        earlier_ms, earlier_by = cost.bound(*earlier[name])
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max_err[name],
@@ -1861,12 +1724,13 @@ def time_e2e_latency(pl, inputs) -> dict:
     there, and how many of its clusters the card holds at once."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ntt as kern
 
     p = pl.params
     times = k2_times(torch, kern, pl, *inputs[:2])
-    nbytes, ops = work(pl, LATENCY_ROWS)["fused_e2e_polymul"]
-    bound_ms, bound_by = bound(nbytes, ops)
+    nbytes, ops = cost.work(p, LATENCY_ROWS)["fused_e2e_polymul"]
+    bound_ms, bound_by = cost.bound(nbytes, ops)
     clusters = kern.e2e_max_active_clusters(p.tables, p.plan)
     cluster = kern.e2e_cluster(pl.config.t)[0]
     log(f"[time] fused_e2e_polymul at {LATENCY_ROWS} row: {times['latency_ms']:.4f} ms per "
@@ -2867,7 +2731,7 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
     the yi-6b numbers, and all four under ``shapes``."""
     import torch
 
-    from repro_torch.kernels import attention
+    from repro_torch.kernels import attention, cost
 
     for kind, lines in attention_build_report().items():
         for line in lines:
@@ -2876,7 +2740,7 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
     for name, ((q, k, v), want) in model.items():
         shape, kw = ATTN_MODEL[name]
         nbytes, flops = attention_work(shape, kw, q.element_size())
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        bound_ms, bound_by = cost.bound(nbytes, flops, cost.BF16_FLOPS_PER_S)
         ms = time_launches(torch, lambda: attention.flash_attention_cuda(q, k, v, **kw),
                            TIMED_LAUNCHES)
         plain_ms = time_launches(torch, lambda: attention.flash_attention_ref(q, k, v, **kw),
@@ -2900,7 +2764,7 @@ def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
             "library_ms": library_ms,
         })
         if variant == "decode":
-            rate = f"{nbytes / ms / 1e9:.3f} TB/s of the {HBM_BYTES_PER_S / 1e12:g} peak"
+            rate = f"{nbytes / ms / 1e9:.3f} TB/s of the {cost.HBM_BYTES_PER_S / 1e12:g} peak"
         else:  # the split P makes the tensor cores do 6 D FLOPs a pair, the bound counts 4 D
             rate = (f"{flops / ms / 1e9:.1f} TFLOP/s counted (4 D a pair), "
                     f"{1.5 * flops / ms / 1e9:.1f} TFLOP/s issued to the tensor cores (6 D)")
@@ -3210,6 +3074,116 @@ def drive_soak(card: str) -> dict[str, dict[str, int]]:
     return {name: {"soak": k} for name, k in launched(got).items()}
 
 
+# phase 10: the tuner's sweep at the paper's point (its phase 6 batch) and
+# past one CTA (the 2^20 coefficients of phase 4c), on the full grid, into a
+# temporary table (never the committed one); then the stage profiler at
+# (4096, 6, 30) on each kernel backend and at (65536, 6, 30) on cuda_fused
+TUNE_WORKLOADS = ("n4096_t6_v30_b256", "n65536_t6_v30_b16")
+TUNE_ITERS, TUNE_WARMUP = 20, 3
+STAGE_POINTS = [(4096, backend) for backend in ("cuda", "cuda_fused", "cuda_fused_e2e")] + [
+    (65536, "cuda_fused")]
+STAGE_ROWS = {4096: 256, 65536: 16}
+STAGE_ITERS, STAGE_WARMUP = 20, 3
+
+
+def drive_tune(card: str) -> dict[str, dict[str, int]]:
+    """Phase 10 (``[tune]``, ``[stages]``): ``repro_torch.tune.sweep`` on the
+    card at TUNE_WORKLOADS (every backend; ``schedule`` on ``torch``) with
+    the launch counters zeroed around each workload, into a table in a
+    temporary directory: no candidate failed, every measured candidate's
+    product equal to the default candidate's bit for bit, the kernels'
+    launches exactly the model's (``kernels.cost.path_launches`` of each
+    measured candidate's backend times its calls), then ``autotune check``
+    on that table returns 0; and ``obs.stage_timings`` at STAGE_POINTS,
+    its launches exactly its stage calls times the stage view's path plus
+    its ``execute`` calls times the plan's path.  Returns kernel -> path ->
+    launches."""
+    import tempfile
+
+    import torch
+
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.kernels import cost
+    from repro_torch.launch import autotune
+    from repro_torch.tune import TuningTable
+    from repro_torch.tune import sweep as sweep_mod
+
+    t0 = time.perf_counter()
+    paths: dict[str, dict[str, int]] = {}
+    tab = TuningTable()
+    for key in TUNE_WORKLOADS:
+        wl = sweep_mod.Workload.from_key(key)
+        rep, got = counted(torch, lambda: sweep_mod.sweep_workload(
+            wl, iters=TUNE_ITERS, warmup=TUNE_WARMUP))
+        cfg = repro_torch.plan(wl.n, wl.t, wl.v, device="cpu").config
+        want: dict[str, int] = {}
+        for rec in rep["candidates"]:
+            if rec["status"] == "failed":
+                raise AssertionError(f"[tune] {key}: {rec['name']} failed: {rec['reason']}")
+            if rec["status"] == "measured":
+                if not rec["equal_to_default"]:
+                    raise AssertionError(f"[tune] {key}: {rec['name']} differs from the default")
+                for name, k in cost.path_launches(rec["config"]["backend"], wl.n, wl.t,
+                                                  cfg.seg_count, cfg.L).items():
+                    want[name] = want.get(name, 0) + k * rec["calls"]
+            log(f"[tune] {key} {rec['name']}: {rec['status']}"
+                + (f", {rec['us_per_poly']:.3f} us/poly (median of {TUNE_ITERS} synchronised "
+                   f"calls), model {rec['model_us']:.3f} us ({rec['hbm_bytes']} bytes, "
+                   f"{rec['operations']} int ops, {rec['kernel_launches']} launches), build and "
+                   f"load {rec['compile_s']:.3f} s, equal to the default"
+                   if rec["status"] == "measured" else
+                   f" ({rec.get('error', '')}, knob {rec.get('knob')})"
+                   if rec["status"] == "pruned" else f" (same as {rec['same_as']})"))
+        expect_launches(got, want, f"[tune] {key}")
+        entry = rep["entry"]
+        log(f"[tune] {key}: winner {rep['winner']} ({entry['winner']}) "
+            f"{entry['winner_us']:.3f} us/poly, default {entry['default_us']:.3f}, "
+            f"winner / default {entry['winner_us'] / entry['default_us']:.3f}; rank correlation "
+            f"model vs stopwatch {entry['rank_correlation']}, flagged "
+            f"{[f['name'] for f in rep['costcheck']['flagged']]}; launched {launched(got)} "
+            f"(the model's, exactly); {entry['device_name']}, {entry['power_limit']}")
+        for name, k in launched(got).items():
+            paths.setdefault(name, {})[f"tune {key}"] = k
+        tab.put(kind="gpu", **entry)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "TUNING.json")
+        tab.save(path)
+        if autotune.main(["check", "--table", path]) != 0:
+            raise AssertionError("[tune] autotune check failed on the swept table")
+    log(f"[tune] autotune check passed on the swept table; took "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+
+    t1 = time.perf_counter()
+    for n, backend in STAGE_POINTS:
+        pl = repro_torch.plan(n, FS_T, FS_V, backend=backend)
+        cfg = pl.config
+        rec, got = counted(torch, lambda: obs.stage_timings(
+            pl, batch=STAGE_ROWS[n], iters=STAGE_ITERS, warmup=STAGE_WARMUP,
+            registry=obs.MetricsRegistry()))
+        view = "cuda_fused" if backend == "cuda_fused_e2e" else backend
+        shape = (n, FS_T, cfg.seg_count, cfg.L)
+        want = {}
+        for calls, path_of in ((rec["calls"]["stage"], cost.path_launches(view, *shape)),
+                               (rec["calls"]["execute"], cost.path_launches(backend, *shape))):
+            for name, k in path_of.items():
+                want[name] = want.get(name, 0) + k * calls
+        expect_launches(got, want, f"[stages] n={n} {backend}")
+        for name, k in launched(got).items():
+            paths.setdefault(name, {})[f"stages n={n} {backend}"] = k
+        st = rec["stages"]
+        log(f"[stages] n={n} t={FS_T} v={FS_V} backend={backend} batch={rec['batch']}: "
+            + ", ".join(f"{s} {st[s]['seconds'] * 1e3:.4f} ms (share {st[s]['share_measured']:.3f},"
+                        f" model {st[s]['share_predicted']:.3f}, drift {st[s]['drift']:.3f})"
+                        for s in obs.STAGES)
+            + f"; sum {rec['stage_sum_s'] * 1e3:.4f} ms, execute {rec['e2e_s'] * 1e3:.4f} ms "
+            f"(fusion speedup {rec['fusion_speedup']:.3f}); median of {STAGE_ITERS} synchronised "
+            f"calls; launched {launched(got)} (the model's, exactly); {card}")
+    log(f"[stages] took {time.perf_counter() - t1:.1f} s; phase 10 "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    return paths
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
         return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
@@ -3297,7 +3271,9 @@ def main() -> int:
     serve_paths = drive_serve(card)
     for name, paths in drive_soak(card).items():
         serve_paths.setdefault(name, {}).update(paths)
-    for entry in entries:  # phases 8 and 9's paths beside each kernel's
+    for name, paths in drive_tune(card).items():
+        serve_paths.setdefault(name, {}).update(paths)
+    for entry in entries:  # phases 8, 9 and 10's paths beside each kernel's
         paths = serve_paths.get(entry["name"], {})
         if paths:
             entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)

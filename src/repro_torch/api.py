@@ -39,10 +39,10 @@ wraps an existing :class:`ParenttParams` (honouring its ``backend`` and
 run on the CUDA card unless the caller passes ``device="cpu"``; with no
 card and no device asked for, :func:`plan` raises.  ``backend="auto"``
 resolves at plan time, and the result is what ``PlanConfig.backend``
-holds: ``"cuda_fused_e2e"`` on the card where K2 holds the plan, or the
-multi-block K2-fs at t <= 8, with S and L <= 16
-(:func:`repro_torch.kernels.ops.auto_backend`), ``"cuda_fused"`` past
-it, and ``"torch"`` on the CPU.  The kernel
+holds: ``"cuda_fused_e2e"`` on the card where K2 holds the plan with S
+and L <= 16, or where the multi-block K2-fs serves past K2 from t = 29
+(:func:`repro_torch.kernels.ops.auto_backend`), ``"cuda_fused"``
+elsewhere, and ``"torch"`` on the CPU.  The kernel
 backends serve every n up to 65536 (one-block kernels where a polynomial
 fits a CTA, multi-block kernels past it) and every t, S and L whose CTAs
 one block's shared memory holds; past that a plan is refused at plan
@@ -58,10 +58,18 @@ reference's generic decompose on ``backend="torch"``; the kernel backends
 decompose through the Alg-2 SAU circuits whatever it says, as the
 reference's Pallas backends do.  The reference's other knobs are taken
 and checked as it checks them: ``channel_grid`` (``None`` or ``True``: the
-e2e kernels spread the channels over a cluster's CTAs) and
-``tuning="off"`` serve; a ``row_blk``, ``channel_grid=False`` and the
-tuning tables are TPU knobs the card has no use for and are refused
-(:class:`UnservableConfigError` with their own knob).  :func:`execute` is
+e2e kernels spread the channels over a cluster's CTAs) serves; a
+``row_blk`` and ``channel_grid=False`` are TPU knobs the card has no use
+for and are refused (:class:`UnservableConfigError` with their own knob).
+``tuning`` serves as in the reference (:mod:`repro_torch.tune`): ``"off"``
+(the default) keeps the static defaults, ``"auto"`` reads the port's
+committed ``tune/TUNING_default.json`` (and degrades to the defaults
+where it has no entry), a path or a :class:`repro_torch.tune.TuningTable`
+that table; the entry is the one of the PLAN's device kind (``"gpu"`` on
+the card, ``"cpu"`` under ``device="cpu"``) and (n, t, v), smallest batch
+first, and fills only the knobs left at their defaults (explicit knob >
+table > static default), through the same admission as a hand-set knob.
+:func:`execute` is
 :func:`polymul` under the reference's
 serving signature.  Besides the multiplier, the stage entry points
 :func:`ntt`, :func:`intt`, :func:`decompose`, :func:`compose` and
@@ -233,7 +241,12 @@ def plan(
     n = 8192); a tuple ``tiling`` asserts the canonical chain.
     ``row_blk``, ``channel_grid``, ``use_sau`` and ``tuning`` are the
     reference's knobs, checked as it checks them (see the module notes for
-    what the port serves of each).  v picks the width (:func:`width_for`):
+    what the port serves of each).  ``tuning`` (``"off"``, ``"auto"``, a
+    table path or a :class:`repro_torch.tune.TuningTable`) fills
+    ``backend``, ``schedule``, ``row_blk`` and ``channel_grid`` where they
+    are left at their defaults from the table's entry for the plan's
+    device kind and (n, t, v); the filled knobs are admitted as if the
+    caller had set them.  v picks the width (:func:`width_for`):
     past v = 31 the plan is a wide or oracle plan on the same device.
 
     Raises :class:`repro_torch.UnknownKnobError` for a knob outside its
@@ -244,8 +257,10 @@ def plan(
     the wide inverse CRT's envelope, a t, S or L whose CTAs one block's shared memory
     cannot hold on the backend asked for, ``"four_step:h"`` below
     n = 8192, a mismatched ``tiling``, a ``row_blk``, ``channel_grid`` off
-    the e2e backend or False, a tuning table), each with the same ``knob``
-    as the reference."""
+    the e2e backend or False, from the caller or from a tuning table's
+    winner), each with the same ``knob`` as the reference;
+    :class:`repro_torch.tune.TuningTableError` for a tuning table path
+    that is missing or does not validate."""
     if not isinstance(n, int) or n < 4 or n & (n - 1):
         raise UnknownKnobError(
             f"n must be a power of two >= 4, got n={n!r}", knob="n", value=n, alternatives=()
@@ -259,9 +274,21 @@ def plan(
             f"v must be an int in [{_V_MIN}, {_V_MAX}], got v={v!r}",
             knob="v", value=v, alternatives=(),
         )
-    _check_tpu_knobs(row_blk, channel_grid, tuning)
     _check_use_sau(use_sau)
     dev = _resolve_device(device)
+    tuned = _tuning_winner(tuning, n, t, v, dev)
+    if tuned is not None:
+        # explicit knob > tuning table > static default: the table fills
+        # only knobs the caller left at their defaults.
+        if backend == "auto" and tuned.get("backend"):
+            backend = tuned["backend"]
+        if isinstance(schedule, str) and schedule == "auto" and tuned.get("schedule"):
+            schedule = tuned["schedule"]
+        if row_blk is None and tiling is None and tuned.get("row_blk") is not None:
+            row_blk = tuned["row_blk"]
+        if channel_grid is None and tuned.get("channel_grid") is not None:
+            channel_grid = tuned["channel_grid"]
+    _check_tpu_knobs(row_blk, channel_grid)
     width = width_for(v)
     if width != "int64":
         resolved = _resolve_wide_backend(width, backend)
@@ -358,20 +385,39 @@ def _wide_specs(params: ParenttParams) -> tuple[wide_mod.WideSpec, ...]:
     return tuple(wide_mod.from_special(p) for p in params.primes)
 
 
-def _check_tpu_knobs(row_blk, channel_grid, tuning) -> None:
-    """The reference's TPU knobs: an invalid value is unknown (as the
-    reference raises), a valid one the card has no use for unservable."""
-    if tuning is not None and not isinstance(tuning, str):
+def _tuning_winner(tuning, n: int, t: int, v: int, dev: torch.device) -> dict[str, Any] | None:
+    """The ``tuning=`` knob resolved into the table's winner-knob dict for
+    (n, t, v) on the plan's device kind (``None`` for no tuning or no
+    matching entry): ``"off"`` / ``None`` look nothing up; ``"auto"``
+    reads the port's committed table and degrades to the static defaults
+    when the file or the entry is missing; an explicit path (or a
+    :class:`repro_torch.tune.TuningTable`) must exist and validate;
+    anything else is unknown, as the reference raises.  The lookup returns
+    the smallest-batch entry for (n, t, v)."""
+    if tuning is None or tuning == "off":
+        return None
+    from repro_torch.tune import table as table_mod  # deferred: keep plan() light
+
+    if isinstance(tuning, table_mod.TuningTable):
+        tab = tuning
+    elif tuning == "auto":
+        tab = table_mod.load_default()
+        if tab is None:
+            return None
+    elif isinstance(tuning, str):
+        tab = table_mod.load_cached(tuning)
+    else:
         raise UnknownKnobError(
-            f"tuning must be 'auto', 'off' or a table path, got {tuning!r}",
+            f"tuning must be 'auto', 'off', a table path or a TuningTable, got {tuning!r}",
             knob="tuning", value=tuning, alternatives=("auto", "off"),
         )
-    if tuning is not None and tuning != "off":
-        raise UnservableConfigError(
-            f"tuning={tuning!r}: the tuning tables rank TPU kernel knobs, which the card's "
-            "kernels do not have; only tuning='off' is served",
-            knob="tuning", value=tuning, alternatives=("off",),
-        )
+    winner = tab.lookup(n=n, t=t, v=v, kind=table_mod.device_kind(dev))
+    return dict(winner) if winner is not None else None
+
+
+def _check_tpu_knobs(row_blk, channel_grid) -> None:
+    """The reference's TPU knobs: an invalid value is unknown (as the
+    reference raises), a valid one the card has no use for unservable."""
     if row_blk is not None:
         if not isinstance(row_blk, int) or row_blk < 1:
             raise UnknownKnobError(

@@ -62,6 +62,14 @@ from repro_torch.errors import UnknownKnobError
 from repro_torch.kernels import _build
 from repro_torch.kernels import crt as crt_kernels
 from repro_torch.kernels import ntt as ntt_kernels
+# the traffic and work model (the reference keeps it in this module)
+from repro_torch.kernels.cost import (  # noqa: F401
+    count_launches,
+    hbm_traffic_model,
+    path_launches,
+    transform_cost_model,
+    wrapper_calls,
+)
 
 BACKENDS = ("torch", "cuda", "cuda_fused", "cuda_fused_e2e")
 KERNEL_BACKENDS = ("cuda", "cuda_fused", "cuda_fused_e2e")

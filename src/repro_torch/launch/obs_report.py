@@ -11,9 +11,12 @@ must carry exactly one terminal status (``resolved`` / ``shed`` /
 ``failed``); any violation exits non-zero with the offending trace IDs.
 ``--prom`` parses a Prometheus text-format file through the strict
 validator (:func:`repro_torch.obs.parse_prometheus`) and exits non-zero
-on malformed expositions.  ``--stages`` (the reference's per-stage
-profiling harness) is refused with a message: it reads the HBM traffic
-model, which waits for ROADMAP Queue 1 item 2.
+on malformed expositions.  ``--stages N:T:V`` runs the per-stage
+profiling harness (:func:`repro_torch.obs.stage_timings`) on one plan
+preset, on the card unless ``--device cpu``:
+
+    PYTHONPATH=src python -m repro_torch.launch.obs_report --stages 4096:6:30
+    PYTHONPATH=src python -m repro_torch.launch.obs_report --stages 64:3:30 --device cpu
 """
 from __future__ import annotations
 
@@ -129,6 +132,36 @@ def _print_report(rep: dict[str, Any]) -> None:
         print(f"[VIOLATION] {v}", file=sys.stderr)
 
 
+def _run_stages(spec: str, *, batch: int, iters: int, device, as_json: bool) -> int:
+    import repro_torch
+
+    n, t, v = (int(x) for x in spec.split(":"))
+    try:
+        pl = repro_torch.plan(n=n, t=t, v=v, device=device)
+    except repro_torch.PlanError as e:
+        print(f"[FAIL] --stages {spec}: {e}", file=sys.stderr)
+        return 1
+    rec = obs.stage_timings(pl, batch=batch, iters=iters)
+    if as_json:
+        print(json.dumps(rec, indent=1))
+        return 0
+    print(f"stage timings n={n} t={t} v={v} backend={rec['backend']} "
+          f"batch={rec['batch']} device={pl.device}")
+    print(f"{'stage':<12}{'measured':>12}{'share':>8}{'model':>8}"
+          f"{'drift':>8}")
+    for stage in obs.STAGES:
+        s = rec["stages"][stage]
+        print(f"{stage:<12}{s['seconds'] * 1e6:>10.1f}us"
+              f"{s['share_measured']:>8.1%}{s['share_predicted']:>8.1%}"
+              f"{s['drift']:>8.1%}")
+    print(f"sum-of-stages {rec['stage_sum_s'] * 1e6:.1f}us, "
+          f"e2e {rec['e2e_s'] * 1e6:.1f}us "
+          f"(fusion speedup {rec['fusion_speedup']:.2f}x)")
+    tc = rec["transform_cost_model"]
+    print(f"transform_cost_model: {tc}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("span_log", nargs="?", default=None,
@@ -138,16 +171,19 @@ def main(argv=None) -> int:
     ap.add_argument("--prom", default=None, metavar="FILE",
                     help="validate a Prometheus text-format exposition")
     ap.add_argument("--stages", default=None, metavar="N:T:V",
-                    help="not ported: the per-stage profiling harness")
+                    help="run the per-stage profiling harness for one plan preset")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="profiling batch rows (--stages)")
+    ap.add_argument("--iters", type=int, default=10,
+                    help="profiling timing iterations (--stages)")
+    ap.add_argument("--device", default=None,
+                    help="the plan's device (--stages): the card unless 'cpu'")
     ap.add_argument("--json", action="store_true",
                     help="emit the report as JSON instead of text")
     args = ap.parse_args(argv)
 
-    if args.stages is not None:
-        ap.error("--stages: the per-stage profiling harness (repro.obs.profiling) reads the "
-                 "HBM traffic model, which is not ported yet (ROADMAP Queue 1 item 2)")
-    if args.span_log is None and args.prom is None:
-        ap.error("nothing to do: pass a span log or --prom")
+    if args.span_log is None and args.prom is None and args.stages is None:
+        ap.error("nothing to do: pass a span log, --prom, or --stages")
 
     rc = 0
     if args.prom is not None:
@@ -172,6 +208,10 @@ def main(argv=None) -> int:
             _print_report(rep)
         if args.check and rep["violations"]:
             rc = 1
+
+    if args.stages is not None:
+        rc = max(rc, _run_stages(args.stages, batch=args.batch, iters=args.iters,
+                                 device=args.device, as_json=args.json))
     return rc
 
 

@@ -1,5 +1,6 @@
 """Observability of the serving engine: metrics registry, request-scoped
-tracing and exporters (the port's copy of ``repro.obs``, pure Python).
+tracing, per-stage device profiling and exporters (the port's copy of
+``repro.obs``).
 
 Quickstart::
 
@@ -15,9 +16,8 @@ Quickstart::
     obs.conservation(obs.read_jsonl("spans.jsonl"))  # lifecycle audit
 
 ``python -m repro_torch.launch.obs_report spans.jsonl`` renders the
-latency/throughput report and runs the conservation gate from the CLI.
-The reference's per-stage profiling (``repro.obs.profiling``) reads its
-HBM traffic model, which the port has not ported, and is not here.
+latency/throughput report and runs the conservation gate from the CLI;
+``--stages N:T:V`` runs :func:`stage_timings` on the card.
 """
 from repro_torch.obs.export import parse_prometheus, to_json, to_prometheus
 from repro_torch.obs.metrics import (
@@ -30,6 +30,7 @@ from repro_torch.obs.metrics import (
     registry,
     reset_default_registry,
 )
+from repro_torch.obs.profiling import STAGES, predicted_stage_bytes, stage_timings
 from repro_torch.obs.tracing import (
     TERMINAL_STATUSES,
     Span,
@@ -40,6 +41,7 @@ from repro_torch.obs.tracing import (
 
 __all__ = [
     "HIST_GROWTH",
+    "STAGES",
     "TERMINAL_STATUSES",
     "Counter",
     "Gauge",
@@ -50,9 +52,11 @@ __all__ = [
     "conservation",
     "default_buckets",
     "parse_prometheus",
+    "predicted_stage_bytes",
     "read_jsonl",
     "registry",
     "reset_default_registry",
+    "stage_timings",
     "to_json",
     "to_prometheus",
 ]

@@ -26,9 +26,11 @@ import pytest
 import torch
 
 import repro
+import repro.tune
 from repro.core import rns as jrns
 
 import repro_torch
+import repro_torch.tune
 from repro_torch import api as tapi
 from repro_torch.core import bigint as tbigint
 from repro_torch.core import polymul as tpm
@@ -224,7 +226,8 @@ def test_plan_takes_the_references_four_keywords():
     """row_blk, channel_grid, use_sau and tuning: the reference's invalid
     values raise UnknownKnobError with the reference's knob, valid ones the
     card has no use for UnservableConfigError with their own knob; None /
-    True channel grids, tuning='off' and both use_sau serve."""
+    True channel grids, tuning='off' and 'auto' and both use_sau serve, and
+    a missing table path raises TuningTableError, as in the reference."""
     plan = lambda **kw: repro_torch.plan(N, 3, V, device="cpu", **kw)
     with pytest.raises(repro_torch.UnservableConfigError) as err:
         plan(row_blk=8)
@@ -240,8 +243,7 @@ def test_plan_takes_the_references_four_keywords():
     with pytest.raises(repro_torch.UnknownKnobError) as err:
         plan(use_sau="no")
     assert err.value.knob == "use_sau"
-    for kw, knob in ((dict(tuning="auto"), "tuning"), (dict(tuning="table.json"), "tuning"),
-                     (dict(channel_grid=True), "channel_grid"),
+    for kw, knob in ((dict(channel_grid=True), "channel_grid"),
                      (dict(channel_grid=True, backend="cuda_fused"), "channel_grid"),
                      (dict(channel_grid=False, backend="cuda_fused_e2e"), "channel_grid")):
         with pytest.raises(repro_torch.UnservableConfigError) as err:
@@ -250,6 +252,13 @@ def test_plan_takes_the_references_four_keywords():
     with pytest.raises(repro.UnservableConfigError) as jerr:
         repro.plan(N, 3, V, channel_grid=True, backend="pallas_fused")
     assert jerr.value.knob == "channel_grid"
+    # tuning serves as in the reference: "auto" reads the port's committed
+    # table (degrading to the defaults), a missing path raises
+    assert plan(tuning="auto").config.n == repro.plan(N, 3, V, tuning="auto").config.n
+    with pytest.raises(repro_torch.tune.TuningTableError):
+        plan(tuning="table.json")
+    with pytest.raises(repro.tune.TuningTableError):
+        repro.plan(N, 3, V, tuning="table.json")
     base = plan().config
     for kw in (dict(tuning="off"), dict(tuning=None), dict(channel_grid=None), dict(use_sau=True)):
         assert plan(**kw).config == base, kw

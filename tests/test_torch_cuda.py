@@ -799,3 +799,48 @@ def test_wide_plan_on_the_card_equals_its_cpu_run(cuda_device):
     zb = torch.as_tensor(rng.integers(0, 1 << 45, size=shape))
     got = repro_torch.polymul(card, za.to(cuda_device), zb.to(cuda_device))
     assert torch.equal(got.cpu(), repro_torch.polymul(cpu, za, zb))
+
+
+def test_tuned_plan_on_the_card_carries_its_winner_bit_for_bit(cuda_device, tmp_path):
+    """A gpu entry steers a plan on the card (a cpu entry of the same table
+    steers only a CPU plan); the tuned plan's config drifts only in the
+    tuned knobs and its product equals the untuned plan's bit for bit."""
+    from repro_torch import tune
+
+    tab = tune.TuningTable()
+    tab.put(n=4096, t=6, v=30, batch=16, kind="gpu", measured_at=1.0,
+            winner={"backend": "cuda_fused", "schedule": "four_step"})
+    tab.put(n=4096, t=6, v=30, batch=2, kind="cpu", measured_at=1.0, winner={"backend": "cuda"})
+    path = str(tmp_path / "T.json")
+    tab.save(path)
+    tuned = repro_torch.plan(4096, 6, 30, tuning=path, device=cuda_device)
+    untuned = repro_torch.plan(4096, 6, 30, device=cuda_device)
+    assert (tuned.config.backend, untuned.config.backend) == ("cuda_fused", "cuda_fused_e2e")
+    drift = {f for f in ("n", "t", "v", "backend", "schedule", "device", "seg_count", "w", "L",
+                         "use_sau", "width")
+             if getattr(tuned.config, f) != getattr(untuned.config, f)}
+    assert drift <= set(tune.TUNABLE_KNOBS)
+    assert repro_torch.plan(4096, 6, 30, tuning=path, device="cpu").config.backend == "cuda"
+    za, zb, _, _ = _inputs(untuned, 16, seed=25, device=cuda_device)
+    assert torch.equal(repro_torch.polymul(tuned, za, zb), repro_torch.polymul(untuned, za, zb))
+
+
+@pytest.mark.parametrize("n,t", [(4096, 6), (65536, 6), (4096, 49)])
+def test_count_launches_equals_the_launch_counters(cuda_device, n, t):
+    """On each kernel backend (K2 and K2-fs, the one-block and multi-block
+    kernels): the wrapper calls the model counts are the wrappers'
+    ``.launches`` deltas of the same call on the card, and weighted by
+    K2-fs's three launches a call they are hbm_traffic_model's
+    kernel_launches."""
+    from repro_torch.kernels import cost
+
+    wrappers = {name: getattr(mod, attr) for name, (mod, attr) in cost.WRAPPERS.items()}
+    for backend in ("cuda", "cuda_fused", "cuda_fused_e2e"):
+        p = repro_torch.plan(n, t, 30, backend=backend, device=cuda_device).params
+        for w in wrappers.values():
+            w.launches = 0
+        calls = cost.wrapper_calls(p, backend, rows=2)
+        torch.cuda.synchronize()
+        got = {name: w.launches for name, w in wrappers.items() if w.launches}
+        assert got == calls == cost.path_launches(backend, n, t, p.plan.seg_count, p.plan.L)
+        assert cost.launches_of(got) == cost.hbm_traffic_model(p, 2, backend)["kernel_launches"]

@@ -137,8 +137,8 @@ def test_engine_span_conservation_and_obs_report_check(tmp_path):
     prom = tmp_path / "m.prom"
     prom.write_text(obs.to_prometheus(eng._registry))
     assert obs_report.main(["--prom", str(prom)]) == 0
-    with pytest.raises(SystemExit):
-        obs_report.main(["--stages", "64:3:30"])
+    with pytest.raises(SystemExit):  # nothing to report
+        obs_report.main([])
 
 
 def test_serve_crypto_on_cpu_plans(capsys):
