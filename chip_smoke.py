@@ -195,7 +195,28 @@ Phases, each raising on failure (so the run exits non-zero):
    ``cuda_fused_e2e`` (256 rows) and at (65536, 6, 30) on ``cuda_fused``
    (16 rows): each stage's median wall, its share beside the byte
    model's and the drift, ``execute``'s wall, launches exactly the
-   model's.
+   model's;
+11. the sharded paths on an NCCL world of one rank (``[shard]`` lines):
+   ``repro_torch.launch.mesh.make_local_mesh()`` (a (data=1, model=1)
+   ``DeviceMesh``, its store in a temporary directory, the group destroyed
+   at the end); ``polymul_sharded`` and ``negacyclic_mul_sharded`` at
+   ``SHARD_POINTS`` (``plan(4096, 6, 30)`` at 256 rows, ``plan(65536, 6,
+   30)`` at 16 rows, which runs K1-fs, and the wide ``plan(4096, 4, 45)``
+   at 16 rows), each equal bit for bit to ``polymul`` and
+   ``negacyclic_mul`` (the wide one also to its CPU run), their launches
+   exactly ``SHARD_LAUNCHES`` (K5, K1 or K1-fs, K6) and their collectives
+   counted; a shard-local plan of channels [2, 4) one K1 (K1-fs) launch
+   over two channels, equal to their slice; the walls, in two turns, of
+   ``polymul_sharded``, ``polymul`` and ``polymul`` on ``cuda_fused`` (the
+   shard path's kernels), median of 10 synchronised calls each;
+   ``PolymulEngine(mesh=)`` with 16 slots on 33 requests at (4096, 6, 30),
+   each equal to ``polymul``, none shed or failed, its launches K5, K1 and
+   K6 a dispatch; ``negacyclic_mul_fourstep`` at n = 2^20 (q = 998244353,
+   n1 = 2^10) over the mesh's model axis, equal to the same code on the
+   CPU and on 8 seeded coefficients to their direct negacyclic sums, with
+   3 all-to-alls and 1 all-gather, its wall beside the unsharded one's;
+   and ``launch.dryrun_crypto``'s two records at 4096 rows and 2^20 (peak
+   device memory, wall, modelled bytes a device, collectives).
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -234,8 +255,9 @@ the other kernels on phase 4d's paths list them in ``launches_by_path``
 too, and K2, K1, K1-fs, K5 and K6 their launches in phases 8 and 9
 (paths ``serve inline``, ``serve async``, ``soak``), and every kernel
 phase 10 launched its launches there (paths ``tune <workload>``,
-``stages n=<n> <backend>``); K2-fs's, K5's and K6's a ``wide`` object
-with their W1/W2 numbers)
+``stages n=<n> <backend>``), and phase 11's as paths ``shard`` (the
+sharded calls, the shard-local plan and the engine) and ``dryrun``;
+K2-fs's, K5's and K6's a ``wide`` object with their W1/W2 numbers)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
 package.  Without a CUDA device, or outside the repository, it exits
@@ -3184,6 +3206,189 @@ def drive_tune(card: str) -> dict[str, dict[str, int]]:
     return paths
 
 
+# phase 11: the sharded paths on an NCCL world of one rank, at full width:
+# name -> (n, t, v, rows); the paper's point at phase 6's batch, K1-fs's
+# ring at 2^20 coefficients an operand, the wide width
+SHARD_POINTS = {"paper": (4096, 6, 30, 256), "fs": (65536, 6, 30, 16),
+                "wide": (4096, 4, 45, 16)}
+# each point's kernels in one polymul_sharded and one negacyclic_mul_sharded
+# call on a world of one (the shard-local plan is the plan itself): K5 on
+# each operand, the cascade once a call, K6 once
+SHARD_LAUNCHES = {"paper": {"decompose": 2, "fused_polymul": 2, "compose": 1},
+                  "fs": {"decompose": 2, "fused_polymul_fs": 2, "compose": 1}, "wide": {}}
+SHARD_SLOTS, SHARD_REQUESTS = 16, 33
+SHARD_WALL_RUNS = 10
+DNTT_Q, DNTT_LOG_N, DNTT_SAMPLES = 998244353, 20, 8
+DRYRUN_BATCH = 4096
+
+
+def drive_shard(card: str) -> dict[str, dict[str, int]]:
+    """Phase 11 (``[shard]``): ``make_local_mesh()``, an NCCL process group
+    of world size 1 with its store in a temporary directory, destroyed at
+    the end.  At SHARD_POINTS ``polymul_sharded`` and
+    ``negacyclic_mul_sharded`` equal ``polymul`` and ``negacyclic_mul`` bit
+    for bit (the wide point also its CPU run), their launches exactly
+    SHARD_LAUNCHES, their collectives counted; the shard-local plan of
+    channels [2, 4) launches K1 over two channels and equals their slice;
+    ``PolymulEngine(mesh=)`` with SHARD_SLOTS slots serves SHARD_REQUESTS
+    requests at (4096, 6, 30), each equal to ``polymul``, with no shed and
+    no failure; ``negacyclic_mul_fourstep`` at 2^20 over the mesh's model
+    axis equals the same code on the CPU, and DNTT_SAMPLES seeded
+    coefficients equal their direct negacyclic sums, with one all-to-all a
+    transform; then the dry run's two records at DRYRUN_BATCH rows and
+    2^20.  The walls (median of SHARD_WALL_RUNS synchronised calls):
+    sharded beside unsharded at each point, and the four-step product.
+    Returns kernel -> path (``shard``, ``dryrun``) -> launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import dntt
+    from repro_torch.kernels import ntt as kern
+    from repro_torch.launch import dryrun_crypto
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve.crypto_engine import (
+        PolymulEngine,
+        negacyclic_mul_sharded,
+        polymul_sharded,
+    )
+    from repro_torch.sharding import ctx
+
+    t0 = time.perf_counter()
+    shard: dict[str, int] = {}
+    with mesh_mod.make_local_mesh() as mesh:
+        if torch.distributed.get_backend() != "nccl" or mesh.device.type != "cuda":
+            raise AssertionError(f"[shard] the mesh runs {torch.distributed.get_backend()} on "
+                                 f"{mesh.device}")
+        log(f"[shard] mesh {mesh_mod.validate_mesh(mesh)} on {mesh.device}, NCCL, world size "
+            f"{torch.distributed.get_world_size()}")
+        for name, (n, t, v, rows) in SHARD_POINTS.items():
+            pl = repro_torch.plan(n, t, v)
+            za, zb, ra, rb = seeded_inputs(torch, np, pl, rows, SEED + 11, pl.device)
+            with ctx.count_collectives() as coll:
+                (got_p, got_n), got = counted(torch, lambda: (
+                    polymul_sharded(pl, za, zb, mesh=mesh),
+                    negacyclic_mul_sharded(pl, ra, rb, mesh=mesh)))
+            expect_launches(got, SHARD_LAUNCHES[name], f"[shard] {name}")
+            add_launches(shard, got)
+            want_p = repro_torch.polymul(pl, za, zb)
+            exact(got_p, want_p, f"[shard] {name} polymul_sharded vs polymul")
+            exact(got_n, repro_torch.negacyclic_mul(pl, ra, rb),
+                  f"[shard] {name} negacyclic_mul_sharded vs negacyclic_mul")
+            if pl.config.width == "wide":
+                cpu = repro_torch.plan(n, t, v, device="cpu")
+                exact(got_p.cpu(), repro_torch.polymul(cpu, za.cpu(), zb.cpu()),
+                      f"[shard] {name} polymul_sharded vs its CPU run")
+            else:
+                loc = repro_torch.api.shard_plan(pl, 2, 4)
+                part, k = counted(torch, lambda: repro_torch.negacyclic_mul(loc, ra[2:4], rb[2:4]))
+                exact(part, got_n[2:4], f"[shard] {name} shard-local plan of channels [2, 4)")
+                cascade = "fused_polymul" if name == "paper" else "fused_polymul_fs"
+                expect_launches(k, {cascade: 1}, f"[shard] {name} shard-local plan")
+                add_launches(shard, k)
+            # the unsharded walls: the plan's own polymul, and where it is K2
+            # polymul on cuda_fused, the shard path's kernels (K5, K1, K6)
+            same = pl if pl.config.backend != "cuda_fused_e2e" else \
+                repro_torch.plan(n, t, v, backend="cuda_fused")
+            walls = {}
+            for _ in range(2):  # in turns: sharded, plain, same kernels; twice
+                for key, fn in (("sharded", lambda: polymul_sharded(pl, za, zb, mesh=mesh)),
+                                ("plain", lambda: repro_torch.polymul(pl, za, zb)),
+                                ("same", lambda: repro_torch.polymul(same, za, zb))):
+                    walls.setdefault(key, []).append(wall_ms(torch, fn, SHARD_WALL_RUNS))
+            sh, pw, sw = (walls[k] for k in ("sharded", "plain", "same"))
+            log(f"[shard] {name} plan({n}, {t}, {v}) {pl.config.backend}, {rows} rows, two "
+                f"turns: polymul_sharded {sh[0]:.4f} / {sh[1]:.4f} ms, polymul {pw[0]:.4f} / "
+                f"{pw[1]:.4f} ms, polymul on {same.config.backend} (the shard path's kernels) "
+                f"{sw[0]:.4f} / {sw[1]:.4f} ms; sharded / unsharded {sh[0] / pw[0]:.4f} / "
+                f"{sh[1] / pw[1]:.4f}, sharded / same kernels {sh[0] / sw[0]:.4f} / "
+                f"{sh[1] / sw[1]:.4f} (median of {SHARD_WALL_RUNS} synchronised calls each); "
+                f"both products equal to the unsharded ones bit for bit; launched "
+                f"{launched(got)}; collectives of the two calls {coll.as_dict()}; {card}")
+
+        eng = PolymulEngine(batch_slots=SHARD_SLOTS, mesh=mesh)
+        pl = eng.plan(4096, 6, 30)
+        za, zb, _, _ = seeded_inputs(torch, np, pl, SHARD_REQUESTS, SEED + 12, "cpu")
+
+        def serve():
+            futs = [eng.submit(pl, za[i], zb[i]) for i in range(SHARD_REQUESTS)]
+            eng.run_until_idle()
+            return futs
+
+        futs, got = counted(torch, serve)
+        add_launches(shard, got)
+        snap = eng.snapshot()
+        bad = {k: snap[k] for k in ("dispatch_failures", "shed", "failed", "rejected") if snap[k]}
+        if snap["served"] != SHARD_REQUESTS or bad:
+            raise AssertionError(f"[shard] engine served {snap['served']} of {SHARD_REQUESTS}: "
+                                 f"{bad}")
+        want = repro_torch.polymul(pl, za.to(pl.device), zb.to(pl.device)).cpu()
+        for i, f in enumerate(futs):
+            exact(f.result(timeout=60.0), want[i], f"[shard] engine request {i}")
+        dispatches = -(-SHARD_REQUESTS // SHARD_SLOTS)
+        expect_launches(got, {"decompose": 2 * dispatches, "fused_polymul": dispatches,
+                              "compose": dispatches}, "[shard] engine")
+        log(f"[shard] PolymulEngine(mesh=, batch_slots={SHARD_SLOTS}) at {pl.config.n}:"
+            f"{pl.config.t}:{pl.config.v} ({pl.config.backend}): {snap['served']} of "
+            f"{SHARD_REQUESTS} requests served in {snap['dispatches']} dispatches, each equal to "
+            f"polymul, shed {snap['shed']}, failed {snap['failed']}; launched {launched(got)}")
+
+        n = 1 << DNTT_LOG_N
+        t1 = time.perf_counter()
+        tabs = dntt.make_fourstep_tables(DNTT_Q, n, 1 << (DNTT_LOG_N // 2))
+        tables_s = time.perf_counter() - t1
+        rng = np.random.default_rng(SEED + 13)
+        a_h, b_h = (rng.integers(0, DNTT_Q, size=n, dtype=np.int64) for _ in range(2))
+        a, b = torch.as_tensor(a_h, device=mesh.device), torch.as_tensor(b_h, device=mesh.device)
+        cons = dntt.make_shard_constrain(mesh)
+        with ctx.count_collectives() as coll:
+            out, got = counted(torch, lambda: dntt.negacyclic_mul_fourstep(a, b, tabs, cons))
+        expect_launches(got, {}, "[shard] four-step product")  # plain PyTorch, no kernel
+        if coll.calls != {"all_to_all": 3, "all_gather": 1}:
+            raise AssertionError(f"[shard] four-step collectives {coll.calls}")
+        host = dntt.negacyclic_mul_fourstep(torch.as_tensor(a_h), torch.as_tensor(b_h), tabs)
+        exact(out.cpu(), host, "[shard] four-step product card vs CPU")
+        ks = np.random.default_rng(SEED + 14).integers(0, n, size=DNTT_SAMPLES)
+        got_k = out.cpu().numpy()[ks].tolist()
+        if got_k != dryrun_crypto.negacyclic_coeffs(a_h, b_h, DNTT_Q, ks):
+            raise AssertionError("[shard] four-step coefficients differ from their direct sums")
+        sharded = wall_ms(torch, lambda: dntt.negacyclic_mul_fourstep(a, b, tabs, cons),
+                          SHARD_WALL_RUNS)
+        whole = wall_ms(torch, lambda: dntt.negacyclic_mul_fourstep(a, b, tabs),
+                        SHARD_WALL_RUNS)
+        log(f"[shard] negacyclic_mul_fourstep n=2^{DNTT_LOG_N} q={DNTT_Q} n1=2^"
+            f"{DNTT_LOG_N // 2}: {sharded:.4f} ms over the mesh's model axis, {whole:.4f} ms "
+            f"without a mesh (median of {SHARD_WALL_RUNS} synchronised calls); equal to its CPU "
+            f"run, {DNTT_SAMPLES} coefficients equal to their direct sums; collectives "
+            f"{coll.as_dict()} (one all-to-all a transform); tables built in {tables_s:.2f} s "
+            f"(host clock); {card}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            recs, dry = counted(torch, lambda: (
+                dryrun_crypto.run_he(mesh, DRYRUN_BATCH, Path(tmp)),
+                dryrun_crypto.run_dntt(mesh, DNTT_LOG_N, Path(tmp))))
+        for rec in recs:
+            if rec["status"] != "ok":
+                raise AssertionError(f"[shard] dry run {rec['arch']}: {rec.get('error')}")
+            log(f"[shard] dryrun {rec['arch']} {rec['shape']}: wall {rec['wall_s'] * 1e3:.4f} ms "
+                f"(one synchronised call after a warm-up), peak {rec['memory']['peak_bytes']} B, "
+                f"hbm/device {rec['hbm_bytes']} B ({rec['hbm_basis']}), collectives "
+                f"{rec['collectives']}; {card}")
+    if torch.distributed.is_initialized():
+        raise AssertionError("[shard] the process group outlived its mesh")
+    for name in ("decompose", "fused_polymul", "fused_polymul_fs", "compose"):
+        if not shard.get(name):
+            raise AssertionError(f"[shard] {name} never launched on the shard path")
+    log(f"[shard] phase 11 took {time.perf_counter() - t0:.1f} s (host clock); launched "
+        f"{shard} on the shard path")
+    out = {name: {"shard": k} for name, k in shard.items()}
+    for name, k in launched(dry).items():
+        out.setdefault(name, {})["dryrun"] = k
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
         return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
@@ -3273,7 +3478,9 @@ def main() -> int:
         serve_paths.setdefault(name, {}).update(paths)
     for name, paths in drive_tune(card).items():
         serve_paths.setdefault(name, {}).update(paths)
-    for entry in entries:  # phases 8, 9 and 10's paths beside each kernel's
+    for name, paths in drive_shard(card).items():
+        serve_paths.setdefault(name, {}).update(paths)
+    for entry in entries:  # phases 8, 9, 10 and 11's paths beside each kernel's
         paths = serve_paths.get(entry["name"], {})
         if paths:
             entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)

@@ -385,6 +385,81 @@ def _wide_specs(params: ParenttParams) -> tuple[wide_mod.WideSpec, ...]:
     return tuple(wide_mod.from_special(p) for p in params.primes)
 
 
+# --------------------------------------------------------------------------
+# plan leaves and the shard-local plan (the mesh layer's view of a plan)
+# --------------------------------------------------------------------------
+
+_RNS_LEAVES = ("qs", "beta_pows", "qi_tilde", "qi_star_limbs", "q_limbs")
+
+
+def plan_leaves(pl: Plan) -> dict[str, torch.Tensor]:
+    """A plan's device tables by the reference's leaf names: an int64
+    plan's :class:`~repro_torch.core.ntt.ChannelTables` fields as
+    ``ntt_<field>`` (a four-step sub-level as ``ntt_<field><level>``) and
+    its RNS constants as ``rns_<field>``; a wide plan's ``consts``; nothing
+    for the oracle width."""
+    if pl.config.width == "wide":
+        return dict(pl.consts)
+    if pl.config.width != "int64":
+        return {}
+    ct, rp = pl.params.tables, pl.params.plan
+    out = {}
+    for name in ntt_mod.DEVICE_FIELDS:
+        dev = getattr(ct, name + "_d")
+        if dev is not None:
+            out["ntt_" + name] = dev
+    for name in ntt_mod.DEVICE_LEVELS:
+        for lvl, arr in enumerate(getattr(ct, name + "_d") or ()):
+            out[f"ntt_{name}{lvl}"] = arr
+    for name in _RNS_LEAVES:
+        out["rns_" + name] = getattr(rp, name + "_d")
+    return out
+
+
+_SHARD_PLANS: dict[tuple[PlanConfig, int, int], Plan] = {}
+
+
+def shard_plan(pl: Plan, c0: int, c1: int) -> Plan:
+    """The plan of channels ``[c0, c1)`` of ``pl`` (the reference's
+    shard-local view, ``_bound_params`` and ``_wide_exec_specs``): its
+    ``t`` is ``c1 - c0`` and every per-channel table is the slice of
+    ``pl``'s, so the kernels launch over the local channels only.  The
+    ChannelTables (twiddle, Barrett, Shoup and four-step tables), the RNS
+    plan's per-channel constants (with its in-kernel decompose constants)
+    and a wide plan's ``(t, ...)`` consts are sliced; the composed modulus
+    q, S and L stay ``pl``'s, so a local decompose takes the whole
+    operands' segments.  A local plan composes nothing: compose runs on
+    ``pl`` over all channels.  Built once per (:func:`plan_key`, channel
+    range), the plan's device included, and kept: a dispatch never
+    uploads tables.  The whole range is ``pl`` itself."""
+    cfg = _require_plan(pl, "shard_plan")
+    if cfg.width not in ("int64", "wide"):
+        raise ValueError(f"shard_plan: the {cfg.width} width has no device channels to shard")
+    if not 0 <= c0 < c1 <= cfg.t:
+        raise ValueError(f"shard_plan: channels [{c0}, {c1}) outside [0, {cfg.t})")
+    if (c0, c1) == (0, cfg.t):
+        return pl
+    key = (cfg, c0, c1)
+    local = _SHARD_PLANS.get(key)
+    if local is None:
+        local = _SHARD_PLANS.setdefault(key, _slice_plan(pl, c0, c1))
+    return local
+
+
+def _slice_plan(pl: Plan, c0: int, c1: int) -> Plan:
+    params, cut = pl.params, slice(c0, c1)
+    rp = params.plan
+    plan_l = dataclasses.replace(
+        rp, t=c1 - c0, qs=rp.qs[cut], beta_terms=rp.beta_terms[cut], beta_pows=rp.beta_pows[cut],
+        block_consts=rp.block_consts[cut], qi_tilde=rp.qi_tilde[cut],
+        qi_star_limbs=rp.qi_star_limbs[cut], dec=None if rp.dec is None else rp.dec[cut])
+    tables_l = None if params.tables is None else ntt_mod.slice_channel_tables(params.tables, c0, c1)
+    params_l = dataclasses.replace(params, t=c1 - c0, primes=params.primes[cut], plan=plan_l,
+                                   tables=tables_l)
+    consts = {name: x if name == "wide_q_limbs" else x[cut] for name, x in pl.consts.items()}
+    return Plan(config=dataclasses.replace(pl.config, t=c1 - c0), params=params_l, consts=consts)
+
+
 def _tuning_winner(tuning, n: int, t: int, v: int, dev: torch.device) -> dict[str, Any] | None:
     """The ``tuning=`` knob resolved into the table's winner-knob dict for
     (n, t, v) on the plan's device kind (``None`` for no tuning or no

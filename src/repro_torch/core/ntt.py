@@ -389,9 +389,9 @@ def intt_raw_four_step(a, inv, row_inv, q, half, eps=None, shifts=None) -> torch
 # multi-channel (RNS) tables and transforms: leading axis = channel
 # --------------------------------------------------------------------------
 
-_DEVICE_FIELDS = ("qs", "fwd", "inv", "half", "mul_eps", "fwd_shoup", "inv_shoup",
+DEVICE_FIELDS = ("qs", "fwd", "inv", "half", "mul_eps", "fwd_shoup", "inv_shoup",
                   "fs_row_fwd", "fs_row_inv", "fs_row_fwd_shoup", "fs_row_inv_shoup")
-_DEVICE_LEVELS = ("fs_sub_fwd", "fs_sub_inv", "fs_sub_fwd_shoup", "fs_sub_inv_shoup")
+DEVICE_LEVELS = ("fs_sub_fwd", "fs_sub_inv", "fs_sub_fwd_shoup", "fs_sub_inv_shoup")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -460,10 +460,10 @@ class ChannelTables:
             for q in np.atleast_1d(self.qs):
                 modmath.validate_lazy_envelope(int(q), self.lazy_window, self.shoup_beta)
         up = lambda host: torch.as_tensor(host, device=self.device)
-        for name in _DEVICE_FIELDS:
+        for name in DEVICE_FIELDS:
             host = getattr(self, name)
             object.__setattr__(self, name + "_d", None if host is None else up(host))
-        for name in _DEVICE_LEVELS:
+        for name in DEVICE_LEVELS:
             host = getattr(self, name)
             object.__setattr__(self, name + "_d",
                                None if host is None else tuple(up(h) for h in host))
@@ -494,6 +494,22 @@ def make_channel_tables(qs, n: int, device="cpu") -> ChannelTables:
         **shoups,
         **four_step_tables(fwd, inv, shoups.get("fwd_shoup"), shoups.get("inv_shoup")),
     )
+
+
+def slice_channel_tables(ct: ChannelTables, c0: int, c1: int) -> ChannelTables:
+    """The tables of channels ``[c0, c1)`` of ``ct``: every per-channel
+    field sliced (the four-step and Shoup tables too), the regime's shared
+    constants (Barrett shifts, lazy window, Shoup beta) kept; uploaded to
+    ``ct``'s device as one set of tables of its own."""
+    cut = slice(c0, c1)
+    part = {}
+    for name in DEVICE_FIELDS:
+        host = getattr(ct, name)
+        part[name] = None if host is None else np.ascontiguousarray(host[cut])
+    for name in DEVICE_LEVELS:
+        host = getattr(ct, name)
+        part[name] = None if host is None else tuple(np.ascontiguousarray(h[cut]) for h in host)
+    return dataclasses.replace(ct, **part)
 
 
 def four_step_tables(fwd: np.ndarray, inv: np.ndarray, fwd_shoup: np.ndarray | None = None,

@@ -24,7 +24,10 @@ error, ``--max-pending`` bounds the queue (backpressure), and
 thread.  ``--span-log FILE`` traces every request into a JSONL span log
 (inspect with ``repro_torch.launch.obs_report``); ``--json`` emits the
 summary as a machine-readable record with the ``--seed`` stamped in.
-``--mesh`` is refused: the engine serves one device per plan.
+``--mesh DxM`` shards every dispatch over a (data, model) mesh of the
+launched ``torch.distributed`` world (:func:`build_mesh`): ``1x1`` runs on
+one card (a world of one rank, NCCL) or, with ``--device cpu``, on gloo;
+any other shape needs a world of D*M ranks.
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ import time
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import api, obs
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.serve.crypto_engine import PolymulEngine, _bucket_key_str
 
 CARD_PRESETS = "4096:6:30,4096:4:45,65536:6:30"
@@ -51,6 +57,22 @@ def parse_preset(spec: str) -> tuple[dict, int | None]:
     except ValueError as e:
         raise SystemExit(f"bad --presets entry {spec!r}: want n:t:v or n:t:v@k") from e
     return {"n": n, "t": t, "v": v}, k
+
+
+def build_mesh(spec: str, device=None) -> mesh_mod.Mesh:
+    """'DxM' -> a (data, model) mesh over the launched world, which must
+    have D*M ranks; a world of one rank starts itself for ``1x1``."""
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError as e:
+        raise SystemExit(f"bad --mesh {spec!r}: want DxM, e.g. 1x1") from e
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != d * m:
+        raise SystemExit(
+            f"--mesh {spec} needs {d * m} devices but only {world} are visible; "
+            f"launch a torch.distributed world of {d * m} ranks"
+        )
+    return mesh_mod.make_mesh((d, m), ("data", "model"), device)
 
 
 def make_traffic(plans, requests: int, rate: float, rng, fixed=()) -> list:
@@ -148,17 +170,18 @@ def bucket_report(traffic, futs, timer: DispatchTimer, wall: float) -> dict[str,
 def run(*, presets: str | None = None, requests: int = 32, slots: int = 8, rate: float = 0.0,
         seed: int = 0, deadline_ms: float = 0.0, max_pending: int = 0,
         async_dispatch: bool = False, span_log: str | None = None, device=None,
-        donate: bool = False) -> dict:
+        donate: bool = False, mesh=None) -> dict:
     """Warm every preset with one padded dispatch, then serve the seeded
     traffic; returns the engine, its plans, the traffic, the futures, the
     wall seconds, the per-bucket report and the warm-up's dispatches per
-    bucket (``warm_dispatches``)."""
+    bucket (``warm_dispatches``).  ``mesh`` serves every dispatch sharded
+    (:func:`repro_torch.serve.crypto_engine.polymul_sharded`)."""
     if presets is None:
         card = device is None and torch.cuda.is_available()
         presets = CARD_PRESETS if card else CPU_PRESETS
     log = obs.SpanLog(span_log) if span_log else None
     eng = PolymulEngine(batch_slots=slots, donate=donate, max_pending=max_pending or None,
-                        span_log=log)
+                        span_log=log, mesh=mesh)
     rr, fixed = [], []
     for spec in presets.split(","):
         kw, k = parse_preset(spec)
@@ -212,7 +235,8 @@ def main(argv=None) -> int:
                          f"{CARD_PRESETS} on the card, {CPU_PRESETS} with --device cpu)")
     ap.add_argument("--device", default=None,
                     help="plan device (default: the card; 'cpu' runs the plain datapaths)")
-    ap.add_argument("--mesh", default="", help="refused: the engine serves one device per plan")
+    ap.add_argument("--mesh", default="",
+                    help="'DxM' (data x model) mesh over the launched world, e.g. 1x1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--donate", action="store_true",
                     help="accepted for the reference's command lines; changes nothing")
@@ -228,13 +252,15 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="emit the summary as a JSON record (seed stamped in) instead of text")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: the engine serves one device per plan; mesh mode is not served")
-
-    rec = run(presets=args.presets, requests=args.requests, slots=args.slots, rate=args.rate,
-              seed=args.seed, deadline_ms=args.deadline_ms, max_pending=args.max_pending,
-              async_dispatch=args.async_dispatch, span_log=args.span_log, device=args.device,
-              donate=args.donate)
+    mesh = build_mesh(args.mesh, args.device) if args.mesh else None
+    try:
+        rec = run(presets=args.presets, requests=args.requests, slots=args.slots,
+                  rate=args.rate, seed=args.seed, deadline_ms=args.deadline_ms,
+                  max_pending=args.max_pending, async_dispatch=args.async_dispatch,
+                  span_log=args.span_log, device=args.device, donate=args.donate, mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
     eng, futs, wall = rec["engine"], rec["futures"], rec["wall_s"]
     snap = eng.snapshot()
     ok = [f for f in futs if f.exception() is None]
@@ -242,6 +268,7 @@ def main(argv=None) -> int:
     lat = np.array([f.latency_s for f in ok]) * 1e3
     if args.json:
         print(json.dumps({
+            "mesh": dict(mesh.shape) if mesh is not None else None,
             "seed": args.seed,
             "requests": len(futs),
             "rate_rps": args.rate,
@@ -272,6 +299,8 @@ def main(argv=None) -> int:
           f"rejected={snap['rejected']} dispatch_failures={snap['dispatch_failures']} "
           f"breaker_opened={snap['breaker_opened']} "
           f"breaker_recovered={snap['breaker_recovered']}")
+    if mesh is not None:
+        print(f"mesh axes={dict(mesh.shape)}")
     if args.span_log:
         print(f"span log: {args.span_log}")
     return 0

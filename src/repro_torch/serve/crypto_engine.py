@@ -59,9 +59,19 @@ batching them into one device dispatch per plan:
   operands' device.  The synchronous ``step()`` / ``run_until_idle()``
   closed loop works unchanged.
 
-The reference's mesh mode (``polymul_sharded``) is not ported:
-``PolymulEngine(mesh=...)`` raises
-:class:`repro_torch.errors.UnservableConfigError` with knob ``mesh``.
+* **Mesh mode.**  With ``mesh=`` (a :class:`repro_torch.launch.mesh.Mesh`
+  over ``torch.distributed``), dispatches run :func:`polymul_sharded`:
+  each rank decomposes its ``data`` shard of the padded batch with the
+  shard-local plan of its ``model`` slice of the RNS channels
+  (:func:`repro_torch.api.shard_plan`, cached per plan and channel range),
+  runs that plan's residue cascade (K1, K1-fs at n = 65536), all-gathers
+  the channels over ``model`` for compose (K6) and the limbs over the data
+  axes.  Int64 and wide plans serve; ``submit`` refuses the oracle width,
+  a t that the model axis does not divide and a plan on another device
+  kind than the mesh's, with the reference's messages.  On one card the
+  mesh is world size 1 (``make_local_mesh()``, NCCL); across ranks every
+  rank drives its own engine with the same requests in the same order,
+  as the collectives pair up dispatch by dispatch.
 
 Usage::
 
@@ -96,8 +106,11 @@ from repro_torch.errors import (
     UnservableConfigError,
 )
 from repro_torch.kernels import ops as ops_mod
+from repro_torch.launch.mesh import Mesh
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import tracing as obs_tracing
+from repro_torch.sharding import ctx as ctx_mod
+from repro_torch.sharding import partition
 
 __all__ = [
     "FALLBACK_NEXT",
@@ -105,7 +118,123 @@ __all__ = [
     "SNAPSHOT_SCHEMA_VERSION",
     "PolymulEngine",
     "PolymulFuture",
+    "negacyclic_mul_sharded",
+    "polymul_sharded",
 ]
+
+
+# --------------------------------------------------------------------------
+# mesh-sharded execution (the model x data layout)
+# --------------------------------------------------------------------------
+
+
+def _mesh_sizes(mesh) -> tuple[int, int]:
+    """(model_size, data_batch_size) of a serving mesh."""
+    msize = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    return msize, partition._axes_size(mesh, partition.batch_axes(mesh))
+
+
+def _check_mesh_device(cfg: api.PlanConfig, mesh, fn: str) -> None:
+    if torch.device(cfg.device).type != mesh.device.type:
+        raise ValueError(
+            f"{fn}: the plan lives on {cfg.device}, the mesh's process group "
+            f"serves {mesh.device.type} tensors; plan on the mesh's device"
+        )
+
+
+def _check_mesh_plan(cfg: api.PlanConfig, mesh, fn: str) -> tuple[int, int]:
+    """The sharded path's checks of a plan against a mesh (the reference's
+    width and ``t % model`` checks, and the device the mesh's process
+    group serves); returns :func:`_mesh_sizes`."""
+    if cfg.width not in ("int64", "wide"):
+        raise ValueError(
+            f"{fn} serves int64/wide-width plans only "
+            f"(got width={cfg.width!r}); the oracle datapath is host-only "
+            f"and cannot be sharded"
+        )
+    msize, bsize = _mesh_sizes(mesh)
+    if cfg.t % msize:
+        raise ValueError(
+            f"t={cfg.t} RNS channels do not divide the model axis "
+            f"({msize}-way): shrink the axis or pick t a multiple of it"
+        )
+    _check_mesh_device(cfg, mesh, fn)
+    return msize, bsize
+
+
+def _check_batch(batch: int, bsize: int) -> None:
+    if batch % bsize:
+        raise ValueError(
+            f"batch {batch} does not divide the data axes "
+            f"({bsize}-way); pad the batch (the engine's slot padding "
+            f"guarantees this)"
+        )
+
+
+def _local_plan(pl: api.Plan, mesh, msize: int) -> api.Plan:
+    """The shard-local plan of this rank's ``model`` slice of the channels."""
+    k = mesh.index("model") if "model" in mesh.axis_names else 0
+    tl = pl.t // msize
+    return api.shard_plan(pl, k * tl, (k + 1) * tl)
+
+
+def negacyclic_mul_sharded(pl: api.Plan, a, b, *, mesh):
+    """The residue cascade over a mesh: ``a``, ``b`` are whole ``(t, B, n)``
+    residue tensors, the same on every rank; each rank takes its block
+    (channels over ``model``, batch over the data axes), runs the
+    shard-local plan's :func:`repro_torch.api.negacyclic_mul` (the kernels
+    launch over its t / model channels), and the blocks are all-gathered
+    back into the whole product on every rank.
+
+    Bit-exact against :func:`repro_torch.api.negacyclic_mul`: the
+    per-channel cascades are independent (the RNS parallelism the paper's
+    t datapaths exploit), so sharding channels is a pure layout decision.
+    Device widths only (int64 and wide); the oracle width is host-only."""
+    cfg = api.plan_key(pl)
+    msize, bsize = _check_mesh_plan(cfg, mesh, "negacyclic_mul_sharded")
+    if a.dim() != 3 or a.shape[0] != cfg.t or a.shape[-1] != cfg.n:
+        raise ValueError(
+            f"negacyclic_mul_sharded: expected residues (t={cfg.t}, B, "
+            f"n={cfg.n}), got shape {tuple(a.shape)}"
+        )
+    if a.shape != b.shape:
+        raise ValueError(
+            f"negacyclic_mul_sharded: operand shapes differ: "
+            f"{tuple(a.shape)} vs {tuple(b.shape)}"
+        )
+    _check_batch(a.shape[1], bsize)
+    pol = ctx_mod.make_crypto_policy(mesh, pl)
+    local = _local_plan(pl, mesh, msize)
+    return pol.gather(api.negacyclic_mul(local, pol(a, "residues"), pol(b, "residues")),
+                      "residues")
+
+
+def polymul_sharded(pl: api.Plan, za, zb, *, mesh):
+    """Mesh-mode end-to-end polymul: whole ``(B, n, S)`` segments, the same
+    on every rank -> whole ``(B, n, L)`` limbs on every rank.  Each rank
+    decomposes its data shard of the batch into its ``model`` slice of the
+    channels (the shard-local plan), runs the local residue cascade, and
+    all-gathers the channels over ``model`` for compose (the one
+    cross-``model`` collective), then the limbs over the data axes."""
+    cfg = api.plan_key(pl)
+    msize, bsize = _check_mesh_plan(cfg, mesh, "polymul_sharded")
+    for name, z in (("za", za), ("zb", zb)):
+        if z.dim() != 3 or tuple(z.shape[1:]) != (cfg.n, cfg.seg_count):
+            raise ValueError(
+                f"polymul_sharded: expected {name} segments (B, n={cfg.n}, "
+                f"S={cfg.seg_count}), got shape {tuple(z.shape)}"
+            )
+    if za.shape != zb.shape:
+        raise ValueError(
+            f"polymul_sharded: operand shapes differ: {tuple(za.shape)} vs {tuple(zb.shape)}"
+        )
+    _check_batch(za.shape[0], bsize)
+    pol = ctx_mod.make_crypto_policy(mesh, pl)
+    local = _local_plan(pl, mesh, msize)
+    rp = api.negacyclic_mul(local, api.decompose(local, pol(za, "segments")),
+                            api.decompose(local, pol(zb, "segments")))
+    channels = partition.P(pol.specs["residues"][0], None, None)
+    return pol.gather(api.compose(pl, ctx_mod.gather(rp, channels, mesh)), "limbs")
 
 
 # --------------------------------------------------------------------------
@@ -334,8 +463,11 @@ class PolymulEngine:
         Fixed rows per dispatch.  Every micro-batch is padded to this
         many polynomials, so each distinct ``PlanConfig`` runs one shape.
     mesh:
-        Not served: any value but ``None`` raises
-        :class:`repro_torch.errors.UnservableConfigError` (knob ``mesh``).
+        Optional :class:`repro_torch.launch.mesh.Mesh` with ``model`` and
+        data axes; when set, dispatches run :func:`polymul_sharded`.
+        ``batch_slots`` must divide the data axes so the padded batch
+        always shards.  Anything else but ``None`` is refused
+        (:class:`repro_torch.errors.UnservableConfigError`, knob ``mesh``).
     donate:
         Passed to :func:`repro_torch.api.execute`, where it changes
         nothing (eager PyTorch donates no buffers).
@@ -385,11 +517,18 @@ class PolymulEngine:
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if mesh is not None:
-            raise UnservableConfigError(
-                "mesh= shards dispatches over a device mesh, which the engine does not "
-                "serve; leave mesh=None (one device per plan)",
-                knob="mesh", value=mesh, alternatives=(None,),
-            )
+            if not isinstance(mesh, Mesh):
+                raise UnservableConfigError(
+                    f"mesh= takes a repro_torch.launch.mesh.Mesh (make_mesh, "
+                    f"make_local_mesh), got {type(mesh).__name__}",
+                    knob="mesh", value=mesh, alternatives=(None,),
+                )
+            _, bsize = _mesh_sizes(mesh)
+            if batch_slots % bsize:
+                raise ValueError(
+                    f"batch_slots={batch_slots} must divide the mesh's "
+                    f"data axes ({bsize}-way) so padded batches shard"
+                )
         if max_pending is not None and max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         if max_retries < 0:
@@ -399,6 +538,7 @@ class PolymulEngine:
                 f"breaker_threshold must be >= 1, got {breaker_threshold}"
             )
         self.batch_slots = batch_slots
+        self.mesh = mesh
         self.donate = donate
         self.max_pending = max_pending
         self.max_retries = max_retries
@@ -484,6 +624,23 @@ class PolymulEngine:
                     f"submit: expected {name} segments (n={cfg.n}, "
                     f"S={cfg.seg_count}), got shape {tuple(z.shape)}"
                 )
+        if self.mesh is not None:
+            # Mirror the sharded dispatch's preconditions HERE: step()
+            # pops requests before dispatching, so a config that could only
+            # fail at dispatch would burn retries for nothing.
+            if cfg.width not in ("int64", "wide"):
+                raise ValueError(
+                    f"mesh mode serves int64/wide-width plans only "
+                    f"(got width={cfg.width!r})"
+                )
+            msize, _ = _mesh_sizes(self.mesh)
+            if cfg.t % msize:
+                raise ValueError(
+                    f"mesh mode: t={cfg.t} RNS channels do not divide "
+                    f"the model axis ({msize}-way); pick t a multiple "
+                    f"of it or shrink the axis"
+                )
+            _check_mesh_device(cfg, self.mesh, "mesh mode")
         return cfg, za, zb
 
     def _enqueue_locked(self, cfg, pl, za, zb, deadline, priority,
@@ -612,8 +769,9 @@ class PolymulEngine:
     # -- execution -----------------------------------------------------
     def _execute_batch(self, pl: api.Plan, za: torch.Tensor, zb: torch.Tensor) -> torch.Tensor:
         """The raw dispatch executor: one padded micro-batch of CPU int64
-        segments ``(B, n, S)`` through the plan's datapath, returned as the
-        CPU int64 ``(B, n, L)`` limbs.  One host-to-device copy (of the one
+        segments ``(B, n, S)`` through the plan's datapath (through
+        :func:`polymul_sharded` in mesh mode), returned as the CPU int64
+        ``(B, n, L)`` limbs.  One host-to-device copy (of the one
         host buffer that ``za`` and ``zb`` are halves of, as :meth:`step`
         builds them) and one device-to-host copy, which has completed when
         this returns.  ``self.executor`` points here unless a fault
@@ -625,6 +783,8 @@ class PolymulEngine:
             za, zb = both[0], both[1]
         else:
             za, zb = za.to(dev), zb.to(dev)
+        if self.mesh is not None:
+            return polymul_sharded(pl, za, zb, mesh=self.mesh).cpu()
         return api.execute(pl, za, zb, donate=self.donate).cpu()
 
     def _fallback_plan(self, pl: api.Plan) -> api.Plan | None:

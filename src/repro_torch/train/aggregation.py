@@ -1,16 +1,22 @@
-"""HE-secured gradient aggregation, the paper's motivating application [1]
-(PyTorch port of the HE half of ``repro.train.aggregation``).
+"""Cross-pod gradient aggregation paths (PyTorch port of
+``repro.train.aggregation``):
 
-Each worker quantizes its gradients, packs them into R_{n,q} plaintext
-polynomials and BFV-encrypts them; the untrusted reducer sums the
-ciphertexts (it never sees a plaintext gradient); the trusted party
-decrypts the sum.  Every homomorphic product rides the PaReNTT
-multiplier (:mod:`repro_torch.core.bfv`).
+1. ``compressed_psum`` — int8 stochastic-rounding gradient compression for
+   the inter-pod hop (4x less traffic than float32): every rank quantizes
+   its gradients with its own scale and the int32 sums, the float32 scale
+   sum and the rank count are all-reduced over the ``pod`` axis' group.
+2. HE-secured aggregation — the paper's motivating application [1]:
+   each worker quantizes its gradients, packs them into R_{n,q} plaintext
+   polynomials and BFV-encrypts them; the untrusted reducer sums the
+   ciphertexts (it never sees a plaintext gradient); the trusted party
+   decrypts the sum.  Every homomorphic product rides the PaReNTT
+   multiplier (:mod:`repro_torch.core.bfv`).
 
 Gradients are dicts, lists or tuples of tensors, flattened in the
 reference's leaf order (dict keys sorted, as ``jax.tree`` visits them).
-The int8 compression (``quantize_int8``, ``compressed_psum``) is not
-ported yet.
+The stochastic rounding draws its uniforms from an explicit
+``torch.Generator`` where the reference takes a jax key; the ``*_draws``
+forms take the draws as tensors.
 """
 from __future__ import annotations
 
@@ -20,6 +26,72 @@ import numpy as np
 import torch
 
 from repro_torch.core import bfv
+
+
+# --------------------------------------------------------------------------
+# int8 stochastic-rounding compression
+# --------------------------------------------------------------------------
+
+
+def quantize_int8_draws(x: torch.Tensor, r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor scale, stochastic rounding (unbiased) on the uniform
+    draws ``r`` in [0, 1) (shaped like ``x``): (int8 values, float32 scale)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    y = xf / scale
+    lo = torch.floor(y)
+    q = lo + (r.to(device=xf.device, dtype=torch.float32) < y - lo).to(torch.float32)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def quantize_int8(x: torch.Tensor, generator: torch.Generator | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`quantize_int8_draws` with uniforms drawn from ``generator``
+    (on ``x``'s device)."""
+    r = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    return quantize_int8_draws(x, r)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compressed_psum_draws(grads: Any, draws: Sequence[torch.Tensor], mesh,
+                          axis: str = "pod") -> Any:
+    """All-reduce ``grads`` over the mesh axis ``axis`` with an int8
+    payload, each leaf rounded on its draws (in :func:`tree_leaves`
+    order).  Scales are reduced in float32; values int32-summed after
+    widening (a sum of int8 over <= 2^23 ranks cannot overflow int32); the
+    result, ``qsum * (ssum / k) / k`` over the k ranks, is the mean in the
+    leaf's dtype, the same on every rank."""
+    from repro_torch.sharding import ctx  # deferred: no collectives for the HE path
+
+    leaves = tree_leaves(grads)
+    if len(draws) != len(leaves):
+        raise ValueError(f"compressed_psum: {len(draws)} draws for {len(leaves)} leaves")
+    group, size = mesh.group(axis), mesh.shape[axis]
+    out = []
+    for leaf, r in zip(leaves, draws):
+        q, s = quantize_int8_draws(leaf, r)
+        ssum = ctx.all_reduce(s.reshape(1), group, size)[0]
+        qsum = ctx.all_reduce(q.to(torch.int32), group, size)
+        n = ctx.all_reduce(torch.ones(1, dtype=torch.float32, device=leaf.device), group, size)[0]
+        out.append((qsum.to(torch.float32) * (ssum / n) / n).to(leaf.dtype))
+    return tree_unflatten(grads, out)
+
+
+def compressed_psum(grads: Any, generator: torch.Generator | None, mesh,
+                    axis: str = "pod") -> Any:
+    """:func:`compressed_psum_draws` with each leaf's uniforms drawn from
+    ``generator`` in turn (the reference splits its key per leaf)."""
+    draws = [torch.rand(leaf.shape, generator=generator, device=leaf.device,
+                        dtype=torch.float32) for leaf in tree_leaves(grads)]
+    return compressed_psum_draws(grads, draws, mesh, axis)
+
+
+# --------------------------------------------------------------------------
+# HE-secured aggregation (BFV, PaReNTT-powered)
+# --------------------------------------------------------------------------
 
 
 def tree_leaves(tree: Any) -> list[torch.Tensor]:

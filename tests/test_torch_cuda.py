@@ -844,3 +844,49 @@ def test_count_launches_equals_the_launch_counters(cuda_device, n, t):
         got = {name: w.launches for name, w in wrappers.items() if w.launches}
         assert got == calls == cost.path_launches(backend, n, t, p.plan.seg_count, p.plan.L)
         assert cost.launches_of(got) == cost.hbm_traffic_model(p, 2, backend)["kernel_launches"]
+
+
+def test_sharded_paths_on_an_nccl_world_of_one(cuda_device):
+    """On a (data=1, model=1) NCCL mesh of world size 1: polymul_sharded
+    and negacyclic_mul_sharded equal polymul and negacyclic_mul bit for bit
+    (K5, K1 and K6 at the paper's point; the wide width in plain PyTorch),
+    a shard-local plan of channels [2, 4) launches K1 over its two channels
+    and equals their slice, PolymulEngine(mesh=) serves every request equal
+    to polymul, and the four-step product on the card equals its CPU run."""
+    from repro_torch.core import dntt
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.serve.crypto_engine import (
+        PolymulEngine,
+        negacyclic_mul_sharded,
+        polymul_sharded,
+    )
+
+    with mesh_mod.make_local_mesh() as mesh:
+        assert torch.distributed.get_backend() == "nccl"
+        for n, t, v in ((4096, 6, 30), (32, 4, 45)):
+            pl = repro_torch.plan(n, t, v, device=cuda_device)
+            za, zb, ra, rb = _inputs(pl, 4, seed=n + t, device=cuda_device)
+            assert torch.equal(polymul_sharded(pl, za, zb, mesh=mesh),
+                               repro_torch.polymul(pl, za, zb))
+            assert torch.equal(negacyclic_mul_sharded(pl, ra, rb, mesh=mesh),
+                               repro_torch.negacyclic_mul(pl, ra, rb))
+            loc = repro_torch.api.shard_plan(pl, 2, 4)
+            before = kern.fused_polymul_cuda.launches
+            got = repro_torch.negacyclic_mul(loc, ra[2:4], rb[2:4])
+            torch.cuda.synchronize()
+            assert kern.fused_polymul_cuda.launches - before == (1 if v <= 31 else 0)
+            assert torch.equal(got, repro_torch.negacyclic_mul(pl, ra, rb)[2:4])
+        eng = PolymulEngine(batch_slots=4, mesh=mesh)
+        pl = eng.plan(4096, 6, 30)
+        za, zb, _, _ = _inputs(pl, 5, seed=3, device="cpu")
+        futs = [eng.submit(pl, za[i], zb[i]) for i in range(5)]
+        eng.run_until_idle()
+        want = repro_torch.polymul(pl, za.to(cuda_device), zb.to(cuda_device)).cpu()
+        assert all(torch.equal(f.result(), want[i]) for i, f in enumerate(futs))
+        assert eng.snapshot()["dispatches"] == 2
+    assert not torch.distributed.is_initialized()
+    tabs = dntt.make_fourstep_tables(998244353, 1 << 12, 1 << 6)
+    a = torch.randint(0, 998244353, (2, 1 << 12), generator=torch.Generator().manual_seed(9))
+    assert torch.equal(dntt.negacyclic_mul_fourstep(a.to(cuda_device), a.to(cuda_device),
+                                                    tabs).cpu(),
+                       dntt.negacyclic_mul_fourstep(a, a, tabs))

@@ -144,7 +144,8 @@ def test_engine_span_conservation_and_obs_report_check(tmp_path):
 def test_serve_crypto_on_cpu_plans(capsys):
     """serve_crypto's closed loop on CPU plans with an oracle preset of
     fixed count: every request served, the per-bucket report's counts
-    add up, and --mesh is refused."""
+    add up, and --mesh 2x2 in a world of one rank exits with the
+    reference's "needs 4 devices" message."""
     rec = serve_crypto.run(presets="64:3:30,32:4:45,32:2:50@2", requests=10, slots=4,
                            device="cpu")
     futs = rec["futures"]
@@ -156,7 +157,7 @@ def test_serve_crypto_on_cpu_plans(capsys):
     assert serve_crypto.main(["--device", "cpu", "--requests", "4", "--json"]) == 0
     out = json.loads(capsys.readouterr().out)
     assert out["snapshot"]["served"] == 4
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="--mesh 2x2 needs 4 devices but only 1 are visible"):
         serve_crypto.main(["--mesh", "2x2"])
 
 

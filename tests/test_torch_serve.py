@@ -26,6 +26,7 @@ from repro_torch.errors import (
     UnservableConfigError,
 )
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.serve import FALLBACK_NEXT, PolymulEngine
 from repro_torch.serve import crypto_engine as tengine
 
@@ -306,7 +307,9 @@ def test_concurrent_submitters_conserve_requests():
 def test_fallback_chain_ends_at_cuda_and_mesh_is_refused():
     """FALLBACK_NEXT runs cuda_fused_e2e -> cuda_fused -> cuda and stops:
     no step to the plain versions; the wide and oracle widths have no
-    chain; mesh= is refused with knob mesh."""
+    chain; a mesh= that is not a mesh is refused with knob mesh, and in
+    mesh mode a plan whose t the model axis does not divide is refused at
+    submit with the reference's message."""
     assert FALLBACK_NEXT == {"cuda_fused_e2e": "cuda_fused", "cuda_fused": "cuda"}
     eng = PolymulEngine()
     chain, pl = [], eng.plan(**E2E)
@@ -319,6 +322,22 @@ def test_fallback_chain_ends_at_cuda_and_mesh_is_refused():
     with pytest.raises(UnservableConfigError) as err:
         PolymulEngine(mesh=object())
     assert err.value.knob == "mesh"
+    # a (data=1, model=2) mesh's sizes: submit reads them before any collective
+    two = mesh_mod.Mesh(None, ("data", "model"), {"data": 1, "model": 2}, torch.device("cpu"))
+    eng = PolymulEngine(batch_slots=2, mesh=two)
+    pl = eng.plan(**E2E)
+    z = np.zeros((pl.n, pl.config.seg_count), np.int64)
+    with pytest.raises(ValueError) as err:
+        eng.submit(pl, z, z)
+
+    class FakeMesh:
+        axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
+
+    jpl = repro.plan(pl.n, pl.t, pl.v)
+    with pytest.raises(ValueError) as want:
+        rengine.PolymulEngine(batch_slots=2, mesh=FakeMesh()).submit(jpl, z, z)
+    assert str(err.value) == str(want.value)
+    assert eng.pending() == 0
 
 
 def test_path_sources_name_each_backends_kernels():
