@@ -217,6 +217,33 @@ Phases, each raising on failure (so the run exits non-zero):
    3 all-to-alls and 1 all-gather, its wall beside the unsharded one's;
    and ``launch.dryrun_crypto``'s two records at 4096 rows and 2^20 (peak
    device memory, wall, modelled bytes a device, collectives).
+12. LM serving on the card (``[lm]`` lines): gemma2-2b at full width
+   (``src/repro_torch/configs/gemma2_2b.py``: 26 layers, d_model 2304, 8
+   heads over 4 kv heads of 256, vocab 256000, a 4096-token window on
+   alternate layers, softcaps 50 and 30) from a seeded generator, weights
+   stored bf16, through ``repro_torch.serve.Engine`` (4 slots, an 8192-entry
+   cache) on 4 seeded prompts of 4608-5120 tokens and 32 new tokens each,
+   after a warm-up, with every launch counter zeroed just before and read
+   just after: exactly 26 x 33 K7 launches (26 ``wgmma``, the rest
+   ``decode``) and no other kernel's, finite logits at every step, 32
+   tokens a request; the prefill's and the steps' CUDA-event times,
+   tokens/s (host-bound, measured after the earlier phases), the peak
+   memory and K7's share of one decode step's device time
+   (``torch.profiler``); the serve's 33 ``decode_step`` calls
+   replayed with the plain attention on a fresh cache, fed the same
+   tokens, every call's logits within ``LM_BOUND`` of the serve's (the
+   left-padded B = 4 prefill and the decode steps at the serve's own key
+   splits); then one 4608-token prompt, ``forward``'s
+   logits at every position with K7 against the same model with the
+   plain attention (the reference's arithmetic, bf16 P) on the card, and
+   one ``decode_step`` after a K7 prefill likewise, within ``LM_BOUND``,
+   with the share of positions whose greedy token agrees, and a control
+   (the attention softcap corrupted) that must fall outside it; then every
+   other arch without experts reduced (``LM_REDUCED``) through ``Engine``
+   (2 prompts, 4 new tokens): K7's launches exactly one per attention call
+   (none for mamba2), every step's logits within ``LM_REDUCED_BOUND`` of the
+   plain attention fed the same tokens, and qwen2-vl and seamless also
+   ``forward`` over frontend embeddings.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
@@ -256,7 +283,8 @@ too, and K2, K1, K1-fs, K5 and K6 their launches in phases 8 and 9
 (paths ``serve inline``, ``serve async``, ``soak``), and every kernel
 phase 10 launched its launches there (paths ``tune <workload>``,
 ``stages n=<n> <backend>``), and phase 11's as paths ``shard`` (the
-sharded calls, the shard-local plan and the engine) and ``dryrun``;
+sharded calls, the shard-local plan and the engine) and ``dryrun``, and
+K7 phase 12's as paths ``lm gemma2-2b`` and ``lm reduced <arch>``;
 K2-fs's, K5's and K6's a ``wide`` object with their W1/W2 numbers)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
@@ -3389,6 +3417,369 @@ def drive_shard(card: str) -> dict[str, dict[str, int]]:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: LM serving on the card
+# --------------------------------------------------------------------------
+
+# gemma2-2b at full width (src/repro_torch/configs/gemma2_2b.py): 4 slots
+# of seeded prompts of LM_PROMPT_LENS tokens, past its 4096-token window,
+# so that its local layers mask, and LM_NEW greedy tokens each
+LM_ARCH = "gemma2-2b"
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 8192, 32
+LM_PROMPT_LENS = (4608, 5120)
+LM_CHECK_LEN = 4608  # the one prompt K7 and the plain attention both serve
+# every other arch without experts, reduced, through the Engine: 2 prompts
+# of LM_REDUCED_LENS tokens, 4 new tokens
+LM_REDUCED = ("yi-6b", "deepseek-7b", "mistral-large-123b", "qwen2-vl-7b", "mamba2-130m",
+              "zamba2-2.7b", "seamless-m4t-medium")
+LM_REDUCED_LENS, LM_REDUCED_NEW, LM_REDUCED_MAX_LEN = (20, 13), 4, 64
+# K7 against the plain attention (the reference's arithmetic, bf16 P) on the
+# card, same weights and inputs: max |logit difference| over the compared
+# logits.  K7 keeps P in float32, which moves an attention output by up to
+# 2^-9 of its terms; the bf16 roundings downstream (every product and sum
+# of the layers after it, and the logits' own bf16 grid, 2^-6 at |logit| in
+# [2, 4)) carry that on as whole steps.  Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W: up to 0.139 over gemma2-2b's 26 layers (0.521 with the
+# softcap corrupted), up to 0.055 on the reduced models (2-4 layers): the
+# bounds leave about 2x
+LM_BOUND = 0.25
+LM_REDUCED_BOUND = 0.1
+# a control the bound must reject: the attention softcap corrupted
+LM_CONTROL_SOFTCAP = 5.0
+
+
+class DecodeRecorder:
+    """While a run lasts, wraps ``models.model.decode_step`` (which the
+    Engine calls): each call's CUDA events around it and a device flag of
+    its logits' finiteness; with ``keep``, its tokens, keywords and logits
+    (for a replay); ``last``, the last call's cache and batch."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.events, self.finite, self.calls, self.last = keep, [], [], [], None
+
+    def __enter__(self):
+        from repro_torch.models import model
+
+        self.model, self.orig = model, model.decode_step
+        model.decode_step = self.call
+        return self
+
+    def __exit__(self, *exc):
+        self.model.decode_step = self.orig
+
+    def call(self, params, cfg, cache, batch, **kw):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, new = self.orig(params, cfg, cache, batch, **kw)
+        end.record()
+        self.events.append((start, end))
+        self.finite.append(torch.isfinite(logits).all())
+        if self.keep:
+            self.calls.append((batch["tokens"].clone(), kw, logits.clone()))
+        self.last = (cache, batch)
+        return logits, new
+
+
+class AttentionRoute:
+    """Routes the models' attention through ``route`` ("plain": the
+    reference's arithmetic, on the card too) while it lasts: the seam
+    ``models.layers.attention_route``."""
+
+    def __init__(self, route: str):
+        self.route = route
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.orig = layers, layers.attention_route
+        layers.attention_route = lambda device, head_dim, positions: self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.attention_route = self.orig
+
+
+def k7_launches_a_step(cfg) -> int:
+    """K7 launches of one decode_step of ``cfg``: one per attention layer
+    call (self and cross), none for mamba2."""
+    if cfg.family == "hybrid":  # the shared block after each group of mamba layers
+        return cfg.n_layers // cfg.shared_attn_every
+    return {"dense": cfg.n_layers, "ssm": 0, "encdec": 2 * cfg.n_layers}[cfg.family]
+
+
+def expect_k7(got: dict, variants: dict, want: int, want_variants: dict | None, what: str):
+    expect_launches(got, {"attention": want}, what)
+    if want_variants is not None and variants != {n: want_variants.get(n, 0) for n in variants}:
+        raise AssertionError(f"{what}: K7 variants {variants}, expected {want_variants}")
+
+
+def logit_gap(torch, got, want, what: str) -> tuple[float, float]:
+    """(max |got - want|, share of positions whose greedy token agrees);
+    raises on a misshapen or non-finite ``got``."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: {tuple(got.shape)} against {tuple(want.shape)}, or "
+                             "non-finite")
+    gap = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return gap, agree
+
+
+def lm_full_serve(card: str, cfg, params) -> dict[str, int]:
+    """gemma2-2b at full width through ``Engine`` (LM_SLOTS slots,
+    LM_MAX_LEN cache): a warm-up run, then the measured run with every
+    launch counter zeroed just before and read just after: exactly
+    n_layers x (1 + LM_NEW) K7 launches (n_layers ``wgmma``, the rest
+    ``decode``) and no other kernel's, LM_NEW finite-logit tokens a
+    request.  Prints the prefill's and the steps' CUDA-event times,
+    tokens/s, peak memory and K7's share of one decode step's device
+    time (``torch.profiler``).  Then replays the measured run's
+    ``decode_step`` calls with the plain attention on a fresh cache, fed
+    the tokens K7's run chose: every call's logits within LM_BOUND."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    rng = np.random.default_rng(SEED + 12)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, size=LM_SLOTS)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
+    eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    eng.generate(prompts, max_new=2)  # warm-up: cuBLAS's and K7's first calls at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = attention.flash_attention_cuda.variants
+    counts.update(dict.fromkeys(counts, 0))
+    t0 = time.perf_counter()
+    with DecodeRecorder(keep=True) as rec:
+        outs, got = counted(torch, lambda: eng.generate(prompts, max_new=LM_NEW))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + LM_NEW
+    expect_k7(got, dict(counts), cfg.n_layers * steps,
+              {"wgmma": cfg.n_layers, "decode": cfg.n_layers * LM_NEW}, "[lm] gemma2-2b serve")
+    if [len(o) for o in outs] != [LM_NEW] * LM_SLOTS or not all(bool(f) for f in rec.finite):
+        raise AssertionError(f"[lm] gemma2-2b: tokens {[len(o) for o in outs]}, finite logits "
+                             f"{[bool(f) for f in rec.finite]}")
+    if len(rec.events) != steps:
+        raise AssertionError(f"[lm] gemma2-2b: {len(rec.events)} decode_step calls, not {steps}")
+    prefill_ms = rec.events[0][0].elapsed_time(rec.events[0][1])
+    step_ms = [s.elapsed_time(e) for s, e in rec.events[1:]]
+    span_ms = rec.events[1][0].elapsed_time(rec.events[-1][1])
+    log(f"[lm] gemma2-2b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab {cfg.vocab}, window "
+        f"{cfg.sliding_window} on alternate layers, softcaps {cfg.attn_softcap}/"
+        f"{cfg.logit_softcap}): Engine({LM_SLOTS} slots, max_len {LM_MAX_LEN}), prompts of "
+        f"{lens.tolist()} tokens, {LM_NEW} new each: launches {launched(got)}, K7 variants "
+        f"{dict(counts)}; every logit finite, {LM_NEW} tokens a request; {card}")
+    log(f"[lm] gemma2-2b times: prefill {prefill_ms:.3f} ms (CUDA events, {LM_SLOTS} x "
+        f"{max(lens)} tokens left-padded), decode {statistics.median(step_ms):.3f} ms a step "
+        f"(median of {LM_NEW}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+        f"{LM_SLOTS * LM_NEW / span_ms * 1e3:.1f} tokens/s over the {LM_NEW} steps "
+        f"({span_ms:.3f} ms, CUDA events), generate wall {wall_s * 1e3:.1f} ms (host clock); the "
+        f"steps are host-bound, measured after the earlier phases in this process, and vary "
+        f"between calls (PERF.md §7); peak memory {peak} B (torch.cuda.max_memory_allocated; "
+        f"params {M.param_count(params)} values); {card}")
+    cache, batch = rec.last
+    M.decode_step(params, cfg, cache, batch)  # the last step again: same inputs, same writes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        M.decode_step(params, cfg, cache, batch)
+        torch.cuda.synchronize()
+    total = k7 = 0.0
+    kernels = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or not us:
+            continue
+        total += us
+        kernels += e.count
+        if "decode_kernel<" in e.key or "prefill_kernel<" in e.key:
+            k7 += us
+    if not total:
+        raise AssertionError("[lm] torch.profiler's trace holds no device time")
+    log(f"[lm] gemma2-2b one decode step ({LM_SLOTS} slots at position {cache['pos']}): device "
+        f"time {total / 1e3:.3f} ms over {kernels} kernels (torch.profiler, their self time), K7 "
+        f"{k7 / 1e3:.3f} ms, share {k7 / total:.3f}; {card}")
+    del cache, batch
+    rec.last = None
+    lm_serve_replay(card, cfg, params, rec.calls)
+    return got
+
+
+def lm_serve_replay(card: str, cfg, params, calls) -> None:
+    """The full-width serve's ``decode_step`` calls (``calls``, from
+    ``DecodeRecorder(keep=True)``) again with the plain attention on a fresh
+    cache, fed the same tokens: the left-padded prefill at B = LM_SLOTS
+    over the LM_MAX_LEN cache and every decode step at the key splits the
+    serve's K7 launches took.  Each call's logits within LM_BOUND of K7's,
+    with the share of slots whose greedy token agrees."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    torch.cuda.empty_cache()
+    cache = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device="cuda")
+    gaps, agree = [], []
+    with AttentionRoute("plain"):
+        for step, (tokens, kw, k7_logits) in enumerate(calls):
+            plain, cache = M.decode_step(params, cfg, cache, {"tokens": tokens}, **kw)
+            gap, share = logit_gap(torch, k7_logits, plain, f"[lm] serve replay, call {step}")
+            gaps.append(gap)
+            agree.append(share)
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    torch.cuda.empty_cache()
+    log(f"[lm] gemma2-2b serve replayed with the plain attention on the card, the serve's "
+        f"{len(calls)} decode_step calls fed the same tokens ({LM_SLOTS} slots left-padded, "
+        f"cache {LM_MAX_LEN}): max |logit difference| prefill {gaps[0]:.5f}, decode steps "
+        f"{max(gaps[1:]):.5f} (median {statistics.median(gaps[1:]):.5f}); greedy tokens agree at "
+        f"{sum(agree) / len(agree):.5f} of the slot-steps; bound {LM_BOUND}; peak memory {peak} B "
+        f"since the serve began; {card}")
+    if len(calls) != 1 + LM_NEW or max(gaps) > LM_BOUND:
+        raise AssertionError(f"[lm] gemma2-2b serve: {len(calls)} calls, K7 and the plain "
+                             f"attention differ by {max(gaps)}, past {LM_BOUND}")
+
+
+def lm_full_check(card: str, cfg, params) -> None:
+    """One LM_CHECK_LEN-token prompt (B = 1): ``forward``'s logits at every
+    position with K7 against the same model with the plain attention on
+    the card, and one ``decode_step`` after a K7 prefill through the cache
+    likewise; max |difference| within LM_BOUND, with the share of
+    positions whose greedy token agrees; a control with the softcap
+    corrupted must fall outside LM_BOUND."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(SEED + 13)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, LM_CHECK_LEN)), device="cuda")
+    batch = {"tokens": tokens}
+    k7 = M.forward(params, cfg, batch)[..., :cfg.vocab]
+    with AttentionRoute("plain"):
+        plain = M.forward(params, cfg, batch)[..., :cfg.vocab]
+    gap, agree = logit_gap(torch, k7, plain, "[lm] forward")
+    del k7
+    bad = dataclasses.replace(cfg, attn_softcap=LM_CONTROL_SOFTCAP)
+    control, _ = logit_gap(torch, M.forward(params, bad, batch)[..., :cfg.vocab], plain,
+                           "[lm] control")
+    del plain
+    cache = M.init_cache(cfg, 1, LM_MAX_LEN, device="cuda")
+    last, cache = M.decode_step(params, cfg, cache, batch, last_only=True)
+    nxt = {"tokens": last[:, -1].argmax(-1)[:, None]}
+    d_k7, _ = M.decode_step(params, cfg, cache, nxt)
+    with AttentionRoute("plain"):
+        d_plain, _ = M.decode_step(params, cfg, cache, nxt)
+    d_gap, d_agree = logit_gap(torch, d_k7, d_plain, "[lm] decode_step")
+    log(f"[lm] gemma2-2b K7 against the plain attention on the card, one prompt of "
+        f"{LM_CHECK_LEN} tokens: forward max |logit difference| {gap:.5f} over "
+        f"{LM_CHECK_LEN} x {cfg.vocab} logits, greedy tokens agree at {agree:.5f} of "
+        f"positions; decode_step after a K7 prefill {d_gap:.5f} (token "
+        f"{'agrees' if d_agree == 1 else 'differs'}); bound {LM_BOUND}; control (attention "
+        f"softcap {LM_CONTROL_SOFTCAP} for {cfg.attn_softcap}) {control:.5f}; {card}")
+    if max(gap, d_gap) > LM_BOUND:
+        raise AssertionError(f"[lm] gemma2-2b: K7 and the plain attention differ by "
+                             f"{max(gap, d_gap)}, past {LM_BOUND}")
+    if control <= LM_BOUND:
+        raise AssertionError(f"[lm] the softcap control ({control}) lies inside {LM_BOUND}")
+
+
+def lm_reduced(card: str, arch: str) -> dict[str, int]:
+    """One reduced arch through ``Engine`` on the card (2 prompts,
+    LM_REDUCED_NEW new tokens): K7's launches exactly one per attention
+    call and no other kernel's; then the plain attention fed the same
+    tokens step by step, every step's logits within LM_REDUCED_BOUND.
+    qwen2-vl also runs ``forward`` over frontend embeddings, K7 against
+    the plain attention."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    cfg = registry.get(arch).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(gen, cfg)
+    rng = np.random.default_rng(SEED + len(arch))
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in LM_REDUCED_LENS]
+    eng = Engine(cfg, params, batch_slots=len(prompts), max_len=LM_REDUCED_MAX_LEN)
+    with DecodeRecorder(keep=True) as rec:
+        outs, got = counted(torch, lambda: eng.generate(prompts, max_new=LM_REDUCED_NEW))
+    want = k7_launches_a_step(cfg) * (1 + LM_REDUCED_NEW)
+    expect_k7(got, {}, want, None, f"[lm] reduced {arch}")
+    if [len(o) for o in outs] != [LM_REDUCED_NEW] * len(prompts):
+        raise AssertionError(f"[lm] reduced {arch}: tokens {outs}")
+    cache = M.init_cache(cfg, len(prompts), LM_REDUCED_MAX_LEN, device="cuda")
+    gap = 0.0
+    with AttentionRoute("plain"):
+        for tokens, kw, k7_logits in rec.calls:
+            plain, cache = M.decode_step(params, cfg, cache, {"tokens": tokens}, **kw)
+            gap = max(gap, logit_gap(torch, k7_logits, plain, f"[lm] reduced {arch}")[0])
+    note = ""
+    if cfg.frontend:  # forward over the frontend stub's embeddings: K7 against plain
+        emb = torch.randn((2, 24, cfg.d_model), generator=gen, device="cuda")
+        if cfg.family == "encdec":  # the encoder (non-causal K7) over them, then the decoder
+            batch, calls = {"enc_embeddings": emb, "tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab, (2, 9)), device="cuda")}, 3 * cfg.n_layers
+        else:
+            batch, calls = {"embeddings": emb}, cfg.n_layers
+        fwd, f_got = counted(torch, lambda: M.forward(params, cfg, batch))
+        expect_k7(f_got, {}, calls, None, f"[lm] reduced {arch} forward over embeddings")
+        got["attention"] += f_got["attention"]
+        with AttentionRoute("plain"):
+            f_gap = logit_gap(torch, fwd, M.forward(params, cfg, batch), f"[lm] {arch} forward")[0]
+        gap = max(gap, f_gap)
+        note = (f"; forward over (2, 24, {cfg.d_model}) frontend embeddings ({f_got['attention']} "
+                f"K7 launches) {f_gap:.5f}")
+    log(f"[lm] reduced {arch} ({cfg.family}, {cfg.n_layers} layers, head dim {cfg.head_dim_}): "
+        f"Engine({len(prompts)} slots), prompts of {list(LM_REDUCED_LENS)} tokens, "
+        f"{LM_REDUCED_NEW} new: launches {launched(got)}; K7 against the plain attention fed the "
+        f"same tokens, max |logit difference| {gap:.5f}{note} (bound {LM_REDUCED_BOUND}); {card}")
+    if gap > LM_REDUCED_BOUND:
+        raise AssertionError(f"[lm] reduced {arch}: {gap} past {LM_REDUCED_BOUND}")
+    return got
+
+
+def drive_lm(card: str) -> dict[str, dict[str, int]]:
+    """Phase 12 (``[lm]``): the LM serving path on the card.  gemma2-2b at
+    full width from a seeded generator through ``Engine`` (``lm_full_serve``)
+    and held against the plain attention (``lm_full_check``); every other
+    arch without experts reduced (``lm_reduced``).  Returns K7's launches
+    per path."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    cfg = registry.get(LM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    log(f"[lm] gemma2-2b: {M.param_count(params)} parameters from a seeded generator on the "
+        f"card in {time.perf_counter() - t0:.1f} s (host clock), weights stored bf16; {card}")
+    paths = {"lm gemma2-2b": lm_full_serve(card, cfg, params)["attention"]}
+    lm_full_check(card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    for arch in LM_REDUCED:
+        paths[f"lm reduced {arch}"] = lm_reduced(card, arch)["attention"]
+    log(f"[lm] phase 12 took {time.perf_counter() - t0:.1f} s (host clock); K7 launches {paths}; "
+        f"{card}")
+    return {"attention": paths}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--time-k2":
         return time_checkout(Path(sys.argv[2]), ["fused_e2e_polymul"])
@@ -3480,7 +3871,9 @@ def main() -> int:
         serve_paths.setdefault(name, {}).update(paths)
     for name, paths in drive_shard(card).items():
         serve_paths.setdefault(name, {}).update(paths)
-    for entry in entries:  # phases 8, 9, 10 and 11's paths beside each kernel's
+    for name, paths in drive_lm(card).items():
+        serve_paths.setdefault(name, {}).update(paths)
+    for entry in entries:  # phases 8, 9, 10, 11 and 12's paths beside each kernel's
         paths = serve_paths.get(entry["name"], {})
         if paths:
             entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)

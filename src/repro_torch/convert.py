@@ -33,6 +33,10 @@ takes when ``arrays`` holds ``wide_fwd`` and returns as a wide plan's
 * ``wide_qi_star_limbs`` (t, L14) and ``wide_q_limbs`` (L14,): q / q_i and
   q in base-2^14 (``repro_torch.core.wide.POST_W``) limbs;
 * ``wide_qs`` and ``wide_betas`` (t,): q_i = 2^v - beta_i.
+
+:func:`params_from_reference` turns an LM's parameters exported from the
+reference (``repro.models.model.init_params``, as nested dicts of numpy
+arrays with the stacked leading layer axis) into the port's parameters.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ import torch
 from repro_torch.core import bigint, modmath, wide
 from repro_torch.core.ntt import ChannelTables, four_step_tables
 from repro_torch.core.rns import ChannelDecompose, RnsPlan
+from repro_torch.models import layers, transformer
 
 W = 28  # output limb width of the int64 width
 T_PRIME = 3  # Alg-2 block width
@@ -154,3 +159,45 @@ def tables_from_reference(arrays: dict[str, np.ndarray], device="cpu"):
         q_limbs=q_limbs, dec=dec, device=device,
     )
     return tables, plan
+
+
+# the reference's per-layer trees, stacked on a leading layer axis
+STACKED = ("layers", "mamba_layers", "encoder", "decoder")
+
+
+def params_from_reference(cfg, tree: dict, device="cpu") -> dict:
+    """The port's LM parameters on ``device`` from the reference's param
+    pytree of ``cfg`` as nested dicts of numpy arrays.  Each stacked tree
+    (``STACKED``) becomes a list of per-layer dicts, its leading axis cut;
+    every array becomes a float32 tensor, except the weights of
+    ``layers.CAST_AT_USE``, which become ``layers.CDTYPE`` ones.  Raises
+    ValueError where a stack's length is not ``cfg.n_layers``."""
+    transformer.check_dense(cfg)  # the MoE layers are not ported
+
+    def leaf(name: str, x) -> torch.Tensor:
+        dtype = layers.CDTYPE if name in layers.CAST_AT_USE else torch.float32
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    def convert(node, name=""):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        return leaf(name, node)
+
+    def unstack(node, i):
+        if isinstance(node, dict):
+            return {k: unstack(v, i) for k, v in node.items()}
+        return node[i]
+
+    def depth(node):
+        return depth(next(iter(node.values()))) if isinstance(node, dict) else len(node)
+
+    out = {}
+    for key, node in tree.items():
+        if key in STACKED:
+            n = depth(node)
+            if n != cfg.n_layers:
+                raise ValueError(f"{key}: {n} layers stacked, {cfg.name} has {cfg.n_layers}")
+            out[key] = [convert(unstack(node, i)) for i in range(n)]
+        else:
+            out[key] = convert(node, key)
+    return out

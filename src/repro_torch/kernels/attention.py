@@ -34,6 +34,7 @@ else adds to them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -128,6 +129,7 @@ def attention_variant(dtype: torch.dtype, D: int, Sq: int, group: int) -> str:
     return "decode" if Sq * group <= DECODE_MAX_ROWS else "wgmma"
 
 
+@functools.lru_cache(maxsize=256)  # every decode step of a model asks again
 def decode_splits(B: int, Hk: int, Skv: int, n_sm: int) -> tuple[int, int]:
     """(key splits, ``DECODE_KEYS``-key tiles per split) of the decode
     variant: at least one block per resident slot of the card (two waves

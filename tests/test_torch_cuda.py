@@ -890,3 +890,59 @@ def test_sharded_paths_on_an_nccl_world_of_one(cuda_device):
     assert torch.equal(dntt.negacyclic_mul_fourstep(a.to(cuda_device), a.to(cuda_device),
                                                     tabs).cpu(),
                        dntt.negacyclic_mul_fourstep(a, a, tabs))
+
+
+# the LM serving path: reduced models through the Engine on the card, K7
+# against the plain attention (the reference's arithmetic, routed on the
+# card through the seam models.layers.attention_route) fed the same
+# tokens; the bound is chip_smoke.py's LM_REDUCED_BOUND, for the same reason
+LM_CARD_ARCHS = {"gemma2-2b": 2, "zamba2-2.7b": 2, "seamless-m4t-medium": 4}  # K7 calls a step
+LM_REDUCED_BOUND = 0.1
+
+
+@pytest.mark.parametrize("arch", list(LM_CARD_ARCHS))
+def test_lm_engine_on_the_card_runs_k7(cuda_device, monkeypatch, arch):
+    from repro_torch.configs import registry
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    cfg = registry.get(arch).reduced()
+    params = M.init_params(torch.Generator(device=cuda_device).manual_seed(7), cfg)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (20, 9)]
+    calls, decode = [], M.decode_step
+
+    def recorded(p, c, cache, batch, **kw):
+        logits, cache = decode(p, c, cache, batch, **kw)
+        calls.append((batch["tokens"].clone(), kw, logits.clone()))
+        return logits, cache
+
+    monkeypatch.setattr(M, "decode_step", recorded)
+    attention.flash_attention_cuda.launches = 0
+    outs = Engine(cfg, params, batch_slots=2, max_len=64, device=cuda_device).generate(
+        prompts, max_new=4)
+    torch.cuda.synchronize()
+    assert [len(o) for o in outs] == [4, 4]
+    assert attention.flash_attention_cuda.launches == LM_CARD_ARCHS[arch] * 5
+    monkeypatch.setattr(layers, "attention_route", lambda device, head_dim, positions: "plain")
+    cache = M.init_cache(cfg, 2, 64, device=cuda_device)
+    for tokens, kw, k7_logits in calls:
+        plain, cache = decode(params, cfg, cache, {"tokens": tokens}, **kw)
+        assert bool(torch.isfinite(k7_logits).all())
+        assert (k7_logits - plain).abs().max().item() <= LM_REDUCED_BOUND
+
+
+def test_lm_card_path_refuses_what_k7_cannot_serve(cuda_device):
+    from repro_torch.configs import registry
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    cfg = registry.get("yi-6b").reduced()
+    params = M.init_params(torch.Generator(device=cuda_device).manual_seed(8), cfg)
+    tokens = torch.zeros((1, 4), dtype=torch.int64, device=cuda_device)
+    positions = torch.arange(4, device=cuda_device)[None]
+    with pytest.raises(ValueError, match="positions tensor"):
+        M.forward(params, cfg, {"tokens": tokens, "positions": positions})
+    with pytest.raises(ValueError, match="head dim 80"):
+        Engine(registry.get("zamba2-2.7b"), {}, device=cuda_device)
