@@ -33,8 +33,9 @@ Phases, each raising on failure (so the run exits non-zero):
    every element within 1e-5 plus, for bfloat16 I/O, one bfloat16 step
    of the plain output, at the attention layers
    of gemma2-2b (global and local prefill at 8192 tokens, decode against
-   an 8192-token cache) and yi-6b (prefill at 4096 tokens), all
-   bfloat16, and at a small sweep (padding, non-causal, window, softcap,
+   an 8192-token cache), yi-6b (prefill at 4096 tokens) and zamba2-2.7b
+   (head dim 80: prefill at 4096 tokens, decode at 4 slots against 4096
+   keys), all bfloat16, and at a small sweep (padding, non-causal, window, softcap,
    decode, the query that sees no key, every head dim and dtype the
    kernel is built for, each of its three variants: ``wgmma`` for bf16
    prefill, ``decode`` for bf16 with at most 8 query rows per kv head,
@@ -64,10 +65,10 @@ Phases, each raising on failure (so the run exits non-zero):
    ``ntt``, ``intt``, ``decompose``, ``compose`` on the auto plan, one
    launch of their kernel each, with ``intt(ntt(r)) == r`` and
    ``compose(decompose(z))`` equal to z's integers; and
-   ``repro_torch.kernels.attention.flash_attention`` at the four model
+   ``repro_torch.kernels.attention.flash_attention`` at the ten model
    shapes, one K7 launch and no other per call, of the variant
-   ``ATTN_VARIANT`` names (``wgmma`` at the three prefill shapes,
-   ``decode`` at gemma2 decode), its output finite and within tolerance
+   ``ATTN_VARIANT`` names (``wgmma`` at the six prefill shapes,
+   ``decode`` at the four decode shapes), its output finite and within tolerance
    of the plain version;
 4b. the HE path (``[bfv]`` lines, each with the card's name and power
    limit), every call with the launch counters zeroed just before it and
@@ -116,9 +117,10 @@ Phases, each raising on failure (so the run exits non-zero):
    K1, K3 and K4 with the CTAs an SM holds; K2
    also at one row (the latency case) with the clusters the card holds
    at once (``cudaOccupancyMaxActiveClusters``); K7 at each of
-   its four shapes, with a PyTorch call computing the same function timed
+   its ten shapes, with a PyTorch call computing the same function timed
    beside it as the yardstick (the port never calls it):
-   ``scaled_dot_product_attention`` at yi-6b, the compiled
+   ``scaled_dot_product_attention`` at yi-6b, zamba2-2.7b, dbrx-132b and
+   llama4-maverick, the compiled
    ``flex_attention`` with a softcap ``score_mod`` at gemma2-2b; each
    K7 variant's ptxas registers, spills and shared memory, and the
    achieved TFLOP/s (prefill) or TB/s (decode); K1-fs, K3-fs and K4-fs
@@ -217,40 +219,66 @@ Phases, each raising on failure (so the run exits non-zero):
    3 all-to-alls and 1 all-gather, its wall beside the unsharded one's;
    and ``launch.dryrun_crypto``'s two records at 4096 rows and 2^20 (peak
    device memory, wall, modelled bytes a device, collectives).
-12. LM serving on the card (``[lm]`` lines): gemma2-2b at full width
+12. LM serving on the card (``[lm]`` lines): each arch of ``LM_FULL`` at
+   full width from a seeded generator, weights stored bf16, through
+   ``repro_torch.serve.Engine``: gemma2-2b
    (``src/repro_torch/configs/gemma2_2b.py``: 26 layers, d_model 2304, 8
    heads over 4 kv heads of 256, vocab 256000, a 4096-token window on
-   alternate layers, softcaps 50 and 30) from a seeded generator, weights
-   stored bf16, through ``repro_torch.serve.Engine`` (4 slots, an 8192-entry
-   cache) on 4 seeded prompts of 4608-5120 tokens and 32 new tokens each,
-   after a warm-up, with every launch counter zeroed just before and read
-   just after: exactly 26 x 33 K7 launches (26 ``wgmma``, the rest
-   ``decode``) and no other kernel's, finite logits at every step, 32
-   tokens a request; the prefill's and the steps' CUDA-event times,
-   tokens/s (host-bound, measured after the earlier phases), the peak
-   memory and K7's share of one decode step's device time
-   (``torch.profiler``); the serve's 33 ``decode_step`` calls
-   replayed with the plain attention on a fresh cache, fed the same
-   tokens, every call's logits within ``LM_BOUND`` of the serve's (the
-   left-padded B = 4 prefill and the decode steps at the serve's own key
-   splits); then one 4608-token prompt, ``forward``'s
-   logits at every position with K7 against the same model with the
-   plain attention (the reference's arithmetic, bf16 P) on the card, and
-   one ``decode_step`` after a K7 prefill likewise, within ``LM_BOUND``,
-   with the share of positions whose greedy token agrees, and a control
-   (the attention softcap corrupted) that must fall outside it; then every
+   alternate layers, softcaps 50 and 30; 4 slots, an 8192-entry cache,
+   4 seeded prompts of 4608-5120 tokens and 32 new tokens each) and
+   zamba2-2.7b (``configs/zamba2_2p7b.py``: 54 mamba2 layers and a shared
+   attention block of 32 heads of 80 after each 6; 4 slots, a 4096-entry
+   cache, prompts of 1536-2048 tokens, 16 new), each after a warm-up,
+   with every launch counter zeroed just before and read just after:
+   exactly (attention calls a step) x (1 + new) K7 launches (26 x 33 and
+   9 x 17; the first step's ``wgmma``, the rest ``decode``) and no other
+   kernel's, finite logits at every step, the new tokens a request; the
+   prefill's and the steps' CUDA-event times, tokens/s (host-bound,
+   measured after the earlier phases), the peak memory and K7's share of
+   one decode step's device time (``torch.profiler``); the serve's
+   ``decode_step`` calls replayed with the plain attention on a fresh
+   cache, fed the same tokens, every call's logits within the arch's
+   bound of the serve's (the left-padded B = 4 prefill and the decode
+   steps at the serve's own key splits); then one prompt at B = 1,
+   ``forward``'s logits at every position with K7 against the same model
+   with the plain attention (the reference's arithmetic, bf16 P) on the
+   card, and one ``decode_step`` after a K7 prefill likewise, within the
+   bound, with the share of positions whose greedy token agrees, and a
+   control that must fall outside it (gemma2: the attention softcap
+   corrupted; zamba2: K7 over the first 64 of the 80 head-dim columns,
+   what a kernel that dropped its second panel computes); then every
    other arch without experts reduced (``LM_REDUCED``) through ``Engine``
    (2 prompts, 4 new tokens): K7's launches exactly one per attention call
    (none for mamba2), every step's logits within ``LM_REDUCED_BOUND`` of the
    plain attention fed the same tokens, and qwen2-vl and seamless also
-   ``forward`` over frontend embeddings.
+   ``forward`` over frontend embeddings;
+13. the MoE archs at full width on the card (``[moe]`` lines): dbrx-132b
+   (16 experts top-4, d_model 6144, d_ff 10752, vocab 100352) at 8 of its
+   40 layers and llama4-maverick-400b-a17b (128 experts top-1 and a shared
+   expert, dense layers at 2 d_ff) at one super-block, 2 of its 48 layers,
+   at their published widths from a seeded generator, one after the
+   other, through ``Engine`` (4 slots, a 4096-entry cache, seeded prompts
+   of 1536-2048 tokens, 16 new each), the counters around the measured
+   run: exactly n_layers x 17 K7 launches (n_layers ``wgmma``) and no
+   other kernel's, finite logits, 16 tokens a request; the prefill's and
+   the steps' times, tokens/s, peak memory, one decode step's device
+   time with K7's and the expert products' shares; the share of the
+   prefill's assignments dropped; the serve replayed with the plain
+   attention: the routing decisions that differ counted per MoE layer,
+   their share of the prefill's within the arch's ``flip_bound``
+   (``MOE_FULL``), the prefill with a faulty attention (K7 over 64 of the
+   128 head-dim columns) outside it; the MoE layer alone on the card
+   against the same call on the CPU, its input in ``forward`` over the
+   serve's longest prompt (about 2000 tokens) and the same weights, its
+   slots equal and its output within ``MOE_LAYER_TOL``.  K7 itself is
+   held at both archs' prefill and decode shapes in phase 3.
 
 ``python3 chip_smoke.py --time-kernels DIR NAME...`` times only the
 kernels NAME (keys of ``KERNELS``: ``fused_polymul``, ``ntt_channels``,
 ..., and ``fused_polymul_fs``, ``ntt_channels_fs``,
 ``intt_channels_fs`` and ``fused_e2e_polymul_fs``, K1-fs, K3-fs and
 K4-fs at (6, 16, 65536) and K2-fs at (16, 65536, 6), and
-``attention``, K7 at the four ``ATTN_MODEL`` shapes) of the
+``attention``, K7 at the ten ``ATTN_MODEL`` shapes) of the
 checkout at DIR (for instance the parent commit unpacked with
 ``git archive``) at the main path's shape, one call between two events
 and back to back (K2 also at one row), after checking each against its
@@ -274,7 +302,7 @@ its passes, and the one-block K3/K4 at 32768: whether whole time is the
 sum of the memory and the integer time or their maximum.
 
 It prints a ``{"kernels": [...]}`` line (K7's entry carries the yi-6b
-numbers and a ``shapes`` list with all four; K1's, K2's and K6's a
+numbers and a ``shapes`` list with all ten; K1's, K2's and K6's a
 ``launches_by_path`` beside ``launches``, the main path's count, with
 phase 4b's paths; K1-fs's, K3-fs's, K4-fs's and K2-fs's ``launches``
 sum phase 4c's and 4d's calls, each one a path of ``launches_by_path``;
@@ -284,7 +312,8 @@ too, and K2, K1, K1-fs, K5 and K6 their launches in phases 8 and 9
 phase 10 launched its launches there (paths ``tune <workload>``,
 ``stages n=<n> <backend>``), and phase 11's as paths ``shard`` (the
 sharded calls, the shard-local plan and the engine) and ``dryrun``, and
-K7 phase 12's as paths ``lm gemma2-2b`` and ``lm reduced <arch>``;
+K7 phase 12's as paths ``lm gemma2-2b``, ``lm zamba2-2.7b`` and ``lm
+reduced <arch>`` and phase 13's as ``lm moe <arch>``;
 K2-fs's, K5's and K6's a ``wide`` object with their W1/W2 numbers)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports neither JAX nor the JAX
@@ -420,14 +449,25 @@ AUTO_WALL_RUNS = 30
 ORACLE_ROWS = (0, 255)
 SEED = 20260
 
-# K7 at the full attention layer of two model configurations of the repo
-# (src/repro/configs/gemma2_2b.py, yi_6b.py), bfloat16 as the LM computes:
-# name -> ((B, Sq, Skv, H, Hk, D), flash_attention keywords)
+# K7 at the full attention layer of five model configurations of the repo
+# (src/repro/configs/gemma2_2b.py, yi_6b.py, zamba2_2p7b.py: head dim 80,
+# which K7 pads to 128 columns inside the kernel; dbrx_132b.py and
+# llama4_maverick_400b_a17b.py at the shapes phase 13's serve gives K7: 4
+# slots prefilled left-padded to the longest prompt, 1995 and 1971 tokens,
+# into a 4096-entry cache, and a decode step halfway through its 16, the
+# decode template's 8-row tile holding 6 and 5 query heads), bfloat16 as
+# the LM computes: name -> ((B, Sq, Skv, H, Hk, D), flash_attention keywords)
 ATTN_MODEL = {
     "gemma2_global_prefill": ((1, 8192, 8192, 8, 4, 256), dict(softcap=50.0)),
     "gemma2_local_prefill": ((1, 8192, 8192, 8, 4, 256), dict(window=4096, softcap=50.0)),
     "gemma2_decode": ((16, 1, 8192, 8, 4, 256), dict(softcap=50.0, q_offset=8191)),
     "yi6b_prefill": ((1, 4096, 4096, 32, 4, 128), {}),
+    "zamba2_prefill": ((1, 4096, 4096, 32, 32, 80), {}),
+    "zamba2_decode": ((4, 1, 4096, 32, 32, 80), dict(q_offset=4095)),
+    "dbrx_prefill": ((4, 1995, 4096, 48, 8, 128), {}),
+    "dbrx_decode": ((4, 1, 4096, 48, 8, 128), dict(q_offset=2003)),
+    "llama4_prefill": ((4, 1971, 4096, 40, 8, 128), {}),
+    "llama4_decode": ((4, 1, 4096, 40, 8, 128), dict(q_offset=1979)),
 }
 ATTN_LIBRARY_SHAPE = "yi6b_prefill"  # its numbers head K7's entry (library: SDPA)
 # the K7 variant (attention.attention_variant) that serves each model shape
@@ -436,6 +476,12 @@ ATTN_VARIANT = {
     "gemma2_local_prefill": "wgmma",
     "gemma2_decode": "decode",
     "yi6b_prefill": "wgmma",
+    "zamba2_prefill": "wgmma",
+    "zamba2_decode": "decode",
+    "dbrx_prefill": "wgmma",
+    "dbrx_decode": "decode",
+    "llama4_prefill": "wgmma",
+    "llama4_decode": "decode",
 }
 # the sweep of tests/test_kernels_attention.py, the query that sees no key,
 # and every (dtype, head dim) the kernel is built for:
@@ -465,6 +511,16 @@ ATTN_SMALL = [
     ("bf16_decode_ragged", (16, 1, 1000, 8, 4, 128), "bfloat16", dict(q_offset=999)),
     ("bf16_decode_window", (4, 1, 3000, 8, 2, 64), "bfloat16", dict(q_offset=2999, window=700)),
     ("bf16_decode_rows8", (2, 2, 517, 16, 4, 32), "bfloat16", dict(q_offset=515, softcap=50.0)),
+    # head dim 80 in each variant, padded inside the kernel
+    ("f32_d80", (1, 100, 200, 4, 2, 80), "float32", dict(window=50, softcap=30.0)),
+    ("bf16_d80_window", (1, 200, 300, 8, 4, 80), "bfloat16", dict(window=100, softcap=50.0)),
+    ("bf16_d80_non_causal", (1, 130, 200, 2, 2, 80), "bfloat16", dict(causal=False)),
+    ("bf16_no_key_wgmma_d80", (1, 70, 130, 2, 1, 80), "bfloat16", dict(window=8, q_offset=500)),
+    ("bf16_decode_d80", (4, 1, 1000, 32, 32, 80), "bfloat16", dict(q_offset=999)),
+    ("bf16_decode_d80_rows8", (2, 2, 517, 16, 4, 80), "bfloat16", dict(q_offset=515,
+                                                                         softcap=50.0)),
+    ("bf16_no_key_decode_d80", (1, 4, 100, 2, 1, 80), "bfloat16", dict(window=8, q_offset=500,
+                                                                         blk_k=64)),
 ]
 # K7 against its plain version, per output element in float32:
 # |kernel - plain| <= ATTN_ATOL, plus one bf16 step of the plain output
@@ -1816,7 +1872,7 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
     K2 also at one row (``k2_times``), K1-fs, K3-fs, K4-fs and K2-fs
     (``fused_polymul_fs``, ``ntt_channels_fs``, ``intt_channels_fs``,
     ``fused_e2e_polymul_fs``) at the largest FS_MAIN shape, and K7
-    (``attention``) at the four ATTN_MODEL shapes, first held within its
+    (``attention``) at the ten ATTN_MODEL shapes, first held within its
     tolerance, so two commits compare in one call."""
     import numpy as np
     import torch
@@ -1854,11 +1910,15 @@ def time_checkout(checkout: Path, names: list[str]) -> int:
             lambda: kern.fused_e2e_polymul_fs_cuda(za, zb, fs.tables, fs.plan),
             lambda: kern.fused_e2e_polymul_fs_ref(za, zb, fs.tables, fs.plan))
     log(card_line())
-    if "attention" in names:  # K7 at the four model shapes, within its tolerance
+    if "attention" in names:  # K7 at the ten model shapes, within its tolerance
         from repro_torch.kernels import attention
 
         names = [name for name in names if name != "attention"]
         for shape_name, (shape, kw) in ATTN_MODEL.items():
+            if shape[5] not in attention.HEAD_DIMS:  # a checkout whose K7 lacks the head dim
+                log(f"[time-kernels] attention {shape_name} {checkout}: head dim {shape[5]} "
+                    "not built")
+                continue
             q, k, v = attention_inputs(torch, shape, "bfloat16", SEED, pl.device)
             fn = lambda q=q, k=k, v=v, kw=kw: attention.flash_attention_cuda(q, k, v, **kw)
             attention_error(torch, fn(), attention.flash_attention_ref(q, k, v, **kw),
@@ -2624,7 +2684,7 @@ def bf16_p_control(torch, q, k, v, causal=True, window=None, softcap=0.0, q_offs
 
 def check_attention(dev):
     """Phase 3 for K7: the kernel against its plain version at the small
-    sweep and the four model shapes, and at each model shape a bf16-P
+    sweep and the ten model shapes, and at each model shape a bf16-P
     control that the tolerance must reject.  Returns (max error, model
     shape -> (its inputs, the plain output))."""
     import torch
@@ -2657,7 +2717,7 @@ def check_attention(dev):
 
 
 def drive_attention(model) -> dict[str, int]:
-    """Phase 4 for K7: the entry point ``flash_attention`` at the four model
+    """Phase 4 for K7: the entry point ``flash_attention`` at the ten model
     shapes, each call with every launch counter zeroed just before it and
     read just after: one K7 launch and no other.  Returns K7's launches
     per shape."""
@@ -2685,9 +2745,9 @@ def drive_attention(model) -> dict[str, int]:
 
 def attention_work(shape, kw, itemsize: int) -> tuple[int, int]:
     """(bytes K7 must move, FLOPs of its two products) for one call: the
-    port's traffic model at one query block (q, k, v read once, the output
-    written once); 4 * D FLOPs per (query, key) pair the masks leave
-    visible, per query head."""
+    port's traffic model at one query block (q, the keys and values some
+    query sees read once, the output written once); 4 * D FLOPs per
+    (query, key) pair the masks leave visible, per query head."""
     import numpy as np
 
     from repro_torch.kernels import attention
@@ -2698,15 +2758,20 @@ def attention_work(shape, kw, itemsize: int) -> tuple[int, int]:
     lo = np.maximum(0, q_pos - window + 1) if window else np.zeros_like(q_pos)
     hi = np.minimum(Skv, q_pos + 1) if kw.get("causal", True) else np.full_like(q_pos, Skv)
     pairs = int(np.maximum(hi - lo, 0).sum())
-    nbytes = attention.hbm_bytes_per_call(B, Sq, Skv, H, Hk, D, blk_q=Sq, itemsize=itemsize)
+    seen = int(hi.max() - lo.min())  # the keys some query sees: a cache's tail is never read
+    nbytes = attention.hbm_bytes_per_call(B, Sq, seen, H, Hk, D, blk_q=Sq, itemsize=itemsize)
     return nbytes, 4 * D * pairs * B * H
 
 
 def library_call(torch, name, q, k, v):
     """(one PyTorch call computing K7's function on these inputs, what it
     is), set up before any timed window; the yardstick, never called by
-    the port.  yi-6b: ``scaled_dot_product_attention`` (causal, no
-    softcap), K and V expanded to H heads here.  gemma2: the compiled
+    the port.  yi-6b, zamba2, dbrx and llama4 (no softcap):
+    ``scaled_dot_product_attention`` over the keys some query sees (the
+    masked tail of a cache left out), K and V expanded to H heads here
+    where H > Hk; causal at a prefill from position 0, every seen key at a
+    decode query.  gemma2: the
+    compiled
     ``flex_attention`` with a tanh-softcap ``score_mod`` and a causal or
     sliding-window block mask, where this torch has it."""
     import importlib.util
@@ -2715,11 +2780,17 @@ def library_call(torch, name, q, k, v):
 
     shape, kw = ATTN_MODEL[name]
     qh = q.transpose(1, 2).contiguous()
-    if name == ATTN_LIBRARY_SHAPE:
-        g = q.shape[2] // k.shape[2]
-        kh, vh = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() for x in (k, v))
-        return (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True).transpose(1, 2),
-                "scaled_dot_product_attention(is_causal=True), K/V expanded to H heads")
+    if not kw.get("softcap"):
+        B, Sq, Skv, H, Hk = shape[:5]
+        causal, offset = Sq > 1, kw.get("q_offset", 0)
+        if kw.get("window") or not kw.get("causal", True) or (causal and offset):
+            raise AssertionError(f"{name}: no scaled_dot_product_attention call computes it")
+        seen = min(Skv, offset + Sq)
+        kh, vh = (x[:, :seen].repeat_interleave(H // Hk, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        return (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal).transpose(
+            1, 2), f"scaled_dot_product_attention(is_causal={causal})"
+                + (", K/V expanded to H heads" if H > Hk else ""))
     if importlib.util.find_spec("torch.nn.attention.flex_attention") is None:
         return None, f"torch {torch.__version__} has no flex_attention"
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
@@ -2775,10 +2846,10 @@ def attention_build_report() -> dict[str, list[str]]:
 
 
 def time_attention(model, launches: dict[str, int], max_err: float) -> dict:
-    """Phase 5 for K7: kernel, plain-version and library times at the four
+    """Phase 5 for K7: kernel, plain-version and library times at the ten
     model shapes, beside the bound from these inputs; each library call is
     first held against the plain version.  Returns the ``kernels`` entry:
-    the yi-6b numbers, and all four under ``shapes``."""
+    the yi-6b numbers, and all ten under ``shapes``."""
     import torch
 
     from repro_torch.kernels import attention, cost
@@ -3421,13 +3492,20 @@ def drive_shard(card: str) -> dict[str, dict[str, int]]:
 # phase 12: LM serving on the card
 # --------------------------------------------------------------------------
 
-# gemma2-2b at full width (src/repro_torch/configs/gemma2_2b.py): 4 slots
-# of seeded prompts of LM_PROMPT_LENS tokens, past its 4096-token window,
-# so that its local layers mask, and LM_NEW greedy tokens each
-LM_ARCH = "gemma2-2b"
-LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 8192, 32
-LM_PROMPT_LENS = (4608, 5120)
-LM_CHECK_LEN = 4608  # the one prompt K7 and the plain attention both serve
+# the archs served at full width through the Engine, with their traffic:
+# gemma2-2b (src/repro_torch/configs/gemma2_2b.py): 4 slots of seeded prompts
+# of 4608-5120 tokens, past its 4096-token window, so that its local layers
+# mask, 32 greedy tokens each, an 8192-entry cache; zamba2-2.7b
+# (configs/zamba2_2p7b.py: 54 mamba2 layers and K7 at head dim 80 in the
+# shared block after each 6): 4 slots of 1536-2048 tokens, 16 new, a
+# 4096-entry cache.  check_len: the one prompt (B = 1) K7 and the plain
+# attention both serve; bound: K7 against the plain attention (below)
+LM_FULL = {
+    "gemma2-2b": dict(slots=4, max_len=8192, new=32, lens=(4608, 5120), check_len=4608,
+                      seed=SEED + 12, bound=0.25),
+    "zamba2-2.7b": dict(slots=4, max_len=4096, new=16, lens=(1536, 2048), check_len=2048,
+                        seed=SEED + 14, bound=1.5),
+}
 # every other arch without experts, reduced, through the Engine: 2 prompts
 # of LM_REDUCED_LENS tokens, 4 new tokens
 LM_REDUCED = ("yi-6b", "deepseek-7b", "mistral-large-123b", "qwen2-vl-7b", "mamba2-130m",
@@ -3441,11 +3519,21 @@ LM_REDUCED_LENS, LM_REDUCED_NEW, LM_REDUCED_MAX_LEN = (20, 13), 4, 64
 # [2, 4)) carry that on as whole steps.  Measured on an NVIDIA H100 80GB
 # HBM3 at 700 W: up to 0.139 over gemma2-2b's 26 layers (0.521 with the
 # softcap corrupted), up to 0.055 on the reduced models (2-4 layers): the
-# bounds leave about 2x
-LM_BOUND = 0.25
+# bounds leave about 2x.  The full-width archs' bounds are LM_FULL's:
+# zamba2-2.7b's logits (largest |logit| 5.4) moved by up to 0.726 at B = 1
+# and 0.477 over the serve (its dropped-columns control 4.195), its 54
+# mamba2 layers carrying a bf16 step on further than gemma2's 26 layers:
+# K7 against its own arithmetic in plain PyTorch (flash_attention_ref, P in
+# float32) through the model moves them as far, 0.729.  So zamba2's bound
+# catches only a gross fault, as its control is; the kernel check at
+# D = 80 is phase 3's, every element within 1e-5 + one bf16 step.
 LM_REDUCED_BOUND = 0.1
-# a control the bound must reject: the attention softcap corrupted
+# controls each full-width bound must reject: gemma2's attention softcap
+# corrupted; for zamba2 (no softcap) the attention over the first 64 of its
+# 80 head-dim columns alone, what a K7 that dropped its second panel computes
+# (phase 13's routing bounds take the same control at 64 of 128 columns)
 LM_CONTROL_SOFTCAP = 5.0
+LM_CONTROL_COLUMNS = 64
 
 
 class DecodeRecorder:
@@ -3485,20 +3573,100 @@ class DecodeRecorder:
 class AttentionRoute:
     """Routes the models' attention through ``route`` ("plain": the
     reference's arithmetic, on the card too) while it lasts: the seam
-    ``models.layers.attention_route``."""
+    ``models.layers.attention_route``.  ``by_row`` runs the plain attention
+    one batch row at a time (the same arithmetic; its (Sq, Skv) scores of
+    a full-width prefill would not fit beside the weights otherwise)."""
 
-    def __init__(self, route: str):
-        self.route = route
+    def __init__(self, route: str, by_row: bool = False):
+        self.route, self.by_row = route, by_row
 
     def __enter__(self):
         from repro_torch.models import layers
 
-        self.layers, self.orig = layers, layers.attention_route
+        self.layers, self.orig, self.plain = layers, layers.attention_route, layers._attend_plain
         layers.attention_route = lambda device, head_dim, positions: self.route
+        if self.by_row:
+            def rows(q, k, v, *args):
+                import torch
+
+                return torch.cat([self.plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], *args)
+                                  for i in range(q.shape[0])])
+
+            layers._attend_plain = rows
         return self
 
     def __exit__(self, *exc):
         self.layers.attention_route = self.orig
+        self.layers._attend_plain = self.plain
+
+
+class DroppedColumns:
+    """A faulty attention while it lasts (zamba2's and the MoE archs'
+    control): K7 over the first LM_CONTROL_COLUMNS head-dim columns of q,
+    k and v alone (q scaled so that the scores keep 1 / sqrt(D)), the
+    other output columns zero."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.orig = layers, layers._attend
+        layers._attend = self.attend
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._attend = self.orig
+
+    @staticmethod
+    def attend(q, k, v, cfg, positions, window, causal):
+        import math
+
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import attention
+
+        c, D = LM_CONTROL_COLUMNS, q.shape[-1]
+        qs = (q[..., :c].float() * math.sqrt(c / D)).to(q.dtype)
+        out = attention.flash_attention(qs, k[..., :c], v[..., :c], causal=causal,
+                                        window=window or 0, softcap=cfg.attn_softcap,
+                                        q_offset=positions)
+        return F.pad(out, (0, D - c))
+
+
+class K7Arithmetic:
+    """While it lasts, the models' attention on the card runs
+    ``flash_attention_ref`` (K7's plain version: P in float32) where it
+    would launch K7."""
+
+    def __enter__(self):
+        from repro_torch.kernels import attention
+
+        self.attention, self.orig = attention, attention.flash_attention
+        attention.flash_attention = attention.flash_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.flash_attention = self.orig
+
+
+class MoeSlots:
+    """While it lasts, records the slot tensor of every ``moe_apply`` call
+    (``sharding.ctx.moe_scatter``'s first argument), on the device, in
+    order: one a MoE layer of each ``decode_step``."""
+
+    def __enter__(self):
+        from repro_torch.sharding import ctx
+
+        self.ctx, self.orig, self.slots = ctx, ctx.moe_scatter, []
+
+        def rec(slot, xk, n_rows):
+            self.slots.append(slot)
+            return self.orig(slot, xk, n_rows)
+
+        ctx.moe_scatter = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.ctx.moe_scatter = self.orig
 
 
 def k7_launches_a_step(cfg) -> int:
@@ -3506,7 +3674,8 @@ def k7_launches_a_step(cfg) -> int:
     call (self and cross), none for mamba2."""
     if cfg.family == "hybrid":  # the shared block after each group of mamba layers
         return cfg.n_layers // cfg.shared_attn_every
-    return {"dense": cfg.n_layers, "ssm": 0, "encdec": 2 * cfg.n_layers}[cfg.family]
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "encdec": 2 * cfg.n_layers}[cfg.family]
 
 
 def expect_k7(got: dict, variants: dict, want: int, want_variants: dict | None, what: str):
@@ -3521,81 +3690,50 @@ def logit_gap(torch, got, want, what: str) -> tuple[float, float]:
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: {tuple(got.shape)} against {tuple(want.shape)}, or "
                              "non-finite")
-    gap = (got - want).abs().max().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    gap = (got - want).abs().max().item() if got.numel() else 0.0
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item() if got.numel() else 1.0
     return gap, agree
 
 
-def lm_full_serve(card: str, cfg, params) -> dict[str, int]:
-    """gemma2-2b at full width through ``Engine`` (LM_SLOTS slots,
-    LM_MAX_LEN cache): a warm-up run, then the measured run with every
-    launch counter zeroed just before and read just after: exactly
-    n_layers x (1 + LM_NEW) K7 launches (n_layers ``wgmma``, the rest
-    ``decode``) and no other kernel's, LM_NEW finite-logit tokens a
-    request.  Prints the prefill's and the steps' CUDA-event times,
-    tokens/s, peak memory and K7's share of one decode step's device
-    time (``torch.profiler``).  Then replays the measured run's
-    ``decode_step`` calls with the plain attention on a fresh cache, fed
-    the tokens K7's run chose: every call's logits within LM_BOUND."""
-    import numpy as np
+EXPERT_RANGE = "moe expert products"
+
+
+def profile_step(card: str, tag: str, cfg, params, cache, batch) -> None:
+    """One decode step (the serve's last, again on its cache) under
+    ``torch.profiler``: its device time over its kernels (their self time)
+    and K7's share; for a MoE config also the expert products' share (the
+    einsums of ``moe_apply``, each inside a ``record_function`` range
+    while the profile lasts)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.kernels import attention
     from repro_torch.models import model as M
-    from repro_torch.serve import Engine
 
-    rng = np.random.default_rng(SEED + 12)
-    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1, size=LM_SLOTS)
-    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
-    eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    eng.generate(prompts, max_new=2)  # warm-up: cuBLAS's and K7's first calls at these shapes
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counts = attention.flash_attention_cuda.variants
-    counts.update(dict.fromkeys(counts, 0))
-    t0 = time.perf_counter()
-    with DecodeRecorder(keep=True) as rec:
-        outs, got = counted(torch, lambda: eng.generate(prompts, max_new=LM_NEW))
-    wall_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    steps = 1 + LM_NEW
-    expect_k7(got, dict(counts), cfg.n_layers * steps,
-              {"wgmma": cfg.n_layers, "decode": cfg.n_layers * LM_NEW}, "[lm] gemma2-2b serve")
-    if [len(o) for o in outs] != [LM_NEW] * LM_SLOTS or not all(bool(f) for f in rec.finite):
-        raise AssertionError(f"[lm] gemma2-2b: tokens {[len(o) for o in outs]}, finite logits "
-                             f"{[bool(f) for f in rec.finite]}")
-    if len(rec.events) != steps:
-        raise AssertionError(f"[lm] gemma2-2b: {len(rec.events)} decode_step calls, not {steps}")
-    prefill_ms = rec.events[0][0].elapsed_time(rec.events[0][1])
-    step_ms = [s.elapsed_time(e) for s, e in rec.events[1:]]
-    span_ms = rec.events[1][0].elapsed_time(rec.events[-1][1])
-    log(f"[lm] gemma2-2b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab {cfg.vocab}, window "
-        f"{cfg.sliding_window} on alternate layers, softcaps {cfg.attn_softcap}/"
-        f"{cfg.logit_softcap}): Engine({LM_SLOTS} slots, max_len {LM_MAX_LEN}), prompts of "
-        f"{lens.tolist()} tokens, {LM_NEW} new each: launches {launched(got)}, K7 variants "
-        f"{dict(counts)}; every logit finite, {LM_NEW} tokens a request; {card}")
-    log(f"[lm] gemma2-2b times: prefill {prefill_ms:.3f} ms (CUDA events, {LM_SLOTS} x "
-        f"{max(lens)} tokens left-padded), decode {statistics.median(step_ms):.3f} ms a step "
-        f"(median of {LM_NEW}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
-        f"{LM_SLOTS * LM_NEW / span_ms * 1e3:.1f} tokens/s over the {LM_NEW} steps "
-        f"({span_ms:.3f} ms, CUDA events), generate wall {wall_s * 1e3:.1f} ms (host clock); the "
-        f"steps are host-bound, measured after the earlier phases in this process, and vary "
-        f"between calls (PERF.md §7); peak memory {peak} B (torch.cuda.max_memory_allocated; "
-        f"params {M.param_count(params)} values); {card}")
-    cache, batch = rec.last
     M.decode_step(params, cfg, cache, batch)  # the last step again: same inputs, same writes
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        M.decode_step(params, cfg, cache, batch)
-        torch.cuda.synchronize()
-    total = k7 = 0.0
+    einsum = torch.einsum
+
+    def named(*args, **kw):
+        with record_function(EXPERT_RANGE):
+            return einsum(*args, **kw)
+
+    if cfg.n_experts:
+        torch.einsum = named
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            M.decode_step(params, cfg, cache, batch)
+            torch.cuda.synchronize()
+    finally:
+        torch.einsum = einsum
+    total = k7 = experts = 0.0
     kernels = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
+        if e.key == EXPERT_RANGE:  # the range's span on the device, or its kernels' time
+            experts = max(experts, us or 0, getattr(e, "device_time_total", 0) or 0)
+            continue
         if not str(getattr(e, "device_type", "")).endswith("CUDA") or not us:
             continue
         total += us
@@ -3604,56 +3742,147 @@ def lm_full_serve(card: str, cfg, params) -> dict[str, int]:
             k7 += us
     if not total:
         raise AssertionError("[lm] torch.profiler's trace holds no device time")
-    log(f"[lm] gemma2-2b one decode step ({LM_SLOTS} slots at position {cache['pos']}): device "
-        f"time {total / 1e3:.3f} ms over {kernels} kernels (torch.profiler, their self time), K7 "
-        f"{k7 / 1e3:.3f} ms, share {k7 / total:.3f}; {card}")
-    del cache, batch
+    note = (f", expert products {experts / 1e3:.3f} ms, share {experts / total:.3f}"
+            if cfg.n_experts else "")
+    log(f"[{tag}] {cfg.name} one decode step ({batch['tokens'].shape[0]} slots at position "
+        f"{cache['pos']}): device time {total / 1e3:.3f} ms over {kernels} kernels "
+        f"(torch.profiler, their self time), K7 {k7 / 1e3:.3f} ms, share {k7 / total:.3f}"
+        f"{note}; {card}")
+
+
+def seeded_prompts(cfg, spec: dict):
+    """(lengths, prompts): spec's slots of prompts of seeded lengths in
+    spec's range, seeded tokens of ``cfg``'s vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(spec["seed"])
+    lens = rng.integers(spec["lens"][0], spec["lens"][1] + 1, size=spec["slots"])
+    return lens, [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in lens]
+
+
+def serve_full(card: str, tag: str, cfg, params, spec: dict, slots=None):
+    """``cfg`` at full width through ``Engine`` (spec's slots, cache, seeded
+    prompts and new tokens): a warm-up run, then the measured run with
+    every launch counter zeroed just before and read just after: exactly
+    k7_launches_a_step x (1 + new) K7 launches (the first step's
+    ``wgmma``, the rest ``decode``) and no other kernel's, ``new``
+    finite-logit tokens a request.  Prints the prefill's and the steps'
+    CUDA-event times, tokens/s, the peak memory and one decode step's
+    device split (``profile_step``).  ``slots`` (a list) receives the
+    measured run's MoE slot tensors.  Returns (launches, the run's
+    ``decode_step`` calls as ``DecodeRecorder(keep=True)`` keeps them)."""
+    import torch
+
+    from repro_torch.kernels import attention
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+
+    lens, prompts = seeded_prompts(cfg, spec)
+    eng = Engine(cfg, params, batch_slots=spec["slots"], max_len=spec["max_len"])
+    eng.generate(prompts, max_new=2)  # warm-up: cuBLAS's and K7's first calls at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = attention.flash_attention_cuda.variants
+    counts.update(dict.fromkeys(counts, 0))
+    new, steps = spec["new"], 1 + spec["new"]
+    t0 = time.perf_counter()
+    with DecodeRecorder(keep=True) as rec, MoeSlots() as moe:
+        outs, got = counted(torch, lambda: eng.generate(prompts, max_new=new))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if slots is not None:
+        slots.extend(moe.slots)
+    per_step = k7_launches_a_step(cfg)
+    expect_k7(got, dict(counts), per_step * steps, {"wgmma": per_step, "decode": per_step * new},
+              f"[{tag}] {cfg.name} serve")
+    if [len(o) for o in outs] != [new] * spec["slots"] or not all(bool(f) for f in rec.finite):
+        raise AssertionError(f"[{tag}] {cfg.name}: tokens {[len(o) for o in outs]}, finite "
+                             f"logits {[bool(f) for f in rec.finite]}")
+    if len(rec.events) != steps:
+        raise AssertionError(f"[{tag}] {cfg.name}: {len(rec.events)} decode_step calls, not "
+                             f"{steps}")
+    prefill_ms = rec.events[0][0].elapsed_time(rec.events[0][1])
+    step_ms = [s.elapsed_time(e) for s, e in rec.events[1:]]
+    span_ms = rec.events[1][0].elapsed_time(rec.events[-1][1])
+    log(f"[{tag}] {cfg.name} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else "")
+        + f"): Engine({spec['slots']} slots, max_len {spec['max_len']}), prompts of "
+        f"{lens.tolist()} tokens, {new} new each: launches {launched(got)}, K7 variants "
+        f"{dict(counts)}; every logit finite, {new} tokens a request; {card}")
+    log(f"[{tag}] {cfg.name} times: prefill {prefill_ms:.3f} ms (CUDA events, {spec['slots']} x "
+        f"{max(lens)} tokens left-padded), decode {statistics.median(step_ms):.3f} ms a step "
+        f"(median of {new}; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+        f"{spec['slots'] * new / span_ms * 1e3:.1f} tokens/s over the {new} steps "
+        f"({span_ms:.3f} ms, CUDA events), generate wall {wall_s * 1e3:.1f} ms (host clock), "
+        f"measured after the earlier phases in this process; peak memory {peak} B "
+        f"(torch.cuda.max_memory_allocated; params {M.param_count(params)} values); {card}")
+    cache, batch = rec.last
+    profile_step(card, tag, cfg, params, cache, batch)
+    del cache, batch, eng
     rec.last = None
-    lm_serve_replay(card, cfg, params, rec.calls)
-    return got
+    return got, rec.calls
 
 
-def lm_serve_replay(card: str, cfg, params, calls) -> None:
-    """The full-width serve's ``decode_step`` calls (``calls``, from
-    ``DecodeRecorder(keep=True)``) again with the plain attention on a fresh
-    cache, fed the same tokens: the left-padded prefill at B = LM_SLOTS
-    over the LM_MAX_LEN cache and every decode step at the key splits the
-    serve's K7 launches took.  Each call's logits within LM_BOUND of K7's,
-    with the share of slots whose greedy token agrees."""
+def replay(cfg, params, spec: dict, calls, attention) -> tuple[list, int]:
+    """The serve's ``decode_step`` calls (``calls``, from
+    ``DecodeRecorder(keep=True)``) again on a fresh cache while
+    ``attention`` (a context that reroutes the models' attention) lasts,
+    fed the same tokens: the left-padded prefill over the whole cache and
+    every decode step at the key splits the serve's K7 launches took.
+    Raises on a non-finite logit.  Returns ([(logits, MoE slot tensors)
+    of each call], the peak memory since the serve began)."""
     import torch
 
     from repro_torch.models import model as M
 
     torch.cuda.empty_cache()
-    cache = M.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device="cuda")
-    gaps, agree = [], []
-    with AttentionRoute("plain"):
-        for step, (tokens, kw, k7_logits) in enumerate(calls):
-            plain, cache = M.decode_step(params, cfg, cache, {"tokens": tokens}, **kw)
-            gap, share = logit_gap(torch, k7_logits, plain, f"[lm] serve replay, call {step}")
-            gaps.append(gap)
-            agree.append(share)
+    cache = M.init_cache(cfg, spec["slots"], spec["max_len"], device="cuda")
+    run = []
+    with attention:
+        for step, (tokens, kw, _) in enumerate(calls):
+            with MoeSlots() as moe:
+                logits, cache = M.decode_step(params, cfg, cache, {"tokens": tokens}, **kw)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{cfg.name} replay, call {step}: non-finite logits")
+            run.append((logits, moe.slots))
     peak = torch.cuda.max_memory_allocated()
     del cache
     torch.cuda.empty_cache()
-    log(f"[lm] gemma2-2b serve replayed with the plain attention on the card, the serve's "
-        f"{len(calls)} decode_step calls fed the same tokens ({LM_SLOTS} slots left-padded, "
-        f"cache {LM_MAX_LEN}): max |logit difference| prefill {gaps[0]:.5f}, decode steps "
-        f"{max(gaps[1:]):.5f} (median {statistics.median(gaps[1:]):.5f}); greedy tokens agree at "
-        f"{sum(agree) / len(agree):.5f} of the slot-steps; bound {LM_BOUND}; peak memory {peak} B "
-        f"since the serve began; {card}")
-    if len(calls) != 1 + LM_NEW or max(gaps) > LM_BOUND:
-        raise AssertionError(f"[lm] gemma2-2b serve: {len(calls)} calls, K7 and the plain "
-                             f"attention differ by {max(gaps)}, past {LM_BOUND}")
+    return run, peak
 
 
-def lm_full_check(card: str, cfg, params) -> None:
-    """One LM_CHECK_LEN-token prompt (B = 1): ``forward``'s logits at every
-    position with K7 against the same model with the plain attention on
-    the card, and one ``decode_step`` after a K7 prefill through the cache
-    likewise; max |difference| within LM_BOUND, with the share of
-    positions whose greedy token agrees; a control with the softcap
-    corrupted must fall outside LM_BOUND."""
+def replay_logits(card: str, tag: str, cfg, spec: dict, calls, run, peak: int) -> None:
+    """The serve's calls replayed with the plain attention (``run``, from
+    ``replay``): every call's logits within spec's bound of the serve's."""
+    import torch
+
+    gaps, agree, scale = [], [], 0.0
+    for step, ((_, _, k7_logits), (plain, _)) in enumerate(zip(calls, run)):
+        gap, share = logit_gap(torch, k7_logits, plain, f"[{tag}] serve replay, call {step}")
+        scale = max(scale, plain.abs().max().item())
+        gaps.append(gap)
+        agree.append(share)
+    log(f"[{tag}] {cfg.name} serve replayed with the plain attention on the card, the serve's "
+        f"{len(calls)} decode_step calls fed the same tokens ({spec['slots']} slots "
+        f"left-padded, cache {spec['max_len']}): max |logit difference| prefill {gaps[0]:.5f}, "
+        f"decode steps {max(gaps[1:]):.5f} (median {statistics.median(gaps[1:]):.5f}); greedy "
+        f"tokens agree at {sum(agree) / len(agree):.5f} of the slot-steps; largest |logit| "
+        f"{scale:.3f}; bound {spec['bound']}; peak memory {peak} B since the serve began; {card}")
+    if len(calls) != 1 + spec["new"] or max(gaps) > spec["bound"]:
+        raise AssertionError(f"[{tag}] {cfg.name} serve: {len(calls)} calls, K7 and the plain "
+                             f"attention differ by {max(gaps)}, past {spec['bound']}")
+
+
+def lm_full_check(card: str, cfg, params, spec: dict) -> None:
+    """One ``check_len``-token prompt (B = 1): ``forward``'s logits at
+    every position with K7 against the same model with the plain
+    attention on the card, and one ``decode_step`` after a K7 prefill
+    through the cache likewise; max |difference| within spec's bound, with
+    the share of positions whose greedy token agrees; a control (gemma2:
+    the softcap corrupted; zamba2: ``DroppedColumns``) must fall outside
+    the bound."""
+    import contextlib
     import dataclasses
 
     import numpy as np
@@ -3662,35 +3891,48 @@ def lm_full_check(card: str, cfg, params) -> None:
     from repro_torch.models import model as M
 
     rng = np.random.default_rng(SEED + 13)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, LM_CHECK_LEN)), device="cuda")
+    n, bound = spec["check_len"], spec["bound"]
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, n)), device="cuda")
     batch = {"tokens": tokens}
     k7 = M.forward(params, cfg, batch)[..., :cfg.vocab]
     with AttentionRoute("plain"):
         plain = M.forward(params, cfg, batch)[..., :cfg.vocab]
-    gap, agree = logit_gap(torch, k7, plain, "[lm] forward")
+    gap, agree = logit_gap(torch, k7, plain, f"[lm] {cfg.name} forward")
+    scale = plain.abs().max().item()
+    with K7Arithmetic():
+        own, _ = logit_gap(torch, M.forward(params, cfg, batch)[..., :cfg.vocab], k7,
+                           f"[lm] {cfg.name} K7's arithmetic")
     del k7
-    bad = dataclasses.replace(cfg, attn_softcap=LM_CONTROL_SOFTCAP)
-    control, _ = logit_gap(torch, M.forward(params, bad, batch)[..., :cfg.vocab], plain,
-                           "[lm] control")
+    if cfg.attn_softcap:
+        bad, what = dataclasses.replace(cfg, attn_softcap=LM_CONTROL_SOFTCAP), (
+            f"attention softcap {LM_CONTROL_SOFTCAP} for {cfg.attn_softcap}")
+        ctl = contextlib.nullcontext()
+    else:
+        bad, what = cfg, f"K7 over the first {LM_CONTROL_COLUMNS} of {cfg.head_dim_} columns"
+        ctl = DroppedColumns()
+    with ctl:
+        control, _ = logit_gap(torch, M.forward(params, bad, batch)[..., :cfg.vocab], plain,
+                               f"[lm] {cfg.name} control")
     del plain
-    cache = M.init_cache(cfg, 1, LM_MAX_LEN, device="cuda")
+    cache = M.init_cache(cfg, 1, spec["max_len"], device="cuda")
     last, cache = M.decode_step(params, cfg, cache, batch, last_only=True)
     nxt = {"tokens": last[:, -1].argmax(-1)[:, None]}
     d_k7, _ = M.decode_step(params, cfg, cache, nxt)
     with AttentionRoute("plain"):
         d_plain, _ = M.decode_step(params, cfg, cache, nxt)
-    d_gap, d_agree = logit_gap(torch, d_k7, d_plain, "[lm] decode_step")
-    log(f"[lm] gemma2-2b K7 against the plain attention on the card, one prompt of "
-        f"{LM_CHECK_LEN} tokens: forward max |logit difference| {gap:.5f} over "
-        f"{LM_CHECK_LEN} x {cfg.vocab} logits, greedy tokens agree at {agree:.5f} of "
-        f"positions; decode_step after a K7 prefill {d_gap:.5f} (token "
-        f"{'agrees' if d_agree == 1 else 'differs'}); bound {LM_BOUND}; control (attention "
-        f"softcap {LM_CONTROL_SOFTCAP} for {cfg.attn_softcap}) {control:.5f}; {card}")
-    if max(gap, d_gap) > LM_BOUND:
-        raise AssertionError(f"[lm] gemma2-2b: K7 and the plain attention differ by "
-                             f"{max(gap, d_gap)}, past {LM_BOUND}")
-    if control <= LM_BOUND:
-        raise AssertionError(f"[lm] the softcap control ({control}) lies inside {LM_BOUND}")
+    d_gap, d_agree = logit_gap(torch, d_k7, d_plain, f"[lm] {cfg.name} decode_step")
+    log(f"[lm] {cfg.name} K7 against the plain attention on the card, one prompt of {n} "
+        f"tokens: forward max |logit difference| {gap:.5f} over {n} x {cfg.vocab} logits "
+        f"(largest |logit| {scale:.3f}; K7 against its own arithmetic in plain PyTorch, "
+        f"flash_attention_ref with P in float32, {own:.5f}), "
+        f"greedy tokens agree at {agree:.5f} of positions; decode_step after a K7 prefill "
+        f"{d_gap:.5f} (token {'agrees' if d_agree == 1 else 'differs'}); bound {bound}; "
+        f"control ({what}) {control:.5f}; {card}")
+    if max(gap, d_gap) > bound:
+        raise AssertionError(f"[lm] {cfg.name}: K7 and the plain attention differ by "
+                             f"{max(gap, d_gap)}, past {bound}")
+    if control <= bound:
+        raise AssertionError(f"[lm] {cfg.name}: the control ({control}) lies inside {bound}")
 
 
 def lm_reduced(card: str, arch: str) -> dict[str, int]:
@@ -3752,31 +3994,252 @@ def lm_reduced(card: str, arch: str) -> dict[str, int]:
 
 
 def drive_lm(card: str) -> dict[str, dict[str, int]]:
-    """Phase 12 (``[lm]``): the LM serving path on the card.  gemma2-2b at
-    full width from a seeded generator through ``Engine`` (``lm_full_serve``)
-    and held against the plain attention (``lm_full_check``); every other
-    arch without experts reduced (``lm_reduced``).  Returns K7's launches
-    per path."""
+    """Phase 12 (``[lm]``): the LM serving path on the card.  Each arch of
+    LM_FULL at full width from a seeded generator through ``Engine``
+    (``serve_full``), its serve replayed with the plain attention
+    (``replay``, ``replay_logits``) and one prompt held against it with a
+    control (``lm_full_check``); every other arch without experts reduced
+    (``lm_reduced``).  Returns K7's launches per path."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
-    cfg = registry.get(LM_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = M.init_params(gen, cfg)
-    torch.cuda.synchronize()
-    log(f"[lm] gemma2-2b: {M.param_count(params)} parameters from a seeded generator on the "
-        f"card in {time.perf_counter() - t0:.1f} s (host clock), weights stored bf16; {card}")
-    paths = {"lm gemma2-2b": lm_full_serve(card, cfg, params)["attention"]}
-    lm_full_check(card, cfg, params)
-    del params
-    torch.cuda.empty_cache()
+    paths = {}
+    for arch, spec in LM_FULL.items():
+        t1 = time.perf_counter()
+        cfg = registry.get(arch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.init_params(gen, cfg)
+        torch.cuda.synchronize()
+        log(f"[lm] {arch}: {M.param_count(params)} parameters from a seeded generator on the "
+            f"card in {time.perf_counter() - t1:.1f} s (host clock), weights stored bf16; {card}")
+        got, calls = serve_full(card, "lm", cfg, params, spec)
+        paths[f"lm {arch}"] = got["attention"]
+        run, peak = replay(cfg, params, spec, calls, AttentionRoute("plain", by_row=True))
+        replay_logits(card, "lm", cfg, spec, calls, run, peak)
+        del calls, run
+        lm_full_check(card, cfg, params, spec)
+        del params
+        torch.cuda.empty_cache()
     for arch in LM_REDUCED:
         paths[f"lm reduced {arch}"] = lm_reduced(card, arch)["attention"]
     log(f"[lm] phase 12 took {time.perf_counter() - t0:.1f} s (host clock); K7 launches {paths}; "
         f"{card}")
+    return {"attention": paths}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the MoE archs at full width on the card
+# --------------------------------------------------------------------------
+
+# dbrx-132b (src/repro_torch/configs/dbrx_132b.py) and llama4-maverick-400b-a17b
+# (configs/llama4_maverick_400b_a17b.py) at their published widths, depth cut
+# to what one 80 GB card holds beside the serve: dbrx 8 of 40 layers (6.34 GB
+# of experts a layer), llama4 one super-block, 2 of 48 layers (32.2 GB of 128
+# experts); each through Engine with 4 slots of seeded prompts of 1536-2048
+# tokens, 16 new each, a 4096-entry cache; one model's weights freed before
+# the other's are made.  K7 itself is held at these shapes in phase 3
+# (ATTN_MODEL's dbrx_* and llama4_*); what follows is the model around it.
+# K7 against the plain attention fed the same tokens: routing is
+# discontinuous, so near-tied tokens can pick other experts when K7's
+# float32 P moves their inputs by a bf16 step; a token that picks another
+# expert moves by a whole expert's output, which moves the later layers'
+# routing of it and, through their attention, of the tokens after it, and
+# a capacity-bound expert then keeps other tokens.  flip_bound bounds the
+# share of the prefill's routing decisions (each assignment's expert, or
+# dropped) that differ.  Its control is a faulty attention, DroppedColumns:
+# K7 over the first LM_CONTROL_COLUMNS of the 128 head-dim columns, what a
+# K7 that dropped its second 64-column panel computes; it must exceed the
+# bound.  The bound catches an attention that is grossly wrong, not one
+# that is a little off: at dbrx a bf16 step already flips a tenth of the
+# decisions.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: dbrx 0.1056,
+# llama4 0.0072; the bounds leave about 2x
+MOE_FULL = {"dbrx-132b": dict(n_layers=8, seed=SEED + 15, flip_bound=0.2),
+            "llama4-maverick-400b-a17b": dict(n_layers=2, seed=SEED + 16, flip_bound=0.015)}
+MOE_SPEC = dict(slots=4, max_len=4096, new=16, lens=(1536, 2048))
+# the MoE layer alone, card against CPU: its input in forward over the
+# serve's longest prompt (the whole row, S = 1995 and 1971: C = 624 and 20
+# slots an expert), the same weights: the slots equal, the output within
+# MOE_LAYER_TOL of the CPU's largest |value| (the CPU tests' layer bound,
+# 2e-2, taken of the output's scale)
+MOE_LAYER_TOL = 2e-2
+
+
+def moe_decisions(cfg, slot):
+    """(B, S, K) expert of each assignment of one ``moe_apply`` call (its
+    slot tensor, (B, S * K)), -1 where it was dropped."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    S = slot.shape[1] // cfg.top_k
+    E, C = cfg.n_experts, L.moe_capacity(S, cfg)
+    return torch.where(slot < E * C, slot // C, -1).view(slot.shape[0], S, cfg.top_k)
+
+
+def routing_flips(cfg, k7_slots, run) -> tuple[list[int], int, int, int]:
+    """The routing decisions of a replay (``run``, from ``replay``) that
+    differ from the serve's (``k7_slots``: one slot tensor a MoE layer and
+    call, in order): (per MoE layer of the prefill, over the decode steps,
+    the decode steps' decisions, the slots whose routing parted)."""
+    n_moe = len(run[0][1])
+    layers, flips, total, parted = [], 0, 0, 0
+    for step, (_, slots) in enumerate(run):
+        for a, b in zip(k7_slots[n_moe * step:n_moe * (step + 1)], slots):
+            differ = moe_decisions(cfg, a) != moe_decisions(cfg, b)
+            parted = parted | differ.flatten(1).any(1)
+            if step:
+                flips += int(differ.sum())
+                total += differ.numel()
+            else:
+                layers.append(int(differ.sum()))
+    return layers, flips, total, int(parted.sum())
+
+
+def moe_block(params, cfg):
+    """The first MoE block's ffn of a transformer's params."""
+    first = params["layers"][0]
+    return (first["moe"] if "moe" in first else first)["ffn"]
+
+
+class _MoeInput(Exception):
+    """Carries the input of the first ``moe_apply`` call out of ``forward``."""
+
+
+def first_moe_input(params, cfg, tokens):
+    """The input of the first MoE layer of ``forward`` over ``tokens`` on
+    the card (K7 its attention); the forward stops there."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    def stop(p, x, c):
+        raise _MoeInput(x)
+
+    orig, L.moe_apply = L.moe_apply, stop
+    try:
+        M.forward(params, cfg, {"tokens": tokens})
+    except _MoeInput as got:
+        return got.args[0]
+    finally:
+        L.moe_apply = orig
+    raise AssertionError(f"{cfg.name}: forward ran no MoE layer")
+
+
+def moe_layer_check(card: str, cfg, params, tokens) -> None:
+    """The MoE layer alone: ``moe_apply`` on its input in ``forward`` over
+    ``tokens`` (one row) on the card, and on the CPU with the same input
+    and weights copied there: the slot tensors equal and the outputs
+    within MOE_LAYER_TOL."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    x = first_moe_input(params, cfg, tokens)
+    ffn = moe_block(params, cfg)
+    with MoeSlots() as card_slots:
+        got = L.moe_apply(ffn, x, cfg).float().cpu()
+    t0 = time.perf_counter()
+    cpu_ffn = M.tree_map(lambda t: t.cpu(), ffn)
+    t1 = time.perf_counter()
+    with MoeSlots() as cpu_slots:
+        want = L.moe_apply(cpu_ffn, x.cpu(), cfg).float()
+    t2 = time.perf_counter()
+    del cpu_ffn
+    slot = cpu_slots.slots[0]
+    same = torch.equal(card_slots.slots[0].cpu(), slot)
+    S, E = x.shape[1], cfg.n_experts
+    C = L.moe_capacity(S, cfg)
+    dropped = int((slot == E * C).sum())
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"[moe] {cfg.name} the MoE layer alone, card against CPU, its input in forward over the "
+        f"serve's longest prompt ({S} tokens, {x.dtype}; C = {C}, {dropped} of {slot.numel()} "
+        f"assignments dropped) and the same weights: slots {'equal' if same else 'DIFFER'}, max "
+        f"|output difference| {err:.5f} of a largest |output| {scale:.3f} ({err / scale:.6f}, "
+        f"bound {MOE_LAYER_TOL}); the CPU's copy {t1 - t0:.1f} s and call {t2 - t1:.1f} s "
+        f"(host clock, {torch.get_num_threads()} threads); {card}")
+    if not same or not torch.isfinite(got).all() or err > MOE_LAYER_TOL * scale:
+        raise AssertionError(f"[moe] {cfg.name}: the MoE layer on the card differs from the CPU's")
+
+
+def drive_moe(card: str) -> dict[str, dict[str, int]]:
+    """Phase 13 (``[moe]``): each arch of MOE_FULL at its published widths,
+    depth cut, weights from a seeded generator on the card, through
+    ``Engine`` (``serve_full``: exactly n_layers x (1 + 16) K7 launches,
+    n_layers ``wgmma`` and the rest ``decode``, and no other kernel's;
+    prefill and decode times, tokens/s, peak memory, a step's device time
+    with K7's and the expert products' shares); the share of the prefill's
+    assignments dropped; the serve replayed with the plain attention
+    (``replay``, ``routing_flips``: the routing decisions that differ,
+    within the arch's flip_bound) and its prefill with ``DroppedColumns``
+    (outside it); the MoE layer alone, card against CPU
+    (``moe_layer_check``).  Returns K7's launches per path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    paths = {}
+    for arch, cut in MOE_FULL.items():
+        t1 = time.perf_counter()
+        full = registry.get(arch)
+        cfg = dataclasses.replace(full, n_layers=cut["n_layers"])
+        spec = dict(MOE_SPEC, seed=cut["seed"])
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = M.init_params(gen, cfg)
+        torch.cuda.synchronize()
+        log(f"[moe] {arch}: published widths, depth cut from {full.n_layers} to {cfg.n_layers} "
+            f"layers (one card's memory); {M.param_count(params)} parameters from a seeded "
+            f"generator on the card in {time.perf_counter() - t1:.1f} s (host clock), experts "
+            f"stored bf16, {torch.cuda.memory_allocated()} B allocated; {card}")
+        slots = []
+        got, calls = serve_full(card, "moe", cfg, params, spec, slots=slots)
+        paths[f"lm moe {arch}"] = got["attention"]
+        n_moe = len(slots) // (1 + spec["new"])
+        S = calls[0][0].shape[1]
+        C = L.moe_capacity(S, cfg)
+        dropped = sum(int((s == cfg.n_experts * C).sum()) for s in slots[:n_moe])
+        total = sum(s.numel() for s in slots[:n_moe])
+        log(f"[moe] {arch} prefill ({spec['slots']} x {S} tokens, left-padded, C = {C} slots an "
+            f"expert and row): {dropped} of {total} assignments dropped ({dropped / total:.5f}) "
+            f"over its {n_moe} MoE layers; {card}")
+        run, peak = replay(cfg, params, spec, calls, AttentionRoute("plain", by_row=True))
+        layers, d_flips, d_total, parted = routing_flips(cfg, slots, run)
+        del run
+        share = sum(layers) / total
+        log(f"[moe] {arch} serve replayed with the plain attention on the card, the serve's "
+            f"{len(calls)} decode_step calls fed the same tokens ({spec['slots']} slots "
+            f"left-padded, cache {spec['max_len']}): routing decisions (each assignment's expert, "
+            f"or dropped) that differ from K7's run, prefill per MoE layer {layers} of "
+            f"{total // n_moe} each ({share:.6f} over the prefill), decode steps {d_flips} of "
+            f"{d_total}; slots whose routing parted {parted} of {spec['slots']}; every logit "
+            f"finite; peak memory {peak} B since the serve began; {card}")
+        run, _ = replay(cfg, params, spec, calls[:1], DroppedColumns())
+        control = sum(routing_flips(cfg, slots, run)[0]) / total
+        del run
+        bound = cut["flip_bound"]
+        log(f"[moe] {arch} routing, K7 against the plain attention: {share:.6f} of the "
+            f"prefill's decisions differ (bound {bound}); control (the prefill with K7 over the "
+            f"first {LM_CONTROL_COLUMNS} of {cfg.head_dim_} head-dim columns) {control:.6f}; "
+            f"{card}")
+        if share > bound or control <= bound:
+            raise AssertionError(f"[moe] {arch}: routing flips {share}, control {control}, "
+                                 f"bound {bound}")
+        del calls, slots
+        lens, prompts = seeded_prompts(cfg, spec)
+        longest = torch.as_tensor(prompts[int(np.argmax(lens))][None], device="cuda")
+        moe_layer_check(card, cfg, params, longest)
+        del params
+        torch.cuda.empty_cache()
+    log(f"[moe] phase 13 took {time.perf_counter() - t0:.1f} s (host clock); K7 launches "
+        f"{paths}; {card}")
     return {"attention": paths}
 
 
@@ -3873,7 +4336,9 @@ def main() -> int:
         serve_paths.setdefault(name, {}).update(paths)
     for name, paths in drive_lm(card).items():
         serve_paths.setdefault(name, {}).update(paths)
-    for entry in entries:  # phases 8, 9, 10, 11 and 12's paths beside each kernel's
+    for name, paths in drive_moe(card).items():
+        serve_paths.setdefault(name, {}).update(paths)
+    for entry in entries:  # phases 8-13's paths beside each kernel's
         paths = serve_paths.get(entry["name"], {})
         if paths:
             entry.setdefault("launches_by_path", {"main": entry["launches"]}).update(paths)

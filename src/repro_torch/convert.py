@@ -170,9 +170,11 @@ def params_from_reference(cfg, tree: dict, device="cpu") -> dict:
     pytree of ``cfg`` as nested dicts of numpy arrays.  Each stacked tree
     (``STACKED``) becomes a list of per-layer dicts, its leading axis cut;
     every array becomes a float32 tensor, except the weights of
-    ``layers.CAST_AT_USE``, which become ``layers.CDTYPE`` ones.  Raises
-    ValueError where a stack's length is not ``cfg.n_layers``."""
-    transformer.check_dense(cfg)  # the MoE layers are not ported
+    ``layers.CAST_AT_USE`` (the experts' among them), which become
+    ``layers.CDTYPE`` ones.  Raises ValueError where a stack's length is
+    not ``cfg.n_layers``, or, for the ``layers`` of a transformer that
+    interleaves dense and MoE layers (``moe_every == 2``), not its
+    n_layers / 2 super-blocks."""
 
     def leaf(name: str, x) -> torch.Tensor:
         dtype = layers.CDTYPE if name in layers.CAST_AT_USE else torch.float32
@@ -195,8 +197,9 @@ def params_from_reference(cfg, tree: dict, device="cpu") -> dict:
     for key, node in tree.items():
         if key in STACKED:
             n = depth(node)
-            if n != cfg.n_layers:
-                raise ValueError(f"{key}: {n} layers stacked, {cfg.name} has {cfg.n_layers}")
+            want = transformer.stack_depth(cfg) if key == "layers" else cfg.n_layers
+            if n != want:
+                raise ValueError(f"{key}: {n} layers stacked, {cfg.name} has {want}")
             out[key] = [convert(unstack(node, i)) for i in range(n)]
         else:
             out[key] = convert(node, key)

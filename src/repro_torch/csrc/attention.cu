@@ -46,6 +46,17 @@
 //   threads per (64 query rows, head, batch), both products as float32
 //   FMAs on the CUDA cores, P through shared memory.
 //
+// Head dim 80 (zamba2-2.7b) is padded inside the kernels, never in device
+// memory: the tensor maps keep the global row at 80 columns and TMA fills
+// the columns of a box past it with zeros.  wgmma: two 64-column panels,
+// the second 16 real columns and 48 zeros; Q K^T runs over the 5 real
+// 16-column steps, P @ V over both panels (128 columns, 1.6x the products
+// D needs), the zero columns of O never stored.  decode: tiles of 128
+// columns (each lane 4 of them in Q K^T, the product of Q's zeros and
+// K's zeros past 80), partials and the output 80 wide.  simt: one column
+// a load in P @ V (5 a thread).  The bytes read from device memory are
+// those of D = 80.
+//
 // Scores use the reference's finite sentinel -1e30 semantics.  A row that
 // has seen no key yet keeps m = -1e30, l = 0, acc = 0; the reference adds
 // exp(0) = 1 terms for such a row, which its first visible key erases
@@ -126,8 +137,10 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat1
 // N consecutive elements of T (N * sizeof(T) bytes, aligned to that) as floats.
 template <typename T, int N>
 __device__ __forceinline__ void load_vec(const T* p, float* out) {
-  static_assert(N == 2 || N == 4, "two or four elements");
-  if constexpr (sizeof(T) == 4 && N == 4) {
+  static_assert(N == 1 || N == 2 || N == 4, "one, two or four elements");
+  if constexpr (N == 1) {
+    out[0] = to_f32(*p);
+  } else if constexpr (sizeof(T) == 4 && N == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   } else if constexpr (sizeof(T) == 4) {
@@ -219,8 +232,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1) attention_kernel(const AttnArgs a) {
   constexpr int KS = D + kPad;                     // Q and K row stride
-  constexpr int VEC = D >= 64 ? 4 : 2;             // head-dim columns per load in P @ V
-  constexpr int NCH = D / (kGroups * VEC);         // such loads per thread and key
+  // head-dim columns per load in P @ V (D = 80: one), and such loads per thread and key
+  constexpr int VEC = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
+  constexpr int NCH = D / (kGroups * VEC);
+  static_assert(NCH * kGroups * VEC == D && D % 4 == 0, "head dim");
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* Pt = Qs + kBlockQ * KS;
@@ -377,6 +392,7 @@ cudaError_t launch_d(const AttnArgs& a, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
@@ -488,7 +504,8 @@ template <int D>
 struct Pf {
   static constexpr int PW = D < 64 ? D : 64;  // panel width: columns of one swizzle span
   static constexpr int RowBytes = PW * 2;
-  static constexpr int Panels = D / PW;
+  // D = 80: two panels, the second 16 columns of the row and 48 zeros
+  static constexpr int Panels = (D + PW - 1) / PW;
   static constexpr int QPanel = kPfRows * RowBytes;  // bytes
   static constexpr int KPanel = kPfKeys * RowBytes;
   static constexpr int QBytes = Panels * QPanel;
@@ -504,6 +521,7 @@ struct Pf {
   static constexpr int Threads = Defer ? 288 : 256;
   static constexpr size_t Smem = 1024 + QBytes + (size_t)Stages * 2 * KBytes + (1 + 4 * Stages) * 8;
   static_assert(Smem <= 227 * 1024, "shared memory");
+  static_assert(D % 16 == 0, "Q K^T steps of 16 columns");
 };
 
 template <int PW>
@@ -790,6 +808,7 @@ __global__ void __launch_bounds__(Pf<D>::Threads, 1)
       for (int p = 0; p < P::Panels; ++p)
 #pragma unroll
         for (int j = 0; j < P::PW / 8; ++j) {
+          if (p * P::PW + 8 * j >= D) continue;  // a padding column group
           const float2 x =
               __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + p * P::PW + 8 * j));
           o[p][j * 4 + i * 2] += x.x;
@@ -811,7 +830,8 @@ __global__ void __launch_bounds__(Pf<D>::Threads, 1)
     for (int p = 0; p < P::Panels; ++p)
 #pragma unroll
       for (int j = 0; j < P::PW / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(row + p * P::PW + 8 * j) =
+        if (p * P::PW + 8 * j < D)  // the padding columns of O are not stored
+          *reinterpret_cast<__nv_bfloat162*>(row + p * P::PW + 8 * j) =
             __floats2bfloat162_rn(__fdividef(o[p][j * 4 + i * 2], denom),
                                   __fdividef(o[p][j * 4 + i * 2 + 1], denom));
   }
@@ -828,11 +848,14 @@ constexpr int kDcMaxRows = 8;
 
 template <int D, int R>
 struct Dc {
-  static constexpr int CH = D / 32;        // head-dim columns a lane holds in Q K^T
-  static constexpr int KG = 256 / D;       // key groups in P @ V (each thread two columns)
-  static constexpr int Tile = kDcKeys * D * 2;  // bytes of one K (or V) tile
-  static constexpr size_t Smem = 128 + (size_t)kDcStages * 2 * Tile + (size_t)KG * R * D * 4 +
+  // the tiles' width: D, or at D = 80 the 128 columns TMA fills past 80 with zeros
+  static constexpr int DP = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+  static constexpr int CH = DP / 32;       // head-dim columns a lane holds in Q K^T
+  static constexpr int KG = 256 / DP;      // key groups in P @ V (each thread two columns)
+  static constexpr int Tile = kDcKeys * DP * 2;  // bytes of one K (or V) tile
+  static constexpr size_t Smem = 128 + (size_t)kDcStages * 2 * Tile + (size_t)KG * R * DP * 4 +
                                  2 * R * kDcKeys * 4 + 3 * R * 4 + 64;
+  static_assert(D % 16 == 0 && D <= DP, "head dim");
 };
 
 // N consecutive bf16 (2N bytes, aligned to that) of shared memory as floats.
@@ -882,8 +905,8 @@ __global__ void __launch_bounds__(kDcThreads)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   unsigned char* ring = base;  // stage s: K at ring + 2s Tile, V after it
-  float* red = reinterpret_cast<float*>(ring + (size_t)kDcStages * 2 * C::Tile);  // (KG, R, D)
-  float* Ssc = red + C::KG * R * D;  // (R, kDcKeys) scores, then probabilities
+  float* red = reinterpret_cast<float*>(ring + (size_t)kDcStages * 2 * C::Tile);  // (KG, R, DP)
+  float* Ssc = red + C::KG * R * C::DP;  // (R, kDcKeys) scores, then probabilities
   float* Pr = Ssc + R * kDcKeys;
   float* alpha_s = Pr + R * kDcKeys;
   float* m_s = alpha_s + R;
@@ -932,13 +955,13 @@ __global__ void __launch_bounds__(kDcThreads)
 #pragma unroll
     for (int e = 0; e < C::CH; ++e) {
       qf[r][e] = 0.f;
-      if (r < rows)
+      if (r < rows && lane * C::CH + e < D)
         qf[r][e] = __bfloat162float(
             qp[(((size_t)b * a.Sq + r / g) * a.H + hk * g + r % g) * D + lane * C::CH + e]);
     }
 
-  const int cp = tid % (D / 2);  // P @ V: columns 2cp, 2cp + 1, keys kg + KG i
-  const int kg = tid / (D / 2);
+  const int cp = tid % (C::DP / 2);  // P @ V: columns 2cp, 2cp + 1, keys kg + KG i
+  const int kg = tid / (C::DP / 2);
   float acc[R][2];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
@@ -946,7 +969,7 @@ __global__ void __launch_bounds__(kDcThreads)
   for (int t = 0; t < n_t; ++t) {
     const int s = t % kDcStages;
     const bf16* ks = reinterpret_cast<const bf16*>(ring + (size_t)s * 2 * C::Tile);
-    const bf16* vs = ks + kDcKeys * D;
+    const bf16* vs = ks + kDcKeys * C::DP;
     const long long k0 = (long long)(t_lo + t) * kDcKeys;
     mbar_wait(&full[s], (t / kDcStages) & 1);
 
@@ -955,7 +978,7 @@ __global__ void __launch_bounds__(kDcThreads)
     for (int kk = 0; kk < kDcKeys / 4; ++kk) {
       const int key = warp * (kDcKeys / 4) + kk;
       float kf[C::CH];
-      load_bf16<C::CH>(ks + key * D + lane * C::CH, kf);
+      load_bf16<C::CH>(ks + key * C::DP + lane * C::CH, kf);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= rows) break;
@@ -1008,7 +1031,7 @@ __global__ void __launch_bounds__(kDcThreads)
     }
     for (int key = kg; key < kDcKeys; key += C::KG) {
       const float2 v = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vs + key * D + 2 * cp));
+          *reinterpret_cast<const __nv_bfloat162*>(vs + key * C::DP + 2 * cp));
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= rows) break;
@@ -1027,8 +1050,8 @@ __global__ void __launch_bounds__(kDcThreads)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r >= rows) break;
-    red[(kg * R + r) * D + 2 * cp] = acc[r][0];
-    red[(kg * R + r) * D + 2 * cp + 1] = acc[r][1];
+    red[(kg * R + r) * C::DP + 2 * cp] = acc[r][0];
+    red[(kg * R + r) * C::DP + 2 * cp + 1] = acc[r][1];
   }
   __syncthreads();
   const size_t slot = (size_t)bh * n_split;
@@ -1037,7 +1060,7 @@ __global__ void __launch_bounds__(kDcThreads)
   for (int idx = tid; idx < rows * D; idx += kDcThreads) {
     const int r = idx / D, d = idx % D;
     float x = 0.f;
-    for (int k = 0; k < C::KG; ++k) x += red[(k * R + r) * D + d];
+    for (int k = 0; k < C::KG; ++k) x += red[(k * R + r) * C::DP + d];
     acc_g[idx] = x;
   }
   if (tid < rows) {
@@ -1125,8 +1148,8 @@ cudaError_t launch_decode(const AttnArgs& a, float* part, int* counters, int n_s
                           int split_tiles, cudaStream_t stream) {
   using C = Dc<D, R>;
   CUtensorMap kmap, vmap;
-  if (!tensor_map(&kmap, a.k, a.B, a.Skv, a.Hk, D, D, kDcKeys, CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tensor_map(&vmap, a.v, a.B, a.Skv, a.Hk, D, D, kDcKeys, CU_TENSOR_MAP_SWIZZLE_NONE))
+  if (!tensor_map(&kmap, a.k, a.B, a.Skv, a.Hk, D, C::DP, kDcKeys, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tensor_map(&vmap, a.v, a.B, a.Skv, a.Hk, D, C::DP, kDcKeys, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   const cudaError_t err = parentt::allow_smem(decode_kernel<D, R>, C::Smem);
   if (err != cudaSuccess) return err;
@@ -1175,6 +1198,7 @@ int parentt_attention_wgmma(const void* q, const void* k, const void* v, void* o
   switch (D) {
     case 32: return (int)launch_prefill<32>(a, s);
     case 64: return (int)launch_prefill<64>(a, s);
+    case 80: return (int)launch_prefill<80>(a, s);
     case 128: return (int)launch_prefill<128>(a, s);
     case 256: return (int)launch_prefill<256>(a, s);
     default: return (int)cudaErrorInvalidValue;
@@ -1197,6 +1221,7 @@ int parentt_attention_decode(const void* q, const void* k, const void* v, void* 
   switch (D) {
     case 32: return (int)launch_decode_rows<32>(a, p, c, n_split, split_tiles, s);
     case 64: return (int)launch_decode_rows<64>(a, p, c, n_split, split_tiles, s);
+    case 80: return (int)launch_decode_rows<80>(a, p, c, n_split, split_tiles, s);
     case 128: return (int)launch_decode_rows<128>(a, p, c, n_split, split_tiles, s);
     case 256: return (int)launch_decode_rows<256>(a, p, c, n_split, split_tiles, s);
     default: return (int)cudaErrorInvalidValue;
@@ -1209,14 +1234,17 @@ int parentt_attention_smem(int variant, int D) {
   switch (variant * 1000 + D) {
     case 32: return (int)Pf<32>::Smem;
     case 64: return (int)Pf<64>::Smem;
+    case 80: return (int)Pf<80>::Smem;
     case 128: return (int)Pf<128>::Smem;
     case 256: return (int)Pf<256>::Smem;
     case 1032: return (int)Dc<32, kDcMaxRows>::Smem;
     case 1064: return (int)Dc<64, kDcMaxRows>::Smem;
+    case 1080: return (int)Dc<80, kDcMaxRows>::Smem;
     case 1128: return (int)Dc<128, kDcMaxRows>::Smem;
     case 1256: return (int)Dc<256, kDcMaxRows>::Smem;
     case 2032: return (int)smem_bytes<float, 32>();
     case 2064: return (int)smem_bytes<float, 64>();
+    case 2080: return (int)smem_bytes<float, 80>();
     case 2128: return (int)smem_bytes<float, 128>();
     case 2256: return (int)smem_bytes<float, 256>();
     default: return -1;

@@ -4,6 +4,9 @@ init (port of the reference's ``examples/serve_lm.py``).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch yi-6b] [--device cpu]
 
+Every arch of the registry serves, the MoE ones (dbrx-132b,
+llama4-maverick-400b-a17b) too.
+
 Without ``--device`` it runs on the card, where every attention is K7.
 """
 import argparse

@@ -46,8 +46,9 @@ DEFAULT_BLK_Q = 128
 DEFAULT_BLK_K = 128
 NEG_INF = -1e30  # finite: exp(-inf - -inf) would be NaN
 
-# what the kernel is compiled for (csrc/attention.cu)
-HEAD_DIMS = (32, 64, 128, 256)
+# what the kernel is compiled for (csrc/attention.cu); 80 (zamba2-2.7b) is
+# padded to 128 columns inside the kernel, never in device memory
+HEAD_DIMS = (32, 64, 80, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 VARIANTS = ("wgmma", "decode", "simt")
 DECODE_MAX_ROWS = 8  # query rows (Sq * H / Hk) of one kv head the decode variant holds

@@ -3,8 +3,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b [--reduced] [--device cpu]
 
-The model comes from a seeded random init (nothing is downloaded).  Without ``--device`` it runs on the card, where every attention
-is K7.  The prompts are ``--slots`` seeded token runs of 2 to 7 tokens, as
+The model comes from a seeded random init (nothing is downloaded); every
+arch of the registry serves, dbrx-132b and llama4-maverick through their
+MoE layers.  Without ``--device`` it runs on the card, where every
+attention is K7.  The prompts are ``--slots`` seeded token runs of 2 to 7 tokens, as
 the reference's.
 """
 from __future__ import annotations

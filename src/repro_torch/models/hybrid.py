@@ -6,8 +6,8 @@ re-injection and no per-application LoRA deltas.
 
 The shared block runs after each group of ``shared_attn_every`` mamba
 layers, with its own KV-cache slot per application.  Its attention is K7
-on the card, which has no head dim 80: zamba2-2.7b runs there only
-reduced (head dim 32).
+on the card, at zamba2-2.7b's head dim 80 too (K7 pads it to 128 columns
+inside the kernel).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Shared neural layers of the LM stack (port of ``repro.models.layers``
-without its MoE half): RMSNorm, RoPE / M-RoPE, GQA attention (sliding
-window, logit softcap, KV cache) and the SwiGLU MLP.
+"""Shared neural layers of the LM stack (port of ``repro.models.layers``):
+RMSNorm, RoPE / M-RoPE, GQA attention (sliding window, logit softcap, KV
+cache), the SwiGLU MLP and the capacity-bounded, dropping MoE.
 
 Parameters are plain dicts of tensors and the layer functions are pure,
 except that a KV cache is written in place (:func:`attention_apply`).
@@ -8,7 +8,8 @@ Compute in bf16, normalisation and softmax statistics in f32.  The
 reference keeps its weights in f32 and casts them to bf16 at each use;
 here the weights of :data:`CAST_AT_USE` are stored in ``CDTYPE``
 (:func:`weight_init`), which gives the same values in half the memory.
-The other parameters (norm scales, conv and per-head vectors) stay f32.
+The other parameters (norm scales, conv and per-head vectors, the MoE
+router) stay f32.
 
 Positions are a (B, S) tensor, a (3, B, S) tensor for M-RoPE, as the
 reference takes them, or an ``int`` p standing for ``p + arange(S)`` in
@@ -29,6 +30,10 @@ picks one (:func:`attention_route`):
   ``chip_smoke.py`` (phase 12) state the bound.  There is no fallback:
   positions given as a tensor, or a head dim K7 is not built for, raise
   ``ValueError``.
+
+The MoE layer (:func:`moe_apply`) has no kernel of its own, on the card
+as in the reference: its routing, scatter, expert products and gather are
+PyTorch ops, the products cuBLAS's.
 """
 from __future__ import annotations
 
@@ -40,11 +45,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import attention as k7
+from repro_torch.sharding import ctx
 
 CDTYPE = torch.bfloat16
 # weights every use casts to CDTYPE, stored in CDTYPE: that changes no value
 CAST_AT_USE = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-                         "w_down", "in_proj", "out_proj"})
+                         "w_down", "in_proj", "out_proj", "we_gate", "we_up", "we_down"})
 MASKED = -1e30
 
 
@@ -278,3 +284,98 @@ def mlp_apply(params, x):
     xc = _cast(x)
     h = F.silu(xc @ _cast(params["w_gate"])) * (xc @ _cast(params["w_up"]))
     return h @ _cast(params["w_down"])
+
+
+# --------------------------------------------------------------------------
+# Dropping MoE (mesh-TF style dispatch/combine einsums; capacity-bounded)
+# --------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig):
+    """The router (float32, scale 0.02), the experts' SwiGLU weights (E, D, F)
+    and (E, F, D) stored in ``CDTYPE``, and the shared expert where the
+    configuration has one."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": dense_init(gen, (d, e), scale=0.02),
+        "we_gate": weight_init(gen, (e, d, f)),
+        "we_up": weight_init(gen, (e, d, f)),
+        "we_down": weight_init(gen, (e, f, d)),
+    }
+    if cfg.moe_shared_expert:
+        p["shared"] = mlp_init(gen, d, f)
+    return p
+
+
+def moe_capacity(S: int, cfg: ModelConfig) -> int:
+    """Slots of each expert in one batch row of S tokens:
+    max(1, ceil(S K / E * capacity_factor)), in float64 as the reference."""
+    return max(1, int(np.ceil(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor)))
+
+
+def router_probs(x, router) -> torch.Tensor:
+    """softmax(x @ router) in float32, (B, S, E).  The product runs in
+    float64 and is rounded to float32: a float32 product on the card runs
+    as TF32 wherever a caller has allowed that process-wide, and TF32
+    would move the routing; float64 never does."""
+    logits = (x.double() @ router.double()).float()
+    return torch.softmax(logits, dim=-1)
+
+
+def top_k(probs, k: int):
+    """(values, indices) of the k largest along the last dim, descending,
+    the lower index first among equal values, as ``jax.lax.top_k``
+    (``torch.topk`` orders no ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(x, params, cfg: ModelConfig):
+    """(slot, gates) of x (B, S, D): each token's K experts and their gates,
+    renormalised in float32, then cast to ``CDTYPE``; slot (B, S*K) is the
+    (expert, position) each assignment takes in flat (s, k) order, E*C (the
+    sentinel) where its expert's C slots in the row are taken: dropped."""
+    B, S, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(S, cfg)
+    gate_vals, gate_idx = top_k(router_probs(x, params["router"]), K)  # (B, S, K)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    flat_e = gate_idx.reshape(B, S * K)  # expert id per assignment, per row
+    gates = gate_vals.reshape(B, S * K).to(CDTYPE)
+    onehot = F.one_hot(flat_e, E)  # (B, SK, E)
+    pos = torch.cumsum(onehot, dim=1) - onehot
+    my_pos = torch.gather(pos, 2, flat_e[..., None])[..., 0]  # (B, SK)
+    keep = my_pos < C
+    slot = torch.where(keep, flat_e * C + my_pos, E * C)  # sentinel slot drops
+    return slot, gates
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """x: (B, S, D).  Top-k routing, capacity-bounded with token dropping,
+    dispatched per batch row: every row owns an (E, C) slot buffer (C =
+    :func:`moe_capacity`) filled by a per-row scatter (``ctx.moe_scatter``),
+    the expert SwiGLU as three einsums over all E experts' slots, and the
+    per-row gather back (``ctx.moe_gather``) with the K gated outputs summed
+    in float32 and rounded once, as the reference's bf16 sum does.  The
+    shared expert, where the configuration has one, adds the dense MLP."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(S, cfg)
+    slot, gates = moe_route(x, params, cfg)
+    keep = slot < E * C
+    tok = torch.arange(S * K, device=x.device) // K
+    xk = _cast(x)[:, tok, :] * keep[..., None].to(CDTYPE)  # (B, SK, D)
+    buf = ctx.moe_scatter(slot, xk, E * C + 1)  # (B, E*C+1, D)
+    xe = ctx.constrain(buf[:, :E * C].reshape(B, E, C, D), "moe_tokens")
+    w_gate = ctx.constrain(_cast(params["we_gate"]), "moe_w")
+    w_up = ctx.constrain(_cast(params["we_up"]), "moe_w")
+    w_down = ctx.constrain(_cast(params["we_down"]), "moe_w")
+    h = F.silu(torch.einsum("becd,edf->becf", xe, w_gate))
+    h = h * torch.einsum("becd,edf->becf", xe, w_up)
+    eout = ctx.constrain(torch.einsum("becf,efd->becd", h, w_down), "moe_tokens")
+    eout = torch.cat([eout.reshape(B, E * C, D), eout.new_zeros((B, 1, D))], dim=1)
+    y = ctx.moe_gather(eout, slot) * gates[..., None]
+    out = y.reshape(B, S, K, D).float().sum(dim=2).to(CDTYPE)
+    if cfg.moe_shared_expert:
+        out = out + mlp_apply(params["shared"], x)
+    return out

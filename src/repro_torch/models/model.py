@@ -1,5 +1,5 @@
 """Family dispatch (port of ``repro.models.model``): one API over the dense,
-ssm, hybrid and encdec families.
+moe, ssm, hybrid and encdec families (dense and moe share the transformer).
 
     init_params(gen, cfg)                             -> params
     forward(params, cfg, batch, last_only=False)      -> logits (B, S, V)
@@ -8,8 +8,7 @@ ssm, hybrid and encdec families.
 
 ``gen`` is a ``torch.Generator``; the parameters are made on its device.
 Params are nested dicts whose per-layer stacks are lists; caches keep the
-reference's stacked layout and a Python int ``pos``.  The ``moe`` family
-raises NotImplementedError (ROADMAP Queue 1).
+reference's stacked layout and a Python int ``pos``.
 """
 from __future__ import annotations
 
@@ -21,20 +20,20 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 
-FAMILIES = ("dense", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+TRANSFORMER = ("dense", "moe")  # the families of models.transformer
 
 
 def _family(cfg: ModelConfig) -> str:
-    tfm.check_dense(cfg)
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
     return cfg.family
 
 
 def check_device(cfg: ModelConfig, device) -> None:
-    """Raise where ``cfg`` cannot run on ``device``: a family not ported
-    (NotImplementedError), or, on the card, attention K7 cannot serve
-    (ValueError, ``layers.attention_route``)."""
+    """Raise ValueError where ``cfg`` cannot run on ``device``: an unknown
+    family, or, on the card, attention K7 cannot serve
+    (``layers.attention_route``)."""
     if _family(cfg) != "ssm":
         L.attention_route(device, cfg.head_dim_, 0)
 
@@ -121,7 +120,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     """Seeded random weights on ``gen``'s device: those every use casts
     to ``CDTYPE`` (``layers.CAST_AT_USE``) stored in it, the rest float32."""
     family = _family(cfg)
-    if family == "dense":
+    if family in TRANSFORMER:
         return tfm.init_params(gen, cfg)
     if family == "ssm":
         return _ssm_init(gen, cfg)
@@ -135,7 +134,7 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
     """Logits (B, S, V) over the padded vocab.  ``remat`` and
     ``remat_group`` are training knobs, unused until the training slice."""
     family = _family(cfg)
-    if family == "dense":
+    if family in TRANSFORMER:
         return tfm.forward(params, cfg, batch, remat=remat, remat_group=remat_group,
                            last_only=last_only)
     if family == "ssm":
@@ -147,7 +146,7 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = False,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0, *, device="cpu"):
     family = _family(cfg)
-    if family == "dense":
+    if family in TRANSFORMER:
         return tfm.init_cache(cfg, batch, max_len, device=device)
     if family == "ssm":
         return _ssm_init_cache(cfg, batch, max_len, device=device)
@@ -161,7 +160,7 @@ def decode_step(params, cfg: ModelConfig, cache, batch, *, last_only: bool = Fal
     the logits sliced to the true vocab as the reference's decode emits
     them; ``last_only`` unembeds the last position alone (B, 1, vocab)."""
     family = _family(cfg)
-    if family == "dense":
+    if family in TRANSFORMER:
         logits, cache = tfm.decode_step(params, cfg, cache, batch, last_only=last_only)
     elif family == "ssm":
         logits, cache = _ssm_decode(params, cfg, cache, batch, last_only=last_only)

@@ -1,5 +1,6 @@
-"""Activation-sharding policy context and the port's collectives (the port
-of the crypto half of ``repro.sharding.ctx``).
+"""Activation-sharding policy context, the port's collectives and the MoE
+layer's per-row scatter and gather (the port of ``repro.sharding.ctx``
+without its LM mesh policy, ``make_mesh_policy``, ROADMAP Queue 1).
 
 The reference pins layouts with ``with_sharding_constraint`` and lets
 GSPMD move the data.  Eager PyTorch has no compiler to do that, so a
@@ -29,6 +30,8 @@ __all__ = [
     "count_collectives",
     "gather",
     "make_crypto_policy",
+    "moe_gather",
+    "moe_scatter",
     "shard",
 ]
 
@@ -46,8 +49,40 @@ def activation_policy(policy):
         _POLICY = old
 
 
+# the MoE layer's kinds: the reference's LM mesh policy pins them; no
+# policy of the port reshards them, so they pass through untouched
+MOE_KINDS = ("moe_tokens", "moe_w")
+
+
 def constrain(x, kind: str):
-    return _POLICY(x, kind) if _POLICY is not None else x
+    if _POLICY is None or kind in MOE_KINDS:
+        return x
+    return _POLICY(x, kind)
+
+
+def _refuse_mesh(fn: str) -> None:
+    if getattr(_POLICY, "mesh", None) is not None:
+        raise NotImplementedError(f"{fn} under a mesh policy: the LM halves of sharding/ are "
+                                  "not ported yet (ROADMAP Queue 1)")
+
+
+def moe_scatter(slot: torch.Tensor, xk: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Dispatch scatter, per batch row b: zeros(n_rows, D) with xk[b, i]
+    added at row slot[b, i] (the reference's ``.at[slot_b].add(xk_b)``).
+    slot (B, SK) int64, xk (B, SK, D) -> (B, n_rows, D) in xk's dtype.  The
+    slots a row's kept tokens take are distinct, so only the sentinel row,
+    which gathers the dropped tokens' zeros, ever sums."""
+    _refuse_mesh("moe_scatter")
+    B, SK, D = xk.shape
+    buf = xk.new_zeros((B, n_rows, D))
+    return buf.scatter_add_(1, slot[..., None].expand(B, SK, D), xk)
+
+
+def moe_gather(eout: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Combine gather, per batch row b: eout[b, slot[b]] (the reference's
+    ``take_along_axis``).  eout (B, n_rows, D), slot (B, SK) -> (B, SK, D)."""
+    _refuse_mesh("moe_gather")
+    return torch.gather(eout, 1, slot[..., None].expand(-1, -1, eout.shape[-1]))
 
 
 # --------------------------------------------------------------------------

@@ -65,6 +65,9 @@ SWEEP = [
     ("blk64", (1, 256, 256, 2, 2, 32), 5, "f32", dict(blk_q=64, blk_k=64)),
     ("blk128", (1, 256, 256, 2, 2, 32), 5, "f32", dict(blk_q=128, blk_k=128)),
     ("bf16", (1, 128, 128, 4, 4, 32), 6, "bf16", dict(blk_q=64, blk_k=64)),
+    # head dim 80 (zamba2-2.7b), which K7 pads to 128 columns inside the kernel
+    ("d80", (1, 128, 192, 4, 2, 80), 10, "f32", dict(window=64, softcap=30.0, blk_q=64,
+                                                      blk_k=64)),
 ]
 
 
@@ -241,6 +244,9 @@ def test_split_kv_combine_when_no_split_sees_a_key(blk_k):
     (torch.bfloat16, 64, 9, 1, "wgmma"),
     (torch.bfloat16, 256, 8192, 2, "wgmma"),  # gemma2-2b prefill
     (torch.bfloat16, 128, 4096, 8, "wgmma"),  # yi-6b prefill
+    (torch.bfloat16, 80, 4096, 1, "wgmma"),   # zamba2-2.7b prefill
+    (torch.bfloat16, 80, 1, 1, "decode"),     # zamba2-2.7b decode
+    (torch.float32, 80, 100, 2, "simt"),
 ])
 def test_variant_choice(dtype, D, Sq, group, want):
     assert tattn.attention_variant(dtype, D, Sq, group) == want

@@ -8,6 +8,7 @@ nor the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -570,6 +571,7 @@ ATTN_CASES = [
     ((1, 4, 100, 2, 1, 32), torch.float32, dict(window=8, q_offset=500, blk_k=64)),
     ((1, 4, 100, 2, 1, 32), torch.float32, dict(window=8, q_offset=500, blk_k=128)),
     ((1, 70, 130, 2, 1, 256), torch.float32, dict(causal=False, window=40, q_offset=20)),
+    ((1, 100, 200, 4, 2, 80), torch.float32, dict(window=50, softcap=30.0)),  # simt at D = 80
     ((1, 1024, 1024, 8, 4, 256), torch.bfloat16, dict(window=512, softcap=50.0)),
     ((1, 512, 512, 32, 4, 128), torch.bfloat16, {}),
 ]
@@ -657,6 +659,12 @@ ATTN_VARIANT_CASES = [
     # the query that sees no key at all, in bf16, in both bf16 variants
     ((1, 4, 100, 2, 1, 32), dict(window=8, q_offset=500, blk_k=64), "decode"),
     ((1, 70, 130, 2, 1, 64), dict(window=8, q_offset=500), "wgmma"),
+    # head dim 80 (zamba2-2.7b), padded to 128 columns inside the kernel
+    ((1, 200, 300, 8, 4, 80), dict(window=100, softcap=50.0), "wgmma"),
+    ((1, 4096, 4096, 32, 32, 80), {}, "wgmma"),
+    ((1, 70, 130, 2, 1, 80), dict(window=8, q_offset=500), "wgmma"),
+    ((4, 1, 4096, 32, 32, 80), dict(q_offset=4095), "decode"),
+    ((2, 2, 517, 16, 4, 80), dict(q_offset=515, softcap=50.0), "decode"),
 ]
 
 
@@ -933,6 +941,69 @@ def test_lm_engine_on_the_card_runs_k7(cuda_device, monkeypatch, arch):
         assert (k7_logits - plain).abs().max().item() <= LM_REDUCED_BOUND
 
 
+# the MoE archs reduced through the Engine on the card: K7 launches, the
+# MoE layer alone against the CPU (slots equal, output within the CPU
+# tests' layer bound of its scale), and K7 against the plain attention in
+# the slots whose routing has not parted (routing is discontinuous)
+MOE_LAYER_TOL = 2e-2
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_lm_moe_engine_on_the_card_runs_k7(cuda_device, monkeypatch, arch):
+    from repro_torch.configs import registry
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine
+    from repro_torch.sharding import ctx
+
+    cfg = registry.get(arch).reduced()
+    params = M.init_params(torch.Generator(device=cuda_device).manual_seed(9), cfg)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (20, 9)]
+    calls, slots, decode, scatter = [], [], M.decode_step, ctx.moe_scatter
+
+    def recorded(p, c, cache, batch, **kw):
+        logits, cache = decode(p, c, cache, batch, **kw)
+        calls.append((batch["tokens"].clone(), kw, logits.clone()))
+        return logits, cache
+
+    def rec(slot, xk, n_rows):
+        slots.append(slot)
+        return scatter(slot, xk, n_rows)
+
+    monkeypatch.setattr(M, "decode_step", recorded)
+    monkeypatch.setattr(ctx, "moe_scatter", rec)
+    attention.flash_attention_cuda.launches = 0
+    outs = Engine(cfg, params, batch_slots=2, max_len=64, device=cuda_device).generate(
+        prompts, max_new=4)
+    torch.cuda.synchronize()
+    assert [len(o) for o in outs] == [4, 4]
+    assert attention.flash_attention_cuda.launches == cfg.n_layers * 5
+    first = params["layers"][0]
+    ffn = (first["moe"] if "moe" in first else first)["ffn"]
+    x = torch.as_tensor(rng.normal(size=(2, 16, cfg.d_model)), dtype=torch.bfloat16)
+    n = len(slots)
+    got = layers.moe_apply(ffn, x.to(cuda_device), cfg).float().cpu()
+    want = layers.moe_apply(M.tree_map(lambda t: t.cpu(), ffn), x, cfg).float()
+    assert torch.equal(slots[n].cpu(), slots[n + 1])
+    assert (got - want).abs().max() <= MOE_LAYER_TOL * want.abs().max()
+    k7_slots, n_moe = slots[:n], n // len(calls)
+    monkeypatch.setattr(layers, "attention_route", lambda device, head_dim, positions: "plain")
+    cache = M.init_cache(cfg, 2, 64, device=cuda_device)
+    parted = torch.zeros(2, dtype=torch.bool)
+    for step, (tokens, kw, k7_logits) in enumerate(calls):
+        del slots[:]
+        plain, cache = decode(params, cfg, cache, {"tokens": tokens}, **kw)
+        C = layers.moe_capacity(tokens.shape[1], cfg)
+        for a, b in zip(k7_slots[n_moe * step:n_moe * (step + 1)], slots):
+            da, db = (torch.where(s < cfg.n_experts * C, s // C, -1).cpu() for s in (a, b))
+            parted |= (da != db).any(1)
+        assert bool(torch.isfinite(k7_logits).all())
+        keep = ~parted.to(cuda_device)
+        assert (k7_logits[keep] - plain[keep]).abs().max().item() <= LM_REDUCED_BOUND
+    assert not parted.all()
+
+
 def test_lm_card_path_refuses_what_k7_cannot_serve(cuda_device):
     from repro_torch.configs import registry
     from repro_torch.models import model as M
@@ -944,5 +1015,7 @@ def test_lm_card_path_refuses_what_k7_cannot_serve(cuda_device):
     positions = torch.arange(4, device=cuda_device)[None]
     with pytest.raises(ValueError, match="positions tensor"):
         M.forward(params, cfg, {"tokens": tokens, "positions": positions})
-    with pytest.raises(ValueError, match="head dim 80"):
-        Engine(registry.get("zamba2-2.7b"), {}, device=cuda_device)
+    Engine(registry.get("zamba2-2.7b"), {}, device=cuda_device)  # head dim 80: K7 serves it
+    narrow = dataclasses.replace(registry.get("yi-6b"), head_dim=48)
+    with pytest.raises(ValueError, match="head dim 48"):
+        Engine(narrow, {}, device=cuda_device)

@@ -1,9 +1,10 @@
 """The port's LM serving path on the CPU: the configs against the JAX
 package's, ``Engine.generate`` against the reference ``Engine`` on reduced
-gemma2-2b and yi-6b, the ``serve`` launcher and the ``serve_lm`` example
-with ``--device cpu``, and the refusals of the card's dispatch (tested
-without a card: ``layers.attention_route`` and ``model.check_device``
-decide before any launch).
+gemma2-2b and yi-6b (dbrx: tests/test_torch_moe.py), the ``serve``
+launcher and the ``serve_lm`` example with ``--device cpu``, and what the
+card's dispatch takes and refuses (tested without a card:
+``layers.attention_route`` and ``model.check_device`` decide before any
+launch).
 
 The engine's tolerance: every step's logits, both packages fed the
 reference's tokens, within ``ENGINE_MAX`` of the step's largest |logit|
@@ -135,41 +136,43 @@ def test_serve_launcher_on_cpu(capsys):
 def test_serve_lm_example_on_cpu(capsys):
     """The example's three requests, on every family: seamless decodes
     over its cache's zero cross-attention memory, as the reference's
-    engine does."""
-    for arch in ("yi-6b", "mamba2-130m", "zamba2-2.7b", "seamless-m4t-medium"):
+    engine does; dbrx and llama4 through their MoE layers."""
+    for arch in ("yi-6b", "mamba2-130m", "zamba2-2.7b", "seamless-m4t-medium", "dbrx-132b",
+                 "llama4-maverick-400b-a17b"):
         outs = serve_lm.main(["--arch", arch, "--max-new", "3", "--device", "cpu"])
         assert [len(o) for o in outs] == [3, 3, 3]
         assert "[ok] 3 requests decoded 3 tokens each" in capsys.readouterr().out
 
 
 def test_card_dispatch_refusals():
-    """What the card refuses, decided before any launch: K7 has no head
-    dim 80 (zamba2-2.7b at full width) and takes one offset, not a
-    positions tensor; MoE configs raise NotImplementedError everywhere.
-    The CPU takes both; gemma2-2b at full width passes the card's check."""
+    """What the card takes and refuses, decided before any launch: K7
+    serves head dim 80 (zamba2-2.7b at full width) and refuses a head dim
+    it is not built for (48), and takes one offset, not a positions
+    tensor; the MoE configs pass on both devices.  The CPU takes all."""
     assert TL.attention_route(CPU, 80, torch.zeros(1, 1)) == "plain"
     assert TL.attention_route(CUDA, 256, 4096) == "k7"
-    with pytest.raises(ValueError, match="head dim 80"):
-        TL.attention_route(CUDA, 80, 0)
+    assert TL.attention_route(CUDA, 80, 0) == "k7"
+    with pytest.raises(ValueError, match="head dim 48"):
+        TL.attention_route(CUDA, 48, 0)
     with pytest.raises(ValueError, match="positions tensor"):
         TL.attention_route(CUDA, 128, torch.zeros(2, 3, dtype=torch.int32))
     zamba = treg.get("zamba2-2.7b")
-    with pytest.raises(ValueError, match="head dim 80"):
-        TM.check_device(zamba, CUDA)
-    with pytest.raises(ValueError, match="head dim 80"):
-        Engine(zamba, {}, device="cuda")
-    TM.check_device(zamba, CPU)
+    TM.check_device(zamba, CUDA)
+    Engine(zamba, {}, device="cuda")  # no tensor to move: the check alone
+    narrow = dataclasses.replace(treg.get("yi-6b"), head_dim=48)
+    with pytest.raises(ValueError, match="head dim 48"):
+        TM.check_device(narrow, CUDA)
+    with pytest.raises(ValueError, match="head dim 48"):
+        Engine(narrow, {}, device="cuda")
+    TM.check_device(narrow, CPU)
     TM.check_device(treg.get("gemma2-2b"), CUDA)
     TM.check_device(treg.get("mamba2-130m"), CUDA)  # attention-free
     for arch in ("dbrx-132b", "llama4-maverick-400b-a17b"):
-        cfg = treg.get(arch).reduced()
-        for call in (lambda: TM.init_params(torch.Generator(), cfg),
-                     lambda: TM.forward({}, cfg, {}), lambda: TM.init_cache(cfg, 1, 4),
-                     lambda: TM.decode_step({}, cfg, {}, {}), lambda: Engine(cfg, {}, device="cpu"),
-                     lambda: convert.params_from_reference(cfg, {})):
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-                call()
-    for arch in ("gemma2-2b", "yi-6b"):
+        for cfg in (treg.get(arch), treg.get(arch).reduced()):
+            for device in (CPU, CUDA):
+                TM.check_device(cfg, device)
+                Engine(cfg, {}, device=device)
+    for arch in ("gemma2-2b", "yi-6b", "dbrx-132b", "llama4-maverick-400b-a17b"):
         assert tengine.decode_throughput_model(treg.get(arch), 4, 8192) == {
             "kv_bytes_per_step": jengine.decode_throughput_model(jreg.get(arch), 4, 8192)[
                 "kv_bytes_per_step"]}

@@ -370,12 +370,14 @@ def test_model_matches_reference(arch, monkeypatch):
 def test_decode_matches_prefill():
     """The port alone: greedy decode token by token equals the
     teacher-forced forward logits (the reference's
-    ``tests/test_models.py:74`` check and tolerance), for every arch
-    without experts, seamless over its encoder's memory."""
+    ``tests/test_models.py:74`` check and tolerance), for every arch,
+    seamless over its encoder's memory, the MoE archs at a capacity that
+    drops nothing (capacity_factor = n_experts, as the reference's test:
+    a dropping MoE's capacity competition is per call)."""
     for arch in sorted(treg.ARCHS):
         cfg = treg.get(arch).reduced()
         if cfg.n_experts:
-            continue
+            cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
         params = TM.init_params(torch.Generator().manual_seed(2), cfg)
         rng = np.random.default_rng(2)
         B, S = 2, 8
